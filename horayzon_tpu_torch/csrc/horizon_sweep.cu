@@ -1,0 +1,300 @@
+// Copyright (c) 2026
+// MIT License
+//
+// Kernel K1: planar horizon sweep on Hopper (horizon mode: no mask, no tilt
+// ramp, no argmax output).
+//
+// Replaces horayzon_tpu/ops/pallas_sweep.py::_kernel (mode="horizon"),
+// launched there by pallas_forward_fn.  For every (inner cell, azimuth) it
+// keeps the running maximum of the elevation-angle ratio (h(s) - z_org) / s
+// over the reference's sample schedule:
+//   * d2 near-field steps: midpoint + endpoint bilinear reads and the exact
+//     interior maximum of the parabola through them;
+//   * d1 mid-field steps in pairs: one read per step, trailing parabola per
+//     pair, a trailing single step for an odd count;
+//   * mip phases: nearest reads of the max-mip levels.
+// Steps whose reads may leave the heightfield for some cell (past n_safe)
+// carry in-domain validity, exactly as the reference does.  The raw ratio is
+// written as (A, in0, in1) float32; arctan and clip run outside.
+//
+// Design: one thread per (cell, azimuth); a block is 32 x 8 cells of one
+// azimuth, the grid (column blocks, row blocks, azimuths).  For a given
+// (azimuth, step) the sample shift is the same for every cell, so a warp
+// along a row reads consecutive floats and its loads coalesce.  The padded
+// levels are read straight from global memory through L2 with __ldg (at the
+// 2048^2 bench grid the three levels take about 38 MB, inside the 50 MB L2).
+// The kernel is bound by that L2 load traffic: about 4 loads per bilinear
+// sample and 446 samples per (cell, azimuth) at the bench shape.  There is no
+// shared-memory staging and none of the reference's value-exact early exits
+// (directional pooled bounds, chunk and phase skips); staging strips along
+// the ray and the skips are later work.
+//
+// Numerics follow the reference operation by operation so results agree to
+// a few float32 ulp: build with --fmad=false (no contraction of a*b+c) and
+// never with --use_fast_math.  Trig comes from the host float32 table; there
+// is no sinf/cosf here, because a 1-ulp shift across a rounding boundary of a
+// mip index reads a neighbouring max-pooled block.
+
+#include <cuda_runtime.h>
+
+#define HZ_MAX_LEVELS 32
+
+// Must match horayzon_tpu_torch/ops/fused_sweep.py::_HzParams field by field.
+struct HzParams {
+  const float* z_org;    // (in0, in1) ray origin heights
+  const float* z_inner;  // (in0, in1) inner-domain heights
+  const float* trig;     // (a_num, 2) float32 (sin az, cos az)
+  float* out;            // (a_num, in0, in1) raw ratios
+  const float* lvl[HZ_MAX_LEVELS];  // padded pyramid levels, row-major
+  int lvl_w[HZ_MAX_LEVELS];         // row stride of each padded level
+  int lvl_pad[HZ_MAX_LEVELS];       // sentinel margin of each level
+  int ph_lvl[HZ_MAX_LEVELS];        // mip phase p >= 1: its pyramid level
+  int ph_n[HZ_MAX_LEVELS];          // mip phase p >= 1: sample count
+  float ph_s_first[HZ_MAX_LEVELS];  // mip phase p >= 1: first distance
+  float ph_step[HZ_MAX_LEVELS];     // mip phase p >= 1: distance step
+  int n_phases;                     // 1 dense phase + mip phases
+  int in0, in1, a_num;
+  int off0, off1, h, w;             // inner offset, outer shape
+  int ns2, nx, ns1, n_dense;        // dense-step split (see fused_sweep.py)
+  float dx, dy, step, dist;
+  float half_step, two_step;        // float32(0.5*step), float32(2*step)
+  float inv_l0, inv_l0_sq, inv_l1, inv_l1_sq;  // rounded from double
+  float s_m1_safe, s_m1_masked;     // h2 re-read distances
+};
+
+namespace {
+
+constexpr float kNegInit = -3.0e38f;
+
+struct Cell {
+  const float* l0;  // level 0 at (a + pad0, b + pad0)
+  int w0;
+  int a, b, h, w;   // outer row/col of the cell, outer shape
+  float sh_i, sh_j;
+  float z_org;
+};
+
+// Bilinear level-0 read at distance s (pallas_sweep.py:388-402).
+__device__ __forceinline__ float read0(const Cell& c, float s, int* di_out,
+                                       int* dj_out) {
+  const float dif = s * c.sh_i;
+  const float djf = s * c.sh_j;
+  const float di = floorf(dif);
+  const float dj = floorf(djf);
+  const float fi = dif - di;
+  const float fj = djf - dj;
+  const int idi = (int)di;
+  const int idj = (int)dj;
+  const float* p = c.l0 + (long long)idi * c.w0 + idj;
+  const float v00 = __ldg(p);
+  const float v01 = __ldg(p + 1);
+  const float v10 = __ldg(p + c.w0);
+  const float v11 = __ldg(p + c.w0 + 1);
+  const float top = (1.0f - fj) * v00 + fj * v01;
+  const float bot = (1.0f - fj) * v10 + fj * v11;
+  *di_out = idi;
+  *dj_out = idj;
+  return (1.0f - fi) * top + fi * bot;
+}
+
+// The 2x2 stencil of a bilinear read lies inside the outer grid
+// (pallas_sweep.py:337-340).
+__device__ __forceinline__ bool inside0(const Cell& c, int di, int dj) {
+  const int ri = c.a + di;
+  const int cj = c.b + dj;
+  return (ri >= 0) & (ri + 1 <= c.h - 1) & (cj >= 0) & (cj + 1 <= c.w - 1);
+}
+
+__device__ __forceinline__ float point_update(const Cell& c, float acc,
+                                              float he, float s_end) {
+  return fmaxf(acc, (he - c.z_org) * (1.0f / s_end));
+}
+
+// Interior stationary value of (P(t) + C) / (s + t), division-free form
+// (pallas_sweep.py:455-472).
+__device__ __forceinline__ float quad_update(const Cell& c, float acc,
+                                             float a_c, float b_c, float h0,
+                                             float s_start, float length,
+                                             float t_lo, bool extra) {
+  const float c0 = h0 - c.z_org;
+  const float u = (a_c * s_start - b_c) * s_start + c0;
+  float g = sqrtf(fmaxf(a_c * u, 0.0f));
+  g = (a_c >= 0.0f) ? g : -g;
+  const float r_int = (b_c - 2.0f * a_c * s_start) + 2.0f * g;
+  const float lo = (s_start + t_lo) + 1e-3f;
+  const float hi = (s_start + length) - 1e-3f;
+  const bool valid = (u - a_c * (lo * lo)) * (u - a_c * (hi * hi)) < 0.0f;
+  return (valid && extra) ? fmaxf(acc, r_int) : acc;
+}
+
+struct Carry {
+  float acc, h2, h1;
+  bool v2, v1;
+};
+
+// d2 step m: midpoint + endpoint reads (pallas_sweep.py:558-573).
+__device__ __forceinline__ void d2_step(const HzParams& p, const Cell& c,
+                                        Carry& k, int m, bool masked) {
+  const float s_end = (float)(m + 1) * p.step;
+  const float s_start = s_end - p.step;
+  int dim, djm, die, dje;
+  const float hm = read0(c, s_end - p.half_step, &dim, &djm);
+  const float he = read0(c, s_end, &die, &dje);
+  k.acc = point_update(c, k.acc, he, s_end);
+  const float a_c = (2.0f * he + 2.0f * k.h1 - 4.0f * hm) * p.inv_l0_sq;
+  const float b_c = (4.0f * hm - 3.0f * k.h1 - he) * p.inv_l0;
+  bool v_end = true;
+  bool extra = true;
+  if (masked) {
+    v_end = inside0(c, die, dje);
+    extra = inside0(c, dim, djm) && v_end;
+  }
+  k.acc = quad_update(c, k.acc, a_c, b_c, k.h1, s_start, p.step, 0.0f, extra);
+  k.h2 = k.h1;
+  k.h1 = he;
+  if (masked) {
+    k.v2 = k.v1;
+    k.v1 = v_end;
+  }
+}
+
+// d1 pair of steps ending at (m+1)*step and (m+1)*step + step; carries only
+// (acc, h1[, v1]) like the reference loop (pallas_sweep.py:586-608).
+__device__ __forceinline__ void d1_pair(const HzParams& p, const Cell& c,
+                                        Carry& k, int m, bool masked) {
+  const float s_a = (float)(m + 1) * p.step;
+  const float s_b = s_a + p.step;
+  int dia, dja, dib, djb;
+  const float h_a = read0(c, s_a, &dia, &dja);
+  k.acc = point_update(c, k.acc, h_a, s_a);
+  const float h_b = read0(c, s_b, &dib, &djb);
+  k.acc = point_update(c, k.acc, h_b, s_b);
+  const float a_c = (2.0f * h_b + 2.0f * k.h1 - 4.0f * h_a) * p.inv_l1_sq;
+  const float b_c = (4.0f * h_a - 3.0f * k.h1 - h_b) * p.inv_l1;
+  bool extra = true;
+  bool v_b = true;
+  if (masked) {
+    v_b = inside0(c, dib, djb);
+    extra = k.v1 && inside0(c, dia, dja) && v_b;
+  }
+  k.acc = quad_update(c, k.acc, a_c, b_c, k.h1, s_b - p.two_step, p.two_step,
+                      0.0f, extra);
+  k.h1 = h_b;
+  if (masked) k.v1 = v_b;
+}
+
+// Trailing odd d1 step from the carried h2/h1 history
+// (pallas_sweep.py:610-625).
+__device__ __forceinline__ void d1_single(const HzParams& p, const Cell& c,
+                                          Carry& k, int m, bool masked) {
+  const float s_end = (float)(m + 1) * p.step;
+  int die, dje;
+  const float he = read0(c, s_end, &die, &dje);
+  k.acc = point_update(c, k.acc, he, s_end);
+  const float a_c = (2.0f * he + 2.0f * k.h2 - 4.0f * k.h1) * p.inv_l1_sq;
+  const float b_c = (4.0f * k.h1 - 3.0f * k.h2 - he) * p.inv_l1;
+  bool extra = true;
+  if (masked) extra = k.v2 && k.v1 && inside0(c, die, dje);
+  k.acc = quad_update(c, k.acc, a_c, b_c, k.h2, s_end - p.two_step,
+                      p.two_step, p.step, extra);
+  k.h2 = k.h1;
+  k.h1 = he;
+}
+
+__global__ void __launch_bounds__(256)
+horizon_sweep_kernel(const HzParams p) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int az = blockIdx.z;
+  if (i >= p.in0 || j >= p.in1) return;
+
+  Cell c;
+  c.a = p.off0 + i;
+  c.b = p.off1 + j;
+  c.h = p.h;
+  c.w = p.w;
+  c.w0 = p.lvl_w[0];
+  c.l0 = p.lvl[0] + (long long)(c.a + p.lvl_pad[0]) * c.w0 +
+         (c.b + p.lvl_pad[0]);
+  const float ux = p.trig[2 * az];
+  const float uy = p.trig[2 * az + 1];
+  c.sh_i = uy / p.dy;  // row cells per metre
+  c.sh_j = ux / p.dx;
+  const long long cell = (long long)i * p.in1 + j;
+  c.z_org = p.z_org[cell];
+  const float zi = p.z_inner[cell];
+
+  Carry k{kNegInit, zi, zi, true, true};
+
+  // Dense steps, in the reference's sections (pallas_sweep.py:641-757).
+  for (int m = 0; m < p.ns2; ++m) d2_step(p, c, k, m, false);
+  for (int m = p.ns2; m < p.nx; ++m) d2_step(p, c, k, m, true);
+  if (p.ns1 > p.nx) {
+    const int n_pairs = (p.ns1 - p.nx) / 2;
+    const bool odd = (p.ns1 - p.nx) % 2;
+    for (int q = 0; q < n_pairs; ++q) d1_pair(p, c, k, p.nx + 2 * q, false);
+    if (n_pairs > 0 && odd) {
+      int di, dj;
+      k.h2 = read0(c, p.s_m1_safe, &di, &dj);
+    }
+    if (odd) d1_single(p, c, k, p.nx + 2 * n_pairs, false);
+  }
+  if (p.n_dense > p.ns1) {
+    const int n_pairs = (p.n_dense - p.ns1) / 2;
+    const bool odd = (p.n_dense - p.ns1) % 2;
+    for (int q = 0; q < n_pairs; ++q) d1_pair(p, c, k, p.ns1 + 2 * q, true);
+    if (n_pairs > 0 && odd) {
+      int di, dj;
+      k.h2 = read0(c, p.s_m1_masked, &di, &dj);
+      k.v2 = inside0(c, di, dj);
+    }
+    if (odd) d1_single(p, c, k, p.ns1 + 2 * n_pairs, true);
+  }
+
+  // Mip phases: nearest reads of level `lvl` (pallas_sweep.py:808-857).
+  // Index (a + round(s*sh)) floor-divided by 2^lvl; the positive bias keeps
+  // the truncating division a floor, as the reference's does.
+  for (int ph = 1; ph < p.n_phases; ++ph) {
+    const int lvl = p.ph_lvl[ph];
+    const int kp = 1 << lvl;
+    const int bias = kp * 16384;
+    const int wl = p.lvl_w[lvl];
+    const int pad = p.lvl_pad[lvl];
+    const float* L = p.lvl[lvl];
+    const int n_m = p.ph_n[ph];
+    const float s_first = p.ph_s_first[ph];
+    const float step_l = p.ph_step[ph];
+    for (int m = 0; m < n_m; ++m) {
+      const float s = fminf(s_first + (float)m * step_l, p.dist);
+      const int ri = __float2int_rn(s * c.sh_i);
+      const int rj = __float2int_rn(s * c.sh_j);
+      const int r = (c.a + ri + bias) / kp - bias / kp + pad;
+      const int q = (c.b + rj + bias) / kp - bias / kp + pad;
+      const float hs = __ldg(L + (long long)r * wl + q);
+      k.acc = point_update(c, k.acc, hs, s);
+    }
+  }
+
+  p.out[(long long)az * p.in0 * p.in1 + cell] = k.acc;
+}
+
+}  // namespace
+
+// Launches K1 on `stream` (a cudaStream_t) of `device`; returns the
+// cudaError_t of the launch (0 on success).  Does not synchronise.
+extern "C" int horizon_sweep_launch(const HzParams* params, int device,
+                                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(32, 8);
+  const dim3 grid((params->in1 + 31) / 32, (params->in0 + 7) / 8,
+                  params->a_num);
+  horizon_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*params);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* horizon_sweep_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" int horizon_sweep_params_size() { return (int)sizeof(HzParams); }

@@ -1,0 +1,482 @@
+# Copyright (c) 2026
+# MIT License
+"""Fused planar horizon sweep: the counterpart of
+:mod:`horayzon_tpu.ops.pallas_sweep` (unmasked, untilted horizon mode).
+
+:func:`horizon_sweep_fused` has the contract of
+``horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas`` for that case: for
+every inner cell and each of ``azim_num`` uniform azimuths it returns the
+horizon elevation angle [radian], shape ``(in0, in1, azim_num)``.  Behind
+it sits one sweep with two implementations of identical arithmetic:
+
+* kernel K1, ``csrc/horizon_sweep.cu`` (CUDA C++ for ``sm_90a``, one
+  thread per (cell, azimuth)), run for a CUDA tensor;
+* :func:`horizon_sweep_plain`, the same loop structure in plain torch,
+  vectorised over the inner cells, run for a CPU tensor and used on the
+  card as the kernel's reference.
+
+Both follow the reference kernel ``pallas_sweep.py::_kernel`` step by step
+(d2 near field, d1 pairs and trailing singles, masked steps past the safe
+halo, mip phases) and round like it: scalar shift arithmetic in float32 from
+the host trig table, constants rounded from double as JAX rounds Python
+floats.  The reference's early exits are value-exact and are not ported
+yet, nor are the mask, tilt-ramp and argmax variants.
+"""
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from horayzon_tpu_torch.ops import _build
+from horayzon_tpu_torch.ops import mip as _mip
+from horayzon_tpu_torch.ops import sweep as _sweep
+
+_NEG_INIT = -3.0e38
+#: HZ_MAX_LEVELS of csrc/horizon_sweep.cu (pyramid levels and phases)
+_MAX_LEVELS = 32
+#: Deepest mip level: the reference's floor-division bias 2^lvl * 16384
+#: must fit int32.
+_MAX_LEVEL_INDEX = 16
+
+#: Launches of kernel K1 made by this process (incremented only where the
+#: wrapper launches it).
+KERNEL_LAUNCHES = 0
+
+
+def plan_sweep(outer_shape, *, inner_shape, offset, dist_search, dx, dy,
+               hori_acc=0.25, rel_err=None, max_level=10):
+    """Static sweep plan: the schedule's phases, pads and the dense-step
+    split (the schedule, ``near_ex`` and ``n_safe`` logic of
+    ``pallas_sweep.plan_sweep`` and the split of ``_kernel``).
+
+    ``phases_meta``: ``(level, num, s_first, step)`` per phase, the level-0
+    phases merged into one dense entry.  Dense steps ``[0, nx)`` take two
+    reads, ``[nx, n_dense)`` one; steps from ``ns2`` (two-read) and ``ns1``
+    (one-read) on carry in-domain validity."""
+    step = float(min(abs(dx), abs(dy)))
+    if rel_err is None:
+        rel_err = _sweep.default_rel_err(hori_acc)
+    schedule = _sweep.build_schedule(step, float(dist_search), rel_err,
+                                     max_level=max_level)
+    if schedule.num_levels - 1 > _MAX_LEVEL_INDEX:
+        raise ValueError(f"schedule reaches mip level "
+                         f"{schedule.num_levels - 1}; at most "
+                         f"{_MAX_LEVEL_INDEX} is supported")
+    n_dense = sum(ph.num for ph in schedule.phases if ph.level == 0)
+    phases_meta = [(0, n_dense, step, step)]
+    for p, ph in enumerate(schedule.phases):
+        if ph.level == 0:
+            continue
+        s_vals = schedule.s_values[p]
+        step_l = (float(s_vals[1] - s_vals[0]) if ph.num > 1
+                  else step * 2 ** ph.level)
+        phases_meta.append((ph.level, ph.num, float(s_vals[0]), step_l))
+    in0, in1 = inner_shape
+    off0, off1 = offset
+    h_out, w_out = outer_shape
+    # Leading dense steps that provably stay on-grid for every inner cell
+    # skip the per-step in-domain masks (cf. sweep.mark_safe_phases).
+    halo_cells = min(off0, off1, h_out - off0 - in0, w_out - off1 - in1)
+    n_safe = max(0, halo_cells - 2)
+    near_ex = (schedule.phases[0].num
+               if schedule.phases[0].kind == "d2" else 0)
+    nx = min(near_ex, n_dense)           # two-read near field
+    ns2 = min(nx, n_safe)                # safe d2 steps
+    ns1 = max(nx, min(n_dense, n_safe))  # end of safe d1 steps
+    if ns1 < n_dense:
+        # d1 pairs keep their global parity across the safe/masked
+        # boundary (a pair never straddles it), as in the reference
+        ns1 = nx + ((ns1 - nx) // 2) * 2
+    return dict(phases_meta=tuple(phases_meta), pads=schedule.pads,
+                offset=(int(off0), int(off1)), inner_shape=(in0, in1),
+                dx=float(dx), dy=float(dy), step=step,
+                dist=float(dist_search), near_ex=near_ex, n_safe=n_safe,
+                n_dense=n_dense, nx=nx, ns2=ns2, ns1=ns1,
+                rel_err=float(rel_err), max_level=int(max_level))
+
+
+def trig_table(azim_num):
+    """(azim_num, 2) float32 (sin, cos) of the float32 azimuth angles, built
+    on the host exactly as ``pallas_forward_fn`` builds its table: mip
+    sample indices round(s * sh) must come from bit-identical trig."""
+    azim32 = ((2.0 * np.pi) / azim_num
+              * np.arange(azim_num)).astype(np.float32)
+    return np.stack([np.sin(azim32.astype(np.float64)),
+                     np.cos(azim32.astype(np.float64))],
+                    axis=-1).astype(np.float32)
+
+
+def _f32(x):
+    """A Python float rounded to float32, as JAX rounds a weakly typed
+    Python scalar against a float32 array."""
+    return np.float32(x)
+
+
+def _constants(plan):
+    """Float32 scalars of the sweep, each rounded as the reference rounds
+    it (products of Python floats are formed in double first)."""
+    step = plan["step"]
+    nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
+    return dict(
+        step=_f32(step), half_step=_f32(0.5 * step),
+        two_step=_f32(2.0 * step), dist=_f32(plan["dist"]),
+        inv_l0=_f32(1.0 / step), inv_l0_sq=_f32((1.0 / step) * (1.0 / step)),
+        inv_l1=_f32(0.5 / step), inv_l1_sq=_f32((0.5 / step) * (0.5 / step)),
+        # distances of the h2 re-reads before a trailing single step
+        s_m1_safe=_f32((nx + 2 * ((ns1 - nx) // 2) - 1) * step),
+        s_m1_masked=_f32((ns1 + 2 * ((n_dense - ns1) // 2) - 1) * step))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape):
+    """Raw ratios (A, in0, in1) in plain torch: per azimuth and step, the
+    shifted slices of the padded level, vectorised over all inner cells."""
+    f32 = np.float32
+    in0, in1 = plan["inner_shape"]
+    off0, off1 = plan["offset"]
+    h, w = outer_shape
+    pads = plan["pads"]
+    k = _constants(plan)
+    dev = z_org.device
+    rows = torch.arange(off0, off0 + in0, device=dev)
+    cols = torch.arange(off1, off1 + in1, device=dev)
+    lvl0, pad0 = levels[0], pads[0]
+    step, two_step = k["step"], k["two_step"]
+    eps = f32(1e-3)
+    out = torch.empty((trig.shape[0], in0, in1), dtype=torch.float32,
+                      device=dev)
+
+    def inside0(di, dj):
+        rv = (rows + di >= 0) & (rows + di + 1 <= h - 1)
+        cv = (cols + dj >= 0) & (cols + dj + 1 <= w - 1)
+        return rv[:, None] & cv[None, :]
+
+    def point_update(acc, he, s):
+        return torch.maximum(acc, (he - z_org) * float(f32(1.0) / s))
+
+    def quad_update(acc, a_c, b_c, h0, s_start, length, t_lo, extra):
+        ss = float(s_start)
+        u = (a_c * ss - b_c) * ss + (h0 - z_org)
+        # square root through float64: torch's float32 CPU sqrt is not
+        # always correctly rounded, and r_int cancels large terms, so one
+        # ulp of g can move the candidate far more than an ulp
+        g = torch.sqrt(torch.clamp_min(a_c * u, 0.0).double()).float()
+        g = torch.where(a_c >= 0.0, g, -g)
+        r_int = b_c - 2.0 * a_c * ss + 2.0 * g
+        lo = (s_start + t_lo) + eps
+        hi = (s_start + length) - eps
+        valid = (u - a_c * float(lo * lo)) * (u - a_c * float(hi * hi)) < 0.0
+        if extra is not None:
+            valid = valid & extra
+        return torch.maximum(acc, torch.where(valid, r_int, _NEG_INIT))
+
+    for az in range(trig.shape[0]):
+        sh_i = f32(trig[az, 1]) / f32(plan["dy"])   # row cells per metre
+        sh_j = f32(trig[az, 0]) / f32(plan["dx"])
+
+        def read0(s):
+            dif = s * sh_i
+            djf = s * sh_j
+            di = np.floor(dif)
+            dj = np.floor(djf)
+            fi = dif - di
+            fj = djf - dj
+            r = off0 + int(di) + pad0
+            c = off1 + int(dj) + pad0
+            win = lvl0[r:r + in0 + 1, c:c + in1 + 1]
+            gj = float(f32(1.0) - fj)
+            top = gj * win[:-1, :-1] + float(fj) * win[:-1, 1:]
+            bot = gj * win[1:, :-1] + float(fj) * win[1:, 1:]
+            return (float(f32(1.0) - fi) * top + float(fi) * bot,
+                    int(di), int(dj))
+
+        def d2_step(m, acc, h1, masked):
+            s_end = f32(m + 1) * step
+            s_start = s_end - step
+            hm, dim, djm = read0(s_end - k["half_step"])
+            he, die, dje = read0(s_end)
+            acc = point_update(acc, he, s_end)
+            a_c = (2.0 * he + 2.0 * h1 - 4.0 * hm) * float(k["inv_l0_sq"])
+            b_c = (4.0 * hm - 3.0 * h1 - he) * float(k["inv_l0"])
+            v_end = extra = None
+            if masked:
+                v_end = inside0(die, dje)
+                extra = inside0(dim, djm) & v_end
+            acc = quad_update(acc, a_c, b_c, h1, s_start, step, f32(0.0),
+                              extra)
+            return acc, he, v_end
+
+        def d1_pair(m, acc, h1, masked, v1=None):
+            s_a = f32(m + 1) * step
+            s_b = s_a + step
+            h_a, dia, dja = read0(s_a)
+            acc = point_update(acc, h_a, s_a)
+            h_b, dib, djb = read0(s_b)
+            acc = point_update(acc, h_b, s_b)
+            a_c = (2.0 * h_b + 2.0 * h1 - 4.0 * h_a) * float(k["inv_l1_sq"])
+            b_c = (4.0 * h_a - 3.0 * h1 - h_b) * float(k["inv_l1"])
+            v_b = extra = None
+            if masked:
+                v_b = inside0(dib, djb)
+                extra = v1 & inside0(dia, dja) & v_b
+            acc = quad_update(acc, a_c, b_c, h1, s_b - two_step, two_step,
+                              f32(0.0), extra)
+            return acc, h_b, v_b
+
+        def d1_single(m, acc, h2, h1, masked, v2=None, v1=None):
+            s_end = f32(m + 1) * step
+            he, die, dje = read0(s_end)
+            acc = point_update(acc, he, s_end)
+            a_c = (2.0 * he + 2.0 * h2 - 4.0 * h1) * float(k["inv_l1_sq"])
+            b_c = (4.0 * h1 - 3.0 * h2 - he) * float(k["inv_l1"])
+            extra = v2 & v1 & inside0(die, dje) if masked else None
+            acc = quad_update(acc, a_c, b_c, h2, s_end - two_step, two_step,
+                              step, extra)
+            return acc, he
+
+        # Dense steps, in the reference's sections (pallas_sweep.py:641-757)
+        acc = torch.full_like(z_org, _NEG_INIT)
+        h2 = h1 = z_inner
+        ones = torch.ones((in0, in1), dtype=torch.bool, device=dev)
+        for m in range(plan["ns2"]):
+            acc, he, _ = d2_step(m, acc, h1, False)
+            h2, h1 = h1, he
+        v2 = v1 = ones
+        for m in range(plan["ns2"], plan["nx"]):
+            acc, he, v_end = d2_step(m, acc, h1, True)
+            h2, h1, v2, v1 = h1, he, v1, v_end
+        nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
+        if ns1 > nx:
+            n_pairs = (ns1 - nx) // 2
+            for q in range(n_pairs):
+                acc, h1, _ = d1_pair(nx + 2 * q, acc, h1, False)
+            if n_pairs > 0 and (ns1 - nx) % 2:
+                h2 = read0(k["s_m1_safe"])[0]
+            if (ns1 - nx) % 2:
+                acc, he = d1_single(nx + 2 * n_pairs, acc, h2, h1, False)
+                h2, h1 = h1, he
+        if n_dense > ns1:
+            n_pairs = (n_dense - ns1) // 2
+            for q in range(n_pairs):
+                acc, h1, v1 = d1_pair(ns1 + 2 * q, acc, h1, True, v1)
+            if n_pairs > 0 and (n_dense - ns1) % 2:
+                h2, di, dj = read0(k["s_m1_masked"])
+                v2 = inside0(di, dj)
+            if (n_dense - ns1) % 2:
+                acc, _ = d1_single(ns1 + 2 * n_pairs, acc, h2, h1, True,
+                                   v2, v1)
+
+        # Mip phases: nearest reads, index floor((cell + round(s*sh)) / k)
+        for lvl, n_m, s_first, step_l in plan["phases_meta"][1:]:
+            kp = 2 ** lvl
+            bias = kp * 16384
+            lvl_t, pad = levels[lvl], pads[lvl]
+            for m in range(n_m):
+                s = np.minimum(f32(s_first) + f32(m) * f32(step_l), k["dist"])
+                ri = int(np.rint(s * sh_i))
+                rj = int(np.rint(s * sh_j))
+                r = (torch.div(rows + (ri + bias), kp, rounding_mode="trunc")
+                     - bias // kp + pad)
+                c = (torch.div(cols + (rj + bias), kp, rounding_mode="trunc")
+                     - bias // kp + pad)
+                hs = lvl_t.index_select(0, r).index_select(1, c)
+                acc = point_update(acc, hs, s)
+        out[az] = acc
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel K1 (csrc/horizon_sweep.cu)
+# ---------------------------------------------------------------------------
+
+class _HzParams(ctypes.Structure):
+    """Mirror of ``struct HzParams`` in csrc/horizon_sweep.cu."""
+    _fields_ = (
+        [("z_org", ctypes.c_void_p), ("z_inner", ctypes.c_void_p),
+         ("trig", ctypes.c_void_p), ("out", ctypes.c_void_p),
+         ("lvl", ctypes.c_void_p * _MAX_LEVELS)]
+        + [(n, ctypes.c_int * _MAX_LEVELS)
+           for n in ("lvl_w", "lvl_pad", "ph_lvl", "ph_n")]
+        + [(n, ctypes.c_float * _MAX_LEVELS)
+           for n in ("ph_s_first", "ph_step")]
+        + [(n, ctypes.c_int)
+           for n in ("n_phases", "in0", "in1", "a_num", "off0", "off1", "h",
+                     "w", "ns2", "nx", "ns1", "n_dense")]
+        + [(n, ctypes.c_float)
+           for n in ("dx", "dy", "step", "dist", "half_step", "two_step",
+                     "inv_l0", "inv_l0_sq", "inv_l1", "inv_l1_sq",
+                     "s_m1_safe", "s_m1_masked")])
+
+
+def _kernel_lib():
+    """The loaded K1 library (built with nvcc on first use)."""
+    lib = _build.load("horizon_sweep")
+    lib.horizon_sweep_launch.argtypes = [ctypes.POINTER(_HzParams),
+                                         ctypes.c_int, ctypes.c_void_p]
+    lib.horizon_sweep_launch.restype = ctypes.c_int
+    lib.horizon_sweep_error_string.argtypes = [ctypes.c_int]
+    lib.horizon_sweep_error_string.restype = ctypes.c_char_p
+    lib.horizon_sweep_params_size.argtypes = []
+    lib.horizon_sweep_params_size.restype = ctypes.c_int
+    size = lib.horizon_sweep_params_size()
+    if size != ctypes.sizeof(_HzParams):
+        raise RuntimeError(f"HzParams is {size} bytes in the kernel but "
+                           f"{ctypes.sizeof(_HzParams)} in _HzParams")
+    return lib
+
+
+def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape):
+    """Raw ratios (A, in0, in1) from kernel K1 on ``z_org``'s card."""
+    global KERNEL_LAUNCHES
+    dev = z_org.device
+    for t in (z_org, z_inner, *levels):
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError("K1 takes contiguous float32 tensors on one "
+                             "CUDA device")
+    in0, in1 = plan["inner_shape"]
+    if z_org.shape != (in0, in1) or z_inner.shape != (in0, in1):
+        raise ValueError("z_org/z_inner do not have the inner shape")
+    phases = plan["phases_meta"]
+    if len(levels) > _MAX_LEVELS or len(phases) > _MAX_LEVELS:
+        raise ValueError(f"at most {_MAX_LEVELS} pyramid levels")
+    trig_t = torch.from_numpy(trig).to(dev)
+    out = torch.empty((trig.shape[0], in0, in1), dtype=torch.float32,
+                      device=dev)
+    k = _constants(plan)
+    prm = _HzParams()
+    prm.z_org, prm.z_inner = z_org.data_ptr(), z_inner.data_ptr()
+    prm.trig, prm.out = trig_t.data_ptr(), out.data_ptr()
+    for lvl, t in enumerate(levels):
+        prm.lvl[lvl] = t.data_ptr()
+        prm.lvl_w[lvl] = t.shape[1]
+        prm.lvl_pad[lvl] = plan["pads"][lvl]
+    for p, (lvl, n_m, s_first, step_l) in enumerate(phases):
+        prm.ph_lvl[p], prm.ph_n[p] = lvl, n_m
+        prm.ph_s_first[p], prm.ph_step[p] = s_first, step_l
+    prm.n_phases = len(phases)
+    prm.in0, prm.in1, prm.a_num = in0, in1, trig.shape[0]
+    prm.off0, prm.off1 = plan["offset"]
+    prm.h, prm.w = outer_shape
+    for n in ("ns2", "nx", "ns1", "n_dense"):
+        setattr(prm, n, plan[n])
+    prm.dx, prm.dy = _f32(plan["dx"]), _f32(plan["dy"])
+    for n, v in k.items():
+        setattr(prm, n, v)
+    lib = _kernel_lib()
+    err = lib.horizon_sweep_launch(
+        ctypes.byref(prm), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.horizon_sweep_error_string(err).decode()
+        raise RuntimeError(f"horizon_sweep kernel launch failed: {msg}")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def _check_pyramid(pyramid, z, pads):
+    shapes = _mip.level_shapes(tuple(z.shape), len(pads))
+    if len(pyramid) != len(pads):
+        raise ValueError(f"pyramid has {len(pyramid)} levels, the schedule "
+                         f"needs {len(pads)}")
+    levels = []
+    for lvl, (t, (hl, wl), p) in enumerate(zip(pyramid, shapes, pads)):
+        if not isinstance(t, torch.Tensor) or t.device != z.device:
+            raise ValueError(f"pyramid level {lvl} is not a tensor on "
+                             f"{z.device}")
+        if tuple(t.shape) != (hl + 2 * p, wl + 2 * p):
+            raise ValueError(f"pyramid level {lvl} has shape "
+                             f"{tuple(t.shape)}, expected "
+                             f"{(hl + 2 * p, wl + 2 * p)}")
+        levels.append(t.to(torch.float32).contiguous())
+    return levels
+
+
+def _run(ratio_fn, z_outer, *, dx, dy, offset, inner_shape, azim_num,
+           dist_search, hori_acc, elev_ang_low_lim, elev_ang_up_lim,
+           ray_org_elev, rel_err, max_level, pyramid):
+    z = torch.as_tensor(z_outer).to(torch.float32).contiguous()
+    if z.ndim != 2:
+        raise ValueError(f"z_outer must be 2-D, got shape {tuple(z.shape)}")
+    if int(azim_num) < 1:
+        raise ValueError("azim_num must be at least 1")
+    (off0, off1), (in0, in1) = offset, inner_shape
+    if (min(off0, off1) < 0 or min(in0, in1) < 1
+            or off0 + in0 > z.shape[0] or off1 + in1 > z.shape[1]):
+        raise ValueError(f"inner block {tuple(inner_shape)} at offset "
+                         f"{tuple(offset)} does not lie inside z_outer "
+                         f"{tuple(z.shape)}")
+    plan = plan_sweep(tuple(z.shape), inner_shape=(in0, in1),
+                      offset=(off0, off1), dist_search=dist_search, dx=dx,
+                      dy=dy, hori_acc=hori_acc, rel_err=rel_err,
+                      max_level=max_level)
+    if pyramid is None:
+        levels = _mip.padded_levels(z, plan["pads"])
+    else:
+        levels = _check_pyramid(pyramid, z, plan["pads"])
+    z_inner = z[off0:off0 + in0, off1:off1 + in1].contiguous()
+    z_org = z_inner + float(_f32(ray_org_elev))
+    ratio = ratio_fn(z_org, z_inner, levels, trig_table(int(azim_num)), plan,
+                     tuple(z.shape))
+    # arctan and clip in place: the (A, in0, in1) ratio is the largest
+    # buffer of the call
+    ratio.atan_().clamp_(math.radians(elev_ang_low_lim),
+                         math.radians(elev_ang_up_lim))
+    return ratio.permute(1, 2, 0).contiguous()
+
+
+def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
+                        dist_search, hori_acc=0.25, elev_ang_low_lim=-15.0,
+                        elev_ang_up_lim=89.98, ray_org_elev=0.01,
+                        rel_err=None, max_level=10, pyramid=None):
+    """Planar gridded horizon via the fused sweep.
+
+    Same contract as ``horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas``
+    without mask and tilt ramp: uniform azimuths ``2*pi*k/azim_num``,
+    ``z_outer`` the (H, W) outer heightfield, ``offset``/``inner_shape``
+    the inner block, ``dist_search`` in metres.  Forward only.
+
+    A CUDA ``z_outer`` runs kernel K1 (built with nvcc on first use; a
+    failed build or launch raises); a CPU ``z_outer`` runs
+    :func:`horizon_sweep_plain`.  ``pyramid``: optional padded levels in
+    the layout of :func:`horayzon_tpu_torch.ops.mip.padded_levels`, on
+    ``z_outer``'s device.
+
+    Returns (in0, in1, azim_num) float32 [radian] on ``z_outer``'s device.
+    """
+    z = torch.as_tensor(z_outer)
+    if z.device.type == "cuda":
+        ratio_fn = _ratio_cuda
+    elif z.device.type == "cpu":
+        ratio_fn = _ratio_plain
+    else:
+        raise ValueError(f"no horizon sweep for device {z.device}")
+    return _run(ratio_fn, z, dx=dx, dy=dy, offset=offset,
+                  inner_shape=inner_shape, azim_num=azim_num,
+                  dist_search=dist_search, hori_acc=hori_acc,
+                  elev_ang_low_lim=elev_ang_low_lim,
+                  elev_ang_up_lim=elev_ang_up_lim, ray_org_elev=ray_org_elev,
+                  rel_err=rel_err, max_level=max_level, pyramid=pyramid)
+
+
+def horizon_sweep_plain(z_outer, *, dx, dy, offset, inner_shape, azim_num,
+                        dist_search, hori_acc=0.25, elev_ang_low_lim=-15.0,
+                        elev_ang_up_lim=89.98, ray_org_elev=0.01,
+                        rel_err=None, max_level=10, pyramid=None):
+    """:func:`horizon_sweep_fused` in plain torch on any device: the CPU
+    path, and the reference kernel K1 is held against on the card."""
+    return _run(_ratio_plain, z_outer, dx=dx, dy=dy, offset=offset,
+                  inner_shape=inner_shape, azim_num=azim_num,
+                  dist_search=dist_search, hori_acc=hori_acc,
+                  elev_ang_low_lim=elev_ang_low_lim,
+                  elev_ang_up_lim=elev_ang_up_lim, ray_org_elev=ray_org_elev,
+                  rel_err=rel_err, max_level=max_level, pyramid=pyramid)

@@ -1,0 +1,90 @@
+# Copyright (c) 2026
+# MIT License
+"""Conservative max-mip pyramid over a heightfield (torch).
+
+Counterpart of :mod:`horayzon_tpu.ops.mip`: level ``l`` stores the maximum
+elevation over aligned ``2^l x 2^l`` blocks of the outer DEM, so one coarse
+sample bounds the terrain over its whole footprint.  Out-of-domain padding
+uses a large negative sentinel so off-grid samples never contribute to the
+horizon.  A max is exact, so every level is bit-equal to the reference's.
+
+The sweep reads the pyramid as *padded levels*: level ``l`` surrounded by
+``pads[l]`` sentinel cells on every side (:func:`padded_levels`).  This is
+the state the sweep carries; :func:`pyramid_from_jax` lays out the JAX
+package's padded levels the same way.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# Safely below any terrestrial elevation; kept small in magnitude so that
+# products with direction components stay finite in float32.
+PAD_VALUE = -3.0e4
+
+#: Sentinel margins (low, high rows, high cols) that the JAX package's
+#: Pallas kernel adds around each padded level on top of the schedule pad
+#: (``horayzon_tpu.ops.pallas_sweep.LEVEL_PAD_EXTRA``); cropped away by
+#: :func:`pyramid_from_jax`.
+JAX_LEVEL_PAD_EXTRA = (4, 56, 776)
+
+
+def max_downsample2(z):
+    """2x2 max-pool with sentinel padding to even dimensions."""
+    h, w = z.shape
+    ph, pw = h % 2, w % 2
+    if ph or pw:
+        z = F.pad(z, (0, pw, 0, ph), value=PAD_VALUE)
+    r = torch.maximum(z[0::2, :], z[1::2, :])
+    return torch.maximum(r[:, 0::2], r[:, 1::2])
+
+
+def build_pyramid(z, num_levels):
+    """Return [level0, ..., level_{num_levels-1}] (level0 is ``z`` itself)."""
+    levels = [z]
+    for _ in range(num_levels - 1):
+        levels.append(max_downsample2(levels[-1]))
+    return levels
+
+
+def level_shapes(outer_shape, num_levels):
+    """Unpadded (H, W) of each pyramid level of an ``outer_shape`` grid."""
+    h, w = outer_shape
+    shapes = [(h, w)]
+    for _ in range(num_levels - 1):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        shapes.append((h, w))
+    return shapes
+
+
+def padded_levels(z, pads):
+    """Pyramid of ``z`` with ``pads[l]`` sentinel cells around level ``l``.
+
+    Returns a list of contiguous float32 tensors on ``z``'s device."""
+    levels = build_pyramid(z, len(pads))
+    return [F.pad(lv, (p, p, p, p), value=PAD_VALUE).contiguous()
+            for lv, p in zip(levels, pads)]
+
+
+def pyramid_from_jax(levels_np, pads, device):
+    """Port-layout padded levels from the JAX package's padded levels.
+
+    ``levels_np``: the arrays of
+    ``horayzon_tpu.ops.pallas_sweep.build_padded_pyramid(...)[0]`` as numpy
+    arrays, each padded by ``pads[l]`` plus :data:`JAX_LEVEL_PAD_EXTRA`.
+    The extra margins are cropped, which leaves exactly the layout of
+    :func:`padded_levels`, so the port's sweep can run on the reference's
+    pyramid."""
+    if len(levels_np) != len(pads):
+        raise ValueError(f"{len(levels_np)} levels for {len(pads)} pads")
+    lo, hi_r, hi_c = JAX_LEVEL_PAD_EXTRA
+    out = []
+    for lv in levels_np:
+        lv = np.asarray(lv, dtype=np.float32)
+        if lv.ndim != 2 or lv.shape[0] <= lo + hi_r or lv.shape[1] <= lo + hi_c:
+            raise ValueError(f"level of shape {lv.shape} is not a padded "
+                             f"level of the JAX layout")
+        crop = np.ascontiguousarray(lv[lo:lv.shape[0] - hi_r,
+                                       lo:lv.shape[1] - hi_c])
+        out.append(torch.from_numpy(crop).to(device))
+    return out

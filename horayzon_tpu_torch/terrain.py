@@ -1,0 +1,96 @@
+# Copyright (c) 2026
+# MIT License
+"""Terrain grid utilities (copy of part of :mod:`horayzon_tpu.terrain`).
+
+Vertex-buffer decomposition, regular-grid detection and the planar-vector
+test, copied because importing ``horayzon_tpu`` loads JAX.
+``tests/test_torch_schedule.py`` holds the copies equal to the originals.
+"""
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """Regular-grid geometry: ``x = x0 + j*dx``, ``y = y0 + i*dy``.
+
+    ``dy`` is signed; north-up grids (decreasing y with row index) have
+    ``dy < 0``.
+    """
+    x0: float
+    y0: float
+    dx: float
+    dy: float
+    shape: tuple  # (H, W)
+
+    def x_axis(self):
+        return self.x0 + np.arange(self.shape[1]) * self.dx
+
+    def y_axis(self):
+        return self.y0 + np.arange(self.shape[0]) * self.dy
+
+    def crop(self, offset, inner_shape):
+        return GridSpec(x0=self.x0 + offset[1] * self.dx,
+                        y0=self.y0 + offset[0] * self.dy,
+                        dx=self.dx, dy=self.dy, shape=tuple(inner_shape))
+
+
+def decompose_vert_grid(vert_grid, dem_dim_0, dem_dim_1):
+    """Flat padded (x, y, z) vertex buffer -> three (H, W) float32 arrays.
+
+    Inverse of :func:`horayzon_tpu_torch.auxiliary.rearrange_pad_buffer`;
+    the trailing padding is dropped.
+    """
+    vert_grid = np.asarray(vert_grid, dtype=np.float32)
+    n = dem_dim_0 * dem_dim_1 * 3
+    if vert_grid.size < n:
+        raise ValueError("inconsistency between input arguments vert_grid, "
+                         "dem_dim_0 and dem_dim_1")
+    v = vert_grid[:n].reshape(dem_dim_0, dem_dim_1, 3)
+    return v[..., 0], v[..., 1], v[..., 2]
+
+
+def detect_regular_grid(x, y, rtol=1.0e-3):
+    """Detect a regular axis-aligned grid; return a :class:`GridSpec` or None.
+
+    Requires x to vary only along the second axis and y only along the first,
+    both with uniform spacing (within ``rtol`` of the spacing).
+    """
+    x = np.asarray(x)
+    y = np.asarray(y)
+    if x.ndim != 2 or x.shape != y.shape:
+        return None
+    h, w = x.shape
+    if w < 2 or h < 2:
+        return None
+    x_row = x[0]
+    y_col = y[:, 0]
+    dx = float(x_row[1] - x_row[0])
+    dy = float(y_col[1] - y_col[0])
+    if dx == 0.0 or dy == 0.0:
+        return None
+    tol_x = abs(dx) * rtol
+    tol_y = abs(dy) * rtol
+    if np.abs(np.diff(x_row) - dx).max() > tol_x:
+        return None
+    if np.abs(np.diff(y_col) - dy).max() > tol_y:
+        return None
+    if np.abs(x - x_row[None, :]).max() > tol_x:
+        return None
+    if np.abs(y - y_col[:, None]).max() > tol_y:
+        return None
+    return GridSpec(x0=float(x_row[0]), y0=float(y_col[0]),
+                    dx=dx, dy=dy, shape=(h, w))
+
+
+def is_default_planar_vectors(vec_norm, vec_north, atol=1.0e-6):
+    """True if norm == (0,0,1) and north == (0,1,0) everywhere (the planar
+    configuration of e.g. examples/horizon/gridded_planar_DEM.py:71-76)."""
+    vec_norm = np.asarray(vec_norm)
+    vec_north = np.asarray(vec_north)
+    expect_norm = np.array([0.0, 0.0, 1.0], dtype=vec_norm.dtype)
+    expect_north = np.array([0.0, 1.0, 0.0], dtype=vec_north.dtype)
+    return (np.abs(vec_norm - expect_norm).max() <= atol
+            and np.abs(vec_north - expect_north).max() <= atol)

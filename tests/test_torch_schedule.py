@@ -1,0 +1,100 @@
+"""The port's copies of the reference's pure-NumPy helpers equal the
+originals: the sweep schedule, the vertex buffer and the grid detection.
+
+The copies exist because importing ``horayzon_tpu`` loads JAX, which the
+port never does.  Equality here is exact (same NumPy code, same inputs).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from horayzon_tpu import auxiliary as aux_ref
+from horayzon_tpu import terrain as terrain_ref
+from horayzon_tpu.ops import sweep as sweep_ref
+from horayzon_tpu_torch import auxiliary, terrain
+from horayzon_tpu_torch.ops import sweep
+
+
+def _same_schedule(a, b):
+    assert [dataclasses.astuple(p) for p in a.phases] == \
+        [dataclasses.astuple(p) for p in b.phases]
+    assert len(a.s_values) == len(b.s_values)
+    for sa, sb in zip(a.s_values, b.s_values):
+        assert sa.dtype == sb.dtype
+        np.testing.assert_array_equal(sa, sb)
+    assert (a.step, a.dist, a.pads, a.num_samples, a.meta()) == \
+        (b.step, b.dist, b.pads, b.num_samples, b.meta())
+
+
+@pytest.mark.parametrize("step,dist,hori_acc,max_level", [
+    (25.0, 20000.0, 0.25, 10),
+    (25.0, 800.0, 0.25, 10),
+    (25.0, 6000.0, 1.0, 10),
+    (2.0, 15000.0, 0.1, 4),
+    (90.0, 250000.0, 0.5, 3),
+    (30.0, 31.0, 5.0, 1),
+])
+def test_schedule_matches_reference(step, dist, hori_acc, max_level):
+    rel_err = sweep.default_rel_err(hori_acc)
+    assert rel_err == sweep_ref.default_rel_err(hori_acc)
+    got = sweep.build_schedule(step, dist, rel_err, max_level=max_level)
+    ref = sweep_ref.build_schedule(step, dist, rel_err, max_level=max_level)
+    _same_schedule(got, ref)
+    for halo in (0, 5, 17, 40, 400):
+        _same_schedule(sweep.mark_safe_phases(got, halo),
+                       sweep_ref.mark_safe_phases(ref, halo))
+
+
+def test_schedule_rejects_nonpositive_distance():
+    for mod in (sweep, sweep_ref):
+        with pytest.raises(ValueError, match="dist_search must be positive"):
+            mod.build_schedule(25.0, 0.0, 0.01)
+
+
+def test_vertex_buffer_matches_reference():
+    rng = np.random.default_rng(0)
+    for shape in [(5, 7), (4, 4), (3, 1)]:
+        x, y, z = (rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(3))
+        np.testing.assert_array_equal(auxiliary.rearrange_pad_buffer(x, y, z),
+                                      aux_ref.rearrange_pad_buffer(x, y, z))
+        buf = rng.standard_normal(int(np.prod(shape))).astype(np.float32)
+        np.testing.assert_array_equal(auxiliary.pad_buffer(buf),
+                                      aux_ref.pad_buffer(buf))
+    bad = np.zeros((3, 3), np.float64)
+    for mod in (auxiliary, aux_ref):
+        with pytest.raises(TypeError):
+            mod.rearrange_pad_buffer(bad, bad, bad)
+
+
+def test_grid_helpers_match_reference():
+    n0, n1 = 6, 9
+    x1 = np.arange(n1, dtype=np.float32) * 25.0 + 100.0
+    y1 = (n0 - 1 - np.arange(n0, dtype=np.float32)) * 30.0
+    x, y = np.meshgrid(x1, y1)
+    z = np.random.default_rng(1).uniform(0, 50, x.shape).astype(np.float32)
+    buf = auxiliary.rearrange_pad_buffer(x, y, z)
+    for a, b in zip(terrain.decompose_vert_grid(buf, n0, n1),
+                    terrain_ref.decompose_vert_grid(buf, n0, n1)):
+        np.testing.assert_array_equal(a, b)
+    got = terrain.detect_regular_grid(x, y)
+    ref = terrain_ref.detect_regular_grid(x, y)
+    assert dataclasses.astuple(got) == dataclasses.astuple(ref)
+    assert got.crop((1, 2), (3, 4)) == terrain.GridSpec(
+        *dataclasses.astuple(ref.crop((1, 2), (3, 4))))
+    np.testing.assert_array_equal(got.x_axis(), ref.x_axis())
+    xc = x.copy()
+    xc[2, 3] += 5.0                      # irregular: not a grid
+    assert terrain.detect_regular_grid(xc, y) is None
+    assert terrain_ref.detect_regular_grid(xc, y) is None
+    vn = np.zeros((3, 4, 3), np.float32)
+    vn[..., 2] = 1.0
+    vno = np.zeros((3, 4, 3), np.float32)
+    vno[..., 1] = 1.0
+    for tilt in (0.0, 1e-3):
+        vt = vn.copy()
+        vt[0, 0, 0] = tilt
+        assert terrain.is_default_planar_vectors(vt, vno) == \
+            terrain_ref.is_default_planar_vectors(vt, vno)
