@@ -8,13 +8,23 @@
 Phases, each of which ends the run with a nonzero exit on failure:
 
 1. environment: torch, CUDA, the card, its name and power limit;
-2. build: kernel K1 (csrc/horizon_sweep.cu) with nvcc for sm_90a;
+2. build: kernels K1 (csrc/horizon_sweep.cu) and K3
+   (csrc/horizon_replay_bwd.cu), one nvcc each for sm_90a, in parallel;
 3. K1 against its plain torch version on the card, on three small cases;
 4. the main path, ``PlanarPipeline.run`` at the bench headline shape
    (25 m grid, 2048^2 outer, 1024^2 inner, 32 azimuths, 20 km search),
    timed with CUDA events, with output checks and a cropped comparison
    against the plain version; then K1 and the plain sweep timed alone;
-5. one JSON line per kernel, then the result line
+5. K1's argmax variant and K3 against their plain versions on the small
+   cases plus one whose d1 range ends in a single step; K3 run twice;
+6. the gradient path at the bench's gradient row (``bench.py:470-486``):
+   forward and loss + ``backward()`` timed, the gradient checked and
+   compared across two runs; K1-argmax and K3 timed alone against their
+   plain versions;
+7. a central finite-difference check of the gradient on the card;
+8. the trainer: ``TerrainFit`` at the defaults of
+   ``examples/horizon/terrain_fit_gradient.py``, held to its checks;
+9. one JSON line per kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so nothing here runs in
@@ -29,13 +39,19 @@ import time
 import numpy as np
 import torch
 
-from horayzon_tpu_torch.models import PlanarPipeline
-from horayzon_tpu_torch.ops import _build, fused_sweep, mip
+from horayzon_tpu_torch.models import PlanarPipeline, terrain_fit
+from horayzon_tpu_torch.ops import _build, fused_sweep, mip, replay
 
 #: Horizon-angle tolerance [rad] of K1 against the plain version.
 TOL = 1.0e-5
+#: K3 against the plain backward: relative to max |.| of each cotangent
+#: (the two sum the same terms in another order).
+BWD_RTOL = 1.0e-5
 KERNEL_SOURCE = "horayzon_tpu_torch/csrc/horizon_sweep.cu"
 REPLACES = "horayzon_tpu/ops/pallas_sweep.py:157"
+BWD_SOURCE = "horayzon_tpu_torch/csrc/horizon_replay_bwd.cu"
+BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:1705"
+KERNELS = ("horizon_sweep", "horizon_replay_bwd")
 
 
 def make_terrain(h, w, seed=0):
@@ -79,6 +95,32 @@ def small_cases():
     ]
 
 
+def odd_case():
+    """A plan whose d1 range ends in a single step (n_dense - nx = 17):
+    a masked pair run and a masked trailing single."""
+    return ("bumps96_inner32_d825", make_terrain(96, 96, seed=3),
+            dict(offset=(32, 32), inner_shape=(32, 32), azim_num=5,
+                 dist_search=825.0))
+
+
+def event_ms(fn):
+    """Milliseconds of one ``fn()`` between CUDA events, and its result."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (0 when both are 0)."""
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    return diff / scale if scale > 0.0 else diff
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -110,13 +152,14 @@ def main():
     print(card)
 
     print("== 2. build")
-    fresh = not _build.library_path("horizon_sweep").is_file()
     t0 = time.perf_counter()
-    lib = _build.build("horizon_sweep")
-    print(f"  {lib.name}: {'built' if fresh else 'cached'} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in _build.BUILD_LOG.get("horizon_sweep", (0, ""))[1].splitlines():
-        print(f"  nvcc: {line}")
+    libs = _build.build_all(KERNELS)
+    print(f"  built {len(libs)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, lib in zip(KERNELS, libs):
+        secs, log = _build.BUILD_LOG.get(name, (0.0, "(cached)"))
+        print(f"  {lib.name}: nvcc {secs:.2f} s")
+        for line in log.splitlines():
+            print(f"  nvcc: {line}")
 
     print("== 3. K1 against the plain version on the card")
     max_err = 0.0
@@ -216,12 +259,193 @@ def main():
     print(f"  K1 alone: {k1_ms:.3f} ms; plain torch sweep: {plain_ms:.1f} ms "
           f"({samples} samples per (cell, azimuth))  [{card}]")
 
-    print("== 5. result")
-    print(json.dumps({"kernels": [{
-        "name": "horizon_sweep (K1)", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}))
+    print("== 5. K1-argmax and K3 against their plain versions on the card")
+    am_err = bwd_err = 0.0
+    for name, z, kw in small_cases() + [odd_case()]:
+        zs = torch.from_numpy(z).to(dev)
+        kw = dict(kw, dx=25.0, dy=-25.0, hori_acc=0.25)
+        sargs = fused_sweep.sweep_args(zs, **kw)
+        plan, trig = sargs[4], sargs[3]
+        print(f"  {name}: nx {plan['nx']}, ns1 {plan['ns1']}, n_dense "
+              f"{plan['n_dense']}, {len(plan['phases_meta']) - 1} mip phases")
+        raw, ids, aux = fused_sweep._ratio_cuda(*sargs, emit_argmax=True)
+        raw_k1 = fused_sweep._ratio_cuda(*sargs)
+        p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*sargs,
+                                                       emit_argmax=True)
+        torch.cuda.synchronize()
+        am_err = max(am_err, (raw - p_raw).abs().max().item())
+        check(torch.equal(raw, raw_k1) and torch.equal(raw, p_raw),
+              f"{name}: K1-argmax raw bit-equal to K1 and to the plain "
+              f"argmax sweep")
+        check(torch.equal(ids, p_ids) and torch.equal(aux, p_aux),
+              f"{name}: ids and aux equal to the plain version "
+              f"({int((ids < 2 * plan['n_dense']).sum())} dense, "
+              f"{int((ids >= 2 * plan['n_dense']).sum())} mip winners)")
+        g = torch.from_numpy(np.random.default_rng(7).normal(
+            size=tuple(raw.shape)).astype(np.float32)).to(dev)
+        bargs = (tuple(zs.shape), g, ids, aux, plan, trig)
+        cots, zcot = replay._bwd_cuda(*bargs)
+        cots2, zcot2 = replay._bwd_cuda(*bargs)
+        p_cots, p_zcot = replay.backward_replay_plain(*bargs)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(cots + [zcot],
+                                              p_cots + [p_zcot])]
+        bwd_err = max(bwd_err, max((a - b).abs().max().item() for a, b in
+                                   zip(cots + [zcot], p_cots + [p_zcot])))
+        check(max(errs) <= BWD_RTOL,
+              f"{name}: K3 within rtol {BWD_RTOL} of the plain backward "
+              f"(per output: {', '.join(f'{e:.1e}' for e in errs)})")
+        check(all(torch.equal(a, b) for a, b in zip(cots + [zcot],
+                                                     cots2 + [zcot2])),
+              f"{name}: two K3 runs bit-equal")
+
+    print("== 6. gradient path at the bench's gradient row")
+    grad_kw = dict(dx=dx, dy=-dx, offset=(halo, halo),
+                   inner_shape=(inner, inner), azim_num=azim_num,
+                   dist_search=dist_km * 1000.0, hori_acc=0.25)
+
+    def forward_loss():
+        return torch.mean(fused_sweep.horizon_sweep_fused(zt, **grad_kw)
+                          ** 2)
+
+    def grad_step():
+        zg = zt.clone().requires_grad_(True)
+        loss = torch.mean(fused_sweep.horizon_sweep_fused(zg, **grad_kw)
+                          ** 2)
+        loss.backward()
+        return zg.grad
+
+    event_ms(forward_loss)
+    fwd_ms = [event_ms(forward_loss)[0] for _ in range(runs)]
+    event_ms(grad_step)
+    fused_sweep.KERNEL_LAUNCHES = 0
+    fused_sweep.ARGMAX_KERNEL_LAUNCHES = 0
+    replay.KERNEL_LAUNCHES = 0
+    grads, grad_ms = [], []
+    for _ in range(runs):
+        ms, gz = event_ms(grad_step)
+        grad_ms.append(ms)
+        grads.append(gz)
+    am_launches = fused_sweep.ARGMAX_KERNEL_LAUNCHES
+    k3_launches = replay.KERNEL_LAUNCHES
+    f_med, g_med = float(np.median(fwd_ms)), float(np.median(grad_ms))
+    print(f"  forward (loss, no grad) median {f_med:.2f} ms (min "
+          f"{min(fwd_ms):.2f}, max {max(fwd_ms):.2f}); loss + backward() "
+          f"median {g_med:.2f} ms (min {min(grad_ms):.2f}, max "
+          f"{max(grad_ms):.2f}); grad/forward {g_med / f_med:.3f}  [{card}]")
+    check(am_launches == runs and k3_launches == runs,
+          f"gradient path launched K1-argmax ({am_launches}) and K3 "
+          f"({k3_launches}) once per run in {runs} runs")
+    gz = grads[-1]
+    check(bool(torch.isfinite(gz).all()) and gz.abs().max().item() > 0.0,
+          f"z.grad finite and nonzero (max |g| {gz.abs().max().item():.3e})")
+    check(torch.equal(grads[-1], grads[-2]), "z.grad bit-equal across runs")
+
+    sargs = fused_sweep.sweep_args(zt, **grad_kw)
+    plan, trig = sargs[4], sargs[3]
+    fused_sweep._ratio_cuda(*sargs, emit_argmax=True)
+    am_ms = cuda_ms(lambda: fused_sweep._ratio_cuda(*sargs, emit_argmax=True),
+                    10)
+    raw, ids, aux = fused_sweep._ratio_cuda(*sargs, emit_argmax=True)
+    am_plain_ms, (p_raw, p_ids, p_aux) = event_ms(
+        lambda: fused_sweep._ratio_plain(*sargs, emit_argmax=True))
+    check(torch.equal(raw, p_raw) and torch.equal(ids, p_ids)
+          and torch.equal(aux, p_aux),
+          "K1-argmax equal to the plain argmax sweep at this shape")
+    del p_raw, p_ids, p_aux
+    lims = (-15.0, 89.98)
+    h = fused_sweep._angles(raw.clone(), *lims)
+    graw = fused_sweep.raw_cotangent(raw, 2.0 * h / h.numel(), lims)
+    del h
+    bargs = (tuple(zt.shape), graw, ids, aux, plan, trig)
+    replay._bwd_cuda(*bargs)
+    k3_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs), 10)
+    cots, zcot = replay._bwd_cuda(*bargs)
+    k3_plain_ms, (p_cots, p_zcot) = event_ms(
+        lambda: replay.backward_replay_plain(*bargs))
+    errs = [rel_err(a, b) for a, b in zip(cots + [zcot], p_cots + [p_zcot])]
+    bwd_err = max(bwd_err, max((a - b).abs().max().item() for a, b in
+                               zip(cots + [zcot], p_cots + [p_zcot])))
+    check(max(errs) <= BWD_RTOL,
+          f"K3 within rtol {BWD_RTOL} of the plain backward at this shape")
+    print(f"  K1-argmax alone: {am_ms:.3f} ms; plain argmax sweep: "
+          f"{am_plain_ms:.1f} ms  [{card}]")
+    print(f"  K3 alone: {k3_ms:.3f} ms; plain backward: {k3_plain_ms:.1f} ms"
+          f"  [{card}]")
+    del p_cots, p_zcot, cots, zcot, graw, raw, ids, aux, grads
+
+    print("== 7. central finite difference on the card")
+    z96 = torch.from_numpy(make_terrain(96, 96, seed=4)).to(dev)
+    fd_kw = dict(dx=25.0, dy=-25.0, offset=(32, 32), inner_shape=(32, 32),
+                 azim_num=4, dist_search=900.0, hori_acc=0.25)
+
+    def fd_loss(zz):
+        h = fused_sweep.horizon_sweep_fused(zz, **fd_kw)
+        return torch.mean(h.double() ** 2)
+
+    zg = z96.clone().requires_grad_(True)
+    fd_loss(zg).backward()
+    v = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(96, 96)).astype(np.float32)).to(dev)
+    eps = 3e-2
+    with torch.no_grad():
+        fd = (fd_loss(z96 + eps * v) - fd_loss(z96 - eps * v)).item() / (
+            2 * eps)
+    an = float((zg.grad.double() * v.double()).sum())
+    check(abs(fd - an) < 3e-3 * max(1.0, abs(an)),
+          f"directional derivative {an:.6e} against central difference "
+          f"{fd:.6e} (white noise, tests/test_pallas.py:118-128)")
+    yy, xx = np.mgrid[0:96, 0:96]
+    w = torch.from_numpy(np.exp(
+        -((yy - 40.32) ** 2 + (xx - 49.92) ** 2) / (2 * 15.36 ** 2))
+        .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        fd = (fd_loss(z96 + 0.1 * w) - fd_loss(z96 - 0.1 * w)).item() / 0.2
+    an = float((zg.grad.double() * w.double()).sum())
+    check(an != 0.0 and abs(fd - an) <= 2e-2 * abs(an),
+          f"directional derivative {an:.6e} against central difference "
+          f"{fd:.6e} along a smooth bump: within 2%")
+
+    print("== 8. trainer: TerrainFit at the example's defaults")
+    n_fit, inner_fit, dx_fit, steps = 192, 64, 25.0, 150
+    halo_fit = (n_fit - inner_fit) // 2
+    z_true, z_init = terrain_fit.terrains(n_fit, dx_fit, seed=3)
+    obs = fused_sweep.horizon_sweep_fused(
+        torch.from_numpy(z_true).to(dev), dx=dx_fit, dy=-dx_fit,
+        offset=(halo_fit, halo_fit), inner_shape=(inner_fit, inner_fit),
+        azim_num=16, dist_search=1500.0)
+    model = terrain_fit.TerrainFit(z_init, obs, dx=dx_fit, inner=inner_fit,
+                                   azim_num=16, dist_search=1500.0,
+                                   smooth=0.02).to(dev)
+    t0 = time.perf_counter()
+    losses = terrain_fit.fit(model, steps, lr=2.0)
+    fit_s = time.perf_counter() - t0
+    e0 = terrain_fit.shift_adjusted_error(z_init, z_true, halo_fit, inner_fit)
+    e1 = terrain_fit.shift_adjusted_error(model.z.detach().cpu().numpy(),
+                                          z_true, halo_fit, inner_fit)
+    print(f"  {steps} Adam steps in {fit_s:.2f} s; horizon MSE "
+          f"{losses[0]:.3e} -> {losses[-1]:.3e} rad^2; shift-adjusted error "
+          f"{e0.mean():.2f} -> {e1.mean():.2f} m (max {e0.max():.1f} -> "
+          f"{e1.max():.1f})  [{card}]")
+    check(e1.max() < 0.5 * e0.max(), "ridge recovered: max error below "
+          "half its start")
+    check(losses[-1] < 0.05 * losses[0], "horizon misfit below 5% of the "
+          "first step's")
+
+    print("== 9. result")
+    print(json.dumps({"kernels": [
+        {"name": "horizon_sweep (K1)", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": REPLACES,
+         "launches": launches, "max_abs_err": max_err,
+         "ms": k1_ms, "plain_ms": plain_ms},
+        {"name": "horizon_sweep argmax (K1-argmax)", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": REPLACES,
+         "launches": am_launches, "max_abs_err": am_err,
+         "ms": am_ms, "plain_ms": am_plain_ms},
+        {"name": "horizon_replay_bwd (K3)", "route": "cuda",
+         "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+         "launches": k3_launches, "max_abs_err": bwd_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

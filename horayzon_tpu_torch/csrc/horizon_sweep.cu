@@ -2,7 +2,7 @@
 // MIT License
 //
 // Kernel K1: planar horizon sweep on Hopper (horizon mode: no mask, no tilt
-// ramp, no argmax output).
+// ramp), with and without the argmax output of the gradient path.
 //
 // Replaces horayzon_tpu/ops/pallas_sweep.py::_kernel (mode="horizon"),
 // launched there by pallas_forward_fn.  For every (inner cell, azimuth) it
@@ -16,6 +16,15 @@
 // Steps whose reads may leave the heightfield for some cell (past n_safe)
 // carry in-domain validity, exactly as the reference does.  The raw ratio is
 // written as (A, in0, in1) float32; arctan and clip run outside.
+//
+// Two entry points, one template: horizon_sweep_launch (the forward) and
+// horizon_sweep_argmax_launch (the forward of the gradient path, the
+// reference's emit_argmax=True).  The argmax variant replaces fmaxf by a
+// strict `cand > acc` update in the reference's candidate order, so the
+// running value is bit-equal to the plain variant's and the first of equal
+// candidates wins; it also writes the winner's id (A, in0, in1) int32 and the
+// stationary denominator D of a parabola winner (A, in0, in1) float32, which
+// the replay backward (csrc/horizon_replay_bwd.cu) needs.
 //
 // Design: one thread per (cell, azimuth); a block is 32 x 8 cells of one
 // azimuth, the grid (column blocks, row blocks, azimuths).  For a given
@@ -45,6 +54,8 @@ struct HzParams {
   const float* z_inner;  // (in0, in1) inner-domain heights
   const float* trig;     // (a_num, 2) float32 (sin az, cos az)
   float* out;            // (a_num, in0, in1) raw ratios
+  int* ids;              // (a_num, in0, in1) winner ids (argmax variant)
+  float* aux;            // (a_num, in0, in1) winner's D (argmax variant)
   const float* lvl[HZ_MAX_LEVELS];  // padded pyramid levels, row-major
   int lvl_w[HZ_MAX_LEVELS];         // row stride of each padded level
   int lvl_pad[HZ_MAX_LEVELS];       // sentinel margin of each level
@@ -65,6 +76,49 @@ struct HzParams {
 namespace {
 
 constexpr float kNegInit = -3.0e38f;
+// No-winner id (pallas_sweep.py:44): larger than every candidate id.
+constexpr int kIdNone = 1 << 30;
+
+// Running value of one (cell, azimuth).  The plain variant keeps the
+// maximum.  The argmax variant (pallas_sweep.py:481-496, 632-638) also keeps
+// the winner's id and, for a parabola winner, its (g, a) pair: D = g / a is
+// divided once at emit time, as the reference defers it.
+template <bool ARGMAX>
+struct Acc;
+
+template <>
+struct Acc<false> {
+  float v = kNegInit;
+  __device__ __forceinline__ void point(float cand, int) {
+    v = fmaxf(v, cand);
+  }
+  __device__ __forceinline__ void quad(bool ok, float cand, int, float,
+                                       float) {
+    if (ok) v = fmaxf(v, cand);
+  }
+};
+
+template <>
+struct Acc<true> {
+  float v = kNegInit;
+  int id = kIdNone;
+  float n = 1.0f, d = 1.0f;
+  __device__ __forceinline__ void point(float cand, int cid) {
+    if (cand > v) {
+      v = cand;
+      id = cid;
+    }
+  }
+  __device__ __forceinline__ void quad(bool ok, float cand, int cid, float g,
+                                       float a) {
+    if (ok && cand > v) {
+      v = cand;
+      id = cid;
+      n = g;
+      d = a;
+    }
+  }
+};
 
 struct Cell {
   const float* l0;  // level 0 at (a + pad0, b + pad0)
@@ -105,17 +159,19 @@ __device__ __forceinline__ bool inside0(const Cell& c, int di, int dj) {
   return (ri >= 0) & (ri + 1 <= c.h - 1) & (cj >= 0) & (cj + 1 <= c.w - 1);
 }
 
-__device__ __forceinline__ float point_update(const Cell& c, float acc,
-                                              float he, float s_end) {
-  return fmaxf(acc, (he - c.z_org) * (1.0f / s_end));
+template <bool A>
+__device__ __forceinline__ void point_update(const Cell& c, Acc<A>& acc,
+                                             float he, float s_end, int cid) {
+  acc.point((he - c.z_org) * (1.0f / s_end), cid);
 }
 
 // Interior stationary value of (P(t) + C) / (s + t), division-free form
 // (pallas_sweep.py:455-472).
-__device__ __forceinline__ float quad_update(const Cell& c, float acc,
-                                             float a_c, float b_c, float h0,
-                                             float s_start, float length,
-                                             float t_lo, bool extra) {
+template <bool A>
+__device__ __forceinline__ void quad_update(const Cell& c, Acc<A>& acc,
+                                            float a_c, float b_c, float h0,
+                                            float s_start, float length,
+                                            float t_lo, bool extra, int cid) {
   const float c0 = h0 - c.z_org;
   const float u = (a_c * s_start - b_c) * s_start + c0;
   float g = sqrtf(fmaxf(a_c * u, 0.0f));
@@ -124,23 +180,27 @@ __device__ __forceinline__ float quad_update(const Cell& c, float acc,
   const float lo = (s_start + t_lo) + 1e-3f;
   const float hi = (s_start + length) - 1e-3f;
   const bool valid = (u - a_c * (lo * lo)) * (u - a_c * (hi * hi)) < 0.0f;
-  return (valid && extra) ? fmaxf(acc, r_int) : acc;
+  acc.quad(valid && extra, r_int, cid, g, a_c);
 }
 
+template <bool A>
 struct Carry {
-  float acc, h2, h1;
+  Acc<A> acc;
+  float h2, h1;
   bool v2, v1;
 };
 
-// d2 step m: midpoint + endpoint reads (pallas_sweep.py:558-573).
+// d2 step m: midpoint + endpoint reads (pallas_sweep.py:558-573); ids 2m
+// (point) and 2m+1 (parabola).
+template <bool A>
 __device__ __forceinline__ void d2_step(const HzParams& p, const Cell& c,
-                                        Carry& k, int m, bool masked) {
+                                        Carry<A>& k, int m, bool masked) {
   const float s_end = (float)(m + 1) * p.step;
   const float s_start = s_end - p.step;
   int dim, djm, die, dje;
   const float hm = read0(c, s_end - p.half_step, &dim, &djm);
   const float he = read0(c, s_end, &die, &dje);
-  k.acc = point_update(c, k.acc, he, s_end);
+  point_update(c, k.acc, he, s_end, 2 * m);
   const float a_c = (2.0f * he + 2.0f * k.h1 - 4.0f * hm) * p.inv_l0_sq;
   const float b_c = (4.0f * hm - 3.0f * k.h1 - he) * p.inv_l0;
   bool v_end = true;
@@ -149,7 +209,8 @@ __device__ __forceinline__ void d2_step(const HzParams& p, const Cell& c,
     v_end = inside0(c, die, dje);
     extra = inside0(c, dim, djm) && v_end;
   }
-  k.acc = quad_update(c, k.acc, a_c, b_c, k.h1, s_start, p.step, 0.0f, extra);
+  quad_update(c, k.acc, a_c, b_c, k.h1, s_start, p.step, 0.0f, extra,
+              2 * m + 1);
   k.h2 = k.h1;
   k.h1 = he;
   if (masked) {
@@ -159,16 +220,18 @@ __device__ __forceinline__ void d2_step(const HzParams& p, const Cell& c,
 }
 
 // d1 pair of steps ending at (m+1)*step and (m+1)*step + step; carries only
-// (acc, h1[, v1]) like the reference loop (pallas_sweep.py:586-608).
+// (acc, h1[, v1]) like the reference loop (pallas_sweep.py:586-608).  Ids 2m
+// and 2(m+1) (points), 2(m+1)+1 (parabola).
+template <bool A>
 __device__ __forceinline__ void d1_pair(const HzParams& p, const Cell& c,
-                                        Carry& k, int m, bool masked) {
+                                        Carry<A>& k, int m, bool masked) {
   const float s_a = (float)(m + 1) * p.step;
   const float s_b = s_a + p.step;
   int dia, dja, dib, djb;
   const float h_a = read0(c, s_a, &dia, &dja);
-  k.acc = point_update(c, k.acc, h_a, s_a);
+  point_update(c, k.acc, h_a, s_a, 2 * m);
   const float h_b = read0(c, s_b, &dib, &djb);
-  k.acc = point_update(c, k.acc, h_b, s_b);
+  point_update(c, k.acc, h_b, s_b, 2 * (m + 1));
   const float a_c = (2.0f * h_b + 2.0f * k.h1 - 4.0f * h_a) * p.inv_l1_sq;
   const float b_c = (4.0f * h_a - 3.0f * k.h1 - h_b) * p.inv_l1;
   bool extra = true;
@@ -177,30 +240,32 @@ __device__ __forceinline__ void d1_pair(const HzParams& p, const Cell& c,
     v_b = inside0(c, dib, djb);
     extra = k.v1 && inside0(c, dia, dja) && v_b;
   }
-  k.acc = quad_update(c, k.acc, a_c, b_c, k.h1, s_b - p.two_step, p.two_step,
-                      0.0f, extra);
+  quad_update(c, k.acc, a_c, b_c, k.h1, s_b - p.two_step, p.two_step, 0.0f,
+              extra, 2 * (m + 1) + 1);
   k.h1 = h_b;
   if (masked) k.v1 = v_b;
 }
 
 // Trailing odd d1 step from the carried h2/h1 history
-// (pallas_sweep.py:610-625).
+// (pallas_sweep.py:610-625); ids 2m (point) and 2m+1 (parabola).
+template <bool A>
 __device__ __forceinline__ void d1_single(const HzParams& p, const Cell& c,
-                                          Carry& k, int m, bool masked) {
+                                          Carry<A>& k, int m, bool masked) {
   const float s_end = (float)(m + 1) * p.step;
   int die, dje;
   const float he = read0(c, s_end, &die, &dje);
-  k.acc = point_update(c, k.acc, he, s_end);
+  point_update(c, k.acc, he, s_end, 2 * m);
   const float a_c = (2.0f * he + 2.0f * k.h2 - 4.0f * k.h1) * p.inv_l1_sq;
   const float b_c = (4.0f * k.h1 - 3.0f * k.h2 - he) * p.inv_l1;
   bool extra = true;
   if (masked) extra = k.v2 && k.v1 && inside0(c, die, dje);
-  k.acc = quad_update(c, k.acc, a_c, b_c, k.h2, s_end - p.two_step,
-                      p.two_step, p.step, extra);
+  quad_update(c, k.acc, a_c, b_c, k.h2, s_end - p.two_step, p.two_step,
+              p.step, extra, 2 * m + 1);
   k.h2 = k.h1;
   k.h1 = he;
 }
 
+template <bool ARGMAX>
 __global__ void __launch_bounds__(256)
 horizon_sweep_kernel(const HzParams p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -224,7 +289,7 @@ horizon_sweep_kernel(const HzParams p) {
   c.z_org = p.z_org[cell];
   const float zi = p.z_inner[cell];
 
-  Carry k{kNegInit, zi, zi, true, true};
+  Carry<ARGMAX> k{Acc<ARGMAX>{}, zi, zi, true, true};
 
   // Dense steps, in the reference's sections (pallas_sweep.py:641-757).
   for (int m = 0; m < p.ns2; ++m) d2_step(p, c, k, m, false);
@@ -253,7 +318,9 @@ horizon_sweep_kernel(const HzParams p) {
 
   // Mip phases: nearest reads of level `lvl` (pallas_sweep.py:808-857).
   // Index (a + round(s*sh)) floor-divided by 2^lvl; the positive bias keeps
-  // the truncating division a floor, as the reference's does.
+  // the truncating division a floor, as the reference's does.  Ids count on
+  // from 2 * n_dense, phase after phase (pallas_sweep.py:776-781).
+  int id_off = 2 * p.n_dense;
   for (int ph = 1; ph < p.n_phases; ++ph) {
     const int lvl = p.ph_lvl[ph];
     const int kp = 1 << lvl;
@@ -271,26 +338,46 @@ horizon_sweep_kernel(const HzParams p) {
       const int r = (c.a + ri + bias) / kp - bias / kp + pad;
       const int q = (c.b + rj + bias) / kp - bias / kp + pad;
       const float hs = __ldg(L + (long long)r * wl + q);
-      k.acc = point_update(c, k.acc, hs, s);
+      point_update(c, k.acc, hs, s, id_off + m);
     }
+    id_off += n_m;
   }
 
-  p.out[(long long)az * p.in0 * p.in1 + cell] = k.acc;
+  const long long o = (long long)az * p.in0 * p.in1 + cell;
+  p.out[o] = k.acc.v;
+  if constexpr (ARGMAX) {
+    // the deferred divide (pallas_sweep.py:1010-1014); 1 / 1 for points
+    const float d = k.acc.d;
+    p.ids[o] = k.acc.id;
+    p.aux[o] = k.acc.n / (fabsf(d) > 1e-30f ? d : 1e-30f);
+  }
 }
 
-}  // namespace
-
-// Launches K1 on `stream` (a cudaStream_t) of `device`; returns the
-// cudaError_t of the launch (0 on success).  Does not synchronise.
-extern "C" int horizon_sweep_launch(const HzParams* params, int device,
-                                    void* stream) {
+template <bool ARGMAX>
+int launch(const HzParams* params, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(32, 8);
   const dim3 grid((params->in1 + 31) / 32, (params->in0 + 7) / 8,
                   params->a_num);
-  horizon_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*params);
+  horizon_sweep_kernel<ARGMAX>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(*params);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch K1 on `stream` (a cudaStream_t) of `device`; return the
+// cudaError_t of the launch (0 on success).  Do not synchronise.
+extern "C" int horizon_sweep_launch(const HzParams* params, int device,
+                                    void* stream) {
+  return launch<false>(params, device, stream);
+}
+
+// The argmax variant: also writes params->ids and params->aux.
+extern "C" int horizon_sweep_argmax_launch(const HzParams* params, int device,
+                                           void* stream) {
+  return launch<true>(params, device, stream);
 }
 
 extern "C" const char* horizon_sweep_error_string(int code) {

@@ -58,26 +58,44 @@ def library_path(name):
 def build(name):
     """Compile ``csrc/<name>.cu`` unless its library exists; return its
     path.  Raises RuntimeError with nvcc's output if the build fails."""
-    out = library_path(name)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
+    return build_all([name])[0]
+
+
+def build_all(names):
+    """:func:`build` for several sources, one nvcc process each, all
+    started together; returns their library paths in ``names`` order."""
+    jobs = []
     try:
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {name}.cu "
-                               f"(exit {res.returncode}):\n{res.stderr}")
-        os.replace(tmp, out)
+        for name in names:
+            out = library_path(name)
+            if out.is_file():
+                jobs.append((name, out, None, None, None))
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   str(CSRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            jobs.append((name, out, tmp, proc, time.perf_counter()))
+        for name, out, tmp, proc, t0 in jobs:
+            if proc is None:
+                continue
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {name}.cu "
+                                   f"(exit {proc.returncode}):\n{err}")
+            os.replace(tmp, out)
+            BUILD_LOG[name] = (time.perf_counter() - t0, err)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_LOG[name] = (time.perf_counter() - t0, res.stderr)
-    return out
+        for _, _, tmp, proc, _ in jobs:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp is not None and os.path.exists(tmp):
+                os.unlink(tmp)
+    return [out for _, out, _, _, _ in jobs]
 
 
 def load(name):

@@ -6,21 +6,25 @@
 :func:`horizon_sweep_fused` has the contract of
 ``horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas`` for that case: for
 every inner cell and each of ``azim_num`` uniform azimuths it returns the
-horizon elevation angle [radian], shape ``(in0, in1, azim_num)``.  Behind
-it sits one sweep with two implementations of identical arithmetic:
+horizon elevation angle [radian], shape ``(in0, in1, azim_num)``, and it is
+differentiable w.r.t. the heightfield.  Behind it sits one sweep with two
+implementations of identical arithmetic:
 
 * kernel K1, ``csrc/horizon_sweep.cu`` (CUDA C++ for ``sm_90a``, one
   thread per (cell, azimuth)), run for a CUDA tensor;
-* :func:`horizon_sweep_plain`, the same loop structure in plain torch,
-  vectorised over the inner cells, run for a CPU tensor and used on the
-  card as the kernel's reference.
+* :func:`_ratio_plain` (behind :func:`horizon_sweep_plain`), the same loop
+  structure in plain torch, vectorised over the inner cells, run for a CPU
+  tensor and used on the card as the kernel's reference.
 
 Both follow the reference kernel ``pallas_sweep.py::_kernel`` step by step
 (d2 near field, d1 pairs and trailing singles, masked steps past the safe
 halo, mip phases) and round like it: scalar shift arithmetic in float32 from
 the host trig table, constants rounded from double as JAX rounds Python
-floats.  The reference's early exits are value-exact and are not ported
-yet, nor are the mask, tilt-ramp and argmax variants.
+floats.  Both have the argmax variant of the gradient path, whose record
+(winner ids, stationary denominators) the winner-replay backward of
+:mod:`horayzon_tpu_torch.ops.replay` replays.  The reference's early exits
+are value-exact and are not ported yet, nor are the mask and tilt-ramp
+variants.
 """
 
 import ctypes
@@ -31,6 +35,7 @@ import torch
 
 from horayzon_tpu_torch.ops import _build
 from horayzon_tpu_torch.ops import mip as _mip
+from horayzon_tpu_torch.ops import replay as _replay
 from horayzon_tpu_torch.ops import sweep as _sweep
 
 _NEG_INIT = -3.0e38
@@ -43,6 +48,8 @@ _MAX_LEVEL_INDEX = 16
 #: Launches of kernel K1 made by this process (incremented only where the
 #: wrapper launches it).
 KERNEL_LAUNCHES = 0
+#: Launches of K1's argmax variant (the forward of the gradient path).
+ARGMAX_KERNEL_LAUNCHES = 0
 
 
 def plan_sweep(outer_shape, *, inner_shape, offset, dist_search, dx, dy,
@@ -54,7 +61,8 @@ def plan_sweep(outer_shape, *, inner_shape, offset, dist_search, dx, dy,
     ``phases_meta``: ``(level, num, s_first, step)`` per phase, the level-0
     phases merged into one dense entry.  Dense steps ``[0, nx)`` take two
     reads, ``[nx, n_dense)`` one; steps from ``ns2`` (two-read) and ``ns1``
-    (one-read) on carry in-domain validity."""
+    (one-read) on carry in-domain validity.  ``consts``: the sweep's float32
+    scalars (:func:`_constants`), shared by the forward and the replay."""
     step = float(min(abs(dx), abs(dy)))
     if rel_err is None:
         rel_err = _sweep.default_rel_err(hori_acc)
@@ -89,12 +97,14 @@ def plan_sweep(outer_shape, *, inner_shape, offset, dist_search, dx, dy,
         # d1 pairs keep their global parity across the safe/masked
         # boundary (a pair never straddles it), as in the reference
         ns1 = nx + ((ns1 - nx) // 2) * 2
-    return dict(phases_meta=tuple(phases_meta), pads=schedule.pads,
+    plan = dict(phases_meta=tuple(phases_meta), pads=schedule.pads,
                 offset=(int(off0), int(off1)), inner_shape=(in0, in1),
                 dx=float(dx), dy=float(dy), step=step,
                 dist=float(dist_search), near_ex=near_ex, n_safe=n_safe,
                 n_dense=n_dense, nx=nx, ns2=ns2, ns1=ns1,
                 rel_err=float(rel_err), max_level=int(max_level))
+    plan["consts"] = _constants(plan)
+    return plan
 
 
 def trig_table(azim_num):
@@ -133,33 +143,54 @@ def _constants(plan):
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape):
+def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
+                 emit_argmax=False):
     """Raw ratios (A, in0, in1) in plain torch: per azimuth and step, the
-    shifted slices of the padded level, vectorised over all inner cells."""
+    shifted slices of the padded level, vectorised over all inner cells.
+
+    ``emit_argmax``: return ``(raw, ids, aux)`` as the argmax variant of
+    K1 does: strict ``cand > acc`` updates in the reference's candidate
+    order (the same running value as the maximum), the winner ids and the
+    winning parabola's stationary denominator D (``pallas_sweep.py:481-496,
+    632-638, 1010-1014``)."""
     f32 = np.float32
     in0, in1 = plan["inner_shape"]
     off0, off1 = plan["offset"]
     h, w = outer_shape
     pads = plan["pads"]
-    k = _constants(plan)
+    k = plan["consts"]
     dev = z_org.device
     rows = torch.arange(off0, off0 + in0, device=dev)
     cols = torch.arange(off1, off1 + in1, device=dev)
     lvl0, pad0 = levels[0], pads[0]
     step, two_step = k["step"], k["two_step"]
     eps = f32(1e-3)
-    out = torch.empty((trig.shape[0], in0, in1), dtype=torch.float32,
-                      device=dev)
+    a_num = trig.shape[0]
+    out = torch.empty((a_num, in0, in1), dtype=torch.float32, device=dev)
+    if emit_argmax:
+        ids = torch.empty((a_num, in0, in1), dtype=torch.int32, device=dev)
+        aux = torch.empty((a_num, in0, in1), dtype=torch.float32, device=dev)
 
     def inside0(di, dj):
         rv = (rows + di >= 0) & (rows + di + 1 <= h - 1)
         cv = (cols + dj >= 0) & (cols + dj + 1 <= w - 1)
         return rv[:, None] & cv[None, :]
 
-    def point_update(acc, he, s):
-        return torch.maximum(acc, (he - z_org) * float(f32(1.0) / s))
+    def update(acc, cand, cid, num=None, den=None):
+        """Running max; with argmax also the winner's id and, for a
+        parabola candidate, its (g, a) pair."""
+        if not emit_argmax:
+            return torch.maximum(acc, cand)
+        v, i, n, d = acc
+        upd = cand > v
+        return (torch.where(upd, cand, v), torch.where(upd, cid, i),
+                n if num is None else torch.where(upd, num, n),
+                d if den is None else torch.where(upd, den, d))
 
-    def quad_update(acc, a_c, b_c, h0, s_start, length, t_lo, extra):
+    def point_update(acc, he, s, cid):
+        return update(acc, (he - z_org) * float(f32(1.0) / s), cid)
+
+    def quad_update(acc, a_c, b_c, h0, s_start, length, t_lo, extra, cid):
         ss = float(s_start)
         u = (a_c * ss - b_c) * ss + (h0 - z_org)
         # square root through float64: torch's float32 CPU sqrt is not
@@ -173,9 +204,9 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape):
         valid = (u - a_c * float(lo * lo)) * (u - a_c * float(hi * hi)) < 0.0
         if extra is not None:
             valid = valid & extra
-        return torch.maximum(acc, torch.where(valid, r_int, _NEG_INIT))
+        return update(acc, torch.where(valid, r_int, _NEG_INIT), cid, g, a_c)
 
-    for az in range(trig.shape[0]):
+    for az in range(a_num):
         sh_i = f32(trig[az, 1]) / f32(plan["dy"])   # row cells per metre
         sh_j = f32(trig[az, 0]) / f32(plan["dx"])
 
@@ -200,7 +231,7 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape):
             s_start = s_end - step
             hm, dim, djm = read0(s_end - k["half_step"])
             he, die, dje = read0(s_end)
-            acc = point_update(acc, he, s_end)
+            acc = point_update(acc, he, s_end, 2 * m)
             a_c = (2.0 * he + 2.0 * h1 - 4.0 * hm) * float(k["inv_l0_sq"])
             b_c = (4.0 * hm - 3.0 * h1 - he) * float(k["inv_l0"])
             v_end = extra = None
@@ -208,16 +239,16 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape):
                 v_end = inside0(die, dje)
                 extra = inside0(dim, djm) & v_end
             acc = quad_update(acc, a_c, b_c, h1, s_start, step, f32(0.0),
-                              extra)
+                              extra, 2 * m + 1)
             return acc, he, v_end
 
         def d1_pair(m, acc, h1, masked, v1=None):
             s_a = f32(m + 1) * step
             s_b = s_a + step
             h_a, dia, dja = read0(s_a)
-            acc = point_update(acc, h_a, s_a)
+            acc = point_update(acc, h_a, s_a, 2 * m)
             h_b, dib, djb = read0(s_b)
-            acc = point_update(acc, h_b, s_b)
+            acc = point_update(acc, h_b, s_b, 2 * (m + 1))
             a_c = (2.0 * h_b + 2.0 * h1 - 4.0 * h_a) * float(k["inv_l1_sq"])
             b_c = (4.0 * h_a - 3.0 * h1 - h_b) * float(k["inv_l1"])
             v_b = extra = None
@@ -225,22 +256,26 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape):
                 v_b = inside0(dib, djb)
                 extra = v1 & inside0(dia, dja) & v_b
             acc = quad_update(acc, a_c, b_c, h1, s_b - two_step, two_step,
-                              f32(0.0), extra)
+                              f32(0.0), extra, 2 * (m + 1) + 1)
             return acc, h_b, v_b
 
         def d1_single(m, acc, h2, h1, masked, v2=None, v1=None):
             s_end = f32(m + 1) * step
             he, die, dje = read0(s_end)
-            acc = point_update(acc, he, s_end)
+            acc = point_update(acc, he, s_end, 2 * m)
             a_c = (2.0 * he + 2.0 * h2 - 4.0 * h1) * float(k["inv_l1_sq"])
             b_c = (4.0 * h1 - 3.0 * h2 - he) * float(k["inv_l1"])
             extra = v2 & v1 & inside0(die, dje) if masked else None
             acc = quad_update(acc, a_c, b_c, h2, s_end - two_step, two_step,
-                              step, extra)
+                              step, extra, 2 * m + 1)
             return acc, he
 
         # Dense steps, in the reference's sections (pallas_sweep.py:641-757)
         acc = torch.full_like(z_org, _NEG_INIT)
+        if emit_argmax:
+            acc = (acc, torch.full((in0, in1), _replay.ID_NONE,
+                                   dtype=torch.int32, device=dev),
+                   torch.ones_like(z_org), torch.ones_like(z_org))
         h2 = h1 = z_inner
         ones = torch.ones((in0, in1), dtype=torch.bool, device=dev)
         for m in range(plan["ns2"]):
@@ -271,7 +306,9 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape):
                 acc, _ = d1_single(ns1 + 2 * n_pairs, acc, h2, h1, True,
                                    v2, v1)
 
-        # Mip phases: nearest reads, index floor((cell + round(s*sh)) / k)
+        # Mip phases: nearest reads, index floor((cell + round(s*sh)) / k);
+        # ids count on from 2 * n_dense (pallas_sweep.py:776-781)
+        id_off = 2 * n_dense
         for lvl, n_m, s_first, step_l in plan["phases_meta"][1:]:
             kp = 2 ** lvl
             bias = kp * 16384
@@ -285,8 +322,15 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape):
                 c = (torch.div(cols + (rj + bias), kp, rounding_mode="trunc")
                      - bias // kp + pad)
                 hs = lvl_t.index_select(0, r).index_select(1, c)
-                acc = point_update(acc, hs, s)
+                acc = point_update(acc, hs, s, id_off + m)
+            id_off += n_m
+        if emit_argmax:
+            acc, ids[az], num, den = acc
+            # the deferred divide of the winning parabola's D
+            aux[az] = num / torch.where(den.abs() > 1e-30, den, 1e-30)
         out[az] = acc
+    if emit_argmax:
+        return out, ids, aux
     return out
 
 
@@ -299,6 +343,7 @@ class _HzParams(ctypes.Structure):
     _fields_ = (
         [("z_org", ctypes.c_void_p), ("z_inner", ctypes.c_void_p),
          ("trig", ctypes.c_void_p), ("out", ctypes.c_void_p),
+         ("ids", ctypes.c_void_p), ("aux", ctypes.c_void_p),
          ("lvl", ctypes.c_void_p * _MAX_LEVELS)]
         + [(n, ctypes.c_int * _MAX_LEVELS)
            for n in ("lvl_w", "lvl_pad", "ph_lvl", "ph_n")]
@@ -316,9 +361,10 @@ class _HzParams(ctypes.Structure):
 def _kernel_lib():
     """The loaded K1 library (built with nvcc on first use)."""
     lib = _build.load("horizon_sweep")
-    lib.horizon_sweep_launch.argtypes = [ctypes.POINTER(_HzParams),
-                                         ctypes.c_int, ctypes.c_void_p]
-    lib.horizon_sweep_launch.restype = ctypes.c_int
+    for fn in (lib.horizon_sweep_launch, lib.horizon_sweep_argmax_launch):
+        fn.argtypes = [ctypes.POINTER(_HzParams), ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.horizon_sweep_error_string.argtypes = [ctypes.c_int]
     lib.horizon_sweep_error_string.restype = ctypes.c_char_p
     lib.horizon_sweep_params_size.argtypes = []
@@ -330,9 +376,12 @@ def _kernel_lib():
     return lib
 
 
-def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape):
-    """Raw ratios (A, in0, in1) from kernel K1 on ``z_org``'s card."""
-    global KERNEL_LAUNCHES
+def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
+                emit_argmax=False):
+    """Raw ratios (A, in0, in1) from kernel K1 on ``z_org``'s card;
+    ``emit_argmax``: ``(raw, ids, aux)`` from K1's argmax variant, as
+    :func:`_ratio_plain` returns them."""
+    global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
     dev = z_org.device
     for t in (z_org, z_inner, *levels):
         if (t.device != dev or t.dtype != torch.float32
@@ -346,12 +395,15 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape):
     if len(levels) > _MAX_LEVELS or len(phases) > _MAX_LEVELS:
         raise ValueError(f"at most {_MAX_LEVELS} pyramid levels")
     trig_t = torch.from_numpy(trig).to(dev)
-    out = torch.empty((trig.shape[0], in0, in1), dtype=torch.float32,
-                      device=dev)
-    k = _constants(plan)
+    shape = (trig.shape[0], in0, in1)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     prm = _HzParams()
     prm.z_org, prm.z_inner = z_org.data_ptr(), z_inner.data_ptr()
     prm.trig, prm.out = trig_t.data_ptr(), out.data_ptr()
+    if emit_argmax:
+        ids = torch.empty(shape, dtype=torch.int32, device=dev)
+        aux = torch.empty(shape, dtype=torch.float32, device=dev)
+        prm.ids, prm.aux = ids.data_ptr(), aux.data_ptr()
     for lvl, t in enumerate(levels):
         prm.lvl[lvl] = t.data_ptr()
         prm.lvl_w[lvl] = t.shape[1]
@@ -366,15 +418,19 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape):
     for n in ("ns2", "nx", "ns1", "n_dense"):
         setattr(prm, n, plan[n])
     prm.dx, prm.dy = _f32(plan["dx"]), _f32(plan["dy"])
-    for n, v in k.items():
+    for n, v in plan["consts"].items():
         setattr(prm, n, v)
     lib = _kernel_lib()
-    err = lib.horizon_sweep_launch(
-        ctypes.byref(prm), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    launch = (lib.horizon_sweep_argmax_launch if emit_argmax
+              else lib.horizon_sweep_launch)
+    err = launch(ctypes.byref(prm), dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.horizon_sweep_error_string(err).decode()
         raise RuntimeError(f"horizon_sweep kernel launch failed: {msg}")
+    if emit_argmax:
+        ARGMAX_KERNEL_LAUNCHES += 1
+        return out, ids, aux
     KERNEL_LAUNCHES += 1
     return out
 
@@ -401,10 +457,14 @@ def _check_pyramid(pyramid, z, pads):
     return levels
 
 
-def _run(ratio_fn, z_outer, *, dx, dy, offset, inner_shape, azim_num,
-           dist_search, hori_acc, elev_ang_low_lim, elev_ang_up_lim,
-           ray_org_elev, rel_err, max_level, pyramid):
-    z = torch.as_tensor(z_outer).to(torch.float32).contiguous()
+def sweep_args(z_outer, *, dx, dy, offset, inner_shape, azim_num,
+               dist_search, hori_acc=0.25, ray_org_elev=0.01, rel_err=None,
+               max_level=10, pyramid=None):
+    """The sweep's inputs ``(z_org, z_inner, levels, trig, plan,
+    outer_shape)`` for :func:`_ratio_cuda` / :func:`_ratio_plain`, from the
+    arguments of :func:`horizon_sweep_fused` (validated as it validates
+    them).  ``z_outer`` must be a float32 tensor."""
+    z = z_outer
     if z.ndim != 2:
         raise ValueError(f"z_outer must be 2-D, got shape {tuple(z.shape)}")
     if int(azim_num) < 1:
@@ -425,25 +485,68 @@ def _run(ratio_fn, z_outer, *, dx, dy, offset, inner_shape, azim_num,
         levels = _check_pyramid(pyramid, z, plan["pads"])
     z_inner = z[off0:off0 + in0, off1:off1 + in1].contiguous()
     z_org = z_inner + float(_f32(ray_org_elev))
-    ratio = ratio_fn(z_org, z_inner, levels, trig_table(int(azim_num)), plan,
-                     tuple(z.shape))
-    # arctan and clip in place: the (A, in0, in1) ratio is the largest
-    # buffer of the call
+    return (z_org, z_inner, levels, trig_table(int(azim_num)), plan,
+            tuple(z.shape))
+
+
+def _angles(ratio, elev_ang_low_lim, elev_ang_up_lim):
+    """Clipped arctan of (A, in0, in1) ratios, in place (the ratio is the
+    largest buffer of the call), as (in0, in1, A)."""
     ratio.atan_().clamp_(math.radians(elev_ang_low_lim),
                          math.radians(elev_ang_up_lim))
     return ratio.permute(1, 2, 0).contiguous()
 
 
+def raw_cotangent(raw, g, lims):
+    """Cotangent of the raw ratios (A, in0, in1) from that of the clipped
+    arctan ``g`` (in0, in1, A): zero where the angle is clipped, else
+    ``g / (1 + raw^2)`` (``_hz_bwd_replay``, ``pallas_sweep.py:2662-2667``).
+    ``lims``: the elevation limits [degree]."""
+    lo, hi = (math.radians(v) for v in lims)
+    th = torch.atan(raw)
+    inside = (th >= lo) & (th <= hi)
+    return (torch.where(inside, g.permute(2, 0, 1), 0.0)
+            / (1.0 + raw * raw)).contiguous()
+
+
+class _HorizonSweepFn(torch.autograd.Function):
+    """The sweep with its winner-replay backward (``_pallas_hz`` with
+    ``_hz_fwd`` / ``_hz_bwd_replay``, ``pallas_sweep.py:1651-1692,
+    2659-2703``).  Forward: K1's argmax variant (CUDA) or the plain argmax
+    sweep (CPU), saving raw, ids and aux.  Backward: the cotangent chained
+    through clip and arctan, then K3 (CUDA) or the plain replay (CPU),
+    then the pyramid's VJP."""
+
+    @staticmethod
+    def forward(ctx, z, kw):
+        args = sweep_args(z, **kw["sweep"])
+        ratio_fn = _ratio_cuda if z.is_cuda else _ratio_plain
+        raw, ids, aux = ratio_fn(*args, emit_argmax=True)
+        trig, plan = args[3], args[4]
+        ctx.save_for_backward(z, raw, ids, aux)
+        ctx.plan, ctx.trig, ctx.lims = plan, trig, kw["lims"]
+        return _angles(raw.clone(), *kw["lims"])
+
+    @staticmethod
+    def backward(ctx, g):
+        z, raw, ids, aux = ctx.saved_tensors
+        graw = raw_cotangent(raw, g, ctx.lims)
+        level_cots, zcot = _replay.backward_replay(
+            tuple(z.shape), graw, ids, aux, ctx.plan, ctx.trig)
+        return _replay.z_cotangent(z, ctx.plan, level_cots, zcot), None
+
+
 def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
                         dist_search, hori_acc=0.25, elev_ang_low_lim=-15.0,
                         elev_ang_up_lim=89.98, ray_org_elev=0.01,
-                        rel_err=None, max_level=10, pyramid=None):
+                        rel_err=None, max_level=10, pyramid=None,
+                        tilt_ramp=None):
     """Planar gridded horizon via the fused sweep.
 
     Same contract as ``horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas``
     without mask and tilt ramp: uniform azimuths ``2*pi*k/azim_num``,
     ``z_outer`` the (H, W) outer heightfield, ``offset``/``inner_shape``
-    the inner block, ``dist_search`` in metres.  Forward only.
+    the inner block, ``dist_search`` in metres.
 
     A CUDA ``z_outer`` runs kernel K1 (built with nvcc on first use; a
     failed build or launch raises); a CPU ``z_outer`` runs
@@ -451,32 +554,52 @@ def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
     the layout of :func:`horayzon_tpu_torch.ops.mip.padded_levels`, on
     ``z_outer``'s device.
 
+    Differentiable w.r.t. ``z_outer``: when it requires grad (and grad
+    mode is on), the sweep runs as :class:`_HorizonSweepFn`, the argmax
+    forward with the winner-replay backward (K1's argmax variant and K3 on
+    the card, their plain versions on the CPU); the gradient is the one
+    ``jax.grad`` takes through ``horizon_sweep_pallas``.  That path builds
+    its pyramid from ``z_outer`` and takes no ``pyramid``.  ``tilt_ramp``
+    (the curved-Earth correction) is not ported yet.
+
     Returns (in0, in1, azim_num) float32 [radian] on ``z_outer``'s device.
     """
+    if tilt_ramp is not None:
+        raise NotImplementedError(
+            "tilt_ramp and its cotangent come with the curved gridded slice "
+            "(ROADMAP.md Queue 1 item 7)")
     z = torch.as_tensor(z_outer)
-    if z.device.type == "cuda":
-        ratio_fn = _ratio_cuda
-    elif z.device.type == "cpu":
-        ratio_fn = _ratio_plain
-    else:
+    if z.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no horizon sweep for device {z.device}")
-    return _run(ratio_fn, z, dx=dx, dy=dy, offset=offset,
-                  inner_shape=inner_shape, azim_num=azim_num,
-                  dist_search=dist_search, hori_acc=hori_acc,
-                  elev_ang_low_lim=elev_ang_low_lim,
-                  elev_ang_up_lim=elev_ang_up_lim, ray_org_elev=ray_org_elev,
-                  rel_err=rel_err, max_level=max_level, pyramid=pyramid)
+    sweep_kw = dict(dx=dx, dy=dy, offset=offset, inner_shape=inner_shape,
+                    azim_num=azim_num, dist_search=dist_search,
+                    hori_acc=hori_acc, ray_org_elev=ray_org_elev,
+                    rel_err=rel_err, max_level=max_level)
+    lims = (elev_ang_low_lim, elev_ang_up_lim)
+    if z.requires_grad and torch.is_grad_enabled():
+        if pyramid is not None:
+            raise NotImplementedError("the gradient path builds its pyramid "
+                                      "from z_outer; pass no pyramid")
+        return _HorizonSweepFn.apply(z.to(torch.float32).contiguous(),
+                                     dict(sweep=sweep_kw, lims=lims))
+    ratio_fn = _ratio_cuda if z.device.type == "cuda" else _ratio_plain
+    return _run(ratio_fn, z, lims, dict(sweep_kw, pyramid=pyramid))
+
+
+def _run(ratio_fn, z_outer, lims, sweep_kw):
+    z = torch.as_tensor(z_outer).detach().to(torch.float32).contiguous()
+    return _angles(ratio_fn(*sweep_args(z, **sweep_kw)), *lims)
 
 
 def horizon_sweep_plain(z_outer, *, dx, dy, offset, inner_shape, azim_num,
                         dist_search, hori_acc=0.25, elev_ang_low_lim=-15.0,
                         elev_ang_up_lim=89.98, ray_org_elev=0.01,
                         rel_err=None, max_level=10, pyramid=None):
-    """:func:`horizon_sweep_fused` in plain torch on any device: the CPU
-    path, and the reference kernel K1 is held against on the card."""
-    return _run(_ratio_plain, z_outer, dx=dx, dy=dy, offset=offset,
-                  inner_shape=inner_shape, azim_num=azim_num,
-                  dist_search=dist_search, hori_acc=hori_acc,
-                  elev_ang_low_lim=elev_ang_low_lim,
-                  elev_ang_up_lim=elev_ang_up_lim, ray_org_elev=ray_org_elev,
-                  rel_err=rel_err, max_level=max_level, pyramid=pyramid)
+    """:func:`horizon_sweep_fused` in plain torch on any device, forward
+    only: the CPU path, and the reference kernel K1 is held against on the
+    card."""
+    return _run(_ratio_plain, z_outer, (elev_ang_low_lim, elev_ang_up_lim),
+                dict(dx=dx, dy=dy, offset=offset, inner_shape=inner_shape,
+                     azim_num=azim_num, dist_search=dist_search,
+                     hori_acc=hori_acc, ray_org_elev=ray_org_elev,
+                     rel_err=rel_err, max_level=max_level, pyramid=pyramid))

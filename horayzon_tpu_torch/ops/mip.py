@@ -11,7 +11,8 @@ horizon.  A max is exact, so every level is bit-equal to the reference's.
 The sweep reads the pyramid as *padded levels*: level ``l`` surrounded by
 ``pads[l]`` sentinel cells on every side (:func:`padded_levels`).  This is
 the state the sweep carries; :func:`pyramid_from_jax` lays out the JAX
-package's padded levels the same way.
+package's padded levels the same way.  :func:`padded_levels_vjp` carries a
+gradient from the padded levels back to the heightfield.
 """
 
 import numpy as np
@@ -64,6 +65,23 @@ def padded_levels(z, pads):
     levels = build_pyramid(z, len(pads))
     return [F.pad(lv, (p, p, p, p), value=PAD_VALUE).contiguous()
             for lv, p in zip(levels, pads)]
+
+
+def padded_levels_vjp(z, pads, level_cots):
+    """``dz``: the VJP of :func:`padded_levels` at ``z`` applied to
+    ``level_cots`` (one cotangent per padded level).
+
+    Torch autograd through the strided-slice maxima and the pads, the
+    counterpart of ``jax.vjp`` of the JAX package's pyramid
+    (``pallas_sweep.py:2377-2381``).  An exact tie of ``torch.maximum``
+    sends half the cotangent to each side, as ``jnp.maximum``'s VJP does;
+    every cell of ``dz`` sums at most two terms, so the order of the sums
+    cannot differ from the reference's."""
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_(True)
+        (dz,) = torch.autograd.grad(padded_levels(zz, pads), zz,
+                                    list(level_cots))
+    return dz
 
 
 def pyramid_from_jax(levels_np, pads, device):

@@ -1,21 +1,25 @@
-"""Kernel K1 (csrc/horizon_sweep.cu) on the card, against its plain torch
-version on the same card.
+"""Kernels K1 (csrc/horizon_sweep.cu, with its argmax variant) and K3
+(csrc/horizon_replay_bwd.cu) on the card, against their plain torch
+versions on the same card, and the gradient path they make.
 
 Marked ``cuda`` and skipped without a CUDA device.  This file imports no
 JAX, so on a machine with the card it runs without the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: 1e-5 rad on the horizon angle.  Kernel and plain version do the
-same float32 operations in the same order (no FMA contraction, correctly
-rounded sqrt and divide), so they agree to a few ulp of the arctan.
+Tolerances: 1e-5 rad on the horizon angle.  Kernel and plain version do
+the same float32 operations in the same order (no FMA contraction,
+correctly rounded sqrt and divide), so they agree to a few ulp of the
+arctan; the argmax variant's raw ratios, ids and D are equal.  K3 against
+the plain backward: rtol 1e-5 of max |.| per cotangent (the same terms
+summed in another order); two K3 runs bit-equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from horayzon_tpu_torch.ops import _build, fused_sweep
+from horayzon_tpu_torch.ops import _build, fused_sweep, replay
 
 from reference_impl import gaussian_bumps_terrain
 
@@ -123,3 +127,81 @@ def test_missing_kernel_source_raises(cuda, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fused_sweep.horizon_sweep_fused(zt, **kw)
     assert fused_sweep.KERNEL_LAUNCHES == n0
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_argmax_kernel_matches_plain(cuda, name):
+    z, kw = _case(name)
+    args = fused_sweep.sweep_args(torch.from_numpy(z).to(cuda), **kw)
+    n0 = fused_sweep.ARGMAX_KERNEL_LAUNCHES
+    raw, ids, aux = fused_sweep._ratio_cuda(*args, emit_argmax=True)
+    assert fused_sweep.ARGMAX_KERNEL_LAUNCHES == n0 + 1
+    p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*args, emit_argmax=True)
+    raw_k1 = fused_sweep._ratio_cuda(*args)
+    torch.cuda.synchronize()
+    assert ids.dtype == torch.int32 and ids.shape == raw.shape
+    assert torch.equal(raw, raw_k1) and torch.equal(raw, p_raw)
+    assert torch.equal(ids, p_ids) and torch.equal(aux, p_aux)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_replay_kernel_matches_plain_and_repeats(cuda, name):
+    z, kw = _case(name)
+    zt = torch.from_numpy(z).to(cuda)
+    args = fused_sweep.sweep_args(zt, **kw)
+    raw, ids, aux = fused_sweep._ratio_cuda(*args, emit_argmax=True)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=tuple(raw.shape)).astype(np.float32)).to(cuda)
+    bargs = (tuple(zt.shape), g, ids, aux, args[4], args[3])
+    n0 = replay.KERNEL_LAUNCHES
+    cots, zcot = replay._bwd_cuda(*bargs)
+    assert replay.KERNEL_LAUNCHES == n0 + 1
+    cots2, zcot2 = replay._bwd_cuda(*bargs)
+    p_cots, p_zcot = replay.backward_replay_plain(*bargs)
+    torch.cuda.synchronize()
+    for got, again, want in zip(cots + [zcot], cots2 + [zcot2],
+                                p_cots + [p_zcot]):
+        assert torch.equal(got, again)
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+    assert zcot.abs().max().item() > 0.0
+
+
+def test_gradient_central_finite_difference(cuda):
+    """tests/test_pallas.py:118-128 on the card: K1-argmax and K3 behind
+    ``torch.autograd``."""
+    z = torch.from_numpy(gaussian_bumps_terrain(96, 96, seed=4,
+                                                amp=300.0)).to(cuda)
+    kw = dict(dx=25.0, dy=-25.0, offset=(32, 32), inner_shape=(32, 32),
+              azim_num=4, dist_search=900.0, hori_acc=0.25)
+
+    def loss(zz):
+        return torch.mean(fused_sweep.horizon_sweep_fused(zz, **kw).double()
+                          ** 2)
+
+    zg = z.clone().requires_grad_(True)
+    n0, k0 = fused_sweep.ARGMAX_KERNEL_LAUNCHES, replay.KERNEL_LAUNCHES
+    loss(zg).backward()
+    assert fused_sweep.ARGMAX_KERNEL_LAUNCHES == n0 + 1
+    assert replay.KERNEL_LAUNCHES == k0 + 1
+    v = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(96, 96)).astype(np.float32)).to(cuda)
+    eps = 3e-2
+    with torch.no_grad():
+        fd = (loss(z + eps * v) - loss(z - eps * v)).item() / (2 * eps)
+    an = float((zg.grad.double() * v.double()).sum())
+    assert abs(fd - an) < 3e-3 * max(1.0, abs(an)), (fd, an)
+    # along a smooth bump (tests/test_torch_grad.py): within 2% relative
+    yy, xx = np.mgrid[0:96, 0:96]
+    w = torch.from_numpy(np.exp(
+        -((yy - 40.32) ** 2 + (xx - 49.92) ** 2) / (2 * 15.36 ** 2))
+        .astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        fd = (loss(z + 0.1 * w) - loss(z - 0.1 * w)).item() / 0.2
+    an = float((zg.grad.double() * w.double()).sum())
+    assert an != 0.0 and abs(fd - an) <= 2e-2 * abs(an), (fd, an)
+    # the same gradient as the CPU path's plain versions
+    zc = z.cpu().requires_grad_(True)
+    loss(zc).backward()
+    scale = zc.grad.abs().max().item()
+    assert (zg.grad.cpu() - zc.grad).abs().max().item() <= 1e-5 * scale

@@ -208,7 +208,8 @@ def test_planar_pipeline_mask_with_zeros_not_ported():
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, horayzon_tpu_torch, horayzon_tpu_torch.ops.fused_sweep;"
+    code = ("import sys, horayzon_tpu_torch, horayzon_tpu_torch.ops.fused_sweep, "
+            "horayzon_tpu_torch.ops.replay, horayzon_tpu_torch.models.terrain_fit;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('horayzon_tpu.') or "
             "m == 'horayzon_tpu');"
