@@ -8,7 +8,7 @@
 Phases, each of which ends the run with a nonzero exit on failure:
 
 1. environment: torch, CUDA, the card, its name and power limit;
-2. build: kernels K1 (csrc/horizon_sweep.cu) and K3
+2. build: kernels K1 and K2 (csrc/horizon_sweep.cu, one template) and K3
    (csrc/horizon_replay_bwd.cu), one nvcc each for sm_90a, in parallel;
 3. K1 against its plain torch version on the card, on three small cases;
 4. the main path, ``PlanarPipeline.run`` at the bench headline shape
@@ -24,6 +24,16 @@ Phases, each of which ends the run with a nonzero exit on failure:
 7. a central finite-difference check of the gradient on the card;
 8. the trainer: ``TerrainFit`` at the defaults of
    ``examples/horizon/terrain_fit_gradient.py``, held to its checks;
+A. K2 (the shadow sweep) against its plain torch version on the card, on
+   the small cases of ``tests/test_torch_shadow.py``;
+B. the bench's shadow row (``bench.py:420-446``): K2 alone at the 2048^2 /
+   1024^2 shape with a 16-sun track, timed with CUDA events, and the plain
+   version once on the same inputs, compared on the full output;
+C. the shadow main path, ``shadow.Terrain`` at the defaults of
+   ``examples/shadow/gridded_planar_dem_artificial.py`` (hemisphere, 800^2
+   at 100 m, 600^2 inner, 181 suns at 30 degrees): ``sw_dir_cor_batch`` and
+   ``shadow_batch`` timed and held to the example's analytic check, codes
+   of a few suns against those from the plain metric;
 9. one JSON line per kernel, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -39,8 +49,10 @@ import time
 import numpy as np
 import torch
 
+from horayzon_tpu_torch import auxiliary, shadow, sun_position, topo_param
 from horayzon_tpu_torch.models import PlanarPipeline, terrain_fit
 from horayzon_tpu_torch.ops import _build, fused_sweep, mip, replay
+from horayzon_tpu_torch.ops import shadow_sweep
 
 #: Horizon-angle tolerance [rad] of K1 against the plain version.
 TOL = 1.0e-5
@@ -51,6 +63,9 @@ KERNEL_SOURCE = "horayzon_tpu_torch/csrc/horizon_sweep.cu"
 REPLACES = "horayzon_tpu/ops/pallas_sweep.py:157"
 BWD_SOURCE = "horayzon_tpu_torch/csrc/horizon_replay_bwd.cu"
 BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:1705"
+SHADOW_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2885"
+#: Shadow metric tolerance [m] of K2 against the plain version.
+SHADOW_TOL = 1.0e-3
 KERNELS = ("horizon_sweep", "horizon_replay_bwd")
 
 
@@ -101,6 +116,86 @@ def odd_case():
     return ("bumps96_inner32_d825", make_terrain(96, 96, seed=3),
             dict(offset=(32, 32), inner_shape=(32, 32), azim_num=5,
                  dist_search=825.0))
+
+
+def shadow_small_cases():
+    """(name, z, offset, inner, dx, dy, grid origin, suns relative to the
+    domain centre) of the K2-vs-plain phase: tests/test_torch_shadow.py's
+    cases (tests/test_pallas.py:153-181, dx != dy, a far spike only the mip
+    phases read, a sun below the horizon and one straight above)."""
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:128, 0:128]
+    z128 = np.zeros((128, 128))
+    for _ in range(6):
+        cy, cx = rng.uniform(0, 128), rng.uniform(0, 128)
+        sig = rng.uniform(4.0, 32.0)
+        z128 += rng.uniform(0.2, 1.0) * 400.0 * np.exp(
+            -(((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2)))
+    z128 = z128.astype(np.float32)
+    z_sp = np.zeros((256, 256), dtype=np.float32)
+    z_sp[2, 250] = 500.0
+    return [
+        ("bumps128_inner64", z128, (32, 32), (64, 64), 25.0, -25.0,
+         (0.0, 0.0), [(2.0e5, 1.0e5, 2.0e4), (-1.5e5, -0.5e5, 1.2e4),
+                      (0.3e5, -2.0e5, 3.0e4)]),
+        ("bumps96x160_dxdy", make_terrain(96, 160, seed=2), (12, 10),
+         (64, 128), 25.0, -30.0, (1000.0, 5.0e5),
+         [(2.0e5, 1.0e5, 1.5e4), (-1.0e5, 2.0e5, 1.0e4),
+          (-2.0e5, -0.4e5, 2.0e4), (0.5e5, -2.0e5, 0.8e4)]),
+        ("spike256_inner32", z_sp, (216, 8), (32, 32), 25.0, -25.0,
+         (0.0, 0.0), [(2.1e5, 2.1e5, 6.0e3), (2.0e5, 2.2e5, 8.0e3),
+                      (-2.0e5, 1.0e5, 6.0e3)]),
+        ("below_and_vertical", z128, (32, 32), (64, 64), 25.0, -25.0,
+         (0.0, 0.0), [(1.0e5, 0.0, -1.0e6), (0.0, 0.0, 2.0e4)]),
+    ]
+
+
+def shadow_inputs(zt, offset, inner, dx, dy, origin, rel):
+    """z_org, z_inner, sun table and keyword arguments of
+    ``shadow_metric_fused`` for suns at ``rel`` from the domain centre."""
+    h, w = zt.shape
+    cx = origin[0] + 0.5 * (w - 1) * dx
+    cy = origin[1] + 0.5 * (h - 1) * dy
+    suns = np.array([[cx + a, cy + b, c] for a, b, c in rel],
+                    dtype=np.float32)
+    table, _ = shadow_sweep.shadow_sun_table(suns, (cx, cy), dx, dy)
+    z_inner = zt[offset[0]:offset[0] + inner[0],
+                 offset[1]:offset[1] + inner[1]].contiguous()
+    z_org = z_inner + float(np.float32(0.05))
+    return z_org, z_inner, table, dict(offset=offset, inner_shape=inner,
+                                       dx=dx, dy=dy, grid_origin=origin)
+
+
+def hemisphere_terrain(dx=100.0):
+    """``Terrain.initialise`` arguments of
+    ``examples/shadow/gridded_planar_dem_artificial.py`` at its defaults: a
+    hemisphere of radius 9.5 km in a 40 km domain, 10 km halo."""
+    dom = np.array([10000, 20000, 10000], dtype=np.float32)
+    x = np.linspace(-(dom.sum() - dx / 2), dom.sum() - dx / 2,
+                    int(dom.sum() / dx) * 2, dtype=np.float32)
+    y = x[::-1].copy()
+    xx, yy = np.meshgrid(x, y)
+    halo = int(dom[2] / dx)
+    sl_in = (slice(halo, -halo), slice(halo, -halo))
+    elevation = np.zeros(xx.shape, dtype=np.float32)
+    m = int(dom[1:].sum() / dx)
+    sl_mod = (slice(m, -m), slice(m, -m))
+    with np.errstate(invalid="ignore"):
+        elevation[sl_mod] = np.sqrt((dom[0] * 0.95) ** 2 - xx[sl_mod] ** 2
+                                    - yy[sl_mod] ** 2)
+    elevation[np.isnan(elevation)] = 0.0
+    in_shape = elevation[sl_in].shape
+    vec_norm = np.zeros(in_shape + (3,), dtype=np.float32)
+    vec_norm[..., 2] = 1.0
+    sl1 = (slice(halo - 1, xx.shape[0] - halo + 1),
+           slice(halo - 1, xx.shape[1] - halo + 1))
+    vec_tilt = np.ascontiguousarray(topo_param.slope_plane_meth(
+        xx[sl1], yy[sl1], elevation[sl1])[1:-1, 1:-1].numpy())
+    surf = topo_param.surface_enlargement_factor(vec_norm, vec_tilt).numpy()
+    return (auxiliary.rearrange_pad_buffer(xx, yy, elevation),
+            elevation.shape[0], elevation.shape[1], halo, halo, vec_tilt,
+            vec_norm, surf, np.ascontiguousarray(elevation[sl_in]),
+            np.ones(in_shape, dtype=np.uint8))
 
 
 def event_ms(fn):
@@ -432,6 +527,127 @@ def main():
     check(losses[-1] < 0.05 * losses[0], "horizon misfit below 5% of the "
           "first step's")
 
+    print("== A. K2 against the plain version on the card")
+    sh_err = 0.0
+    for name, z_s, off, inner_s, dx_s, dy_s, origin, rel in \
+            shadow_small_cases():
+        zs = torch.from_numpy(z_s).to(dev)
+        z_org_s, z_in_s, table, kw = shadow_inputs(zs, off, inner_s, dx_s,
+                                                   dy_s, origin, rel)
+        n0 = shadow_sweep.KERNEL_LAUNCHES
+        got = shadow_sweep.shadow_metric_fused(zs, z_org_s, z_in_s, table,
+                                               **kw)
+        ref = shadow_sweep.shadow_metric_plain(zs, z_org_s, z_in_s, table,
+                                               **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        sh_err = max(sh_err, err)
+        print(f"  {name}: max |metric_K2 - metric_plain| = {err:.3e} m, "
+              f"{int((got != ref).sum())} of {got.numel()} differ; "
+              f"{(got > 0).float().mean().item():.3f} occluded")
+        check(shadow_sweep.KERNEL_LAUNCHES == n0 + 1,
+              f"{name}: K2 launched once")
+        check(bool(torch.isfinite(got).all()) and err <= SHADOW_TOL
+              and torch.equal(got > 0, ref > 0),
+              f"{name}: finite, within {SHADOW_TOL} m, metric > 0 equal")
+
+    print("== B. the bench's shadow row: K2 alone at 2048^2 / 1024^2")
+    n_sun = 16
+    tt = np.linspace(0.15, 2.9, n_sun)
+    track = list(zip(3.0e5 * np.cos(tt), 3.0e5 * np.sin(tt),
+                     2.0e4 + 1.0e4 * np.sin(2 * tt)))
+    z_org_b, z_in_b, table_b, kw_b = shadow_inputs(
+        zt, (halo, halo), (inner, inner), dx, -dx, (0.0, 0.0), track)
+    sargs = shadow_sweep.metric_args(
+        zt, z_org_b, z_in_b, table_b,
+        **{k: kw_b[k] for k in ("offset", "inner_shape", "dx", "dy")})
+    plan = sargs[4]
+    samples = plan["nx"] * 2 + (plan["n_dense"] - plan["nx"]) + sum(
+        ph[1] for ph in plan["phases_meta"][1:])
+    lv_mb = sum(t.numel() for t in sargs[2]) * 4 / 1e6
+    print(f"  plan: {samples} samples per (cell, sun), mip levels "
+          f"{[ph[0] for ph in plan['phases_meta'][1:]]}, pads "
+          f"{plan['pads']}, padded levels {lv_mb:.1f} MB")
+    check(samples == 658 and plan["pads"] == (232, 232, 232, 232, 183, 93),
+          "the plan of bench.py's shadow row")
+
+    def k2_run():
+        return shadow_sweep._metric_cuda(*sargs, grid_origin=(0.0, 0.0))
+
+    k2_run()
+    k2_ms = cuda_ms(k2_run, 10)
+    got = k2_run()
+    k2_plain_ms, ref = event_ms(lambda: shadow_sweep._metric_plain(
+        *sargs, grid_origin=(0.0, 0.0)))
+    err = (got - ref).abs().max().item()
+    sh_err = max(sh_err, err)
+    print(f"  K2 alone: {k2_ms:.3f} ms for {n_sun} suns, "
+          f"{k2_ms / n_sun:.4f} ms per sun, "
+          f"{inner * inner * n_sun / (k2_ms * 1e-3):.4e} (cell*sun)/s; "
+          f"plain torch sweep: {k2_plain_ms:.1f} ms  [{card}]")
+    print(f"  max |metric_K2 - metric_plain| = {err:.3e} m, "
+          f"{int((got != ref).sum())} of {got.numel()} differ; "
+          f"{(got > 0).float().mean().item():.4f} occluded")
+    check(bool(torch.isfinite(got).all()) and err <= SHADOW_TOL
+          and torch.equal(got > 0, ref > 0),
+          f"K2 within {SHADOW_TOL} m of the plain version, metric > 0 "
+          f"equal, on the full output")
+    del got, ref, sargs
+
+    print("== C. shadow main path: Terrain at the artificial example's "
+          "defaults")
+    t0 = time.perf_counter()
+    terrain = shadow.Terrain()
+    terrain.initialise(*hemisphere_terrain(), ang_max=89.99, device=dev)
+    torch.cuda.synchronize()
+    print(f"  initialise (host prep, vectors, pyramid): "
+          f"{time.perf_counter() - t0:.3f} s; inner {terrain.comp_shape}, "
+          f"{terrain.plan['n_dense']} dense steps, "
+          f"{len(terrain.plan['phases_meta']) - 1} mip phases")
+    azim = np.linspace(0.0, 360.0, 181)
+    suns = sun_position.sun_position_planar(azim, 30.0, dist=1.0e7)
+    terrain.sw_dir_cor_batch(suns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shadow_sweep.KERNEL_LAUNCHES = 0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sw = terrain.sw_dir_cor_batch(suns)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    codes = terrain.shadow_batch(suns)
+    torch.cuda.synchronize()
+    shadow_wall = time.perf_counter() - t0
+    k2_launches = shadow_sweep.KERNEL_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    c_wall = float(np.median(walls))
+    means = sw.mean(dim=(1, 2))
+    print(f"  sw_dir_cor_batch, 181 suns x {terrain.comp_shape}: median "
+          f"{c_wall:.4f} s wall of 3 (min {min(walls):.4f}, max "
+          f"{max(walls):.4f}); shadow_batch {shadow_wall:.4f} s; peak "
+          f"{peak / 2**20:.1f} MiB allocated  [{card}]")
+    print(f"  spatial-mean sw_dir_cor: min {means.min().item():.4f} max "
+          f"{means.max().item():.4f} average {means.mean().item():.4f}")
+    check(k2_launches == 4, f"main path launched K2 ({k2_launches} "
+          f"launches in 4 queries)")
+    check(tuple(sw.shape) == (181, 600, 600) and sw.is_cuda
+          and bool(torch.isfinite(sw).all()), "sw_dir_cor shape, device, "
+          "finite")
+    check(abs(means.mean().item() - 1.0) <= 0.03,
+          "average spatial-mean sw_dir_cor within 1 +- 0.03 (the "
+          "example's analytic check)")
+    counts = torch.bincount(codes.flatten().long(), minlength=4)
+    check(codes.dtype == torch.uint8 and codes.max().item() <= 3
+          and counts.sum().item() == codes.numel(),
+          f"shadow codes in {{0, 1, 2, 3}}: counts {counts.tolist()}")
+    few = [0, 45, 100, 150]
+    plain_codes = terrain._run(suns[few], "shadow", plain=True)
+    check(torch.equal(plain_codes, codes[few]),
+          f"codes of suns {few} equal those from the plain metric")
+    del sw, codes, plain_codes
+
     print("== 9. result")
     print(json.dumps({"kernels": [
         {"name": "horizon_sweep (K1)", "route": "cuda",
@@ -445,7 +661,11 @@ def main():
         {"name": "horizon_replay_bwd (K3)", "route": "cuda",
          "source": BWD_SOURCE, "replaces": BWD_REPLACES,
          "launches": k3_launches, "max_abs_err": bwd_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms}]}))
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "shadow_sweep (K2)", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": SHADOW_REPLACES,
+         "launches": k2_launches, "max_abs_err": sh_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,11 @@
 # Copyright (c) 2026
 # MIT License
-"""Sweep schedule, max-mip pyramid, the fused horizon sweep (kernel K1) and
-its winner-replay backward (kernel K3)."""
+"""Sweep schedule, max-mip pyramid, the fused horizon sweep (kernel K1), its
+winner-replay backward (kernel K3), the fused shadow sweep (kernel K2) and
+atmospheric refraction."""
 
-from horayzon_tpu_torch.ops import fused_sweep, mip, replay, sweep
+from horayzon_tpu_torch.ops import (fused_sweep, mip, refraction, replay,
+                                    shadow_sweep, sweep)
 
-__all__ = ["fused_sweep", "mip", "replay", "sweep"]
+__all__ = ["fused_sweep", "mip", "refraction", "replay", "shadow_sweep",
+           "sweep"]

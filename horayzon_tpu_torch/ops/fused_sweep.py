@@ -25,6 +25,10 @@ floats.  Both have the argmax variant of the gradient path, whose record
 :mod:`horayzon_tpu_torch.ops.replay` replays.  The reference's early exits
 are value-exact and are not ported yet, nor are the mask and tilt-ramp
 variants.
+
+The loop skeleton (:func:`sweep_plain`), the kernel's parameter block
+(:func:`kernel_params`) and its library (:func:`kernel_lib`) also serve the
+shadow mode, kernel K2, of :mod:`horayzon_tpu_torch.ops.shadow_sweep`.
 """
 
 import ctypes
@@ -136,19 +140,45 @@ def _constants(plan):
         inv_l1=_f32(0.5 / step), inv_l1_sq=_f32((0.5 / step) * (0.5 / step)),
         # distances of the h2 re-reads before a trailing single step
         s_m1_safe=_f32((nx + 2 * ((ns1 - nx) // 2) - 1) * step),
-        s_m1_masked=_f32((ns1 + 2 * ((n_dense - ns1) // 2) - 1) * step))
+        s_m1_masked=_f32((ns1 + 2 * ((n_dense - ns1) // 2) - 1) * step),
+        # shadow mode's vertex window 2 (t_lo + 1e-3), 2 (length - 1e-3)
+        # for t_lo in (0, step), length in (step, 2 step)
+        # (pallas_sweep.py:429-430)
+        lo2_0=_f32(2.0 * (0.0 + 1e-3)), lo2_step=_f32(2.0 * (step + 1e-3)),
+        hi2_step=_f32(2.0 * (step - 1e-3)),
+        hi2_two_step=_f32(2.0 * (2.0 * step - 1e-3)))
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
-                 emit_argmax=False):
-    """Raw ratios (A, in0, in1) in plain torch: per azimuth and step, the
-    shifted slices of the padded level, vectorised over all inner cells.
+def _check_rows(what, lo, hi, size):
+    """Rows (or columns) ``[lo, hi)`` of a read lie inside a padded level of
+    ``size``: a slice past the edge would not raise by itself."""
+    if lo < 0 or hi > size:
+        raise IndexError(f"{what} reads [{lo}, {hi}) outside the padded "
+                         f"level of size {size}")
 
-    ``emit_argmax``: return ``(raw, ids, aux)`` as the argmax variant of
+
+def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
+                emit_argmax=False):
+    """The loop skeleton of ``pallas_sweep.py::_kernel`` in plain torch,
+    shared by the plain versions of K1 (horizon) and K2 (shadow).
+
+    For each row ``r`` of ``range(n_rows)`` (an azimuth or a sun) the
+    shifted slices of the padded levels are read for all inner cells at
+    once, in the reference's sections: d2 steps, d1 pairs, the h2 re-read
+    and trailing single, masked steps past ``n_safe``, mip phases.  The
+    mode enters through ``row_mode(r) -> (sh_i, sh_j, point, quad)``: the
+    float32 row and column shifts [cells per metre] and the candidate
+    functions ``point(h, s)`` (a sample of height ``h`` at distance ``s``)
+    and ``quad(a_c, b_c, h0, s_start, win) -> (valid, cand, g, a)`` (the
+    interior candidate of the parabola over window ``win``: 0 a d2 step,
+    1 a d1 pair, 2 a d1 single; ``(g, a)`` the argmax pair).  Returns the
+    running maxima (n_rows, in0, in1).
+
+    ``emit_argmax``: return ``(out, ids, aux)`` as the argmax variant of
     K1 does: strict ``cand > acc`` updates in the reference's candidate
     order (the same running value as the maximum), the winner ids and the
     winning parabola's stationary denominator D (``pallas_sweep.py:481-496,
@@ -159,17 +189,16 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
     h, w = outer_shape
     pads = plan["pads"]
     k = plan["consts"]
-    dev = z_org.device
+    dev = z_inner.device
     rows = torch.arange(off0, off0 + in0, device=dev)
     cols = torch.arange(off1, off1 + in1, device=dev)
     lvl0, pad0 = levels[0], pads[0]
     step, two_step = k["step"], k["two_step"]
-    eps = f32(1e-3)
-    a_num = trig.shape[0]
-    out = torch.empty((a_num, in0, in1), dtype=torch.float32, device=dev)
+    out = torch.empty((n_rows, in0, in1), dtype=torch.float32, device=dev)
     if emit_argmax:
-        ids = torch.empty((a_num, in0, in1), dtype=torch.int32, device=dev)
-        aux = torch.empty((a_num, in0, in1), dtype=torch.float32, device=dev)
+        ids = torch.empty((n_rows, in0, in1), dtype=torch.int32, device=dev)
+        aux = torch.empty((n_rows, in0, in1), dtype=torch.float32,
+                          device=dev)
 
     def inside0(di, dj):
         rv = (rows + di >= 0) & (rows + di + 1 <= h - 1)
@@ -187,28 +216,18 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
                 n if num is None else torch.where(upd, num, n),
                 d if den is None else torch.where(upd, den, d))
 
-    def point_update(acc, he, s, cid):
-        return update(acc, (he - z_org) * float(f32(1.0) / s), cid)
+    for r_idx in range(n_rows):
+        sh_i, sh_j, point, quad = row_mode(r_idx)
 
-    def quad_update(acc, a_c, b_c, h0, s_start, length, t_lo, extra, cid):
-        ss = float(s_start)
-        u = (a_c * ss - b_c) * ss + (h0 - z_org)
-        # square root through float64: torch's float32 CPU sqrt is not
-        # always correctly rounded, and r_int cancels large terms, so one
-        # ulp of g can move the candidate far more than an ulp
-        g = torch.sqrt(torch.clamp_min(a_c * u, 0.0).double()).float()
-        g = torch.where(a_c >= 0.0, g, -g)
-        r_int = b_c - 2.0 * a_c * ss + 2.0 * g
-        lo = (s_start + t_lo) + eps
-        hi = (s_start + length) - eps
-        valid = (u - a_c * float(lo * lo)) * (u - a_c * float(hi * hi)) < 0.0
-        if extra is not None:
-            valid = valid & extra
-        return update(acc, torch.where(valid, r_int, _NEG_INIT), cid, g, a_c)
+        def point_update(acc, he, s, cid):
+            return update(acc, point(he, s), cid)
 
-    for az in range(a_num):
-        sh_i = f32(trig[az, 1]) / f32(plan["dy"])   # row cells per metre
-        sh_j = f32(trig[az, 0]) / f32(plan["dx"])
+        def quad_update(acc, a_c, b_c, h0, s_start, win, extra, cid):
+            valid, cand, g, a = quad(a_c, b_c, h0, s_start, win)
+            if extra is not None:
+                valid = valid & extra
+            return update(acc, torch.where(valid, cand, _NEG_INIT), cid, g,
+                          a)
 
         def read0(s):
             dif = s * sh_i
@@ -219,6 +238,8 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
             fj = djf - dj
             r = off0 + int(di) + pad0
             c = off1 + int(dj) + pad0
+            _check_rows("a level-0 row", r, r + in0 + 1, lvl0.shape[0])
+            _check_rows("a level-0 column", c, c + in1 + 1, lvl0.shape[1])
             win = lvl0[r:r + in0 + 1, c:c + in1 + 1]
             gj = float(f32(1.0) - fj)
             top = gj * win[:-1, :-1] + float(fj) * win[:-1, 1:]
@@ -238,8 +259,8 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
             if masked:
                 v_end = inside0(die, dje)
                 extra = inside0(dim, djm) & v_end
-            acc = quad_update(acc, a_c, b_c, h1, s_start, step, f32(0.0),
-                              extra, 2 * m + 1)
+            acc = quad_update(acc, a_c, b_c, h1, s_start, 0, extra,
+                              2 * m + 1)
             return acc, he, v_end
 
         def d1_pair(m, acc, h1, masked, v1=None):
@@ -255,8 +276,8 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
             if masked:
                 v_b = inside0(dib, djb)
                 extra = v1 & inside0(dia, dja) & v_b
-            acc = quad_update(acc, a_c, b_c, h1, s_b - two_step, two_step,
-                              f32(0.0), extra, 2 * (m + 1) + 1)
+            acc = quad_update(acc, a_c, b_c, h1, s_b - two_step, 1, extra,
+                              2 * (m + 1) + 1)
             return acc, h_b, v_b
 
         def d1_single(m, acc, h2, h1, masked, v2=None, v1=None):
@@ -266,16 +287,16 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
             a_c = (2.0 * he + 2.0 * h2 - 4.0 * h1) * float(k["inv_l1_sq"])
             b_c = (4.0 * h1 - 3.0 * h2 - he) * float(k["inv_l1"])
             extra = v2 & v1 & inside0(die, dje) if masked else None
-            acc = quad_update(acc, a_c, b_c, h2, s_end - two_step, two_step,
-                              step, extra, 2 * m + 1)
+            acc = quad_update(acc, a_c, b_c, h2, s_end - two_step, 2, extra,
+                              2 * m + 1)
             return acc, he
 
         # Dense steps, in the reference's sections (pallas_sweep.py:641-757)
-        acc = torch.full_like(z_org, _NEG_INIT)
+        acc = torch.full_like(z_inner, _NEG_INIT)
         if emit_argmax:
             acc = (acc, torch.full((in0, in1), _replay.ID_NONE,
                                    dtype=torch.int32, device=dev),
-                   torch.ones_like(z_org), torch.ones_like(z_org))
+                   torch.ones_like(z_inner), torch.ones_like(z_inner))
         h2 = h1 = z_inner
         ones = torch.ones((in0, in1), dtype=torch.bool, device=dev)
         for m in range(plan["ns2"]):
@@ -317,6 +338,14 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
                 s = np.minimum(f32(s_first) + f32(m) * f32(step_l), k["dist"])
                 ri = int(np.rint(s * sh_i))
                 rj = int(np.rint(s * sh_j))
+                _check_rows(f"a level-{lvl} row",
+                            (off0 + ri + bias) // kp - bias // kp + pad,
+                            (off0 + in0 - 1 + ri + bias) // kp - bias // kp
+                            + pad + 1, lvl_t.shape[0])
+                _check_rows(f"a level-{lvl} column",
+                            (off1 + rj + bias) // kp - bias // kp + pad,
+                            (off1 + in1 - 1 + rj + bias) // kp - bias // kp
+                            + pad + 1, lvl_t.shape[1])
                 r = (torch.div(rows + (ri + bias), kp, rounding_mode="trunc")
                      - bias // kp + pad)
                 c = (torch.div(cols + (rj + bias), kp, rounding_mode="trunc")
@@ -325,26 +354,71 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
                 acc = point_update(acc, hs, s, id_off + m)
             id_off += n_m
         if emit_argmax:
-            acc, ids[az], num, den = acc
+            acc, ids[r_idx], num, den = acc
             # the deferred divide of the winning parabola's D
-            aux[az] = num / torch.where(den.abs() > 1e-30, den, 1e-30)
-        out[az] = acc
+            aux[r_idx] = num / torch.where(den.abs() > 1e-30, den, 1e-30)
+        out[r_idx] = acc
     if emit_argmax:
         return out, ids, aux
     return out
 
 
+def _horizon_rows(z_org, trig, plan):
+    """``row_mode`` of :func:`sweep_plain` for K1: the elevation-angle
+    ratio ``(h - z_org) / s`` and the division-free interior stationary
+    value of the parabola (``pallas_sweep.py:455-490``)."""
+    f32 = np.float32
+    k = plan["consts"]
+    eps = f32(1e-3)
+    # (length, t_lo) of each window
+    wins = ((k["step"], f32(0.0)), (k["two_step"], f32(0.0)),
+            (k["two_step"], k["step"]))
+
+    def point(he, s):
+        return (he - z_org) * float(f32(1.0) / s)
+
+    def quad(a_c, b_c, h0, s_start, win):
+        length, t_lo = wins[win]
+        ss = float(s_start)
+        u = (a_c * ss - b_c) * ss + (h0 - z_org)
+        # square root through float64: torch's float32 CPU sqrt is not
+        # always correctly rounded, and r_int cancels large terms, so one
+        # ulp of g can move the candidate far more than an ulp
+        g = torch.sqrt(torch.clamp_min(a_c * u, 0.0).double()).float()
+        g = torch.where(a_c >= 0.0, g, -g)
+        r_int = b_c - 2.0 * a_c * ss + 2.0 * g
+        lo = (s_start + t_lo) + eps
+        hi = (s_start + length) - eps
+        valid = (u - a_c * float(lo * lo)) * (u - a_c * float(hi * hi)) < 0.0
+        return valid, r_int, g, a_c
+
+    def row(az):
+        sh_i = f32(trig[az, 1]) / f32(plan["dy"])   # row cells per metre
+        sh_j = f32(trig[az, 0]) / f32(plan["dx"])
+        return sh_i, sh_j, point, quad
+
+    return row
+
+
+def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
+                 emit_argmax=False):
+    """Raw ratios (A, in0, in1) in plain torch (K1's plain version); with
+    ``emit_argmax`` ``(raw, ids, aux)`` (see :func:`sweep_plain`)."""
+    return sweep_plain(z_inner, levels, plan, outer_shape, trig.shape[0],
+                       _horizon_rows(z_org, trig, plan), emit_argmax)
+
+
 # ---------------------------------------------------------------------------
-# Kernel K1 (csrc/horizon_sweep.cu)
+# Kernels K1 and K2 (csrc/horizon_sweep.cu)
 # ---------------------------------------------------------------------------
 
 class _HzParams(ctypes.Structure):
     """Mirror of ``struct HzParams`` in csrc/horizon_sweep.cu."""
     _fields_ = (
         [("z_org", ctypes.c_void_p), ("z_inner", ctypes.c_void_p),
-         ("trig", ctypes.c_void_p), ("out", ctypes.c_void_p),
-         ("ids", ctypes.c_void_p), ("aux", ctypes.c_void_p),
-         ("lvl", ctypes.c_void_p * _MAX_LEVELS)]
+         ("trig", ctypes.c_void_p), ("sun", ctypes.c_void_p),
+         ("out", ctypes.c_void_p), ("ids", ctypes.c_void_p),
+         ("aux", ctypes.c_void_p), ("lvl", ctypes.c_void_p * _MAX_LEVELS)]
         + [(n, ctypes.c_int * _MAX_LEVELS)
            for n in ("lvl_w", "lvl_pad", "ph_lvl", "ph_n")]
         + [(n, ctypes.c_float * _MAX_LEVELS)
@@ -355,13 +429,15 @@ class _HzParams(ctypes.Structure):
         + [(n, ctypes.c_float)
            for n in ("dx", "dy", "step", "dist", "half_step", "two_step",
                      "inv_l0", "inv_l0_sq", "inv_l1", "inv_l1_sq",
-                     "s_m1_safe", "s_m1_masked")])
+                     "s_m1_safe", "s_m1_masked", "x0", "y0", "lo2_0",
+                     "lo2_step", "hi2_step", "hi2_two_step")])
 
 
-def _kernel_lib():
-    """The loaded K1 library (built with nvcc on first use)."""
+def kernel_lib():
+    """The loaded library of K1 and K2 (built with nvcc on first use)."""
     lib = _build.load("horizon_sweep")
-    for fn in (lib.horizon_sweep_launch, lib.horizon_sweep_argmax_launch):
+    for fn in (lib.horizon_sweep_launch, lib.horizon_sweep_argmax_launch,
+               lib.shadow_sweep_launch):
         fn.argtypes = [ctypes.POINTER(_HzParams), ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -376,34 +452,27 @@ def _kernel_lib():
     return lib
 
 
-def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
-                emit_argmax=False):
-    """Raw ratios (A, in0, in1) from kernel K1 on ``z_org``'s card;
-    ``emit_argmax``: ``(raw, ids, aux)`` from K1's argmax variant, as
-    :func:`_ratio_plain` returns them."""
-    global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
+def kernel_params(z_org, z_inner, levels, plan, outer_shape, n_rows, out):
+    """``HzParams`` of one launch of K1 or K2 over ``n_rows`` azimuths or
+    suns writing ``out``, with every field the two modes share; the tensors
+    are checked as the kernel takes them."""
     dev = z_org.device
-    for t in (z_org, z_inner, *levels):
+    for t in (z_org, z_inner, *levels, out):
         if (t.device != dev or t.dtype != torch.float32
                 or not t.is_contiguous()):
-            raise ValueError("K1 takes contiguous float32 tensors on one "
-                             "CUDA device")
+            raise ValueError("the sweep kernel takes contiguous float32 "
+                             "tensors on one CUDA device")
     in0, in1 = plan["inner_shape"]
     if z_org.shape != (in0, in1) or z_inner.shape != (in0, in1):
         raise ValueError("z_org/z_inner do not have the inner shape")
+    if tuple(out.shape) != (n_rows, in0, in1):
+        raise ValueError("out does not have the output shape")
     phases = plan["phases_meta"]
     if len(levels) > _MAX_LEVELS or len(phases) > _MAX_LEVELS:
         raise ValueError(f"at most {_MAX_LEVELS} pyramid levels")
-    trig_t = torch.from_numpy(trig).to(dev)
-    shape = (trig.shape[0], in0, in1)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
     prm = _HzParams()
     prm.z_org, prm.z_inner = z_org.data_ptr(), z_inner.data_ptr()
-    prm.trig, prm.out = trig_t.data_ptr(), out.data_ptr()
-    if emit_argmax:
-        ids = torch.empty(shape, dtype=torch.int32, device=dev)
-        aux = torch.empty(shape, dtype=torch.float32, device=dev)
-        prm.ids, prm.aux = ids.data_ptr(), aux.data_ptr()
+    prm.out = out.data_ptr()
     for lvl, t in enumerate(levels):
         prm.lvl[lvl] = t.data_ptr()
         prm.lvl_w[lvl] = t.shape[1]
@@ -412,7 +481,7 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
         prm.ph_lvl[p], prm.ph_n[p] = lvl, n_m
         prm.ph_s_first[p], prm.ph_step[p] = s_first, step_l
     prm.n_phases = len(phases)
-    prm.in0, prm.in1, prm.a_num = in0, in1, trig.shape[0]
+    prm.in0, prm.in1, prm.a_num = in0, in1, n_rows
     prm.off0, prm.off1 = plan["offset"]
     prm.h, prm.w = outer_shape
     for n in ("ns2", "nx", "ns1", "n_dense"):
@@ -420,14 +489,40 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
     prm.dx, prm.dy = _f32(plan["dx"]), _f32(plan["dy"])
     for n, v in plan["consts"].items():
         setattr(prm, n, v)
-    lib = _kernel_lib()
-    launch = (lib.horizon_sweep_argmax_launch if emit_argmax
-              else lib.horizon_sweep_launch)
-    err = launch(ctypes.byref(prm), dev.index,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    return prm
+
+
+def launch(lib, entry, prm, dev):
+    """Launch ``entry`` of the sweep library on the current stream of
+    ``dev``; raise if the launch fails."""
+    err = entry(ctypes.byref(prm), dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.horizon_sweep_error_string(err).decode()
         raise RuntimeError(f"horizon_sweep kernel launch failed: {msg}")
+
+
+def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
+                emit_argmax=False):
+    """Raw ratios (A, in0, in1) from kernel K1 on ``z_org``'s card;
+    ``emit_argmax``: ``(raw, ids, aux)`` from K1's argmax variant, as
+    :func:`_ratio_plain` returns them."""
+    global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
+    dev = z_org.device
+    in0, in1 = plan["inner_shape"]
+    shape = (trig.shape[0], in0, in1)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    prm = kernel_params(z_org, z_inner, levels, plan, outer_shape,
+                        trig.shape[0], out)
+    trig_t = torch.from_numpy(trig).to(dev)
+    prm.trig = trig_t.data_ptr()
+    if emit_argmax:
+        ids = torch.empty(shape, dtype=torch.int32, device=dev)
+        aux = torch.empty(shape, dtype=torch.float32, device=dev)
+        prm.ids, prm.aux = ids.data_ptr(), aux.data_ptr()
+    lib = kernel_lib()
+    launch(lib, lib.horizon_sweep_argmax_launch if emit_argmax
+           else lib.horizon_sweep_launch, prm, dev)
     if emit_argmax:
         ARGMAX_KERNEL_LAUNCHES += 1
         return out, ids, aux
@@ -439,7 +534,22 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
 # Entry points
 # ---------------------------------------------------------------------------
 
-def _check_pyramid(pyramid, z, pads):
+def check_block(z, offset, inner_shape):
+    """``z`` is 2-D and holds the inner block ``inner_shape`` at
+    ``offset``."""
+    if z.ndim != 2:
+        raise ValueError(f"z_outer must be 2-D, got shape {tuple(z.shape)}")
+    (off0, off1), (in0, in1) = offset, inner_shape
+    if (min(off0, off1) < 0 or min(in0, in1) < 1
+            or off0 + in0 > z.shape[0] or off1 + in1 > z.shape[1]):
+        raise ValueError(f"inner block {tuple(inner_shape)} at offset "
+                         f"{tuple(offset)} does not lie inside z_outer "
+                         f"{tuple(z.shape)}")
+
+
+def check_pyramid(pyramid, z, pads):
+    """``pyramid`` as the padded levels of ``z`` for ``pads``: float32,
+    contiguous, on ``z``'s device."""
     shapes = _mip.level_shapes(tuple(z.shape), len(pads))
     if len(pyramid) != len(pads):
         raise ValueError(f"pyramid has {len(pyramid)} levels, the schedule "
@@ -465,16 +575,10 @@ def sweep_args(z_outer, *, dx, dy, offset, inner_shape, azim_num,
     arguments of :func:`horizon_sweep_fused` (validated as it validates
     them).  ``z_outer`` must be a float32 tensor."""
     z = z_outer
-    if z.ndim != 2:
-        raise ValueError(f"z_outer must be 2-D, got shape {tuple(z.shape)}")
+    check_block(z, offset, inner_shape)
     if int(azim_num) < 1:
         raise ValueError("azim_num must be at least 1")
     (off0, off1), (in0, in1) = offset, inner_shape
-    if (min(off0, off1) < 0 or min(in0, in1) < 1
-            or off0 + in0 > z.shape[0] or off1 + in1 > z.shape[1]):
-        raise ValueError(f"inner block {tuple(inner_shape)} at offset "
-                         f"{tuple(offset)} does not lie inside z_outer "
-                         f"{tuple(z.shape)}")
     plan = plan_sweep(tuple(z.shape), inner_shape=(in0, in1),
                       offset=(off0, off1), dist_search=dist_search, dx=dx,
                       dy=dy, hori_acc=hori_acc, rel_err=rel_err,
@@ -482,7 +586,7 @@ def sweep_args(z_outer, *, dx, dy, offset, inner_shape, azim_num,
     if pyramid is None:
         levels = _mip.padded_levels(z, plan["pads"])
     else:
-        levels = _check_pyramid(pyramid, z, plan["pads"])
+        levels = check_pyramid(pyramid, z, plan["pads"])
     z_inner = z[off0:off0 + in0, off1:off1 + in1].contiguous()
     z_org = z_inner + float(_f32(ray_org_elev))
     return (z_org, z_inner, levels, trig_table(int(azim_num)), plan,

@@ -1,0 +1,236 @@
+# Copyright (c) 2026
+# MIT License
+"""Fused planar shadow sweep: the counterpart of
+``horayzon_tpu.ops.pallas_sweep.shadow_metric_pallas`` with
+``exact_metric=True``.
+
+For every inner cell and each sun of a track, :func:`shadow_metric_fused`
+returns the occlusion metric: the maximum along the cell's ray toward the
+sun of the clearance ``h(s) - (z_org + s * m)``, where ``m`` is the cell's
+ray slope; a positive metric means the terrain hides the sun.  The rays run
+to the diagonal of the outer grid (tfar is infinite in the reference,
+``shadow_comp.cpp:454-467``).  Behind it sits one sweep with two
+implementations of identical arithmetic:
+
+* kernel K2, the shadow mode of ``csrc/horizon_sweep.cu`` (CUDA C++ for
+  ``sm_90a``, one thread per (cell, sun)), run for a CUDA tensor;
+* :func:`_metric_plain`, the loop skeleton that K1's plain version uses
+  (:func:`horayzon_tpu_torch.ops.fused_sweep.sweep_plain`) with the shadow
+  mode's per-cell set-up and updates, run for a CPU tensor and used on the
+  card as the kernel's reference.
+
+Both follow ``pallas_sweep.py::_kernel(mode="shadow")``: the ray slope from
+the sun table (:352-380), the clearance of a point sample (:487-489) and
+the vertex value of a concave parabola segment (:426-437), rounded as the
+reference rounds them.  None of the reference's skips run, so the value is
+its ``exact_metric=True`` value.  The argmax variant (the gradient path) is
+not ported yet.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from horayzon_tpu_torch.ops import fused_sweep as _fused
+from horayzon_tpu_torch.ops import mip as _mip
+
+#: Launches of kernel K2 made by this process (incremented only where the
+#: wrapper launches it).
+KERNEL_LAUNCHES = 0
+
+_F32 = np.float32
+#: float32(-1e-12): the concavity threshold of the vertex candidate
+_NEG_TINY = float(_F32(-1.0e-12))
+
+
+def shadow_sun_table(sun_positions, center, dx, dy):
+    """Host-side per-sun table (copy of
+    ``pallas_sweep.shadow_sun_table``, ``pallas_sweep.py:2706-2727``).
+
+    Rows: sun_x, sun_y, sun_z, kx_u, ky_u, ui, uj, 0: the unit horizontal
+    direction toward the sun from the domain centre ``center`` and the
+    marching shifts in grid cells per metre, formed in float64 and rounded
+    to float32 once.  Returns (table (T, 8) float32, near_vertical (T,)
+    bool)."""
+    sp = np.atleast_2d(np.asarray(sun_positions, dtype=np.float64))
+    kx = sp[:, 0] - center[0]
+    ky = sp[:, 1] - center[1]
+    k_norm = np.hypot(kx, ky)
+    near_vertical = k_norm < 1.0e-6
+    kx_u = np.where(near_vertical, 1.0, kx / np.maximum(k_norm, 1e-6))
+    ky_u = np.where(near_vertical, 0.0, ky / np.maximum(k_norm, 1e-6))
+    table = np.zeros((sp.shape[0], 8), dtype=np.float32)
+    table[:, 0:3] = sp
+    table[:, 3] = kx_u
+    table[:, 4] = ky_u
+    table[:, 5] = ky_u / dy   # ui: row cells per metre
+    table[:, 6] = kx_u / dx   # uj
+    return table, near_vertical
+
+
+def plan_shadow(outer_shape, *, inner_shape, offset, dx, dy, hori_acc=0.25,
+                rel_err=None):
+    """The sweep plan of the shadow metric: :func:`fused_sweep.plan_sweep`
+    with the search distance set to the diagonal of the outer grid, as
+    ``horayzon_tpu/shadow.py:359-365`` builds its schedule."""
+    h, w = outer_shape
+    diag = math.hypot(w * abs(dx), h * abs(dy))
+    return _fused.plan_sweep(outer_shape, inner_shape=inner_shape,
+                             offset=offset, dist_search=diag, dx=dx, dy=dy,
+                             hori_acc=hori_acc, rel_err=rel_err)
+
+
+def sqrt_rn(x):
+    """Correctly rounded float32 square root (through float64: torch's
+    float32 CPU sqrt is not always correctly rounded)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _shadow_rows(z_org, table, plan, grid_origin):
+    """``row_mode`` of :func:`fused_sweep.sweep_plain` for K2: per sun the
+    shifts of the table's columns 5-6, the ray-slope field ``m`` and the
+    clearance candidates (``pallas_sweep.py:352-380, 426-437, 487-489``)."""
+    k = plan["consts"]
+    in0, in1 = plan["inner_shape"]
+    off0, off1 = plan["offset"]
+    dev = z_org.device
+    # lattice coordinates of the global outer rows and columns
+    xr = ((torch.arange(off1, off1 + in1, device=dev).to(torch.float32)
+           * float(_F32(plan["dx"]))) + float(_F32(grid_origin[0])))
+    yr = ((torch.arange(off0, off0 + in0, device=dev).to(torch.float32)
+           * float(_F32(plan["dy"]))) + float(_F32(grid_origin[1])))
+    # (lo2, hi2) of each window: d2 step, d1 pair, d1 single
+    wins = ((k["lo2_0"], k["hi2_step"]), (k["lo2_0"], k["hi2_two_step"]),
+            (k["lo2_step"], k["hi2_two_step"]))
+
+    def row(t):
+        sun_x, sun_y, sun_z, kx_u, ky_u, sh_i, sh_j = table[t, :7]
+        sxr = float(sun_x) - xr                  # (in1,)
+        syr = float(sun_y) - yr                  # (in0,)
+        szr = float(sun_z) - z_org
+        mag = sqrt_rn((sxr * sxr)[None, :] + (syr * syr)[:, None]
+                       + szr * szr)
+        adv = ((sxr * float(kx_u))[None, :]
+               + (syr * float(ky_u))[:, None]) / mag
+        m = (szr / mag) / torch.clamp_min(adv, float(_F32(1.0e-4)))
+
+        def point(he, s):
+            return (he - z_org) - m * float(s)
+
+        def quad(a_c, b_c, h0, s_start, win):
+            lo2, hi2 = wins[win]
+            concave = a_c < _NEG_TINY
+            a_s = torch.where(concave, a_c, _NEG_TINY)
+            d = b_c - m
+            lo2a = a_c * float(lo2)
+            hi2a = a_c * float(hi2)
+            valid = concave & ((d + lo2a) * (d + hi2a) < 0.0)
+            cand = ((h0 - z_org) - m * float(s_start)) \
+                - ((d * 0.25) * d) / a_s
+            return valid, cand, None, None
+
+        return sh_i, sh_j, point, quad
+
+    return row
+
+
+def _metric_plain(z_org, z_inner, levels, table, plan, outer_shape,
+                  grid_origin):
+    """The metric (T, in0, in1) in plain torch (K2's plain version)."""
+    return _fused.sweep_plain(z_inner, levels, plan, outer_shape,
+                              table.shape[0],
+                              _shadow_rows(z_org, table, plan, grid_origin))
+
+
+def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
+                 grid_origin):
+    """The metric (T, in0, in1) from kernel K2 on ``z_org``'s card."""
+    global KERNEL_LAUNCHES
+    dev = z_org.device
+    in0, in1 = plan["inner_shape"]
+    out = torch.empty((table.shape[0], in0, in1), dtype=torch.float32,
+                      device=dev)
+    prm = _fused.kernel_params(z_org, z_inner, levels, plan, outer_shape,
+                               table.shape[0], out)
+    table_t = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
+    prm.sun = table_t.data_ptr()
+    prm.x0, prm.y0 = _F32(grid_origin[0]), _F32(grid_origin[1])
+    lib = _fused.kernel_lib()
+    _fused.launch(lib, lib.shadow_sweep_launch, prm, dev)
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def metric_args(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
+                inner_shape, dx, dy, hori_acc=0.25, rel_err=None,
+                pyramid=None):
+    """The inputs ``(z_org, z_inner, levels, table, plan, outer_shape)`` of
+    :func:`_metric_cuda` / :func:`_metric_plain` from the arguments of
+    :func:`shadow_metric_fused`, validated as it validates them."""
+    z = torch.as_tensor(z_outer)
+    if z.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no shadow sweep for device {z.device}")
+    z = z.detach().to(torch.float32).contiguous()
+    _fused.check_block(z, offset, inner_shape)
+    in0, in1 = inner_shape
+    fields = []
+    for name, f in (("z_org_r", z_org_r), ("z_inner_r", z_inner_r)):
+        f = torch.as_tensor(f).detach().to(device=z.device,
+                                           dtype=torch.float32).contiguous()
+        if tuple(f.shape) != (in0, in1):
+            raise ValueError(f"{name} has shape {tuple(f.shape)}, expected "
+                             f"the inner shape {(in0, in1)}")
+        fields.append(f)
+    table = np.asarray(sun_table, dtype=np.float32)
+    if table.ndim != 2 or table.shape[1] != 8 or table.shape[0] < 1:
+        raise ValueError(f"sun_table must be (T, 8) with T >= 1, got shape "
+                         f"{table.shape}")
+    plan = plan_shadow(tuple(z.shape), inner_shape=(in0, in1),
+                       offset=tuple(offset), dx=dx, dy=dy,
+                       hori_acc=hori_acc, rel_err=rel_err)
+    if pyramid is None:
+        levels = _mip.padded_levels(z, plan["pads"])
+    else:
+        levels = _fused.check_pyramid(pyramid, z, plan["pads"])
+    return (fields[0], fields[1], levels, table, plan, tuple(z.shape))
+
+
+def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
+                        inner_shape, dx, dy, grid_origin, hori_acc=0.25,
+                        rel_err=None, pyramid=None):
+    """Batched shadow occlusion metric via the fused sweep.
+
+    The contract of ``horayzon_tpu.ops.pallas_sweep.shadow_metric_pallas``
+    with ``exact_metric=True`` and no mask: ``z_outer`` the (H, W) outer
+    heightfield, ``z_org_r`` / ``z_inner_r`` the (in0, in1) ray-origin and
+    terrain heights of the inner block at ``offset``, ``sun_table`` the
+    (T, 8) table of :func:`shadow_sun_table`, ``grid_origin`` the (x, y) of
+    outer cell (0, 0); ``dx``, ``dy`` signed spacings [metre].  The rays
+    run to the outer grid's diagonal (:func:`plan_shadow`).  There is no
+    tile: the inner block is swept as it is.
+
+    A CUDA ``z_outer`` runs kernel K2 (built with nvcc on first use; a
+    failed build or launch raises); a CPU ``z_outer`` runs the plain torch
+    version.  ``pyramid``: optional padded levels in the layout of
+    :func:`horayzon_tpu_torch.ops.mip.padded_levels` on ``z_outer``'s
+    device (a ``Terrain`` builds them once).
+
+    Returns (T, in0, in1) float32 on ``z_outer``'s device; > 0 means the
+    cell is terrain-occluded."""
+    args = metric_args(z_outer, z_org_r, z_inner_r, sun_table,
+                       offset=offset, inner_shape=inner_shape, dx=dx, dy=dy,
+                       hori_acc=hori_acc, rel_err=rel_err, pyramid=pyramid)
+    fn = _metric_cuda if args[0].is_cuda else _metric_plain
+    return fn(*args, grid_origin=grid_origin)
+
+
+def shadow_metric_plain(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
+                        inner_shape, dx, dy, grid_origin, hori_acc=0.25,
+                        rel_err=None, pyramid=None):
+    """:func:`shadow_metric_fused` in plain torch on any device: the CPU
+    path, and the reference kernel K2 is held against on the card."""
+    args = metric_args(z_outer, z_org_r, z_inner_r, sun_table,
+                       offset=offset, inner_shape=inner_shape, dx=dx, dy=dy,
+                       hori_acc=hori_acc, rel_err=rel_err, pyramid=pyramid)
+    return _metric_plain(*args, grid_origin=grid_origin)

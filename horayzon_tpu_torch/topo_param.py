@@ -1,13 +1,13 @@
 # Copyright (c) 2026
 # MIT License
 """Derived terrain parameters in torch: slope normals, sky view factor,
-slope angle and aspect.
+slope angle and aspect, surface enlargement factor.
 
 Counterpart of part of :mod:`horayzon_tpu.topo_param` (slope_plane_meth,
-sky_view_factor, slope_angle_aspect).  Plain torch, batched over all
-cells; the per-cell 3x3 least-squares solve is the reference's closed-form
-Cramer solve.  Inputs may be tensors or numpy arrays; everything runs on
-the device of the input tensors.
+sky_view_factor, slope_angle_aspect, surface_enlargement_factor).  Plain
+torch, batched over all cells; the per-cell 3x3 least-squares solve is the
+reference's closed-form Cramer solve.  Inputs may be tensors or numpy
+arrays; everything runs on the device of the input tensors.
 """
 
 import math
@@ -15,7 +15,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["slope_plane_meth", "sky_view_factor", "slope_angle_aspect"]
+__all__ = ["slope_plane_meth", "sky_view_factor", "slope_angle_aspect",
+           "surface_enlargement_factor"]
 
 
 def _as_f32(a, name):
@@ -140,3 +141,17 @@ def slope_angle_aspect(vec_tilt):
     aspect = math.pi / 2.0 - torch.atan2(vec_tilt[..., 1], vec_tilt[..., 0])
     aspect = torch.where(aspect < 0.0, aspect + 2.0 * math.pi, aspect)
     return slope, aspect
+
+
+def surface_enlargement_factor(vec_norm, vec_tilt):
+    """Surface enlargement factor 1 / (norm . tilt).
+
+    Mirrors ``horayzon_tpu.topo_param.surface_enlargement_factor`` (the
+    computation of the reference examples, e.g.
+    examples/shadow/gridded_planar_DEM_artificial.py:96-99): ``vec_norm``
+    and ``vec_tilt`` (H, W, 3).  Returns (H, W) float32 on their device.
+    """
+    vec_norm = _as_f32(vec_norm, "vec_norm")
+    vec_tilt = _as_f32(vec_tilt, "vec_tilt").to(vec_norm.device)
+    p = vec_norm * vec_tilt
+    return 1.0 / ((p[..., 0] + p[..., 1]) + p[..., 2])

@@ -1,6 +1,7 @@
-"""Kernels K1 (csrc/horizon_sweep.cu, with its argmax variant) and K3
-(csrc/horizon_replay_bwd.cu) on the card, against their plain torch
-versions on the same card, and the gradient path they make.
+"""Kernels K1 (csrc/horizon_sweep.cu, with its argmax variant), K2 (the
+shadow mode of the same source) and K3 (csrc/horizon_replay_bwd.cu) on the
+card, against their plain torch versions on the same card, and the
+gradient path and the shadow ``Terrain`` they make.
 
 Marked ``cuda`` and skipped without a CUDA device.  This file imports no
 JAX, so on a machine with the card it runs without the JAX package:
@@ -12,14 +13,22 @@ the same float32 operations in the same order (no FMA contraction,
 correctly rounded sqrt and divide), so they agree to a few ulp of the
 arctan; the argmax variant's raw ratios, ids and D are equal.  K3 against
 the plain backward: rtol 1e-5 of max |.| per cotangent (the same terms
-summed in another order); two K3 runs bit-equal.
+summed in another order); two K3 runs bit-equal.  K2 against its plain
+version: the metric within 1e-3 m and ``metric > 0`` equal (the two do the
+same float32 operations in the same order, so they agree bit for bit on
+every case measured).  A CUDA ``Terrain`` against a CPU one: codes equal
+and ``sw_dir_cor`` within 1e-5 plus 1e-6 relative outside a tie zone
+(metric within 1e-3 m of 0, sun dot products within 1e-6 of a threshold:
+the card's arccos, tan and power may differ from the CPU's by an ulp).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from horayzon_tpu_torch import auxiliary, shadow, topo_param
 from horayzon_tpu_torch.ops import _build, fused_sweep, replay
+from horayzon_tpu_torch.ops import shadow_sweep as ss
 
 from reference_impl import gaussian_bumps_terrain
 
@@ -205,3 +214,131 @@ def test_gradient_central_finite_difference(cuda):
     loss(zc).backward()
     scale = zc.grad.abs().max().item()
     assert (zg.grad.cpu() - zc.grad).abs().max().item() <= 1e-5 * scale
+
+
+def _shadow_case(name):
+    """(z, offset, inner, dx, dy, origin, suns relative to the centre) of a
+    K2-vs-plain case: the shapes of tests/test_torch_shadow.py and the
+    bench row's sun track on a 512^2 block."""
+    z128 = gaussian_bumps_terrain(128, 128, seed=5, amp=400.0)
+    if name == "pallas_128_inner64":
+        return (z128, (32, 32), (64, 64), 25.0, -25.0, (0.0, 0.0),
+                [(2.0e5, 1.0e5, 2.0e4), (-1.5e5, -0.5e5, 1.2e4),
+                 (0.3e5, -2.0e5, 3.0e4)])
+    if name == "dx_ne_dy":
+        return (gaussian_bumps_terrain(64, 72, seed=2, amp=500.0), (12, 10),
+                (32, 40), 25.0, -30.0, (1000.0, 5.0e5),
+                [(2.0e5, 1.0e5, 1.5e4), (-1.0e5, 2.0e5, 1.0e4),
+                 (-2.0e5, -0.4e5, 2.0e4), (0.5e5, -2.0e5, 0.8e4)])
+    if name == "below_vertical":
+        return (z128, (32, 32), (64, 64), 25.0, -25.0, (0.0, 0.0),
+                [(1.0e5, 0.0, -1.0e6), (0.0, 0.0, 2.0e4)])
+    if name == "far_spike":
+        z = np.zeros((256, 256), dtype=np.float32)
+        z[2, 250] = 500.0
+        return (z, (216, 8), (32, 32), 25.0, -25.0, (0.0, 0.0),
+                [(2.1e5, 2.1e5, 6.0e3), (2.0e5, 2.2e5, 8.0e3)])
+    if name == "track_1024_inner512":
+        tt = np.linspace(0.15, 2.9, 16)
+        return (gaussian_bumps_terrain(1024, 1024, seed=3, amp=800.0),
+                (256, 256), (512, 512), 25.0, -25.0, (0.0, 0.0),
+                list(zip(3.0e5 * np.cos(tt), 3.0e5 * np.sin(tt),
+                         2.0e4 + 1.0e4 * np.sin(2 * tt))))
+    raise KeyError(name)
+
+
+SHADOW_CASES = ["pallas_128_inner64", "dx_ne_dy", "below_vertical",
+                "far_spike", "track_1024_inner512"]
+
+
+@pytest.mark.parametrize("name", SHADOW_CASES)
+def test_shadow_kernel_matches_plain(cuda, name):
+    z, off, inner, dx, dy, origin, rel = _shadow_case(name)
+    h, w = z.shape
+    cx, cy = origin[0] + 0.5 * (w - 1) * dx, origin[1] + 0.5 * (h - 1) * dy
+    suns = np.array([[cx + a, cy + b, c] for a, b, c in rel], np.float32)
+    table, _ = ss.shadow_sun_table(suns, (cx, cy), dx, dy)
+    zt = torch.from_numpy(z).to(cuda)
+    z_inner = zt[off[0]:off[0] + inner[0], off[1]:off[1] + inner[1]]
+    z_org = z_inner + float(np.float32(0.05))
+    kw = dict(offset=off, inner_shape=inner, dx=dx, dy=dy,
+              grid_origin=origin)
+    n0 = ss.KERNEL_LAUNCHES
+    got = ss.shadow_metric_fused(zt, z_org, z_inner, table, **kw)
+    assert ss.KERNEL_LAUNCHES == n0 + 1
+    ref = ss.shadow_metric_plain(zt, z_org, z_inner, table, **kw)
+    assert ss.KERNEL_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert got.is_cuda and tuple(got.shape) == (len(rel),) + inner
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1.0e-3
+    assert torch.equal(got > 0, ref > 0)
+
+
+def _terrain_inputs(z, off, inner, dx=25.0):
+    """Terrain.initialise inputs from the port's own helpers (north up)."""
+    h, w = z.shape
+    in0, in1 = inner
+    x1 = np.arange(w, dtype=np.float32) * dx
+    y1 = -np.arange(h, dtype=np.float32) * dx
+    xx, yy = np.meshgrid(x1, y1)
+    vec_norm = np.zeros((in0, in1, 3), dtype=np.float32)
+    vec_norm[..., 2] = 1.0
+    sl1 = (slice(off[0] - 1, off[0] + in0 + 1),
+           slice(off[1] - 1, off[1] + in1 + 1))
+    vec_tilt = topo_param.slope_plane_meth(xx[sl1], yy[sl1],
+                                           z[sl1])[1:-1, 1:-1].numpy()
+    mask = np.ones(inner, dtype=np.uint8)
+    mask[:3, :20] = 0
+    return (auxiliary.rearrange_pad_buffer(xx, yy, z), h, w, off[0], off[1],
+            np.ascontiguousarray(vec_tilt), vec_norm,
+            topo_param.surface_enlargement_factor(vec_norm,
+                                                  vec_tilt).numpy(),
+            np.ascontiguousarray(z[off[0]:off[0] + in0,
+                                   off[1]:off[1] + in1]), mask)
+
+
+@pytest.mark.parametrize("refrac_cor", [False, True])
+def test_cuda_terrain_matches_cpu_terrain(cuda, refrac_cor):
+    z = gaussian_bumps_terrain(96, 160, seed=11, amp=600.0)
+    args = _terrain_inputs(z, (16, 16), (64, 128))
+    suns = np.array([[1.0e7, 0.0, 1.5e6], [-4.0e6, 8.0e6, 1.5e6],
+                     [2.0e6, -1.0e7, 3.0e6], [0.0, 1.0e7, -1.0e6]],
+                    dtype=np.float32)
+    terrains = []
+    for dev in (cuda, "cpu"):
+        t = shadow.Terrain()
+        t.initialise(*args, sw_dir_cor_fill=-7.0, refrac_cor=refrac_cor,
+                     device=dev)
+        terrains.append(t)
+    tg, tc = terrains
+    metric = tc._metric(suns)[0]
+    _, dot_ts = shadow.sun_dots(tc._fields, suns, refrac_cor)
+    dot_min = float(np.float32(np.cos(np.radians(tg.ang_max))))
+    tie = ((metric.abs() <= 1.0e-3) | (dot_ts.abs() <= 1.0e-6)
+           | ((dot_ts - dot_min).abs() <= 1.0e-6))
+    n0 = ss.KERNEL_LAUNCHES
+    codes = tg.shadow_batch(suns)
+    sw = tg.sw_dir_cor_batch(suns)
+    assert ss.KERNEL_LAUNCHES == n0 + 2
+    assert codes.is_cuda and codes.dtype == torch.uint8 and sw.is_cuda
+    codes, sw = codes.cpu(), sw.cpu()
+    assert torch.equal(codes[~tie], tc.shadow_batch(suns)[~tie])
+    sw_c = tc.sw_dir_cor_batch(suns)
+    assert torch.allclose(sw[~tie], sw_c[~tie], rtol=1e-6, atol=1e-5)
+    assert torch.equal(tg.shadow(suns[1]).cpu(), codes[1])
+    assert tie.float().mean().item() < 0.01
+
+
+def test_cuda_terrain_without_kernel_raises(cuda, tmp_path, monkeypatch):
+    """No fallback: a CUDA Terrain whose K2 cannot be built raises."""
+    z = gaussian_bumps_terrain(48, 160, seed=11, amp=600.0)
+    t = shadow.Terrain()
+    t.initialise(*_terrain_inputs(z, (8, 16), (32, 128)), device=cuda)
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    n0 = ss.KERNEL_LAUNCHES
+    with pytest.raises(FileNotFoundError, match="horizon_sweep.cu"):
+        t.shadow(np.array([1.0e7, 0.0, 1.5e6], np.float32))
+    assert ss.KERNEL_LAUNCHES == n0

@@ -1,5 +1,6 @@
 """The port's copies of the reference's pure-NumPy helpers equal the
-originals: the sweep schedule, the vertex buffer and the grid detection.
+originals: the sweep schedule, the vertex buffer, the grid detection, the
+coordinate transformations and the solar ephemeris.
 
 The copies exist because importing ``horayzon_tpu`` loads JAX, which the
 port never does.  Equality here is exact (same NumPy code, same inputs).
@@ -11,9 +12,11 @@ import numpy as np
 import pytest
 
 from horayzon_tpu import auxiliary as aux_ref
+from horayzon_tpu import sun_position as sun_ref
 from horayzon_tpu import terrain as terrain_ref
+from horayzon_tpu import transform as transform_ref
 from horayzon_tpu.ops import sweep as sweep_ref
-from horayzon_tpu_torch import auxiliary, terrain
+from horayzon_tpu_torch import auxiliary, sun_position, terrain, transform
 from horayzon_tpu_torch.ops import sweep
 
 
@@ -98,3 +101,74 @@ def test_grid_helpers_match_reference():
         vt[0, 0, 0] = tilt
         assert terrain.is_default_planar_vectors(vt, vno) == \
             terrain_ref.is_default_planar_vectors(vt, vno)
+
+
+def _same(a, b):
+    """Equal outputs: arrays (or tuples of arrays) equal bit for bit."""
+    if isinstance(a, tuple):
+        assert isinstance(b, tuple) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a, b)
+
+
+def test_transform_matches_reference():
+    rng = np.random.default_rng(2)
+    lon = rng.uniform(-180.0, 180.0, (4, 5))
+    lat = rng.uniform(-89.0, 89.0, (4, 5))
+    h = rng.uniform(-100.0, 4000.0, (4, 5)).astype(np.float32)
+    for ellps in ("sphere", "GRS80", "WGS84"):
+        _same(transform.ellipsoid_params(ellps),
+              transform_ref.ellipsoid_params(ellps))
+        ecef = transform.lonlat2ecef(lon, lat, h, ellps)
+        _same(ecef, transform_ref.lonlat2ecef(lon, lat, h, ellps))
+        trans = transform.TransformerEcef2enu(7.5, 46.5, ellps)
+        trans_ref = transform_ref.TransformerEcef2enu(7.5, 46.5, ellps)
+        assert vars(trans) == vars(trans_ref)
+        enu = transform.ecef2enu(*ecef, trans)
+        _same(enu, transform_ref.ecef2enu(*ecef, trans_ref))
+        # round trip ENU -> ECEF -> ENU, as tests/test_transform.py checks
+        back = transform.enu2ecef(*enu, trans)
+        _same(back, transform_ref.enu2ecef(*enu, trans_ref))
+        np.testing.assert_allclose(transform.ecef2enu(*back, trans), enu,
+                                   atol=0.05)
+        vec = rng.standard_normal((4, 5, 3))
+        _same(transform.ecef2enu_vector(vec, trans),
+              transform_ref.ecef2enu_vector(vec, trans_ref))
+    with pytest.raises(ValueError, match="ellps"):
+        transform.lonlat2ecef(lon, lat, h, "mars")
+    with pytest.raises(ValueError, match="lon_or"):
+        transform.TransformerEcef2enu(190.0, 0.0, "WGS84")
+    lon_ch, lat_ch = np.array([7.4, 8.5]), np.array([46.9, 47.3])
+    h_ch = np.array([500.0, 800.0])
+    e, n, hh = transform.wgs2swiss(lon_ch, lat_ch, h_ch)
+    _same((e, n, hh), transform_ref.wgs2swiss(lon_ch, lat_ch, h_ch))
+    _same(transform.swiss2wgs(e, n, hh), transform_ref.swiss2wgs(e, n, hh))
+    north = rng.standard_normal((3, 4, 3))
+    norm = rng.standard_normal((3, 4, 3))
+    north /= np.linalg.norm(north, axis=-1, keepdims=True)
+    norm /= np.linalg.norm(norm, axis=-1, keepdims=True)
+    _same(transform.rotation_matrix_glob2loc(north, norm),
+          transform_ref.rotation_matrix_glob2loc(north, norm))
+
+
+def test_sun_position_matches_reference():
+    times = ["2026-03-20T12:07:00", "2026-06-21T05:30:00",
+             "2026-12-21T18:00:00"]
+    _same(sun_position.julian_day(times), sun_ref.julian_day(times))
+    _same(sun_position.sun_ra_dec(times), sun_ref.sun_ra_dec(times))
+    _same(sun_position.sun_position_ecef(times),
+          sun_ref.sun_position_ecef(times))
+    _same(sun_position.sun_azimuth_elevation(times, lon=7.5, lat=46.5),
+          sun_ref.sun_azimuth_elevation(times, lon=7.5, lat=46.5))
+    trans = transform.TransformerEcef2enu(7.5, 46.5, "WGS84")
+    trans_ref = transform_ref.TransformerEcef2enu(7.5, 46.5, "WGS84")
+    _same(sun_position.sun_position_enu(times, trans),
+          sun_ref.sun_position_enu(times, trans_ref))
+    azim = np.linspace(0.0, 360.0, 7)
+    for elev in (30.0, -5.0, np.linspace(-10.0, 80.0, 7)):
+        _same(sun_position.sun_position_planar(azim, elev, dist=1.0e7),
+              sun_ref.sun_position_planar(azim, elev, dist=1.0e7))
