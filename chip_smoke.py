@@ -8,8 +8,10 @@
 Phases, each of which ends the run with a nonzero exit on failure:
 
 1. environment: torch, CUDA, the card, its name and power limit;
-2. build: kernels K1 and K2 (csrc/horizon_sweep.cu, one template) and K3
-   (csrc/horizon_replay_bwd.cu), one nvcc each for sm_90a, in parallel;
+2. build: kernels K1 and K2 with their argmax variants
+   (csrc/horizon_sweep.cu, one template) and K3 and K4
+   (csrc/horizon_replay_bwd.cu, one template), one nvcc each for sm_90a,
+   in parallel;
 3. K1 against its plain torch version on the card, on three small cases;
 4. the main path, ``PlanarPipeline.run`` at the bench headline shape
    (25 m grid, 2048^2 outer, 1024^2 inner, 32 azimuths, 20 km search),
@@ -34,7 +36,21 @@ C. the shadow main path, ``shadow.Terrain`` at the defaults of
    at 100 m, 600^2 inner, 181 suns at 30 degrees): ``sw_dir_cor_batch`` and
    ``shadow_batch`` timed and held to the example's analytic check, codes
    of a few suns against those from the plain metric;
-9. one JSON line per kernel, then the result line
+D. K2-argmax and the shadow replay K4 against their plain versions on
+   phase A's cases (K4 run twice);
+E. the bench's shadow-gradient row (``bench.py:521-543``): loss
+   ``mean(sigmoid(metric / 2))`` at phase B's shape and track, forward and
+   loss + ``backward()`` timed, ``z.grad`` checked and compared across two
+   runs; K2-argmax and K4 timed alone against their plain versions;
+F. the shadow gradient's main path, ``Terrain.sw_dir_cor_soft`` on phase
+   C's terrain and 181 suns: the straight-through value against
+   ``sw_dir_cor_batch``, ``mean().backward()`` timed, peak memory, K4 alone
+   on the 181-sun record, K2-argmax and K4 against their plain versions on
+   4 suns, then the kink and central-difference check of
+   ``tests/test_grad.py:155-210`` on a small case;
+9. one JSON line per kernel (launches on its main path, error against its
+   plain version, its time and the plain version's, its bound and
+   ``library_ms`` null), then the result line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so nothing here runs in
@@ -64,9 +80,14 @@ REPLACES = "horayzon_tpu/ops/pallas_sweep.py:157"
 BWD_SOURCE = "horayzon_tpu_torch/csrc/horizon_replay_bwd.cu"
 BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:1705"
 SHADOW_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2885"
+SHADOW_BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2470"
 #: Shadow metric tolerance [m] of K2 against the plain version.
 SHADOW_TOL = 1.0e-3
 KERNELS = ("horizon_sweep", "horizon_replay_bwd")
+#: Peaks of one H100 SXM (NVIDIA's data sheet): float32 operations outside
+#: the tensor cores per second, HBM bytes per second.
+PEAK_F32_OPS = 67.0e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def make_terrain(h, w, seed=0):
@@ -228,7 +249,170 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def bound(moved, ops):
+    """``(bound_ms, bound_by)``: the least time the card could take to move
+    ``moved`` bytes (each input read once, each output written once) and do
+    ``ops`` float32 operations, at the peaks above."""
+    t_b, t_o = moved / PEAK_HBM_BYTES, ops / PEAK_F32_OPS
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sweep_bound(sargs, shadow, argmax):
+    """Bound of one sweep launch (K1, K2 or an argmax variant) on the
+    inputs ``sargs`` = (z_org, z_inner, levels, table, plan, shape).  The
+    float32 operations per (cell, row) are counted from
+    csrc/horizon_sweep.cu: 18 per bilinear read, 4 per point candidate, 37
+    (K1) or 28 (K2) per parabola with its coefficients, 11 per mip sample,
+    15 for K2's ray slope and 1 for the argmax's emit divide.  The sweep
+    has no data-dependent skips, so every sample is counted."""
+    z_org, z_inner, levels, table, plan, _ = sargs
+    nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
+    n_mip = sum(ph[1] for ph in plan["phases_meta"][1:])
+    quads = nx + sum((hi - lo + 1) // 2
+                     for lo, hi in ((nx, ns1), (ns1, n_dense)) if hi > lo)
+    per_cell = (18 * (nx + n_dense) + 4 * n_dense
+                + (28 if shadow else 37) * quads + 11 * n_mip
+                + (15 if shadow else 0) + (1 if argmax else 0))
+    cells = table.shape[0] * z_org.numel()
+    moved = (tensor_bytes(z_org, z_inner, *levels) + table.nbytes
+             + cells * 4 * (3 if argmax else 1))
+    return bound(moved, cells * per_cell)
+
+
+def replay_bound(g, ids, aux, plan, cots, zcot, shadow):
+    """Bound of one replay launch (K3 or K4) for the winners this record
+    holds (the work depends on the data: only winners contribute).
+    Operations counted from csrc/horizon_replay_bwd.cu: a level-0 sample 20
+    (geometry 6, corner weights 10, adds 4); a point winner one sample and
+    a coefficient 2, a parabola three samples, envelopes 15 and a
+    coefficient 4, a mip winner 10; each winner's z_org term 2 (K3) or 4
+    (K4) and, for K4, dm/dz_org 16 per (cell, sun).  Bytes: g, ids, aux
+    (and z_org, the sun table) read, the level cotangents and zcot
+    written."""
+    n2 = 2 * plan["n_dense"]
+    dense = ids < n2
+    n_point = int((dense & (ids % 2 == 0)).sum())
+    n_quad = int((dense & (ids % 2 == 1) & (aux > 1e-3)).sum())
+    n_mip = int(((ids >= n2) & (ids < replay.ID_NONE)).sum())
+    zt = 4 if shadow else 2
+    ops = (n_point * (22 + zt) + n_quad * (79 + zt) + n_mip * (10 + zt)
+           + (16 * ids.numel() if shadow else 0))
+    # the (rows, 2) shift table; K4 also the (rows, 8) sun table and z_org
+    moved = tensor_bytes(g, ids, aux, *cots, zcot) + ids.shape[0] * 8
+    if shadow:
+        moved += ids.shape[0] * 32 + tensor_bytes(zcot)
+    return bound(moved, ops)
+
+
+def check_shadow_argmax(name, args, origin):
+    """K2-argmax on ``args`` (the inputs of ``shadow_sweep._metric_cuda``)
+    against K2 and the plain argmax sweep: the metric bit-equal to K2's,
+    within SHADOW_TOL of the plain one with ``metric > 0`` equal, the winner
+    ids and D bit-equal to the plain version's (the same float32 operations
+    in the same order, as phase 5 holds K1-argmax).  Returns (max abs metric
+    difference, the plain version's ms)."""
+    met, ids, aux = shadow_sweep._metric_cuda(*args, grid_origin=origin,
+                                              emit_argmax=True)
+    k2 = shadow_sweep._metric_cuda(*args, grid_origin=origin)
+    plain_ms, (p_met, p_ids, p_aux) = event_ms(
+        lambda: shadow_sweep._metric_plain(*args, grid_origin=origin,
+                                           emit_argmax=True))
+    err = (met - p_met).abs().max().item()
+    n2 = 2 * args[4]["n_dense"]
+    print(f"  {name}: max |metric_K2a - metric_plain| = {err:.3e} m; "
+          f"{int((ids != p_ids).sum())} ids and {int((aux != p_aux).sum())} D "
+          f"differ; {int(((ids < n2) & (ids % 2 == 1)).sum())} parabola and "
+          f"{int((ids >= n2).sum())} mip winners of {ids.numel()}")
+    check(torch.equal(met, k2) and err <= SHADOW_TOL
+          and torch.equal(met > 0, p_met > 0),
+          f"{name}: K2-argmax metric bit-equal to K2's, within {SHADOW_TOL} "
+          f"m of the plain argmax sweep, metric > 0 equal")
+    check(torch.equal(ids, p_ids) and torch.equal(aux, p_aux),
+          f"{name}: winner ids and D bit-equal to the plain argmax sweep's")
+    return err, plain_ms
+
+
+def check_shadow_replay(name, args, origin, g, record=None):
+    """K4 against the plain shadow replay on the K2-argmax ``record``
+    ``(ids, aux)`` of ``args`` (run here when None) for the metric
+    cotangent ``g``: within BWD_RTOL of max |.| of each cotangent, and two
+    K4 runs bit-equal.  Returns (max abs difference, the plain version's
+    ms)."""
+    z_org, table, plan = args[0], args[3], args[4]
+    if record is None:
+        record = shadow_sweep._metric_cuda(*args, grid_origin=origin,
+                                           emit_argmax=True)[1:]
+    ids, aux = record
+    bargs = (tuple(args[5]), g, ids, aux, plan)
+    shadow = (table, z_org, origin)
+    cots, dzo = replay._bwd_cuda(*bargs, shadow=shadow)
+    cots2, dzo2 = replay._bwd_cuda(*bargs, shadow=shadow)
+    plain_ms, (p_cots, p_dzo) = event_ms(
+        lambda: replay.backward_replay_plain(*bargs, shadow=shadow))
+    got, want = cots + [dzo], p_cots + [p_dzo]
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    check(max(errs) <= BWD_RTOL and dzo.abs().max().item() > 0.0,
+          f"{name}: K4 within rtol {BWD_RTOL} of the plain shadow replay "
+          f"(per output: {', '.join(f'{e:.1e}' for e in errs)})")
+    check(all(torch.equal(a, b) for a, b in zip(got, cots2 + [dzo2])),
+          f"{name}: two K4 runs bit-equal")
+    return max((a - b).abs().max().item() for a, b in zip(got, want)), \
+        plain_ms
+
+
+def kink_check(dev):
+    """The winner-replay gradient of the shadow metric against finite
+    differences (tests/test_grad.py:155-210) on a small case: the metric
+    is a running max whose races are decided at centimetre scale, so at the
+    four cells with the largest gradient the one-sided slopes bracket the
+    analytic value and the central difference converges toward it."""
+    _, z_s, off, inner, dx, dy, origin, _ = shadow_small_cases()[0]
+    zk = torch.from_numpy(z_s).to(dev)
+    _, _, table, kw = shadow_inputs(zk, off, inner, dx, dy, origin,
+                                    [(3.0e5, -2.0e5, 1.5e4)])
+    lift = float(np.float32(0.05))
+
+    def loss(zz):
+        z_i = zz[off[0]:off[0] + inner[0], off[1]:off[1] + inner[1]]
+        met = shadow_sweep.shadow_metric_fused(zz, z_i + lift, z_i, table,
+                                               **kw)
+        return torch.sum(met[0].double())
+
+    zg = zk.clone().requires_grad_(True)
+    loss(zg).backward()
+    g = zg.grad
+    check(bool(torch.isfinite(g).all()) and g.abs().max().item() > 0.0,
+          "kink case: gradient finite and nonzero")
+
+    def value(zz):
+        with torch.no_grad():
+            return float(loss(zz))
+
+    l0 = value(zk)
+    for idx in torch.argsort(g.abs().flatten(), descending=True)[:4].tolist():
+        ci, cj = divmod(idx, zk.shape[1])
+        an = float(g[ci, cj])
+        e = torch.zeros_like(zk)
+        e[ci, cj] = float(np.sign(an)) or 1.0
+        fwd = (value(zk + 0.25 * e) - l0) / 0.25
+        bwd = (l0 - value(zk - 0.25 * e)) / 0.25
+        an_s = abs(an)
+        slack = 0.05 * (abs(fwd) + abs(bwd)) + 1e-6
+        fds = [(value(zk + h * e) - value(zk - h * e)) / (2 * h)
+               for h in (0.5, 0.05)]
+        check(bwd - slack <= an_s <= fwd + slack
+              and abs(fds[1] - an_s) < abs(fds[0] - an_s) + slack,
+              f"kink case at {(ci, cj)}: one-sided slopes {bwd:.4f} <= "
+              f"{an_s:.4f} <= {fwd:.4f}, central differences {fds[0]:.4f}, "
+              f"{fds[1]:.4f}")
+
+
 def main():
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -351,8 +535,10 @@ def main():
     plain_ms = cuda_ms(lambda: fused_sweep._ratio_plain(*args), 1)
     samples = plan["nx"] * 2 + (plan["n_dense"] - plan["nx"]) + sum(
         ph[1] for ph in plan["phases_meta"][1:])
+    k1_bound = sweep_bound(args, shadow=False, argmax=False)
     print(f"  K1 alone: {k1_ms:.3f} ms; plain torch sweep: {plain_ms:.1f} ms "
-          f"({samples} samples per (cell, azimuth))  [{card}]")
+          f"({samples} samples per (cell, azimuth)); bound {k1_bound[0]:.3f}"
+          f" ms ({k1_bound[1]})  [{card}]")
 
     print("== 5. K1-argmax and K3 against their plain versions on the card")
     am_err = bwd_err = 0.0
@@ -378,7 +564,8 @@ def main():
               f"{int((ids >= 2 * plan['n_dense']).sum())} mip winners)")
         g = torch.from_numpy(np.random.default_rng(7).normal(
             size=tuple(raw.shape)).astype(np.float32)).to(dev)
-        bargs = (tuple(zs.shape), g, ids, aux, plan, trig)
+        bargs = (tuple(zs.shape), g, ids, aux, plan,
+                 replay.horizon_shifts(trig, plan))
         cots, zcot = replay._bwd_cuda(*bargs)
         cots2, zcot2 = replay._bwd_cuda(*bargs)
         p_cots, p_zcot = replay.backward_replay_plain(*bargs)
@@ -452,7 +639,8 @@ def main():
     h = fused_sweep._angles(raw.clone(), *lims)
     graw = fused_sweep.raw_cotangent(raw, 2.0 * h / h.numel(), lims)
     del h
-    bargs = (tuple(zt.shape), graw, ids, aux, plan, trig)
+    bargs = (tuple(zt.shape), graw, ids, aux, plan,
+             replay.horizon_shifts(trig, plan))
     replay._bwd_cuda(*bargs)
     k3_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs), 10)
     cots, zcot = replay._bwd_cuda(*bargs)
@@ -463,10 +651,13 @@ def main():
                                zip(cots + [zcot], p_cots + [p_zcot])))
     check(max(errs) <= BWD_RTOL,
           f"K3 within rtol {BWD_RTOL} of the plain backward at this shape")
+    am_bound = sweep_bound(sargs, shadow=False, argmax=True)
+    k3_bound = replay_bound(graw, ids, aux, plan, cots, zcot, shadow=False)
     print(f"  K1-argmax alone: {am_ms:.3f} ms; plain argmax sweep: "
-          f"{am_plain_ms:.1f} ms  [{card}]")
-    print(f"  K3 alone: {k3_ms:.3f} ms; plain backward: {k3_plain_ms:.1f} ms"
-          f"  [{card}]")
+          f"{am_plain_ms:.1f} ms; bound {am_bound[0]:.3f} ms "
+          f"({am_bound[1]})  [{card}]")
+    print(f"  K3 alone: {k3_ms:.3f} ms; plain backward: {k3_plain_ms:.1f} ms;"
+          f" bound {k3_bound[0]:.4f} ms ({k3_bound[1]})  [{card}]")
     del p_cots, p_zcot, cots, zcot, graw, raw, ids, aux, grads
 
     print("== 7. central finite difference on the card")
@@ -581,10 +772,12 @@ def main():
         *sargs, grid_origin=(0.0, 0.0)))
     err = (got - ref).abs().max().item()
     sh_err = max(sh_err, err)
+    k2_bound = sweep_bound(sargs, shadow=True, argmax=False)
     print(f"  K2 alone: {k2_ms:.3f} ms for {n_sun} suns, "
           f"{k2_ms / n_sun:.4f} ms per sun, "
           f"{inner * inner * n_sun / (k2_ms * 1e-3):.4e} (cell*sun)/s; "
-          f"plain torch sweep: {k2_plain_ms:.1f} ms  [{card}]")
+          f"plain torch sweep: {k2_plain_ms:.1f} ms; bound "
+          f"{k2_bound[0]:.3f} ms ({k2_bound[1]})  [{card}]")
     print(f"  max |metric_K2 - metric_plain| = {err:.3e} m, "
           f"{int((got != ref).sum())} of {got.numel()} differ; "
           f"{(got > 0).float().mean().item():.4f} occluded")
@@ -592,7 +785,7 @@ def main():
           and torch.equal(got > 0, ref > 0),
           f"K2 within {SHADOW_TOL} m of the plain version, metric > 0 "
           f"equal, on the full output")
-    del got, ref, sargs
+    del got, ref
 
     print("== C. shadow main path: Terrain at the artificial example's "
           "defaults")
@@ -648,24 +841,195 @@ def main():
           f"codes of suns {few} equal those from the plain metric")
     del sw, codes, plain_codes
 
+    print("== D. K2-argmax and K4 against their plain versions on the card")
+    sa_err = sb_err = 0.0
+    for name, z_s, off, inner_s, dx_s, dy_s, origin, rel in \
+            shadow_small_cases():
+        zs = torch.from_numpy(z_s).to(dev)
+        z_org_s, z_in_s, table, kw = shadow_inputs(zs, off, inner_s, dx_s,
+                                                   dy_s, origin, rel)
+        dargs = shadow_sweep.metric_args(
+            zs, z_org_s, z_in_s, table,
+            **{k: kw[k] for k in ("offset", "inner_shape", "dx", "dy")})
+        sa_err = max(sa_err, check_shadow_argmax(name, dargs, origin)[0])
+        g = torch.from_numpy(np.random.default_rng(7).normal(
+            size=(len(rel),) + inner_s).astype(np.float32)).to(dev)
+        sb_err = max(sb_err, check_shadow_replay(name, dargs, origin, g)[0])
+
+    print("== E. the bench's shadow-gradient row at 2048^2 / 1024^2")
+    lift = float(np.float32(0.05))
+
+    def shadow_loss(zz):
+        z_i = zz[halo:halo + inner, halo:halo + inner]
+        met = shadow_sweep.shadow_metric_fused(zz, z_i + lift, z_i, table_b,
+                                               **kw_b)
+        return torch.mean(torch.sigmoid(met / 2.0))
+
+    def shadow_grad_step():
+        zg = zt.clone().requires_grad_(True)
+        shadow_loss(zg).backward()
+        return zg.grad
+
+    event_ms(lambda: shadow_loss(zt))
+    sfwd_ms = [event_ms(lambda: shadow_loss(zt))[0] for _ in range(runs)]
+    event_ms(shadow_grad_step)
+    sgrads, sgrad_ms = [], []
+    for _ in range(runs):
+        ms, gz = event_ms(shadow_grad_step)
+        sgrad_ms.append(ms)
+        sgrads.append(gz)
+    sf_med, sg_med = float(np.median(sfwd_ms)), float(np.median(sgrad_ms))
+    print(f"  forward (loss, K2, no grad) median {sf_med:.2f} ms (min "
+          f"{min(sfwd_ms):.2f}, max {max(sfwd_ms):.2f}); loss + backward() "
+          f"median {sg_med:.2f} ms (min {min(sgrad_ms):.2f}, max "
+          f"{max(sgrad_ms):.2f}), {sg_med / n_sun:.3f} ms per sun; "
+          f"grad/forward {sg_med / sf_med:.3f}, grad / K2 alone "
+          f"{sg_med / k2_ms:.3f}  [{card}]")
+    gz = sgrads[-1]
+    check(bool(torch.isfinite(gz).all()) and gz.abs().max().item() > 0.0,
+          f"z.grad finite and nonzero (max |g| {gz.abs().max().item():.3e})")
+    check(torch.equal(sgrads[-1], sgrads[-2]),
+          "z.grad bit-equal across runs")
+    del sgrads, gz
+
+    def k2a_run():
+        return shadow_sweep._metric_cuda(*sargs, grid_origin=(0.0, 0.0),
+                                         emit_argmax=True)
+
+    k2a_run()
+    k2a_ms = cuda_ms(k2a_run, 10)
+    err, k2a_plain_ms = check_shadow_argmax("row B", sargs, (0.0, 0.0))
+    sa_err = max(sa_err, err)
+    met, ids, aux = k2a_run()
+    k2a_bound = sweep_bound(sargs, shadow=True, argmax=True)
+    sig = torch.sigmoid(met / 2.0)
+    gmet = sig * (1.0 - sig) * (0.5 / met.numel())   # d loss / d metric
+    del sig, met
+    bargs = (tuple(zt.shape), gmet, ids, aux, sargs[4])
+    shadow_b = (table_b, sargs[0], (0.0, 0.0))
+    replay._bwd_cuda(*bargs, shadow=shadow_b)
+    k4_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs, shadow=shadow_b), 10)
+    cots, dzo = replay._bwd_cuda(*bargs, shadow=shadow_b)
+    k4_bound = replay_bound(gmet, ids, aux, sargs[4], cots, dzo, shadow=True)
+    del cots, dzo
+    err, k4_plain_ms = check_shadow_replay("row B", sargs, (0.0, 0.0), gmet,
+                                           (ids, aux))
+    sb_err = max(sb_err, err)
+    print(f"  K2-argmax alone: {k2a_ms:.3f} ms ({k2a_ms / k2_ms:.3f} x K2); "
+          f"plain argmax sweep: {k2a_plain_ms:.1f} ms; "
+          f"bound {k2a_bound[0]:.3f} ms ({k2a_bound[1]})  [{card}]")
+    print(f"  K4 alone: {k4_ms:.3f} ms; plain shadow replay: "
+          f"{k4_plain_ms:.1f} ms; bound {k4_bound[0]:.4f} ms "
+          f"({k4_bound[1]}); the rest of a gradient step (loss, pyramid and "
+          f"its VJP, host) {sg_med - k2a_ms - k4_ms:.2f} ms  [{card}]")
+    del gmet, ids, aux, bargs, shadow_b, sargs
+
+    print("== F. Terrain.sw_dir_cor_soft at the artificial example's "
+          "defaults")
+    hard = terrain.sw_dir_cor_batch(suns)
+    soft = terrain.sw_dir_cor_soft(suns)
+    check(torch.equal(soft, hard) and soft.grad_fn is None,
+          "straight-through value bit-equal to sw_dir_cor_batch (no "
+          "gradient asked)")
+    del soft
+
+    def soft_step():
+        zg = terrain._z_outer.clone().requires_grad_(True)
+        out = terrain.sw_dir_cor_soft(suns, elevation=zg)
+        out.mean().backward()
+        return out.detach(), zg.grad
+
+    soft_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shadow_sweep.ARGMAX_KERNEL_LAUNCHES = 0
+    replay.SHADOW_KERNEL_LAUNCHES = 0
+    f_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out, gz = soft_step()
+        torch.cuda.synchronize()
+        f_walls.append(time.perf_counter() - t0)
+    k2a_launches = shadow_sweep.ARGMAX_KERNEL_LAUNCHES
+    k4_launches = replay.SHADOW_KERNEL_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    f_wall = float(np.median(f_walls))
+    print(f"  sw_dir_cor_soft + mean().backward(), 181 suns x "
+          f"{terrain.comp_shape}: median {f_wall:.4f} s wall of 3 (min "
+          f"{min(f_walls):.4f}, max {max(f_walls):.4f}; "
+          f"{f_wall / c_wall:.3f} x sw_dir_cor_batch); peak "
+          f"{peak / 2**20:.1f} MiB allocated  [{card}]")
+    check(k2a_launches == 3 and k4_launches == 3,
+          f"main path launched K2-argmax ({k2a_launches}) and K4 "
+          f"({k4_launches}) once per step in 3 steps")
+    check(torch.equal(out, hard), "straight-through value with a gradient "
+          "asked bit-equal to sw_dir_cor_batch")
+    check(bool(torch.isfinite(gz).all()) and gz.abs().max().item() > 0.0,
+          f"elevation.grad finite and nonzero (max |g| "
+          f"{gz.abs().max().item():.3e})")
+    del hard, out, gz
+    fld = terrain._fields
+
+    def terrain_args(sun_rows):
+        table_f, _ = shadow_sweep.shadow_sun_table(
+            sun_rows, terrain._center, terrain.grid.dx, terrain.grid.dy)
+        return shadow_sweep.metric_args(
+            terrain._z_outer, fld["z_org"], fld["z_inner"], table_f,
+            offset=terrain.offset, inner_shape=terrain.comp_shape,
+            dx=terrain.grid.dx, dy=terrain.grid.dy, hori_acc=terrain.acc)
+
+    fargs = terrain_args(suns)
+
+    def k2a_f():
+        return shadow_sweep._metric_cuda(
+            *fargs, grid_origin=terrain._grid_origin, emit_argmax=True)
+
+    k2a_f()
+    k2a_f_ms = cuda_ms(k2a_f, 3)
+    met, ids, aux = k2a_f()
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        size=tuple(met.shape)).astype(np.float32)).to(dev)
+    fb = (tuple(terrain._z_outer.shape), g, ids, aux, fargs[4])
+    shadow_f = (fargs[3], fargs[0], terrain._grid_origin)
+    replay._bwd_cuda(*fb, shadow=shadow_f)
+    k4_f_ms = cuda_ms(lambda: replay._bwd_cuda(*fb, shadow=shadow_f), 3)
+    print(f"  on the 181 suns alone: K2-argmax {k2a_f_ms:.3f} ms, K4 "
+          f"{k4_f_ms:.3f} ms; the rest of a step (classification and its "
+          f"backward, pyramid and its VJP, host) "
+          f"{1e3 * f_wall - k2a_f_ms - k4_f_ms:.1f} ms  [{card}]")
+    del met, ids, aux, g, fb, shadow_f, fargs
+    fargs = terrain_args(suns[few])
+    sa_err = max(sa_err, check_shadow_argmax(f"suns {few}", fargs,
+                                             terrain._grid_origin)[0])
+    g = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(len(few),) + terrain.comp_shape).astype(np.float32)).to(dev)
+    sb_err = max(sb_err, check_shadow_replay(f"suns {few}", fargs,
+                                             terrain._grid_origin, g)[0])
+    del fargs, g
+    kink_check(dev)
+
     print("== 9. result")
+    print(f"  phases 1-F in {time.perf_counter() - t_run:.1f} s")
+    rows = [
+        ("horizon_sweep (K1)", KERNEL_SOURCE, REPLACES, launches, max_err,
+         k1_ms, plain_ms, k1_bound),
+        ("horizon_sweep argmax (K1-argmax)", KERNEL_SOURCE, REPLACES,
+         am_launches, am_err, am_ms, am_plain_ms, am_bound),
+        ("horizon_replay_bwd (K3)", BWD_SOURCE, BWD_REPLACES, k3_launches,
+         bwd_err, k3_ms, k3_plain_ms, k3_bound),
+        ("shadow_sweep (K2)", KERNEL_SOURCE, SHADOW_REPLACES, k2_launches,
+         sh_err, k2_ms, k2_plain_ms, k2_bound),
+        ("shadow_sweep argmax (K2-argmax)", KERNEL_SOURCE, SHADOW_REPLACES,
+         k2a_launches, sa_err, k2a_ms, k2a_plain_ms, k2a_bound),
+        ("shadow_replay_bwd (K4)", BWD_SOURCE, SHADOW_BWD_REPLACES,
+         k4_launches, sb_err, k4_ms, k4_plain_ms, k4_bound)]
+    # no single PyTorch call computes a sweep or a winner replay, so
+    # library_ms is null for every kernel
     print(json.dumps({"kernels": [
-        {"name": "horizon_sweep (K1)", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": REPLACES,
-         "launches": launches, "max_abs_err": max_err,
-         "ms": k1_ms, "plain_ms": plain_ms},
-        {"name": "horizon_sweep argmax (K1-argmax)", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": REPLACES,
-         "launches": am_launches, "max_abs_err": am_err,
-         "ms": am_ms, "plain_ms": am_plain_ms},
-        {"name": "horizon_replay_bwd (K3)", "route": "cuda",
-         "source": BWD_SOURCE, "replaces": BWD_REPLACES,
-         "launches": k3_launches, "max_abs_err": bwd_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "shadow_sweep (K2)", "route": "cuda",
-         "source": KERNEL_SOURCE, "replaces": SHADOW_REPLACES,
-         "launches": k2_launches, "max_abs_err": sh_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+        for name, src, rep, n, err, ms, p_ms, bnd in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

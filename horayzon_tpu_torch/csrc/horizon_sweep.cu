@@ -30,9 +30,11 @@
 // computes what the reference computes with exact_metric=True: none of its
 // skips (value-exact or sign-exact) run here.
 //
-// Three entry points, one template <ARGMAX, SHADOW>: horizon_sweep_launch
+// Four entry points, one template <ARGMAX, SHADOW>: horizon_sweep_launch
 // (K1), horizon_sweep_argmax_launch (the forward of the gradient path, the
-// reference's emit_argmax=True) and shadow_sweep_launch (K2).  The modes
+// reference's emit_argmax=True), shadow_sweep_launch (K2) and
+// shadow_sweep_argmax_launch (K2-argmax, the forward of the shadow
+// gradient path).  The modes
 // share the loop sections, read0, inside0 and the mip index arithmetic, as
 // the reference's one body serves both; they differ in the per-cell set-up
 // and the two update functions.  The argmax variant replaces fmaxf by a
@@ -40,7 +42,10 @@
 // running value is bit-equal to the plain variant's and the first of equal
 // candidates wins; it also writes the winner's id (A, in0, in1) int32 and the
 // stationary denominator D of a parabola winner (A, in0, in1) float32, which
-// the replay backward (csrc/horizon_replay_bwd.cu) needs.
+// the replay backward (csrc/horizon_replay_bwd.cu) needs.  In the shadow
+// mode D = s_start + t* of the vertex t* = -(b - m) / (2a), carried as the
+// pair (2 a s_start - (b - m), 2 a) and divided at emit, as the reference
+// does (pallas_sweep.py:440-453).
 //
 // Design: one thread per (cell, azimuth or sun); a block is 32 x 8 cells of
 // one azimuth or sun, the grid (column blocks, row blocks, azimuths or
@@ -225,7 +230,10 @@ __device__ __forceinline__ void quad_update(const Cell& c, Acc<A>& acc,
     const bool valid = concave && ((d + lo2a) * (d + hi2a) < 0.0f);
     const float r_int =
         ((h0 - c.z_org) - s_start * c.m) - ((0.25f * d) * d) / a_s;
-    acc.quad(valid && extra, r_int, cid, 0.0f, 1.0f);
+    // the argmax pair of D = s_start + t*, t* = -d / (2 a)
+    // (pallas_sweep.py:448-453); unused by the plain accumulator
+    acc.quad(valid && extra, r_int, cid, (2.0f * a_s) * s_start - d,
+             2.0f * a_s);
   } else {
     const float c0 = h0 - c.z_org;
     const float u = (a_c * s_start - b_c) * s_start + c0;
@@ -326,7 +334,6 @@ __device__ __forceinline__ void d1_single(const HzParams& p, const Cell& c,
 template <bool ARGMAX, bool SHADOW>
 __global__ void __launch_bounds__(256)
 horizon_sweep_kernel(const HzParams p) {
-  static_assert(!(ARGMAX && SHADOW), "K2's argmax variant is not ported");
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int az = blockIdx.z;
@@ -467,6 +474,14 @@ extern "C" int horizon_sweep_argmax_launch(const HzParams* params, int device,
 extern "C" int shadow_sweep_launch(const HzParams* params, int device,
                                    void* stream) {
   return launch<false, true>(params, device, stream);
+}
+
+// K2's argmax variant (the forward of the shadow gradient path): also
+// writes params->ids and params->aux (D = s_start + t* of a parabola
+// winner).
+extern "C" int shadow_sweep_argmax_launch(const HzParams* params, int device,
+                                          void* stream) {
+  return launch<true, true>(params, device, stream);
 }
 
 extern "C" const char* horizon_sweep_error_string(int code) {

@@ -52,12 +52,13 @@ def horizon_gridded(
         ray_org_elev=0.01,
         verbose=True,
         engine="auto",
-        *, device):
+        *, device="cuda"):
     """Horizon computation for a gridded domain.
 
     Signature and validation mirror ``horayzon_tpu.horizon.horizon_gridded``
-    (``dist_search`` in kilometres).  ``device``: where the sweep runs; a
-    CUDA device runs kernel K1, the CPU the plain torch sweep.  ``engine``
+    (``dist_search`` in kilometres).  ``device``: where the sweep runs, the
+    card unless the caller asks for the CPU; a CUDA device runs kernel K1,
+    the CPU the plain torch sweep.  ``engine``
     "auto" and "pallas" both select the fused sweep; the XLA-style "sweep"
     engine is not ported.  ``hori_fill`` applies to masked cells, and masks
     with zeros are not ported yet.

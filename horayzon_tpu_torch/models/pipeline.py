@@ -14,11 +14,12 @@ class PlanarPipeline:
 
     Equivalent to examples/horizon/gridded_planar_DEM.py: given the outer
     x/y/elevation grid and the inner-domain bounds, computes horizon, slope,
-    SVF, and slope angle/aspect on ``device``.
+    SVF, and slope angle/aspect on ``device`` (the card unless the caller
+    asks for the CPU).
     """
 
     def __init__(self, x, y, elevation, domain, dist_search, azim_num=180,
-                 hori_acc=0.25, elev_ang_low_lim=-15.0, *, device):
+                 hori_acc=0.25, elev_ang_low_lim=-15.0, *, device="cuda"):
         self.x = np.asarray(x, dtype=np.float32)
         self.y = np.asarray(y, dtype=np.float32)
         self.elevation = np.asarray(elevation, dtype=np.float32)

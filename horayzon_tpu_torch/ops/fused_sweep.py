@@ -437,7 +437,7 @@ def kernel_lib():
     """The loaded library of K1 and K2 (built with nvcc on first use)."""
     lib = _build.load("horizon_sweep")
     for fn in (lib.horizon_sweep_launch, lib.horizon_sweep_argmax_launch,
-               lib.shadow_sweep_launch):
+               lib.shadow_sweep_launch, lib.shadow_sweep_argmax_launch):
         fn.argtypes = [ctypes.POINTER(_HzParams), ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -636,7 +636,8 @@ class _HorizonSweepFn(torch.autograd.Function):
         z, raw, ids, aux = ctx.saved_tensors
         graw = raw_cotangent(raw, g, ctx.lims)
         level_cots, zcot = _replay.backward_replay(
-            tuple(z.shape), graw, ids, aux, ctx.plan, ctx.trig)
+            tuple(z.shape), graw, ids, aux, ctx.plan,
+            _replay.horizon_shifts(ctx.trig, ctx.plan))
         return _replay.z_cotangent(z, ctx.plan, level_cots, zcot), None
 
 

@@ -1,23 +1,31 @@
 # Copyright (c) 2026
 # MIT License
-"""Winner-replay backward of the fused horizon sweep: the counterpart of
+"""Winner-replay backward of the fused sweep: the counterpart of
 ``horayzon_tpu.ops.pallas_sweep.backward_replay_fn`` (horizon mode, no
-tilt ramp).
+tilt ramp) and of ``shadow_backward_replay_fn`` (shadow mode).
 
-The argmax forward (``fused_sweep``, ``emit_argmax=True``) records per
-(azimuth, inner cell) the id of the candidate that won the running maximum
-and, for a parabola winner, its stationary denominator D.  The backward
-replays only those winners: envelope-theorem partials, closed-form in D, so
-no height is re-read.  :func:`backward_replay` returns one cotangent array
-per padded pyramid level (the layout of :func:`mip.padded_levels`) and the
-(in0, in1) cotangent of ``z_org``; :func:`z_cotangent` routes them to the
-outer heightfield.  Two implementations of identical formulas:
+The argmax forward (``fused_sweep`` or ``shadow_sweep``,
+``emit_argmax=True``) records per (azimuth or sun, inner cell) the id of the
+candidate that won the running maximum and, for a parabola winner, its
+stationary denominator D.  The backward replays only those winners:
+envelope-theorem partials, closed-form in D, so no height is re-read.
+:func:`backward_replay` returns one cotangent array per padded pyramid
+level (the layout of :func:`mip.padded_levels`) and the (in0, in1)
+cotangent of ``z_org``; :func:`z_cotangent` routes them to the outer
+heightfield.  Two implementations of identical formulas:
 
-* kernel K3, ``csrc/horizon_replay_bwd.cu`` (CUDA C++ for ``sm_90a``, a
-  deterministic gather), run for CUDA tensors;
+* kernels K3 (horizon) and K4 (shadow), ``csrc/horizon_replay_bwd.cu``
+  (CUDA C++ for ``sm_90a``, a deterministic gather), run for CUDA tensors;
 * :func:`backward_replay_plain`, a scatter in plain torch vectorised over
-  the inner cells, run for CPU tensors and used on the card as K3's
-  reference.
+  the inner cells, run for CPU tensors and used on the card as the
+  kernels' reference.
+
+Both take the mode the same way: the horizon mode the per-row shifts
+(:func:`horizon_shifts`) as the forward read them, the shadow mode
+``shadow = (sun_table, z_org, grid_origin)``, whose shifts are the table's
+columns 5-6.  The shadow mode's coefficients are bare (no ``1/s``,
+``1/D``) and its z_org term is ``g * (-1 - S * dm/dz_org)``
+(:func:`shadow_dmdz`, ``pallas_sweep.py:1786-1812``).
 
 Winner ids (``pallas_sweep.py:563-857``): ``2m`` / ``2m+1`` for the point /
 parabola of dense step m (a d1 pair starting at m records ``2m``,
@@ -47,6 +55,8 @@ _MAX_LEVELS = 32
 #: Launches of kernel K3 made by this process (incremented only where the
 #: wrapper launches it).
 KERNEL_LAUNCHES = 0
+#: Launches of kernel K4 (the shadow mode) made by this process.
+SHADOW_KERNEL_LAUNCHES = 0
 
 
 def padded_level_shapes(z_shape, pads):
@@ -66,16 +76,80 @@ def _mip_phases(plan):
     return out
 
 
+def horizon_shifts(trig, plan):
+    """(A, 2) float32 row and column shifts (sh_i, sh_j) [cells per metre]
+    of the horizon azimuths: ``trig / (dy, dx)`` in float32, as the
+    reference forms them (``pallas_sweep.py:383-386``)."""
+    f32 = np.float32
+    return np.stack([trig[:, 1].astype(f32) / f32(plan["dy"]),
+                     trig[:, 0].astype(f32) / f32(plan["dx"])], axis=-1)
+
+
+def _row_shifts(shifts, shadow):
+    """The (A, 2) float32 (sh_i, sh_j) of the replay's rows: ``shifts`` in
+    the horizon mode, the sun table's columns 5-6 (the shifts K2 read) in
+    the shadow mode ``shadow = (sun_table, z_org, grid_origin)``."""
+    if (shifts is None) == (shadow is None):
+        raise ValueError("pass the horizon shifts or the shadow inputs "
+                         "(sun_table, z_org, grid_origin), exactly one")
+    rows = shifts if shadow is None else shadow[0][:, 5:7]
+    return np.ascontiguousarray(rows, dtype=np.float32)
+
+
 def _mip_s(s_first, step_l, m, dist):
     f32 = np.float32
     return np.minimum(f32(s_first) + f32(m) * f32(step_l), dist)
+
+
+def sqrt_rn(x):
+    """Correctly rounded float32 square root (through float64: torch's
+    float32 CPU sqrt is not always correctly rounded)."""
+    return torch.sqrt(x.double()).float()
+
+
+def lattice_xy(plan, grid_origin, device):
+    """float32 x (in1,) of the inner block's global outer columns and y
+    (in0,) of its rows (``pallas_sweep.py:355-358``)."""
+    f32 = np.float32
+    in0, in1 = plan["inner_shape"]
+    off0, off1 = plan["offset"]
+    xr = ((torch.arange(off1, off1 + in1, device=device).to(torch.float32)
+           * float(f32(plan["dx"]))) + float(f32(grid_origin[0])))
+    yr = ((torch.arange(off0, off0 + in0, device=device).to(torch.float32)
+           * float(f32(plan["dy"]))) + float(f32(grid_origin[1])))
+    return xr, yr
+
+
+def shadow_dmdz(z_org, table, plan, grid_origin):
+    """(T, in0, in1) derivative of each cell's ray slope ``m`` toward each
+    sun w.r.t. its ray-origin height, as ``_bwd_kernel(mode="shadow")``
+    forms it (``pallas_sweep.py:1801-1812``): ``-1 / dot`` where the
+    horizontal advance ``adv = dot / mag`` exceeds 1e-4 (there ``m =
+    szr / dot``), else ``-(sxr^2 + syr^2) / (mag^3 * 1e-4)`` (the clamped
+    arm ``m = (szr / mag) / 1e-4``)."""
+    xr, yr = lattice_xy(plan, grid_origin, z_org.device)
+    eps = float(np.float32(1.0e-4))
+    out = torch.empty((table.shape[0],) + tuple(z_org.shape),
+                      dtype=torch.float32, device=z_org.device)
+    for t in range(table.shape[0]):
+        sun_x, sun_y, sun_z, kx_u, ky_u = (float(v) for v in table[t, :5])
+        sxr = sun_x - xr
+        syr = sun_y - yr
+        szr = sun_z - z_org
+        hor2 = (sxr * sxr)[None, :] + (syr * syr)[:, None]
+        mag = sqrt_rn(hor2 + szr * szr)
+        dot = (sxr * kx_u)[None, :] + (syr * ky_u)[:, None]
+        out[t] = torch.where(dot / mag > eps, -1.0 / dot,
+                             -hor2 / (((mag * mag) * mag) * eps))
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
+def backward_replay_plain(z_shape, graw, ids, aux, plan, shifts=None,
+                          shadow=None):
     """Winner replay in plain torch: per azimuth and sample, the winners'
     coefficients as (in0, in1) fields, added into shifted slices of the
     level-0 cotangent (bilinear corners) or, on mip levels, with
@@ -83,9 +157,12 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
 
     ``graw``/``aux`` (A, in0, in1) float32, ``ids`` (A, in0, in1) int32 on
     one device; ``plan`` from :func:`fused_sweep.plan_sweep` (its
-    ``consts`` are the float32 scalars the forward used); ``trig`` the
-    (A, 2) host table of :func:`fused_sweep.trig_table`.  Returns
-    ``(level_cots, zcot)``."""
+    ``consts`` are the float32 scalars the forward used).  The mode, as
+    :func:`backward_replay` takes it: ``shifts`` the (A, 2) float32 host
+    table of (sh_i, sh_j) of the horizon azimuths, or ``shadow = (sun_table,
+    z_org, grid_origin)``, with bare coefficients and the z_org term ``g *
+    (-1 - S * dmdz)`` (:func:`shadow_dmdz`).  Returns ``(level_cots,
+    zcot)``."""
     f32 = np.float32
     k = plan["consts"]
     in0, in1 = plan["inner_shape"]
@@ -99,12 +176,29 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
     rows = torch.arange(off0, off0 + in0, device=dev)
     cols = torch.arange(off1, off1 + in1, device=dev)
     step, pad0 = k["step"], pads[0]
+    shifts = _row_shifts(shifts, shadow)
+    dmdz = None if shadow is None else shadow_dmdz(shadow[1], shadow[0],
+                                                   plan, shadow[2])
 
-    for az in range(trig.shape[0]):
-        sh_i = f32(trig[az, 1]) / f32(plan["dy"])
-        sh_j = f32(trig[az, 0]) / f32(plan["dx"])
+    for az in range(shifts.shape[0]):
+        sh_i, sh_j = f32(shifts[az, 0]), f32(shifts[az, 1])
         g, idv, ax = graw[az], ids[az], aux[az]
+        dm = None if dmdz is None else dmdz[az]
         zc = torch.zeros_like(zcot)
+
+        def per_s(coef, s):
+            """A point winner's coefficient at distance s from
+            ``where(winner, g, 0)``: horizon g / s, shadow g."""
+            return coef * float(f32(1.0) / s) if dm is None else coef
+
+        def z_term(coef, s):
+            """The z_org term of winners with coefficient ``coef`` at S =
+            ``s`` (a distance or the D field): horizon -coef, shadow
+            coef * (-1 - S * dmdz) (pallas_sweep.py:1871, 1901)."""
+            if dm is None:
+                return -coef
+            return coef * (-1.0 - (s if isinstance(s, torch.Tensor)
+                                   else float(s)) * dm)
 
         def scatter0(coef, s):
             """Adjoint of the bilinear level-0 read at distance s."""
@@ -119,8 +213,11 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
                         coef * float(wi) * float(wj))
 
         def quad_coef(m):
-            """g / D of the parabola winners 2m+1 (D > 1e-3), else 0."""
+            """g / D (shadow: g) of the parabola winners 2m+1 (D > 1e-3),
+            else 0."""
             ok = (idv == 2 * m + 1) & (ax > 1e-3)
+            if dm is not None:
+                return torch.where(ok, g, 0.0)
             inv_d = torch.where(ok, 1.0 / torch.where(ok, ax, 1.0), 0.0)
             return torch.where(ok, g, 0.0) * inv_d
 
@@ -137,12 +234,12 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
             s = f32(m + 1) * step
             pm = idv == 2 * m
             if bool(pm.any()):
-                coef = torch.where(pm, g, 0.0) * float(f32(1.0) / s)
+                coef = per_s(torch.where(pm, g, 0.0), s)
                 scatter0(coef, s)
-                zc += -coef
+                zc += z_term(coef, s)
             if bool((idv == 2 * m + 1).any()):
                 gq = quad_coef(m)
-                zc += -gq
+                zc += z_term(gq, ax)
                 s0 = f32(m) * step
                 qt = float(k["inv_l0"]) * (ax - float(s0))
                 for kind, sk in enumerate((s0, s0 + k["half_step"],
@@ -155,9 +252,8 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
             hit = (idv >= 2 * q) & (idv <= 2 * q + 5)
             if not bool(hit.any()):
                 continue
-            coef = (torch.where((idv == 2 * q) & (q >= nx), g, 0.0)
-                    * float(f32(1.0) / s))
-            zc += -coef
+            coef = per_s(torch.where((idv == 2 * q) & (q >= nx), g, 0.0), s)
+            zc += z_term(coef, s)
             for off in range(3):
                 mm = q + off
                 if not nx + 1 <= mm < n_dense:
@@ -167,10 +263,11 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
                 qt = float(k["inv_l1"]) * (ax - float(s0))
                 coef = coef + gq * envelope(2 - off, qt)
                 if off == 0:
-                    zc += -gq
+                    zc += z_term(gq, ax)
             scatter0(coef, s)
 
-        # mip phases: g / s on the coarse cell (pallas_sweep.py:2024-2038)
+        # mip phases: g / s (shadow: g) on the coarse cell
+        # (pallas_sweep.py:2024-2038, 2080-2083)
         for lvl, n_m, s_first, step_l, id_off in _mip_phases(plan):
             kp = 2 ** lvl
             for m in range(n_m):
@@ -178,8 +275,8 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
                 if not bool(pm.any()):
                     continue
                 s = _mip_s(s_first, step_l, m, k["dist"])
-                coef = torch.where(pm, g, 0.0) * float(f32(1.0) / s)
-                zc += -coef
+                coef = per_s(torch.where(pm, g, 0.0), s)
+                zc += z_term(coef, s)
                 ri = int(np.rint(s * sh_i))
                 rj = int(np.rint(s * sh_j))
                 r = torch.div(rows + ri, kp, rounding_mode="floor") + pads[lvl]
@@ -191,14 +288,15 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, trig):
 
 
 # ---------------------------------------------------------------------------
-# Kernel K3 (csrc/horizon_replay_bwd.cu)
+# Kernels K3 and K4 (csrc/horizon_replay_bwd.cu)
 # ---------------------------------------------------------------------------
 
 class _BwdParams(ctypes.Structure):
     """Mirror of ``struct BwdParams`` in csrc/horizon_replay_bwd.cu."""
     _fields_ = (
         [("ids", ctypes.c_void_p), ("g", ctypes.c_void_p),
-         ("aux", ctypes.c_void_p), ("trig", ctypes.c_void_p),
+         ("aux", ctypes.c_void_p), ("shift", ctypes.c_void_p),
+         ("sun", ctypes.c_void_p), ("z_org", ctypes.c_void_p),
          ("zcot", ctypes.c_void_p), ("cot", ctypes.c_void_p * _MAX_LEVELS)]
         + [(n, ctypes.c_int * _MAX_LEVELS)
            for n in ("lvl_w", "lvl_pad", "box_r0", "box_r1", "box_c0",
@@ -210,16 +308,16 @@ class _BwdParams(ctypes.Structure):
                      "n_dense")]
         + [(n, ctypes.c_float)
            for n in ("dx", "dy", "step", "dist", "half_step", "inv_l0",
-                     "inv_l1")])
+                     "inv_l1", "x0", "y0")])
 
 
 def _kernel_lib():
-    """The loaded K3 library (built with nvcc on first use)."""
+    """The loaded library of K3 and K4 (built with nvcc on first use)."""
     lib = _build.load("horizon_replay_bwd")
-    lib.horizon_replay_bwd_launch.argtypes = [
-        ctypes.POINTER(_BwdParams), ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.horizon_replay_bwd_launch.restype = ctypes.c_int
+    for fn in (lib.horizon_replay_bwd_launch, lib.shadow_replay_bwd_launch):
+        fn.argtypes = [ctypes.POINTER(_BwdParams), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.horizon_replay_bwd_error_string.argtypes = [ctypes.c_int]
     lib.horizon_replay_bwd_error_string.restype = ctypes.c_char_p
     lib.horizon_replay_bwd_params_size.argtypes = []
@@ -231,18 +329,18 @@ def _kernel_lib():
     return lib
 
 
-def _target_boxes(z_shape, plan, trig):
+def _target_boxes(z_shape, plan, shifts):
     """Per level, the box ``(r0, r1, c0, c1)`` of padded-level cells that a
     sample of the sweep can touch (empty ``(0, 0, 0, 0)`` for a level no
-    phase reads).  Computed from the same float32 shifts as the kernels,
-    widened by one cell and clipped to the level."""
+    phase reads).  Computed from the (A, 2) float32 ``shifts`` the kernels
+    read, widened by one cell and clipped to the level."""
     f32 = np.float32
     k = plan["consts"]
     in0, in1 = plan["inner_shape"]
     off0, off1 = plan["offset"]
     nx, n_dense, step = plan["nx"], plan["n_dense"], k["step"]
-    sh_i = (trig[:, 1].astype(f32) / f32(plan["dy"]))[:, None]
-    sh_j = (trig[:, 0].astype(f32) / f32(plan["dx"]))[:, None]
+    sh_i = shifts[:, 0:1].astype(f32)
+    sh_j = shifts[:, 1:2].astype(f32)
     shapes = padded_level_shapes(z_shape, plan["pads"])
     boxes = [(0, 0, 0, 0)] * len(shapes)
 
@@ -282,29 +380,48 @@ def _target_boxes(z_shape, plan, trig):
     return boxes
 
 
-def _bwd_cuda(z_shape, graw, ids, aux, plan, trig):
-    """``(level_cots, zcot)`` from kernel K3 on ``graw``'s card."""
-    global KERNEL_LAUNCHES
+def _bwd_cuda(z_shape, graw, ids, aux, plan, shifts=None, shadow=None):
+    """``(level_cots, zcot)`` from kernel K3 on ``graw``'s card (the mode
+    given by ``shifts``); with ``shadow = (sun_table, z_org, grid_origin)``
+    from kernel K4, which also reads the (T, 8) table and the (in0, in1)
+    ray origins."""
+    global KERNEL_LAUNCHES, SHADOW_KERNEL_LAUNCHES
     dev = graw.device
     in0, in1 = plan["inner_shape"]
-    a_num = trig.shape[0]
-    for t, dt in ((graw, torch.float32), (ids, torch.int32),
-                  (aux, torch.float32)):
+    shifts = _row_shifts(shifts, shadow)
+    a_num = shifts.shape[0]
+    checks = [(graw, torch.float32, (a_num, in0, in1)),
+              (ids, torch.int32, (a_num, in0, in1)),
+              (aux, torch.float32, (a_num, in0, in1))]
+    if shadow is not None:
+        table, z_org, grid_origin = shadow
+        checks.append((z_org, torch.float32, (in0, in1)))
+        if table.shape != (a_num, 8):
+            raise ValueError(f"K4 takes a ({a_num}, 8) sun table, got "
+                             f"{table.shape}")
+    for t, dt, shape in checks:
         if (t.device != dev or t.dtype != dt or not t.is_contiguous()
-                or tuple(t.shape) != (a_num, in0, in1)):
-            raise ValueError("K3 takes contiguous (A, in0, in1) float32 "
-                             "graw/aux and int32 ids on one CUDA device")
+                or tuple(t.shape) != shape):
+            raise ValueError("the replay kernels take contiguous (A, in0, "
+                             "in1) float32 graw/aux, int32 ids and an (in0, "
+                             "in1) float32 z_org on one CUDA device")
     phases = plan["phases_meta"]
     shapes = padded_level_shapes(z_shape, plan["pads"])
     if len(shapes) > _MAX_LEVELS or len(phases) > _MAX_LEVELS:
         raise ValueError(f"at most {_MAX_LEVELS} pyramid levels")
     cots = [torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes]
     zcot = torch.empty((in0, in1), dtype=torch.float32, device=dev)
-    trig_t = torch.from_numpy(trig).to(dev)
+    shift_t = torch.from_numpy(shifts).to(dev)
     prm = _BwdParams()
     prm.ids, prm.g, prm.aux = ids.data_ptr(), graw.data_ptr(), aux.data_ptr()
-    prm.trig, prm.zcot = trig_t.data_ptr(), zcot.data_ptr()
-    boxes = _target_boxes(z_shape, plan, trig)
+    prm.shift, prm.zcot = shift_t.data_ptr(), zcot.data_ptr()
+    if shadow is not None:
+        sun_t = torch.from_numpy(
+            np.ascontiguousarray(table, dtype=np.float32)).to(dev)
+        prm.sun, prm.z_org = sun_t.data_ptr(), z_org.data_ptr()
+        prm.x0, prm.y0 = np.float32(grid_origin[0]), np.float32(
+            grid_origin[1])
+    boxes = _target_boxes(z_shape, plan, shifts)
     for lvl, (t, box) in enumerate(zip(cots, boxes)):
         prm.cot[lvl] = t.data_ptr()
         prm.lvl_w[lvl] = t.shape[1]
@@ -322,13 +439,17 @@ def _bwd_cuda(z_shape, graw, ids, aux, plan, trig):
     for n in ("step", "dist", "half_step", "inv_l0", "inv_l1"):
         setattr(prm, n, plan["consts"][n])
     lib = _kernel_lib()
-    err = lib.horizon_replay_bwd_launch(
-        ctypes.byref(prm), len(shapes), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    entry = (lib.horizon_replay_bwd_launch if shadow is None
+             else lib.shadow_replay_bwd_launch)
+    err = entry(ctypes.byref(prm), len(shapes), dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.horizon_replay_bwd_error_string(err).decode()
         raise RuntimeError(f"horizon_replay_bwd kernel launch failed: {msg}")
-    KERNEL_LAUNCHES += 1
+    if shadow is None:
+        KERNEL_LAUNCHES += 1
+    else:
+        SHADOW_KERNEL_LAUNCHES += 1
     return cots, zcot
 
 
@@ -336,14 +457,21 @@ def _bwd_cuda(z_shape, graw, ids, aux, plan, trig):
 # Entry points
 # ---------------------------------------------------------------------------
 
-def backward_replay(z_shape, graw, ids, aux, plan, trig):
-    """``(level_cots, zcot)`` of the winners recorded by the argmax forward:
-    kernel K3 for CUDA tensors (a failed build or launch raises),
-    :func:`backward_replay_plain` for CPU tensors."""
+def backward_replay(z_shape, graw, ids, aux, plan, shifts=None,
+                    shadow=None):
+    """``(level_cots, zcot)`` of the winners recorded by an argmax forward,
+    for the row cotangent ``graw`` (A, in0, in1).  Horizon mode: the
+    azimuths' ``shifts`` (:func:`horizon_shifts`), kernel K3.  Shadow mode
+    (``shadow_backward_replay_fn``): ``shadow = (sun_table, z_org,
+    grid_origin)`` of the K2-argmax forward, kernel K4; ``zcot`` is then
+    the cotangent of the ray origins ``z_org``.  The kernel runs for CUDA
+    tensors (a failed build or launch raises), :func:`backward_replay_plain`
+    for CPU tensors."""
     if graw.device.type == "cuda":
-        return _bwd_cuda(z_shape, graw, ids, aux, plan, trig)
+        return _bwd_cuda(z_shape, graw, ids, aux, plan, shifts, shadow)
     if graw.device.type == "cpu":
-        return backward_replay_plain(z_shape, graw, ids, aux, plan, trig)
+        return backward_replay_plain(z_shape, graw, ids, aux, plan, shifts,
+                                     shadow)
     raise ValueError(f"no replay backward for device {graw.device}")
 
 
@@ -359,9 +487,13 @@ def z_cotangent(z, plan, level_cots, zcot):
 
 def replay_state_from_jax(raw, ids, aux, azim_num, device):
     """Port tensors ``(raw, ids, aux)`` from the JAX package's argmax
-    forward (``pallas_forward_fn(..., emit_argmax=True)``), whose rows may
-    be padded to ``azim_pad``: the padding is cropped, ids become int32.
-    The port's backward can then run on the reference's forward record."""
+    forward, whose rows may be padded: ``pallas_forward_fn(...,
+    emit_argmax=True)`` pads the azimuth rows to ``azim_pad``, the shadow
+    record ``_shadow_core(..., emit_argmax=True)`` (metric, ids, D) pads
+    its sun rows to ``t_pad`` by repeating the last sun
+    (``pallas_sweep.py:2543-2548``).  The first ``azim_num`` rows (azimuths
+    or suns) are kept, ids as int32, so the port's backward can run on the
+    reference's forward record."""
     out = []
     for a, dt in ((raw, np.float32), (ids, np.int32), (aux, np.float32)):
         a = np.asarray(a)

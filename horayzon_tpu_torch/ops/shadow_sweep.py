@@ -2,7 +2,8 @@
 # MIT License
 """Fused planar shadow sweep: the counterpart of
 ``horayzon_tpu.ops.pallas_sweep.shadow_metric_pallas`` with
-``exact_metric=True``.
+``exact_metric=True``, and of its differentiable form
+``shadow_metric_pallas_diff``.
 
 For every inner cell and each sun of a track, :func:`shadow_metric_fused`
 returns the occlusion metric: the maximum along the cell's ray toward the
@@ -23,8 +24,14 @@ Both follow ``pallas_sweep.py::_kernel(mode="shadow")``: the ray slope from
 the sun table (:352-380), the clearance of a point sample (:487-489) and
 the vertex value of a concave parabola segment (:426-437), rounded as the
 reference rounds them.  None of the reference's skips run, so the value is
-its ``exact_metric=True`` value.  The argmax variant (the gradient path) is
-not ported yet.
+its ``exact_metric=True`` value.
+
+The gradient path (:class:`_ShadowSweepFn`, taken when ``z_outer`` or
+``z_org_r`` requires grad) runs the argmax variant, K2-argmax on the card
+(winner ids and the vertex denominator D = s0 + t*), and the shadow
+winner-replay backward, kernel K4 of ``csrc/horizon_replay_bwd.cu``
+(``replay.backward_replay`` in the shadow mode); on the CPU their plain
+versions.
 """
 
 import math
@@ -34,10 +41,14 @@ import torch
 
 from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import mip as _mip
+from horayzon_tpu_torch.ops import replay as _replay
+from horayzon_tpu_torch.ops.replay import lattice_xy, sqrt_rn
 
 #: Launches of kernel K2 made by this process (incremented only where the
 #: wrapper launches it).
 KERNEL_LAUNCHES = 0
+#: Launches of K2's argmax variant (the forward of the gradient path).
+ARGMAX_KERNEL_LAUNCHES = 0
 
 _F32 = np.float32
 #: float32(-1e-12): the concavity threshold of the vertex candidate
@@ -81,25 +92,12 @@ def plan_shadow(outer_shape, *, inner_shape, offset, dx, dy, hori_acc=0.25,
                              hori_acc=hori_acc, rel_err=rel_err)
 
 
-def sqrt_rn(x):
-    """Correctly rounded float32 square root (through float64: torch's
-    float32 CPU sqrt is not always correctly rounded)."""
-    return torch.sqrt(x.double()).float()
-
-
 def _shadow_rows(z_org, table, plan, grid_origin):
     """``row_mode`` of :func:`fused_sweep.sweep_plain` for K2: per sun the
     shifts of the table's columns 5-6, the ray-slope field ``m`` and the
-    clearance candidates (``pallas_sweep.py:352-380, 426-437, 487-489``)."""
+    clearance candidates (``pallas_sweep.py:352-380, 426-453, 487-489``)."""
     k = plan["consts"]
-    in0, in1 = plan["inner_shape"]
-    off0, off1 = plan["offset"]
-    dev = z_org.device
-    # lattice coordinates of the global outer rows and columns
-    xr = ((torch.arange(off1, off1 + in1, device=dev).to(torch.float32)
-           * float(_F32(plan["dx"]))) + float(_F32(grid_origin[0])))
-    yr = ((torch.arange(off0, off0 + in0, device=dev).to(torch.float32)
-           * float(_F32(plan["dy"]))) + float(_F32(grid_origin[1])))
+    xr, yr = lattice_xy(plan, grid_origin, z_org.device)
     # (lo2, hi2) of each window: d2 step, d1 pair, d1 single
     wins = ((k["lo2_0"], k["hi2_step"]), (k["lo2_0"], k["hi2_two_step"]),
             (k["lo2_step"], k["hi2_two_step"]))
@@ -128,7 +126,8 @@ def _shadow_rows(z_org, table, plan, grid_origin):
             valid = concave & ((d + lo2a) * (d + hi2a) < 0.0)
             cand = ((h0 - z_org) - m * float(s_start)) \
                 - ((d * 0.25) * d) / a_s
-            return valid, cand, None, None
+            # the argmax pair of D = s_start - d / (2 a)
+            return valid, cand, (2.0 * a_s) * float(s_start) - d, 2.0 * a_s
 
         return sh_i, sh_j, point, quad
 
@@ -136,28 +135,41 @@ def _shadow_rows(z_org, table, plan, grid_origin):
 
 
 def _metric_plain(z_org, z_inner, levels, table, plan, outer_shape,
-                  grid_origin):
-    """The metric (T, in0, in1) in plain torch (K2's plain version)."""
+                  grid_origin, emit_argmax=False):
+    """The metric (T, in0, in1) in plain torch (K2's plain version); with
+    ``emit_argmax`` ``(metric, ids, aux)`` as K2-argmax returns them (ids
+    in the horizon layout, aux the D of a parabola winner)."""
     return _fused.sweep_plain(z_inner, levels, plan, outer_shape,
                               table.shape[0],
-                              _shadow_rows(z_org, table, plan, grid_origin))
+                              _shadow_rows(z_org, table, plan, grid_origin),
+                              emit_argmax)
 
 
 def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
-                 grid_origin):
-    """The metric (T, in0, in1) from kernel K2 on ``z_org``'s card."""
-    global KERNEL_LAUNCHES
+                 grid_origin, emit_argmax=False):
+    """The metric (T, in0, in1) from kernel K2 on ``z_org``'s card;
+    ``emit_argmax``: ``(metric, ids, aux)`` from K2-argmax, as
+    :func:`_metric_plain` returns them."""
+    global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
     dev = z_org.device
     in0, in1 = plan["inner_shape"]
-    out = torch.empty((table.shape[0], in0, in1), dtype=torch.float32,
-                      device=dev)
+    shape = (table.shape[0], in0, in1)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     prm = _fused.kernel_params(z_org, z_inner, levels, plan, outer_shape,
                                table.shape[0], out)
     table_t = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
     prm.sun = table_t.data_ptr()
     prm.x0, prm.y0 = _F32(grid_origin[0]), _F32(grid_origin[1])
+    if emit_argmax:
+        ids = torch.empty(shape, dtype=torch.int32, device=dev)
+        aux = torch.empty(shape, dtype=torch.float32, device=dev)
+        prm.ids, prm.aux = ids.data_ptr(), aux.data_ptr()
     lib = _fused.kernel_lib()
-    _fused.launch(lib, lib.shadow_sweep_launch, prm, dev)
+    _fused.launch(lib, lib.shadow_sweep_argmax_launch if emit_argmax
+                  else lib.shadow_sweep_launch, prm, dev)
+    if emit_argmax:
+        ARGMAX_KERNEL_LAUNCHES += 1
+        return out, ids, aux
     KERNEL_LAUNCHES += 1
     return out
 
@@ -196,6 +208,39 @@ def metric_args(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
     return (fields[0], fields[1], levels, table, plan, tuple(z.shape))
 
 
+class _ShadowSweepFn(torch.autograd.Function):
+    """The shadow metric with its winner-replay backward (``_shadow_diff``
+    with ``_shadow_diff_fwd`` / ``_shadow_diff_bwd``,
+    ``pallas_sweep.py:2591-2626``).  Forward: K2-argmax (CUDA) or the plain
+    argmax sweep (CPU), saving ids and D.  Backward: K4 (CUDA) or the plain
+    replay (CPU); the level cotangents go to ``z_outer`` through the
+    pyramid's VJP, the ray-origin cotangent to ``z_org_r`` as it is.
+    ``z_inner_r`` and the sun table get no gradient, as the reference
+    returns zeros for them (``pallas_sweep.py:2525-2531, 2622-2623``)."""
+
+    @staticmethod
+    def forward(ctx, z_outer, z_org_r, z_inner_r, kw):
+        args = metric_args(z_outer, z_org_r, z_inner_r, **kw["metric"])
+        fn = _metric_cuda if args[0].is_cuda else _metric_plain
+        met, ids, aux = fn(*args, grid_origin=kw["grid_origin"],
+                           emit_argmax=True)
+        z_org, _, _, table, plan, _ = args
+        ctx.save_for_backward(z_outer, z_org, ids, aux)
+        ctx.table, ctx.plan, ctx.grid_origin = table, plan, kw["grid_origin"]
+        return met
+
+    @staticmethod
+    def backward(ctx, g):
+        z, z_org, ids, aux = ctx.saved_tensors
+        level_cots, dz_org = _replay.backward_replay(
+            tuple(z.shape), g.to(torch.float32).contiguous(), ids, aux,
+            ctx.plan, shadow=(ctx.table, z_org, ctx.grid_origin))
+        dz = None
+        if ctx.needs_input_grad[0]:
+            dz = _mip.padded_levels_vjp(z, ctx.plan["pads"], level_cots)
+        return dz, (dz_org if ctx.needs_input_grad[1] else None), None, None
+
+
 def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
                         inner_shape, dx, dy, grid_origin, hori_acc=0.25,
                         rel_err=None, pyramid=None):
@@ -216,11 +261,30 @@ def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
     :func:`horayzon_tpu_torch.ops.mip.padded_levels` on ``z_outer``'s
     device (a ``Terrain`` builds them once).
 
+    Differentiable w.r.t. ``z_outer`` and ``z_org_r``: when either requires
+    grad (and grad mode is on) the metric runs as :class:`_ShadowSweepFn`
+    (K2-argmax and K4 on the card, their plain versions on the CPU); the
+    gradients are those ``jax.grad`` takes through
+    ``shadow_metric_pallas_diff``.  When ``z_outer`` requires grad the
+    pyramid is built from it, and no ``pyramid`` may be passed.
+
     Returns (T, in0, in1) float32 on ``z_outer``'s device; > 0 means the
     cell is terrain-occluded."""
-    args = metric_args(z_outer, z_org_r, z_inner_r, sun_table,
-                       offset=offset, inner_shape=inner_shape, dx=dx, dy=dy,
-                       hori_acc=hori_acc, rel_err=rel_err, pyramid=pyramid)
+    kw = dict(sun_table=sun_table, offset=offset, inner_shape=inner_shape,
+              dx=dx, dy=dy, hori_acc=hori_acc, rel_err=rel_err,
+              pyramid=pyramid)
+    diff = [isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (z_outer, z_org_r)]
+    if any(diff) and torch.is_grad_enabled():
+        if diff[0] and pyramid is not None:
+            raise NotImplementedError("the gradient path builds its pyramid "
+                                      "from z_outer; pass no pyramid")
+        z = torch.as_tensor(z_outer).to(torch.float32).contiguous()
+        z_org = torch.as_tensor(z_org_r).to(device=z.device,
+                                            dtype=torch.float32).contiguous()
+        return _ShadowSweepFn.apply(z, z_org, z_inner_r,
+                                    dict(metric=kw, grid_origin=grid_origin))
+    args = metric_args(z_outer, z_org_r, z_inner_r, **kw)
     fn = _metric_cuda if args[0].is_cuda else _metric_plain
     return fn(*args, grid_origin=grid_origin)
 

@@ -7,15 +7,17 @@ Counterpart of :mod:`horayzon_tpu.shadow` (the reference's
 initialised once with the DEM and the per-cell vectors, then queried per
 sun position or per sun track.  Ported: the regular planar grid
 (``geom_type="grid"``), ``shadow``, ``sw_dir_cor`` and their ``*_batch``
-forms, with or without refraction, with masks and fill values.  The
-occlusion test runs as one fused sweep over the whole sun batch
+forms, with or without refraction, with masks and fill values, and the
+differentiable ``sw_dir_cor_soft``.  The occlusion test runs as one fused
+sweep over the whole sun batch
 (:func:`horayzon_tpu_torch.ops.shadow_sweep.shadow_metric_fused`: kernel K2
 on a CUDA device, its plain torch version on the CPU), on the padded
 max-mip pyramid built once at :meth:`Terrain.initialise`; the per-cell
 classification (:func:`_classify`) is elementwise torch on the same
-device.  Curved (irregular) meshes, the XLA engines and the
-differentiable ``sw_dir_cor_soft`` are not ported yet and raise
-``NotImplementedError`` naming their item in ROADMAP.md's Queue 1.
+device.  ``sw_dir_cor_soft`` runs the metric's gradient path (K2-argmax
+and the winner-replay backward K4 on the card).  Curved (irregular) meshes
+and the XLA engines are not ported yet and raise ``NotImplementedError``
+naming their item in ROADMAP.md's Queue 1.
 """
 
 import math
@@ -65,7 +67,7 @@ def sun_dots(fields, sun_positions, refrac_cor):
 
 
 def _classify(fields, sun_positions, occluded, *, mode, refrac_cor,
-              ang_max):
+              ang_max, metric=None, soft_tau=None, straight_through=True):
     """Per-cell illumination classification given the occlusion result
     (``horayzon_tpu.shadow._classify_one``, shadow_comp.cpp:449-484 /
     :561-596), batched over the (T, 3) ``sun_positions``.
@@ -74,7 +76,13 @@ def _classify(fields, sun_positions, occluded, *, mode, refrac_cor,
     terrain-shaded, 3 masked.  ``mode="sw_dir_cor"``: the Mueller & Scherer
     (2005) factor ``dot_ts / max(dot_ns, cos(ang_max)) * surf_enl_fac``, 0
     where occluded or where the sun is within ``90 - ang_max`` degrees of
-    the tilted plane, the fill value on masked cells."""
+    the tilted plane, the fill value on masked cells.
+
+    ``metric``/``soft_tau`` (sw_dir_cor): the soft occlusion
+    ``sigmoid(metric / soft_tau)`` in place of the hard step (whose
+    gradient is zero almost everywhere); with ``straight_through`` the
+    value stays the hard one bit for bit and only the gradient is the
+    sigmoid's (``horayzon_tpu/shadow.py:152-161``)."""
     dot_ns, dot_ts = sun_dots(fields, sun_positions, refrac_cor)
     mask = fields["mask"]
     if mode == "shadow":
@@ -86,7 +94,16 @@ def _classify(fields, sun_positions, occluded, *, mode, refrac_cor,
     dot_min = float(np.float32(math.cos(math.radians(ang_max))))
     val = (dot_ts / torch.clamp_min(dot_ns, dot_min)) \
         * fields["surf_enl_fac"]
-    val = torch.where(occluded, 0.0, val)
+    if metric is not None and soft_tau is not None:
+        occ_soft = torch.sigmoid(metric / float(np.float32(soft_tau)))
+        if straight_through:
+            occ_eff = occ_soft + (torch.where(occluded, 1.0, 0.0)
+                                  - occ_soft).detach()
+        else:
+            occ_eff = occ_soft
+        val = val * (1.0 - occ_eff)
+    else:
+        val = torch.where(occluded, 0.0, val)
     out = torch.where(dot_ts > dot_min, val, 0.0)
     return torch.where(mask, out, fields["sw_dir_cor_fill"])
 
@@ -111,13 +128,14 @@ class Terrain:
                    refrac_cor=False,
                    acc=0.25,
                    engine="auto",
-                   *, device):
+                   *, device="cuda"):
         """Load DEM data and build the device-resident terrain state.
 
         Signature and validation mirror ``horayzon_tpu.shadow.Terrain.
         initialise`` (shadow.pyx:27-147); ``acc`` drives the sweep's sample
-        density.  ``device``: where the terrain lives and the queries run;
-        a CUDA device runs kernel K2, the CPU its plain torch version.
+        density.  ``device``: where the terrain lives and the queries run,
+        the card unless the caller asks for the CPU; a CUDA device runs
+        kernel K2, the CPU its plain torch version.
         ``engine``: "auto" and "pallas" both run the fused sweep; "sweep"
         and "scan" are not ported yet.  The inner block is swept as it is
         (one kernel thread per (cell, sun)), so it needs no room to pad to
@@ -294,7 +312,52 @@ class Terrain:
 
     def sw_dir_cor_soft(self, sun_position, elevation=None, soft_tau=1.0,
                         straight_through=True):
-        """The differentiable correction factor (soft occlusion) of
-        ``horayzon_tpu.shadow.Terrain.sw_dir_cor_soft``: not ported yet."""
-        raise _not_ported("sw_dir_cor_soft (the shadow gradient, kernel "
-                          "K4)", 9)
+        """Differentiable shortwave correction factor (soft occlusion) of
+        ``horayzon_tpu.shadow.Terrain.sw_dir_cor_soft`` on the fused sweep
+        (``_soft_pallas``, ``horayzon_tpu/shadow.py:588-627``).
+
+        The hard occlusion step becomes ``sigmoid(clearance / soft_tau)``
+        (``soft_tau`` in metres of signed clearance).  With
+        ``straight_through`` (default) the values equal :meth:`sw_dir_cor`
+        bit for bit and only the gradient uses the sigmoid;
+        ``straight_through=False`` gives the fully soft value.
+
+        ``elevation``: the (H, W) outer lattice heights to differentiate
+        through, a tensor on the terrain's device (default: the stored
+        heights).  The ray origins ``z_inner + 0.05 * vec_norm_z`` are
+        rebuilt from it, so gradients flow through the clearance metric
+        (K2-argmax and the winner-replay backward K4 on the card), the ray
+        slopes and the sun vectors of the classification.  The result
+        carries a ``grad_fn`` when ``elevation`` requires grad.  Single or
+        batch sun positions, as :meth:`sw_dir_cor` and
+        :meth:`sw_dir_cor_batch`."""
+        sun_position = self._check(sun_position)
+        single = sun_position.ndim == 1
+        sp = np.atleast_2d(sun_position)
+        z = self._z_outer if elevation is None else elevation
+        if (not isinstance(z, torch.Tensor)
+                or z.device != self._z_outer.device
+                or tuple(z.shape) != tuple(self._z_outer.shape)):
+            raise ValueError(f"elevation must be a tensor of shape "
+                             f"{tuple(self._z_outer.shape)} on "
+                             f"{self._z_outer.device}")
+        (o0, o1), (c0, c1) = self.offset, self.comp_shape
+        z_inner = z[o0:o0 + c0, o1:o1 + c1]
+        z_org = z_inner + _RAY_ORG_ELEV * self._fields["norm"][..., 2]
+        table, near_vert = _ss.shadow_sun_table(
+            sp, self._center, self.grid.dx, self.grid.dy)
+        metric = _ss.shadow_metric_fused(
+            z, z_org, z_inner, table, offset=self.offset,
+            inner_shape=self.comp_shape, dx=self.grid.dx, dy=self.grid.dy,
+            grid_origin=self._grid_origin, hori_acc=self.acc,
+            pyramid=(self._levels if z is self._z_outer
+                     and not z.requires_grad else None))
+        nv = torch.from_numpy(near_vert).to(metric.device)[:, None, None]
+        occluded = (metric > 0.0) & ~nv
+        metric = torch.where(nv, -1.0e30, metric)
+        out = _classify(dict(self._fields, z_org=z_org), sp, occluded,
+                        mode="sw_dir_cor", refrac_cor=self.refrac_cor,
+                        ang_max=self.ang_max, metric=metric,
+                        soft_tau=soft_tau,
+                        straight_through=straight_through)
+        return out[0] if single else out

@@ -1,7 +1,8 @@
 """Kernels K1 (csrc/horizon_sweep.cu, with its argmax variant), K2 (the
-shadow mode of the same source) and K3 (csrc/horizon_replay_bwd.cu) on the
-card, against their plain torch versions on the same card, and the
-gradient path and the shadow ``Terrain`` they make.
+shadow mode of the same source, with its argmax variant) and K3 and K4
+(csrc/horizon_replay_bwd.cu, horizon and shadow modes) on the card,
+against their plain torch versions on the same card, and the gradient
+paths and the shadow ``Terrain`` they make.
 
 Marked ``cuda`` and skipped without a CUDA device.  This file imports no
 JAX, so on a machine with the card it runs without the JAX package:
@@ -16,7 +17,9 @@ the plain backward: rtol 1e-5 of max |.| per cotangent (the same terms
 summed in another order); two K3 runs bit-equal.  K2 against its plain
 version: the metric within 1e-3 m and ``metric > 0`` equal (the two do the
 same float32 operations in the same order, so they agree bit for bit on
-every case measured).  A CUDA ``Terrain`` against a CPU one: codes equal
+every case measured); K2-argmax's metric, ids and D equal; K4 against the
+plain shadow replay as K3 against its plain version.  A CUDA ``Terrain``
+against a CPU one: codes equal
 and ``sw_dir_cor`` within 1e-5 plus 1e-6 relative outside a tie zone
 (metric within 1e-3 m of 0, sun dot products within 1e-6 of a threshold:
 the card's arccos, tan and power may differ from the CPU's by an ulp).
@@ -161,7 +164,8 @@ def test_replay_kernel_matches_plain_and_repeats(cuda, name):
     raw, ids, aux = fused_sweep._ratio_cuda(*args, emit_argmax=True)
     g = torch.from_numpy(np.random.default_rng(7).normal(
         size=tuple(raw.shape)).astype(np.float32)).to(cuda)
-    bargs = (tuple(zt.shape), g, ids, aux, args[4], args[3])
+    bargs = (tuple(zt.shape), g, ids, aux, args[4],
+             replay.horizon_shifts(args[3], args[4]))
     n0 = replay.KERNEL_LAUNCHES
     cots, zcot = replay._bwd_cuda(*bargs)
     assert replay.KERNEL_LAUNCHES == n0 + 1
@@ -275,6 +279,69 @@ def test_shadow_kernel_matches_plain(cuda, name):
     assert torch.equal(got > 0, ref > 0)
 
 
+def _shadow_args(cuda, name):
+    """``(metric_args, z_org, table, grid_origin)`` of a shadow case on the
+    card."""
+    z, off, inner, dx, dy, origin, rel = _shadow_case(name)
+    h, w = z.shape
+    cx, cy = origin[0] + 0.5 * (w - 1) * dx, origin[1] + 0.5 * (h - 1) * dy
+    suns = np.array([[cx + a, cy + b, c] for a, b, c in rel], np.float32)
+    table, _ = ss.shadow_sun_table(suns, (cx, cy), dx, dy)
+    zt = torch.from_numpy(z).to(cuda)
+    z_inner = zt[off[0]:off[0] + inner[0], off[1]:off[1] + inner[1]]
+    args = ss.metric_args(zt, z_inner + float(np.float32(0.05)), z_inner,
+                          table, offset=off, inner_shape=inner, dx=dx, dy=dy)
+    return args, origin
+
+
+@pytest.mark.parametrize("name", SHADOW_CASES)
+def test_shadow_argmax_kernel_matches_plain(cuda, name):
+    """K2-argmax: the metric bit-equal to K2's, ids and D equal to the
+    plain argmax sweep's (the same float32 operations in the same order)."""
+    args, origin = _shadow_args(cuda, name)
+    n0 = ss.ARGMAX_KERNEL_LAUNCHES
+    met, ids, aux = ss._metric_cuda(*args, grid_origin=origin,
+                                    emit_argmax=True)
+    assert ss.ARGMAX_KERNEL_LAUNCHES == n0 + 1
+    k2 = ss._metric_cuda(*args, grid_origin=origin)
+    p_met, p_ids, p_aux = ss._metric_plain(*args, grid_origin=origin,
+                                           emit_argmax=True)
+    torch.cuda.synchronize()
+    assert ids.dtype == torch.int32 and ids.shape == met.shape
+    assert torch.equal(met, k2) and torch.equal(met, p_met)
+    assert torch.equal(ids, p_ids) and torch.equal(aux, p_aux)
+    assert (ids < replay.ID_NONE).all()
+
+
+@pytest.mark.parametrize("name", SHADOW_CASES)
+def test_shadow_replay_kernel_matches_plain_and_repeats(cuda, name):
+    """K4 against the plain shadow replay on K2-argmax's record: rtol 1e-5
+    of max |.| per cotangent; two K4 runs bit-equal."""
+    args, origin = _shadow_args(cuda, name)
+    z_org, table, plan = args[0], args[3], args[4]
+    met, ids, aux = ss._metric_cuda(*args, grid_origin=origin,
+                                    emit_argmax=True)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=tuple(met.shape)).astype(np.float32)).to(cuda)
+    z_shape = tuple(args[5])
+    n0 = replay.SHADOW_KERNEL_LAUNCHES
+    shadow = (table, z_org, origin)
+    cots, dzorg = replay.backward_replay(z_shape, g, ids, aux, plan,
+                                         shadow=shadow)
+    assert replay.SHADOW_KERNEL_LAUNCHES == n0 + 1
+    cots2, dzorg2 = replay.backward_replay(z_shape, g, ids, aux, plan,
+                                           shadow=shadow)
+    p_cots, p_dzorg = replay.backward_replay_plain(z_shape, g, ids, aux, plan,
+                                                   shadow=shadow)
+    torch.cuda.synchronize()
+    for got, again, want in zip(cots + [dzorg], cots2 + [dzorg2],
+                                p_cots + [p_dzorg]):
+        assert torch.equal(got, again)
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+    assert dzorg.abs().max().item() > 0.0
+
+
 def _terrain_inputs(z, off, inner, dx=25.0):
     """Terrain.initialise inputs from the port's own helpers (north up)."""
     h, w = z.shape
@@ -328,6 +395,37 @@ def test_cuda_terrain_matches_cpu_terrain(cuda, refrac_cor):
     assert torch.allclose(sw[~tie], sw_c[~tie], rtol=1e-6, atol=1e-5)
     assert torch.equal(tg.shadow(suns[1]).cpu(), codes[1])
     assert tie.float().mean().item() < 0.01
+
+
+def test_soft_straight_through_on_card(cuda):
+    """``sw_dir_cor_soft`` on the card: the straight-through value equals
+    the hard ``sw_dir_cor_batch``; its gradient runs K2-argmax and K4 once
+    and matches the CPU terrain's (plain versions) within 1e-5 of max |.|
+    (K2-argmax records the plain sweep's winners, so the two replay the
+    same terms)."""
+    z = gaussian_bumps_terrain(96, 160, seed=11, amp=600.0)
+    args = _terrain_inputs(z, (16, 16), (64, 128))
+    suns = np.array([[1.0e7, 0.0, 1.5e6], [-4.0e6, 8.0e6, 1.5e6],
+                     [2.0e6, -1.0e7, 3.0e6]], dtype=np.float32)
+    grads = []
+    for dev in (cuda, "cpu"):
+        t = shadow.Terrain()
+        t.initialise(*args, sw_dir_cor_fill=-7.0, device=dev)
+        hard = t.sw_dir_cor_batch(suns)
+        zg = t._z_outer.clone().requires_grad_(True)
+        n0 = ss.ARGMAX_KERNEL_LAUNCHES, replay.SHADOW_KERNEL_LAUNCHES
+        soft = t.sw_dir_cor_soft(suns, elevation=zg, soft_tau=8.0)
+        assert soft.grad_fn is not None
+        assert torch.equal(soft.detach(), hard)
+        soft.mean().backward()
+        launched = (ss.ARGMAX_KERNEL_LAUNCHES - n0[0],
+                    replay.SHADOW_KERNEL_LAUNCHES - n0[1])
+        assert launched == ((1, 1) if dev is cuda else (0, 0))
+        assert torch.isfinite(zg.grad).all()
+        grads.append(zg.grad.cpu())
+    scale = grads[1].abs().max().item()
+    assert scale > 0.0
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-5 * scale
 
 
 def test_cuda_terrain_without_kernel_raises(cuda, tmp_path, monkeypatch):

@@ -310,7 +310,8 @@ def test_replay_backward_matches_reference(reference, name):
     zt = torch.from_numpy(z)
     plan = fused_sweep.sweep_args(zt, **kw)[4]
     cots, zcot = replay.backward_replay_plain(
-        z.shape, graw, ids, aux, plan, fused_sweep.trig_table(a))
+        z.shape, graw, ids, aux, plan,
+        replay.horizon_shifts(fused_sweep.trig_table(a), plan))
     dz = replay.z_cotangent(zt, plan, cots, zcot).numpy()
     want = ref["dz_replay"]
     assert np.abs(want).max() > 0.0
@@ -390,7 +391,8 @@ def test_reference_drops_the_single_parabola_at_nx(reference):
     assert not ref["dz_only_id"].any()
     graw = torch.where(sel, torch.from_numpy(ref["graw"][:a]), 0.0)
     cots, zcot = replay.backward_replay_plain(
-        z.shape, graw, ids, aux, plan, fused_sweep.trig_table(a))
+        z.shape, graw, ids, aux, plan,
+        replay.horizon_shifts(fused_sweep.trig_table(a), plan))
     assert not zcot.any() and not any(c.any() for c in cots)
 
 

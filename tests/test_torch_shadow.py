@@ -608,8 +608,11 @@ def test_branches_not_ported_raise():
     with pytest.raises(NotImplementedError, match="item 7"):
         _port_terrain(curved)
     t = _port_terrain(base, engine="pallas")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t.sw_dir_cor_soft(np.array([1e7, 0.0, 1e6], np.float32))
+    # sw_dir_cor_soft is ported (tests/test_torch_shadow_grad.py); it takes
+    # the heights to differentiate as a tensor of the outer shape
+    with pytest.raises(ValueError, match="elevation must be a tensor"):
+        t.sw_dir_cor_soft(np.array([1e7, 0.0, 1e6], np.float32),
+                          elevation=np.zeros(base["dem_dim"], np.float32))
     with pytest.raises(ValueError, match="incorrect shape"):
         t.shadow(np.zeros(4, np.float32))
     with pytest.raises(RuntimeError, match="not initialised"):
