@@ -48,6 +48,25 @@ F. the shadow gradient's main path, ``Terrain.sw_dir_cor_soft`` on phase
    on the 181-sun record, K2-argmax and K4 against their plain versions on
    4 suns, then the kink and central-difference check of
    ``tests/test_grad.py:155-210`` on a small case;
+G. K1's mask and tilt-ramp variants (tilt, mask, both; plain and argmax)
+   against their plain versions on phase 5's cases, bit-equal; an
+   all-masked mask (no launch); a scattered mask that leaves whole blocks
+   unlaunched (their pre-filled values); the z and ramp gradients through
+   the ramp and a mask against the plain path, and central differences;
+H. masked planar runs at the bench shape: ``horizon_gridded(mask=...,
+   hori_fill=-9)`` with the three masks of ``bench.py:377-397`` (a disc of
+   20% considered, the island, scattered patches), wall time (median of 5
+   after a warm-up) and speedup over the dense run, unmasked cells
+   bit-equal to it; K1-mask alone and its plain version on the island;
+I. curved: ``bench.py:60-197``'s curved masked scene (1024^2 lon/lat at
+   3 arcsec on the sphere, 512^2 inner, 10 km, the 8% island) dense and
+   masked through ``horizon_gridded`` (one run each: each planarises the
+   mesh on the host), unmasked cells bit-equal, the lattice sweeps timed
+   alone; then ``CurvedPipeline.run`` at the defaults of
+   ``examples/horizon/gridded_curved_dem.py`` (900^2 at 0.0009 degree,
+   WGS84, 20 km, 120 azimuths) with its wall split into host
+   planarisation, K1-tilt and read-back, SVF range and peak memory;
+   K1-tilt against its plain version there;
 9. one JSON line per kernel (launches on its main path, error against its
    plain version, its time and the plain version's, its bound and
    ``library_ms`` null), then the result line
@@ -65,8 +84,10 @@ import time
 import numpy as np
 import torch
 
-from horayzon_tpu_torch import auxiliary, shadow, sun_position, topo_param
-from horayzon_tpu_torch.models import PlanarPipeline, terrain_fit
+from horayzon_tpu_torch import (auxiliary, direction, horizon, shadow,
+                                sun_position, topo_param, transform)
+from horayzon_tpu_torch.models import (CurvedPipeline, PlanarPipeline,
+                                       terrain_fit)
 from horayzon_tpu_torch.ops import _build, fused_sweep, mip, replay
 from horayzon_tpu_torch.ops import shadow_sweep
 
@@ -81,6 +102,8 @@ BWD_SOURCE = "horayzon_tpu_torch/csrc/horizon_replay_bwd.cu"
 BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:1705"
 SHADOW_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2885"
 SHADOW_BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2470"
+MASK_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:196"
+TILT_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:219"
 #: Shadow metric tolerance [m] of K2 against the plain version.
 SHADOW_TOL = 1.0e-3
 KERNELS = ("horizon_sweep", "horizon_replay_bwd")
@@ -137,6 +160,95 @@ def odd_case():
     return ("bumps96_inner32_d825", make_terrain(96, 96, seed=3),
             dict(offset=(32, 32), inner_shape=(32, 32), azim_num=5,
                  dist_search=825.0))
+
+
+def variant_fields(shape, seed):
+    """A tilt ramp (A, B) of a few milliradians and a mask (an island plus
+    scattered cells, leaving whole 32 x 8 blocks unlaunched) for phase G."""
+    rng = np.random.default_rng(seed)
+    ramp = tuple(rng.uniform(-2e-3, 2e-3, shape).astype(np.float32)
+                 for _ in range(2))
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    mask = ((((yy - 0.4 * shape[0]) / (0.3 * shape[0])) ** 2
+             + ((xx - 0.6 * shape[1]) / (0.2 * shape[1])) ** 2)
+            <= 1.0).astype(np.uint8)
+    mask[::7, ::5] = 1
+    return ramp, mask
+
+
+def bench_mask_set(inner, mask_frac=0.8):
+    """bench.py:377-397's three masks of the inner domain: a disc of
+    ``1 - mask_frac`` considered, the compact island (about 7.7%), 40
+    scattered patches (seed 7)."""
+    yy, xx = np.mgrid[0:inner, 0:inner]
+    r_disc = np.sqrt((1.0 - mask_frac) * inner * inner / np.pi)
+    disc = ((yy - inner * 0.45) ** 2 + (xx - inner * 0.55) ** 2
+            <= r_disc ** 2).astype(np.uint8)
+    island = ((((yy - inner * 0.5) / (inner * 0.22)) ** 2
+               + ((xx - inner * 0.5) / (inner * 0.11)) ** 2)
+              <= 1.0).astype(np.uint8)
+    rng = np.random.default_rng(7)
+    scattered = np.zeros((inner, inner), dtype=np.uint8)
+    for _ in range(40):
+        cy1, cx1 = rng.uniform(0, inner), rng.uniform(0, inner)
+        rr = rng.uniform(18.0, 46.0)
+        scattered |= ((yy - cy1) ** 2 + (xx - cx1) ** 2
+                      <= rr ** 2).astype(np.uint8)
+    return {"disc": disc, "island": island, "scattered": scattered}
+
+
+def curved_bench_scene(n_c=1024, dlat=0.000833, in_c=512):
+    """bench.py:66-96's curved masked scene: ``n_c``^2 lon/lat cells of
+    ``dlat`` degree around (7, 45) on the sphere, 24 bumps (seed 6), ENU
+    mesh, unit vectors, and the island mask of its ``in_c``^2 inner
+    domain (the bench: 1024^2 at 0.000833 degree, 512^2 inner)."""
+    lat0, lon0 = 45.0, 7.0
+    lat = lat0 + (np.arange(n_c)[::-1] - n_c / 2) * dlat
+    lon = lon0 + (np.arange(n_c) - n_c / 2) * dlat
+    lon2, lat2 = np.meshgrid(lon, lat)
+    rng = np.random.default_rng(6)
+    elev = np.zeros_like(lon2)
+    for _ in range(24):
+        clon = rng.uniform(lon.min(), lon.max())
+        clat = rng.uniform(lat.min(), lat.max())
+        sig = rng.uniform(0.01, 0.1)
+        elev += rng.uniform(200, 1400) * np.exp(
+            -(((lon2 - clon) ** 2 + (lat2 - clat) ** 2) / (2 * sig ** 2)))
+    elev = elev.astype(np.float32)
+    trans = transform.TransformerEcef2enu(lon0, lat0, "sphere")
+    xe, ye, ze = transform.lonlat2ecef(lon2, lat2, elev, "sphere")
+    x, y, z = transform.ecef2enu(xe, ye, ze, trans)
+    vn_ecef = direction.surf_norm(lon2, lat2)
+    vno_ecef = direction.north_dir(xe, ye, ze, vn_ecef, "sphere")
+    yy, xx = np.mgrid[0:in_c, 0:in_c]
+    mask = ((((yy - in_c * 0.5) / (in_c * 0.22)) ** 2
+             + ((xx - in_c * 0.5) / (in_c * 0.11)) ** 2) <= 1.0
+            ).astype(np.uint8)
+    return (x, y, z, transform.ecef2enu_vector(vn_ecef, trans),
+            transform.ecef2enu_vector(vno_ecef, trans), mask)
+
+
+def srtm_like_scene(n_s=900, dlat=0.0009, pad=0.25):
+    """``examples/horizon/gridded_curved_dem.py``'s default terrain
+    (``synthetic_srtm_like``: ``n_s``^2 cells of ``dlat`` degree around
+    (8, 46.5), 30 bumps, seed 0; the example: 900^2 at 0.0009 degree) and
+    its inner domain (``pad`` degree in from each edge; the example: 0.25)."""
+    rng = np.random.default_rng(0)
+    lat = 46.5 + (np.arange(n_s)[::-1] - n_s / 2) * dlat
+    lon = 8.0 + (np.arange(n_s) - n_s / 2) * dlat
+    lon2, lat2 = np.meshgrid(lon, lat)
+    z = np.zeros_like(lon2)
+    for _ in range(30):
+        clon, clat = rng.uniform(lon.min(), lon.max()), \
+            rng.uniform(lat.min(), lat.max())
+        sig = rng.uniform(0.01, 0.08)
+        z += rng.uniform(300, 2500) * np.exp(
+            -(((lon2 - clon) ** 2 + (lat2 - clat) ** 2) / (2 * sig ** 2)))
+    domain = {"lon_min": float(lon.min()) + pad,
+              "lon_max": float(lon.max()) - pad,
+              "lat_min": float(lat.min()) + pad,
+              "lat_max": float(lat.max()) - pad}
+    return lon, lat, z.astype(np.float32), domain
 
 
 def shadow_small_cases():
@@ -263,24 +375,32 @@ def tensor_bytes(*tensors):
 
 def sweep_bound(sargs, shadow, argmax):
     """Bound of one sweep launch (K1, K2 or an argmax variant) on the
-    inputs ``sargs`` = (z_org, z_inner, levels, table, plan, shape).  The
-    float32 operations per (cell, row) are counted from
-    csrc/horizon_sweep.cu: 18 per bilinear read, 4 per point candidate, 37
-    (K1) or 28 (K2) per parabola with its coefficients, 11 per mip sample,
-    15 for K2's ray slope and 1 for the argmax's emit divide.  The sweep
-    has no data-dependent skips, so every sample is counted."""
-    z_org, z_inner, levels, table, plan, _ = sargs
+    inputs ``sargs`` = (z_org, z_inner, levels, table, plan, shape[,
+    tilt_ramp, mask]).  The float32 operations per (cell, row) are counted
+    from csrc/horizon_sweep.cu: 18 per bilinear read, 4 per point
+    candidate, 37 (K1) or 28 (K2) per parabola with its coefficients, 11
+    per mip sample, 15 for K2's ray slope, 1 for the argmax's emit divide
+    and 4 for the tilt ramp.  The sweep has no data-dependent skips, so
+    every sample of every swept cell is counted: with a mask the unmasked
+    cells; every output is written (the masked ones by the pre-fill)."""
+    z_org, z_inner, levels, table, plan, _ = sargs[:6]
+    ramp, mask = (tuple(sargs[6:8]) + (None, None))[:2]
     nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
     n_mip = sum(ph[1] for ph in plan["phases_meta"][1:])
     quads = nx + sum((hi - lo + 1) // 2
                      for lo, hi in ((nx, ns1), (ns1, n_dense)) if hi > lo)
     per_cell = (18 * (nx + n_dense) + 4 * n_dense
                 + (28 if shadow else 37) * quads + 11 * n_mip
-                + (15 if shadow else 0) + (1 if argmax else 0))
-    cells = table.shape[0] * z_org.numel()
+                + (15 if shadow else 0) + (1 if argmax else 0)
+                + (4 if ramp is not None else 0))
+    swept = z_org.numel() if mask is None else int((mask != 0).sum())
     moved = (tensor_bytes(z_org, z_inner, *levels) + table.nbytes
-             + cells * 4 * (3 if argmax else 1))
-    return bound(moved, cells * per_cell)
+             + table.shape[0] * z_org.numel() * 4 * (3 if argmax else 1))
+    if ramp is not None:
+        moved += tensor_bytes(*ramp)
+    if mask is not None:
+        moved += tensor_bytes(mask)
+    return bound(moved, table.shape[0] * swept * per_cell)
 
 
 def replay_bound(g, ids, aux, plan, cots, zcot, shadow):
@@ -409,6 +529,309 @@ def kink_check(dev):
               f"kink case at {(ci, cj)}: one-sided slopes {bwd:.4f} <= "
               f"{an_s:.4f} <= {fwd:.4f}, central differences {fds[0]:.4f}, "
               f"{fds[1]:.4f}")
+
+
+def phase_g(dev):
+    """Phase G: K1's mask and tilt-ramp variants against their plain
+    versions on the card.  Returns the largest |kernel - plain| of the raw
+    ratios on unmasked cells."""
+    print("== G. K1's mask and tilt-ramp variants against their plain "
+          "versions on the card")
+    var_err = 0.0
+    for name, z, kw in small_cases() + [odd_case()]:
+        zs = torch.from_numpy(z).to(dev)
+        kw = dict(kw, dx=25.0, dy=-25.0, hori_acc=0.25)
+        ramp, mask = variant_fields(kw["inner_shape"], seed=len(name))
+        for variant in ("tilt", "mask", "tilt+mask"):
+            vargs = fused_sweep.sweep_args(
+                zs, **kw, tilt_ramp=ramp if "tilt" in variant else None,
+                mask=mask if "mask" in variant else None)
+            raw = fused_sweep._ratio_cuda(*vargs)
+            a_raw, ids, aux = fused_sweep._ratio_cuda(*vargs,
+                                                      emit_argmax=True)
+            p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*vargs,
+                                                           emit_argmax=True)
+            torch.cuda.synchronize()
+            keep = torch.ones_like(ids, dtype=torch.bool)
+            if "mask" in variant:
+                keep = (vargs[7] != 0).expand_as(ids)
+            var_err = max(var_err, (raw - p_raw)[keep].abs().max().item())
+            check(torch.equal(raw, p_raw) and torch.equal(raw, a_raw),
+                  f"{name}, {variant}: raw bit-equal to the plain version "
+                  f"and to the argmax variant's")
+            check(torch.equal(ids, p_ids) and torch.equal(aux, p_aux)
+                  and bool((ids[~keep] == replay.ID_NONE).all()),
+                  f"{name}, {variant}: ids and D bit-equal to the plain "
+                  f"argmax sweep's, masked ids ID_NONE "
+                  f"({int((~keep).sum())} masked (cell, azimuth))")
+    z, kw = small_cases()[0][1:]
+    zs = torch.from_numpy(z).to(dev)
+    kw = dict(kw, dx=25.0, dy=-25.0, hori_acc=0.25)
+    n0 = (fused_sweep.KERNEL_LAUNCHES, fused_sweep.MASK_KERNEL_LAUNCHES)
+    empty = fused_sweep.horizon_sweep_fused(
+        zs, mask=np.zeros(kw["inner_shape"], np.uint8), **kw)
+    check((fused_sweep.KERNEL_LAUNCHES,
+           fused_sweep.MASK_KERNEL_LAUNCHES) == n0
+          and bool((empty == np.float32(np.radians(-15.0))).all()),
+          "all-masked: no launch, the lower limit everywhere")
+    sparse = np.zeros(kw["inner_shape"], np.uint8)
+    sparse[9, 3] = 1
+    sparse[30:, 20:] = 1
+    blocks = fused_sweep.live_blocks(torch.from_numpy(sparse))
+    vargs = fused_sweep.sweep_args(zs, mask=sparse, **kw)
+    raw, ids, aux = fused_sweep._ratio_cuda(*vargs, emit_argmax=True)
+    p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*vargs, emit_argmax=True)
+    keep = (vargs[7] != 0).expand_as(ids)
+    check(blocks.tolist() == [[1, 0], [3, 0]] and torch.equal(raw, p_raw)
+          and torch.equal(ids, p_ids) and torch.equal(aux, p_aux)
+          and bool((raw[~keep] == 3.0e38).all())
+          and bool((ids[~keep] == replay.ID_NONE).all())
+          and bool((aux[~keep] == 1.0).all()),
+          "scattered mask: 2 of 4 blocks launched; the others hold 3e38, "
+          "ID_NONE and D 1, bit-equal to the plain version")
+    # the gradient through the ramp and the mask against the plain path
+    name, z, kw = odd_case()
+    kw = dict(kw, dx=25.0, dy=-25.0, hori_acc=0.25)
+    ramp, mask = variant_fields(kw["inner_shape"], seed=4)
+
+    def var_loss(zz, ra, rb):
+        h = fused_sweep.horizon_sweep_fused(zz, tilt_ramp=(ra, rb),
+                                            mask=mask, **kw)
+        w = torch.from_numpy(mask != 0).to(zz.device)[..., None]
+        return torch.mean(torch.where(w, h, 0.0).double() ** 2)
+
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [torch.from_numpy(a).to(d).requires_grad_(True)
+                  for a in (z,) + ramp]
+        grads.append(torch.autograd.grad(var_loss(*leaves), leaves))
+    errs = [rel_err(a.cpu(), b) for a, b in zip(*grads)]
+    check(max(errs) <= BWD_RTOL and min(b.abs().max().item()
+                                        for b in grads[1]) > 0.0,
+          f"{name}: z and ramp gradients (K1-argmax with ramp and mask, K3) "
+          f"within rtol {BWD_RTOL} of the plain path "
+          f"({', '.join(f'{e:.1e}' for e in errs)})")
+    z_d = torch.from_numpy(z).to(dev)
+    ra, rb = (torch.from_numpy(r).to(dev) for r in ramp)
+    yy, xx = np.mgrid[0:z.shape[0], 0:z.shape[1]]
+    v = torch.from_numpy(np.exp(-((yy - 40.32) ** 2 + (xx - 49.92) ** 2)
+                                / (2 * 15.36 ** 2)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        fd = (var_loss(z_d + 0.1 * v, ra, rb)
+              - var_loss(z_d - 0.1 * v, ra, rb)).item() / 0.2
+        fd_r = (var_loss(z_d, ra + 1e-4, rb + 1e-4)
+                - var_loss(z_d, ra - 1e-4, rb - 1e-4)).item() / 2e-4
+    an = float((grads[0][0].double() * v.double()).sum())
+    an_r = float((grads[0][1] + grads[0][2]).double().sum())
+    check(an != 0.0 and abs(fd - an) <= 2e-2 * abs(an)
+          and abs(fd_r - an_r) <= 1e-3 * abs(an_r),
+          f"{name}: directional derivatives {an:.6e} (z, smooth bump) and "
+          f"{an_r:.6e} (ramp) against central differences {fd:.6e}, "
+          f"{fd_r:.6e}")
+    return var_err
+
+
+def wall_runs(fn, runs):
+    """Median, min and max seconds of ``runs`` calls of ``fn`` after a
+    warm-up, each ended by a synchronise; and the last result."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), min(walls), max(walls), out
+
+
+def phase_h(dev, zt, x, y, halo, azim_num, dist_km, k1_ms, card, runs):
+    """Phase H: masked planar ``horizon_gridded`` on ``zt`` with the bench
+    masks.  Returns the K1-mask row's numbers (launches, error, ms, plain
+    ms, bound)."""
+    print("== H. masked planar horizon_gridded at the bench shape")
+    n, inner = zt.shape[0], zt.shape[0] - 2 * halo
+    dx = float(x[1] - x[0])
+    x2, y2 = np.meshgrid(x, y)
+    vert_grid = auxiliary.rearrange_pad_buffer(x2, y2, zt.cpu().numpy())
+    del x2, y2
+    vn = np.zeros((inner, inner, 3), np.float32)
+    vn[..., 2] = 1.0
+    vno = np.zeros((inner, inner, 3), np.float32)
+    vno[..., 1] = 1.0
+    hz_kw = dict(dist_search=dist_km, azim_num=azim_num, hori_acc=0.25,
+                 hori_fill=-9.0, verbose=False, device=dev)
+
+    def gridded(mask=None):
+        return horizon.horizon_gridded(vert_grid, n, n, vn, vno, halo, halo,
+                                       mask=mask, **hz_kw)[0]
+
+    dense_wall, dmin, dmax, dense = wall_runs(gridded, runs)
+    print(f"  dense horizon_gridded: median {dense_wall:.4f} s wall of "
+          f"{runs} (min {dmin:.4f}, max {dmax:.4f}); K1 alone {k1_ms:.3f} ms"
+          f"  [{card}]")
+    rows, launches = {}, 0
+    for mname, mask in bench_mask_set(inner).items():
+        fused_sweep.MASK_KERNEL_LAUNCHES = 0
+        m_wall, m_min, m_max, got = wall_runs(lambda: gridded(mask), runs)
+        launches += fused_sweep.MASK_KERNEL_LAUNCHES
+        keep = torch.from_numpy(mask == 1).to(dev)
+        check(torch.equal(got[keep], dense[keep])
+              and bool((got[~keep] == -9.0).all()),
+              f"{mname}: unmasked cells bit-equal to the dense run, masked "
+              f"cells the fill")
+        del got
+        mvargs = fused_sweep.sweep_args(
+            zt, dx=dx, dy=-dx, offset=(halo, halo),
+            inner_shape=(inner, inner), azim_num=azim_num,
+            dist_search=dist_km * 1000.0, mask=mask)
+        fused_sweep._ratio_cuda(*mvargs)
+        m_ms = cuda_ms(lambda: fused_sweep._ratio_cuda(*mvargs), 10)
+        n_live = fused_sweep.live_blocks(mvargs[7]).shape[0]
+        n_blk = (-(-inner // fused_sweep.BLOCK_ROWS)
+                 * -(-inner // fused_sweep.BLOCK_COLS))
+        rows[mname] = (m_ms, mvargs)
+        print(f"  {mname}: {mask.mean():.4f} considered, {n_live / n_blk:.4f}"
+              f" of the 32x8 blocks live; horizon_gridded median "
+              f"{m_wall:.4f} s wall (min {m_min:.4f}, max {m_max:.4f}), "
+              f"{dense_wall / m_wall:.3f}x the dense run; K1-mask alone "
+              f"{m_ms:.3f} ms, {k1_ms / m_ms:.3f}x faster than K1; per "
+              f"live block {m_ms / (k1_ms * n_live / n_blk):.3f}x K1's "
+              f"time per block  [{card}]")
+    check(launches == 3 * (runs + 1),
+          f"masked path launched K1-mask ({launches} launches in "
+          f"{3 * (runs + 1)} runs)")
+    mask_ms, mvargs = rows["island"]
+    plain_ms, p_raw = event_ms(lambda: fused_sweep._ratio_plain(*mvargs))
+    raw = fused_sweep._ratio_cuda(*mvargs)
+    keep = (mvargs[7] != 0).expand_as(raw)
+    err = (raw - p_raw)[keep].abs().max().item()
+    check(torch.equal(raw, p_raw), "island: K1-mask bit-equal to the plain "
+          "version on the full output")
+    bnd = sweep_bound(mvargs, shadow=False, argmax=False)
+    print(f"  K1-mask on the island: plain version {plain_ms:.1f} ms; "
+          f"bound {bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
+    return launches, err, mask_ms, plain_ms, bnd
+
+
+def lattice_args(lat, dev, azim_num, dist_m):
+    """``sweep_args`` of the tilt-ramp sweep over a curved run's lattice
+    box (:func:`horizon.curved_lattice`'s result)."""
+    i_lo, i_hi, j_lo, j_hi = lat["box"]
+    return fused_sweep.sweep_args(
+        torch.from_numpy(lat["pg"].z).to(dev), dx=lat["pg"].grid.dx,
+        dy=lat["pg"].grid.dy, offset=(i_lo, j_lo),
+        inner_shape=(i_hi - i_lo, j_hi - j_lo), azim_num=azim_num,
+        dist_search=dist_m, tilt_ramp=lat["ramp"], mask=lat["lat_mask"])
+
+
+def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
+    """Phase I: the curved masked scene ``bench_scene`` (inner ``c_in``^2
+    at ``c_off``) dense and masked, then ``CurvedPipeline.run`` on
+    ``srtm_scene``.  Returns the K1-tilt row's numbers (launches, error,
+    ms, plain ms, bound)."""
+    print("== I. curved: bench.py's curved masked scene and CurvedPipeline")
+    cx, cy, cz, c_norm, c_north, c_mask = bench_scene
+    sl = (slice(c_off, c_off + c_in),) * 2
+    c_grid = auxiliary.rearrange_pad_buffer(cx, cy, cz)
+    c_kw = dict(dist_search=10.0, azim_num=azim_num, hori_acc=0.25,
+                hori_fill=-9.0, verbose=False, device=dev)
+
+    def curved(mask=None):
+        t0 = time.perf_counter()
+        out = horizon.horizon_gridded(c_grid, cx.shape[0], cx.shape[1],
+                                      c_norm[sl], c_north[sl], c_off, c_off,
+                                      mask=mask, **c_kw)[0]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    # each horizon_gridded call planarises the mesh on the host (seconds at
+    # 1024^2), so each runs once; the lattice sweeps are timed alone below
+    c_dense_s, c_dense = curved()
+    c_mask_s, c_masked = curved(c_mask)
+    keep = torch.from_numpy(c_mask == 1).to(dev)
+    check(torch.equal(c_masked[keep], c_dense[keep])
+          and bool((c_masked[~keep] == -9.0).all())
+          and bool(torch.isfinite(c_dense).all()),
+          "curved island: unmasked cells bit-equal to the dense run, "
+          "masked cells the fill")
+    del c_dense, c_masked
+    t0 = time.perf_counter()
+    lat_d = horizon.curved_lattice(cx, cy, cz, c_norm[sl], c_off, c_off)
+    plan_s = time.perf_counter() - t0
+    lat_m = horizon.curved_lattice(cx, cy, cz, c_norm[sl], c_off, c_off,
+                                   c_mask, pg=lat_d["pg"])
+    sweeps = []
+    for lat in (lat_d, lat_m):
+        cargs = lattice_args(lat, dev, azim_num, 10000.0)
+        fused_sweep._ratio_cuda(*cargs)
+        sweeps.append(cuda_ms(lambda: fused_sweep._ratio_cuda(*cargs), 5))
+    print(f"  lattice {lat_d['pg'].grid.shape}, dense box {lat_d['box']}, "
+          f"masked box {lat_m['box']} with {lat_m['lat_mask'].mean():.4f} "
+          f"of its cells swept; {c_mask.mean():.4f} of the inner cells "
+          f"considered")
+    print(f"  horizon_gridded (one run each): dense {c_dense_s:.3f} s, "
+          f"masked {c_mask_s:.3f} s wall ({c_dense_s / c_mask_s:.3f}x), "
+          f"of which planarisation and ramps {plan_s:.3f} s; K1-tilt alone "
+          f"(mean of 5): dense box {sweeps[0]:.3f} ms, masked box "
+          f"{sweeps[1]:.3f} ms, {sweeps[0] / sweeps[1]:.3f}x  [{card}]")
+    del lat_d, lat_m
+
+    lon_p, lat_p, elev_p, dom_p = srtm_scene
+    pipe = CurvedPipeline(lon_p, lat_p, elev_p, dom_p, dist_search=20.0,
+                          azim_num=120, ellps="WGS84", device=dev)
+    t0 = time.perf_counter()
+    pipe.build_geometry()
+    geo_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_sweep.TILT_KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = pipe.run()
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    launches = fused_sweep.TILT_KERNEL_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == 1, f"CurvedPipeline.run launched K1-tilt "
+          f"({launches} launches in 1 run)")
+    hori, svf = out["hori"], out["svf"]
+    check(hori.is_cuda and hori.shape[2] == 120
+          and bool(torch.isfinite(hori).all())
+          and bool(torch.isfinite(svf).all()) and svf.min().item() > 0.0
+          and svf.max().item() <= 1.0 + 1e-3,
+          f"CurvedPipeline: hori {tuple(hori.shape)} finite, svf in "
+          f"(0, 1.001]: [{svf.min().item():.4f}, {svf.max().item():.4f}]")
+    # the run's parts, again, one by one
+    t0 = time.perf_counter()
+    lat_c = horizon.curved_lattice(pipe.x, pipe.y, pipe.z, pipe.vec_norm,
+                                   pipe.offset_0, pipe.offset_1)
+    plan_c_s = time.perf_counter() - t0
+    targs = lattice_args(lat_c, dev, 120, 20000.0)
+    fused_sweep._ratio_cuda(*targs)
+    tilt_ms = cuda_ms(lambda: fused_sweep._ratio_cuda(*targs), 5)
+    plain_ms, p_raw = event_ms(lambda: fused_sweep._ratio_plain(*targs))
+    raw = fused_sweep._ratio_cuda(*targs)
+    err = (raw - p_raw).abs().max().item()
+    check(torch.equal(raw, p_raw), "K1-tilt bit-equal to the plain version "
+          "on the pipeline's lattice box")
+    bnd = sweep_bound(targs, shadow=False, argmax=False)
+    i_lo, i_hi, j_lo, j_hi = lat_c["box"]
+    hori_r = fused_sweep._angles(raw, pipe.elev_ang_low_lim, 89.98)
+    fi = np.clip(lat_c["fi"] - i_lo, 0.0, i_hi - i_lo - 1.0)
+    fj = np.clip(lat_c["fj"] - j_lo, 0.0, j_hi - j_lo - 1.0)
+    rb_ms, back = event_ms(lambda: horizon.read_back(hori_r, fi, fj))
+    check(torch.equal(back, hori), "the parts give the pipeline's horizon")
+    print(f"  CurvedPipeline.run at gridded_curved_dem.py's defaults "
+          f"(900^2 at 0.0009 deg, WGS84, 20 km, 120 azimuths; inner "
+          f"{tuple(hori.shape[:2])}, lattice box {lat_c['box']}): "
+          f"{pipe_s:.3f} s wall (geometry beforehand {geo_s:.3f} s); parts: "
+          f"host planarisation and ramps {plan_c_s:.3f} s, K1-tilt "
+          f"{tilt_ms:.3f} ms, read-back {rb_ms:.3f} ms; peak "
+          f"{peak / 2**20:.1f} MiB allocated; svf "
+          f"[{svf.min().item():.4f}, {svf.max().item():.4f}]  [{card}]")
+    print(f"  K1-tilt: plain version {plain_ms:.1f} ms; bound "
+          f"{bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
+    return launches, err, tilt_ms, plain_ms, bnd
 
 
 def main():
@@ -1006,10 +1429,19 @@ def main():
     sb_err = max(sb_err, check_shadow_replay(f"suns {few}", fargs,
                                              terrain._grid_origin, g)[0])
     del fargs, g
+
     kink_check(dev)
 
+    var_err = phase_g(dev)
+    (mask_launches, mask_err, mask_ms, mask_plain_ms,
+     mask_bound) = phase_h(dev, zt, x, y, halo, azim_num, dist_km, k1_ms,
+                           card, runs)
+    (tilt_launches, tilt_err, tilt_ms, tilt_plain_ms,
+     tilt_bound) = phase_i(dev, azim_num, card, curved_bench_scene(), 256,
+                           512, srtm_like_scene())
+
     print("== 9. result")
-    print(f"  phases 1-F in {time.perf_counter() - t_run:.1f} s")
+    print(f"  phases 1-I in {time.perf_counter() - t_run:.1f} s")
     rows = [
         ("horizon_sweep (K1)", KERNEL_SOURCE, REPLACES, launches, max_err,
          k1_ms, plain_ms, k1_bound),
@@ -1022,7 +1454,13 @@ def main():
         ("shadow_sweep argmax (K2-argmax)", KERNEL_SOURCE, SHADOW_REPLACES,
          k2a_launches, sa_err, k2a_ms, k2a_plain_ms, k2a_bound),
         ("shadow_replay_bwd (K4)", BWD_SOURCE, SHADOW_BWD_REPLACES,
-         k4_launches, sb_err, k4_ms, k4_plain_ms, k4_bound)]
+         k4_launches, sb_err, k4_ms, k4_plain_ms, k4_bound),
+        ("horizon_sweep mask (K1-mask)", KERNEL_SOURCE, MASK_REPLACES,
+         mask_launches, max(var_err, mask_err), mask_ms, mask_plain_ms,
+         mask_bound),
+        ("horizon_sweep tilt (K1-tilt)", KERNEL_SOURCE, TILT_REPLACES,
+         tilt_launches, max(var_err, tilt_err), tilt_ms, tilt_plain_ms,
+         tilt_bound)]
     # no single PyTorch call computes a sweep or a winner replay, so
     # library_ms is null for every kernel
     print(json.dumps({"kernels": [

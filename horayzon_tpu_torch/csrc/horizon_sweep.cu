@@ -2,8 +2,9 @@
 // MIT License
 //
 // Kernels K1 and K2: the planar fused sweep on Hopper.  K1 is the horizon
-// mode (no mask, no tilt ramp), with and without the argmax output of the
-// gradient path; K2 is the shadow mode (sun-track occlusion metric).
+// mode, with and without the argmax output of the gradient path, and with
+// its two optional variants, the mask and the tilt ramp; K2 is the shadow
+// mode (sun-track occlusion metric).
 //
 // K1 replaces horayzon_tpu/ops/pallas_sweep.py::_kernel (mode="horizon"),
 // launched there by pallas_forward_fn.  For every (inner cell, azimuth) it
@@ -30,6 +31,25 @@
 // computes what the reference computes with exact_metric=True: none of its
 // skips (value-exact or sign-exact) run here.
 //
+// K1's two variants (pallas_sweep.py:196-229, launched through
+// pallas_forward_fn :1469-1496) are nullable pointers of HzParams, so the
+// branches are uniform across a launch and the four instantiations stay
+// four:
+//   * the tilt ramp (ramp_a, ramp_b: (in0, in1) float32; the curved
+//     gridded horizon): after the argmax emit the raw ratio becomes
+//     (acc + ux * A[cell]) + uy * B[cell] with ux, uy the host table's
+//     (sin, cos) of the azimuth (:1015-1016); winner ids and D do not see it;
+//   * the mask (mask: (in0, in1) uint8, nonzero = swept; blocks: n_blocks
+//     (block row, block column) pairs of 32 x 8 cells).  The launch covers
+//     the compacted list of blocks that hold an unmasked cell, the
+//     reference's compacted tile map (tile_schedule, :1130-1148) at this
+//     kernel's block.  A masked cell does no sweep: its thread writes what
+//     the reference's mask-aware init (+3e38, :627-638) leaves there, the
+//     raw value 3e38 and, in the argmax variant, ID_NONE with D = 1 / 1.
+//     Blocks that are not launched hold the same values, written by the
+//     wrapper before the launch.  Unmasked cells compute exactly what the
+//     unmasked kernel computes: there are no skips to feel the mask.
+//
 // Four entry points, one template <ARGMAX, SHADOW>: horizon_sweep_launch
 // (K1), horizon_sweep_argmax_launch (the forward of the gradient path, the
 // reference's emit_argmax=True), shadow_sweep_launch (K2) and
@@ -49,7 +69,7 @@
 //
 // Design: one thread per (cell, azimuth or sun); a block is 32 x 8 cells of
 // one azimuth or sun, the grid (column blocks, row blocks, azimuths or
-// suns).  For a given (azimuth, step) the sample shift is the same for every
+// suns), or with a mask (live blocks, 1, azimuths).  For a given (azimuth, step) the sample shift is the same for every
 // cell (and for a given (sun, step) too: K2's shifts are per sun), so a warp
 // along a row reads consecutive floats and its loads coalesce.  The padded
 // levels are read straight from global memory through L2 with __ldg (at the
@@ -104,11 +124,22 @@ struct HzParams {
   float x0, y0;                     // grid origin (K2)
   float lo2_0, lo2_step;            // K2: float32(2 (t_lo + 1e-3))
   float hi2_step, hi2_two_step;     // K2: float32(2 (length - 1e-3))
+  const float* ramp_a;              // (in0, in1) tilt ramp A, or null (K1)
+  const float* ramp_b;              // (in0, in1) tilt ramp B, or null (K1)
+  const unsigned char* mask;        // (in0, in1) nonzero = swept, or null
+  const int* blocks;                // (n_blocks, 2) live blocks, or null
+  int n_blocks;
 };
 
 namespace {
 
 constexpr float kNegInit = -3.0e38f;
+// The masked cells' running value (_POS_INIT, pallas_sweep.py:40).
+constexpr float kPosInit = 3.0e38f;
+// Block of the launch: 32 columns x 8 rows of one azimuth or sun
+// (fused_sweep.BLOCK_COLS, BLOCK_ROWS).
+constexpr int kBlockCols = 32;
+constexpr int kBlockRows = 8;
 // No-winner id (pallas_sweep.py:44): larger than every candidate id.
 constexpr int kIdNone = 1 << 30;
 
@@ -332,12 +363,29 @@ __device__ __forceinline__ void d1_single(const HzParams& p, const Cell& c,
 }
 
 template <bool ARGMAX, bool SHADOW>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kBlockCols * kBlockRows)
 horizon_sweep_kernel(const HzParams p) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  // With a mask the grid's x runs over the compacted list of live blocks.
+  int bi = blockIdx.y;
+  int bj = blockIdx.x;
+  if (p.blocks != nullptr) {
+    bi = p.blocks[2 * blockIdx.x];
+    bj = p.blocks[2 * blockIdx.x + 1];
+  }
+  const int j = bj * kBlockCols + threadIdx.x;
+  const int i = bi * kBlockRows + threadIdx.y;
   const int az = blockIdx.z;
   if (i >= p.in0 || j >= p.in1) return;
+  const long long cell = (long long)i * p.in1 + j;
+  const long long o = (long long)az * p.in0 * p.in1 + cell;
+  if (p.mask != nullptr && p.mask[cell] == 0) {
+    p.out[o] = kPosInit;
+    if constexpr (ARGMAX) {
+      p.ids[o] = kIdNone;
+      p.aux[o] = 1.0f;
+    }
+    return;
+  }
 
   Cell c;
   c.a = p.off0 + i;
@@ -347,7 +395,6 @@ horizon_sweep_kernel(const HzParams p) {
   c.w0 = p.lvl_w[0];
   c.l0 = p.lvl[0] + (long long)(c.a + p.lvl_pad[0]) * c.w0 +
          (c.b + p.lvl_pad[0]);
-  const long long cell = (long long)i * p.in1 + j;
   c.z_org = p.z_org[cell];
   const float zi = p.z_inner[cell];
   c.m = 0.0f;
@@ -432,23 +479,35 @@ horizon_sweep_kernel(const HzParams p) {
     id_off += n_m;
   }
 
-  const long long o = (long long)az * p.in0 * p.in1 + cell;
-  p.out[o] = k.acc.v;
   if constexpr (ARGMAX) {
     // the deferred divide (pallas_sweep.py:1010-1014); 1 / 1 for points
     const float d = k.acc.d;
     p.ids[o] = k.acc.id;
     p.aux[o] = k.acc.n / (fabsf(d) > 1e-30f ? d : 1e-30f);
   }
+  float v = k.acc.v;
+  if constexpr (!SHADOW) {
+    // the tilt ramp, added after the argmax emit (pallas_sweep.py:1015-1016)
+    if (p.ramp_a != nullptr) {
+      const float ux = p.trig[2 * az];
+      const float uy = p.trig[2 * az + 1];
+      v = (v + ux * p.ramp_a[cell]) + uy * p.ramp_b[cell];
+    }
+  }
+  p.out[o] = v;
 }
 
 template <bool ARGMAX, bool SHADOW>
 int launch(const HzParams* params, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(32, 8);
-  const dim3 grid((params->in1 + 31) / 32, (params->in0 + 7) / 8,
-                  params->a_num);
+  const dim3 block(kBlockCols, kBlockRows);
+  dim3 grid((params->in1 + kBlockCols - 1) / kBlockCols,
+            (params->in0 + kBlockRows - 1) / kBlockRows, params->a_num);
+  if (params->blocks != nullptr) {
+    if (params->n_blocks <= 0) return (int)cudaSuccess;
+    grid = dim3(params->n_blocks, 1, params->a_num);
+  }
   horizon_sweep_kernel<ARGMAX, SHADOW>
       <<<grid, block, 0, (cudaStream_t)stream>>>(*params);
   return (int)cudaGetLastError();
@@ -457,7 +516,9 @@ int launch(const HzParams* params, int device, void* stream) {
 }  // namespace
 
 // Launch K1 on `stream` (a cudaStream_t) of `device`; return the
-// cudaError_t of the launch (0 on success).  Do not synchronise.
+// cudaError_t of the launch (0 on success).  Do not synchronise.  The mask
+// and tilt-ramp variants are the same entries with params->mask and
+// params->blocks, or params->ramp_a and params->ramp_b, set.
 extern "C" int horizon_sweep_launch(const HzParams* params, int device,
                                     void* stream) {
   return launch<false, false>(params, device, stream);

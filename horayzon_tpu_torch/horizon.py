@@ -3,12 +3,16 @@
 """Public horizon API: the counterpart of :mod:`horayzon_tpu.horizon`.
 
 ``horizon_gridded`` keeps the reference's signature (plus ``device``) and
-its validation, and runs the planar, unmasked, default-vector branch
-through :func:`horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`.
-The other branches are not ported yet and raise ``NotImplementedError``
-naming their item in ROADMAP.md's Queue 1.  One thread owns one
-(cell, azimuth) in the kernel, so the inner domain is swept as it is, with
-no padding to tile multiples.
+its validation, and runs two branches through
+:func:`horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`: a regular
+planar grid with default vectors, masked or not, and a curved (irregular)
+grid, which :func:`_curved_gridded` planarises, sweeps with the tilt ramp
+and reads back.  The other branches are not ported yet and raise
+``NotImplementedError`` naming their item in ROADMAP.md's Queue 1.  One
+thread owns one (cell, azimuth) in the kernel, so the inner domain (or the
+curved run's lattice box) is swept as it is, with no padding to tile
+multiples, and a mask needs no tile chooser: the kernel skips the 32 x 8
+blocks that hold no unmasked cell.
 """
 
 import time
@@ -16,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from horayzon_tpu_torch import regrid as _regrid
 from horayzon_tpu_torch import terrain as _terrain
 from horayzon_tpu_torch.ops import fused_sweep as _fused
 
@@ -60,8 +65,8 @@ def horizon_gridded(
     card unless the caller asks for the CPU; a CUDA device runs kernel K1,
     the CPU the plain torch sweep.  ``engine``
     "auto" and "pallas" both select the fused sweep; the XLA-style "sweep"
-    engine is not ported.  ``hori_fill`` applies to masked cells, and masks
-    with zeros are not ported yet.
+    engine is not ported.  ``hori_fill`` applies to masked cells (mask
+    values other than 1), which the kernel does not sweep.
 
     Returns
     -------
@@ -113,22 +118,32 @@ def horizon_gridded(
                          "together")
     if vert_simp is not None:
         raise _not_ported("the simplified outer TIN (vert_simp)", 11)
-    if grid is None:
-        raise _not_ported("a curved (irregular) grid", 7)
-    if not _terrain.is_default_planar_vectors(vec_norm, vec_north):
-        raise _not_ported("non-default vec_norm/vec_north", 10)
-    if mask.min() == 0:
-        raise _not_ported("a mask with zeros", 5)
     if engine == "sweep":
         raise _not_ported("engine='sweep'", 10)
+    masked = mask.min() == 0
+    if grid is not None and not _terrain.is_default_planar_vectors(
+            vec_norm, vec_north):
+        raise _not_ported("non-default vec_norm/vec_north", 10)
 
     t0 = time.perf_counter()
-    z_dev = torch.from_numpy(np.ascontiguousarray(z)).to(device)
-    hori = _fused.horizon_sweep_fused(
-        z_dev, dx=grid.dx, dy=grid.dy, offset=(offset_0, offset_1),
-        inner_shape=inner_shape, azim_num=azim_num,
-        dist_search=dist_search * 1000.0, hori_acc=hori_acc,
-        elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev)
+    sweep_kw = dict(azim_num=azim_num, dist_search=dist_search * 1000.0,
+                    hori_acc=hori_acc, elev_ang_low_lim=elev_ang_low_lim,
+                    ray_org_elev=ray_org_elev)
+    if grid is None:
+        hori = _curved_gridded(x, y, z, vec_norm, offset_0, offset_1,
+                               mask=mask if masked else None, device=device,
+                               **sweep_kw)
+    else:
+        z_dev = torch.from_numpy(np.ascontiguousarray(z)).to(device)
+        hori = _fused.horizon_sweep_fused(
+            z_dev, dx=grid.dx, dy=grid.dy, offset=(offset_0, offset_1),
+            inner_shape=inner_shape,
+            mask=torch.from_numpy(mask).to(device) if masked else None,
+            **sweep_kw)
+    if masked:
+        # the fill on the device (horayzon_tpu/horizon.py:568-570)
+        keep = torch.from_numpy(mask == 1).to(hori.device)
+        hori.masked_fill_(~keep[..., None], float(np.float32(hori_fill)))
     if verbose:
         if hori.is_cuda:
             torch.cuda.synchronize(hori.device)
@@ -137,6 +152,117 @@ def horizon_gridded(
               f"{azim_num} azimuths, {dt:.3f} s "
               f"(incl. kernel build on first call)")
         # considered-fraction printout mirrors horizon_comp.cpp:685-695
+        n_cells = int((mask == 1).sum())
         print(f"Number of grid cells for which horizon is computed: "
-              f"{mask.size} (100.00 % of the domain)")
+              f"{n_cells} ({100.0 * n_cells / mask.size:.2f} % of the "
+              f"domain)")
     return hori, torch.from_numpy(azim).to(device)
+
+
+def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,
+                   pg=None):
+    """Host preparation of a curved run (``horayzon_tpu/horizon.py:
+    684-815``, NumPy float64): planarise the ENU mesh, box the inner cells'
+    lattice positions (with a mask, the unmasked ones') with a one-cell
+    margin, interpolate the normals onto the box and form the ramps
+    ``A = n_x/n_z``, ``B = n_y/n_z``, and with a mask the lattice mask of
+    the cells that an unmasked cell's read-back stencil touches.  ``pg``:
+    the mesh's :func:`~horayzon_tpu_torch.regrid.planarize` result, when
+    the caller has it already.
+
+    Unlike the reference the box is not padded to tile multiples nor moved
+    up/left at the lattice's edge (``horizon.py:729-747``): the kernel
+    sweeps it as it is.  Returns a dict: ``pg`` (the
+    :class:`~horayzon_tpu_torch.regrid.PlanarizedGrid`), ``box``
+    ``(i_lo, i_hi, j_lo, j_hi)``, ``ramp`` (A, B) float32, ``lat_mask``
+    (uint8 or None) and ``fi``, ``fj`` (the inner cells' lattice
+    positions)."""
+    in0, in1 = vec_norm.shape[:2]
+    if pg is None:
+        pg = _regrid.planarize(x, y, z)
+    hr, wr = pg.grid.shape
+    x_in = x[offset_0:offset_0 + in0, offset_1:offset_1 + in1]
+    y_in = y[offset_0:offset_0 + in0, offset_1:offset_1 + in1]
+    fi_in, fj_in = pg.to_regular_indices(x_in, y_in)
+    if mask is not None and (mask == 1).any():
+        sel = mask == 1
+        fi_b, fj_b = fi_in[sel], fj_in[sel]
+    else:
+        fi_b, fj_b = fi_in, fj_in
+    i_lo = max(int(np.floor(fi_b.min())) - 1, 0)
+    i_hi = min(int(np.ceil(fi_b.max())) + 2, hr)
+    j_lo = max(int(np.floor(fj_b.min())) - 1, 0)
+    j_hi = min(int(np.ceil(fj_b.max())) + 2, wr)
+    rin0, rin1 = i_hi - i_lo, j_hi - j_lo
+    fi_src = np.clip(pg.fi[i_lo:i_hi, j_lo:j_hi] - offset_0, 0.0, in0 - 1.0)
+    fj_src = np.clip(pg.fj[i_lo:i_hi, j_lo:j_hi] - offset_1, 0.0, in1 - 1.0)
+    norm_r = _regrid._bilinear(vec_norm.astype(np.float64), fi_src, fj_src)
+    norm_r /= np.linalg.norm(norm_r, axis=-1, keepdims=True)
+    ramp = ((norm_r[..., 0] / norm_r[..., 2]).astype(np.float32),
+            (norm_r[..., 1] / norm_r[..., 2]).astype(np.float32))
+    lat_mask = None
+    if mask is not None and (mask == 1).any():
+        # a lattice cell is swept iff an unmasked cell's bilinear read-back
+        # stencil touches it (horayzon_tpu/horizon.py:774-784)
+        lat_mask = np.zeros((rin0, rin1), dtype=np.uint8)
+        i0m = np.floor(np.clip(fi_b - i_lo, 0.0, rin0 - 1.0)).astype(np.int64)
+        j0m = np.floor(np.clip(fj_b - j_lo, 0.0, rin1 - 1.0)).astype(np.int64)
+        for di in (0, 1):
+            for dj in (0, 1):
+                lat_mask[np.clip(i0m + di, 0, rin0 - 1),
+                         np.clip(j0m + dj, 0, rin1 - 1)] = 1
+    elif mask is not None:
+        # no unmasked cell: nothing to sweep
+        lat_mask = np.zeros((rin0, rin1), dtype=np.uint8)
+    return dict(pg=pg, box=(i_lo, i_hi, j_lo, j_hi), ramp=ramp,
+                lat_mask=lat_mask, fi=fi_in, fj=fj_in)
+
+
+def read_back(hori_r, fi, fj):
+    """Bilinear read-back of the lattice horizon ``hori_r`` (h, w, A) at
+    lattice positions ``fi``, ``fj`` (in0, in1), on ``hori_r``'s device in
+    float64 with ``regrid._bilinear``'s operations in its order (indices
+    and weights on the host, as it forms them), cast to float32: bit-equal
+    to ``_bilinear`` on the same lattice horizon."""
+    h, w = hori_r.shape[:2]
+    i0 = np.clip(np.floor(fi).astype(np.int64), 0, h - 2)
+    j0 = np.clip(np.floor(fj).astype(np.int64), 0, w - 2)
+    wi = np.clip(fi - i0, 0.0, 1.0)
+    wj = np.clip(fj - j0, 0.0, 1.0)
+    dev = hori_r.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    a = hori_r.double()
+    i0t, j0t = t(i0), t(j0)
+    terms = [t((1 - wi) * (1 - wj))[..., None] * a[i0t, j0t],
+             t((1 - wi) * wj)[..., None] * a[i0t, j0t + 1],
+             t(wi * (1 - wj))[..., None] * a[i0t + 1, j0t],
+             t(wi * wj)[..., None] * a[i0t + 1, j0t + 1]]
+    return (((terms[0] + terms[1]) + terms[2]) + terms[3]).float()
+
+
+def _curved_gridded(x, y, z, vec_norm, offset_0, offset_1, *, azim_num,
+                    dist_search, hori_acc, elev_ang_low_lim, ray_org_elev,
+                    mask=None, device="cuda"):
+    """Curved-mesh gridded horizon (``horayzon_tpu/horizon.py:684-851``,
+    the fused-kernel path): :func:`curved_lattice` on the host, the sweep
+    with the tilt ramp (and the lattice mask) over the box on ``device``,
+    then :func:`read_back` at the inner cells' positions.  Masked cells
+    read values that the caller overwrites with its fill.  Returns
+    (in0, in1, azim_num) float32 on ``device``."""
+    lat = curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask)
+    pg, (i_lo, i_hi, j_lo, j_hi) = lat["pg"], lat["box"]
+    rin0, rin1 = i_hi - i_lo, j_hi - j_lo
+    lat_mask = lat["lat_mask"]
+    hori_r = _fused.horizon_sweep_fused(
+        torch.from_numpy(pg.z).to(device), dx=pg.grid.dx, dy=pg.grid.dy,
+        offset=(i_lo, j_lo), inner_shape=(rin0, rin1), azim_num=azim_num,
+        dist_search=dist_search, hori_acc=hori_acc,
+        elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev,
+        tilt_ramp=tuple(torch.from_numpy(r).to(device) for r in lat["ramp"]),
+        mask=None if lat_mask is None else torch.from_numpy(lat_mask).to(
+            device))
+    return read_back(hori_r, np.clip(lat["fi"] - i_lo, 0.0, rin0 - 1.0),
+                     np.clip(lat["fj"] - j_lo, 0.0, rin1 - 1.0))

@@ -1,14 +1,15 @@
 # Copyright (c) 2026
 # MIT License
 """Fused planar horizon sweep: the counterpart of
-:mod:`horayzon_tpu.ops.pallas_sweep` (unmasked, untilted horizon mode).
+:mod:`horayzon_tpu.ops.pallas_sweep` in horizon mode.
 
 :func:`horizon_sweep_fused` has the contract of
-``horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas`` for that case: for
-every inner cell and each of ``azim_num`` uniform azimuths it returns the
-horizon elevation angle [radian], shape ``(in0, in1, azim_num)``, and it is
-differentiable w.r.t. the heightfield.  Behind it sits one sweep with two
-implementations of identical arithmetic:
+``horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas``: for every inner cell
+and each of ``azim_num`` uniform azimuths it returns the horizon elevation
+angle [radian], shape ``(in0, in1, azim_num)``, optionally with the
+curved-Earth tilt ramp and a mask of the cells to sweep, and it is
+differentiable w.r.t. the heightfield and the ramp.  Behind it sits one
+sweep with two implementations of identical arithmetic:
 
 * kernel K1, ``csrc/horizon_sweep.cu`` (CUDA C++ for ``sm_90a``, one
   thread per (cell, azimuth)), run for a CUDA tensor;
@@ -23,8 +24,17 @@ the host trig table, constants rounded from double as JAX rounds Python
 floats.  Both have the argmax variant of the gradient path, whose record
 (winner ids, stationary denominators) the winner-replay backward of
 :mod:`horayzon_tpu_torch.ops.replay` replays.  The reference's early exits
-are value-exact and are not ported yet, nor are the mask and tilt-ramp
-variants.
+are value-exact and are not ported yet.
+
+The mask and tilt-ramp variants follow ``_kernel``'s ``has_mask`` and
+``horizon_tilt`` modes.  A masked cell starts its running value at +3e38
+(the mask-aware init), so its raw ratio is 3e38 and its angle the upper
+limit, and the caller applies its fill.  The kernel runs only the 32 x 8
+blocks that hold an unmasked cell (:func:`live_blocks`) and does no sweep
+for a masked cell; the plain version sweeps every cell from that init.
+Unmasked cells get exactly the unmasked sweep's values.  The ramp adds
+``(raw + sin(az) * A) + cos(az) * B`` to the raw ratio after the argmax
+record is taken.
 
 The loop skeleton (:func:`sweep_plain`), the kernel's parameter block
 (:func:`kernel_params`) and its library (:func:`kernel_lib`) also serve the
@@ -43,6 +53,11 @@ from horayzon_tpu_torch.ops import replay as _replay
 from horayzon_tpu_torch.ops import sweep as _sweep
 
 _NEG_INIT = -3.0e38
+#: The running value of a masked cell (the reference's mask-aware init).
+_POS_INIT = 3.0e38
+#: Cells of one block of the kernel: BLOCK_ROWS rows of BLOCK_COLS columns
+#: (kBlockRows, kBlockCols of csrc/horizon_sweep.cu).
+BLOCK_ROWS, BLOCK_COLS = 8, 32
 #: HZ_MAX_LEVELS of csrc/horizon_sweep.cu (pyramid levels and phases)
 _MAX_LEVELS = 32
 #: Deepest mip level: the reference's floor-division bias 2^lvl * 16384
@@ -54,6 +69,12 @@ _MAX_LEVEL_INDEX = 16
 KERNEL_LAUNCHES = 0
 #: Launches of K1's argmax variant (the forward of the gradient path).
 ARGMAX_KERNEL_LAUNCHES = 0
+#: Launches of either of the above with a mask (the compacted block list),
+#: and with a tilt ramp.  A launch adds one to the count of its entry
+#: (KERNEL_LAUNCHES or ARGMAX_KERNEL_LAUNCHES) and one to each of these
+#: whose variant it runs.
+MASK_KERNEL_LAUNCHES = 0
+TILT_KERNEL_LAUNCHES = 0
 
 
 def plan_sweep(outer_shape, *, inner_shape, offset, dist_search, dx, dy,
@@ -162,7 +183,7 @@ def _check_rows(what, lo, hi, size):
 
 
 def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
-                emit_argmax=False):
+                emit_argmax=False, init=None):
     """The loop skeleton of ``pallas_sweep.py::_kernel`` in plain torch,
     shared by the plain versions of K1 (horizon) and K2 (shadow).
 
@@ -182,7 +203,9 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
     K1 does: strict ``cand > acc`` updates in the reference's candidate
     order (the same running value as the maximum), the winner ids and the
     winning parabola's stationary denominator D (``pallas_sweep.py:481-496,
-    632-638, 1010-1014``)."""
+    632-638, 1010-1014``).  ``init``: the running value's start, (in0, in1)
+    float32 (default -3e38 everywhere; the mask variant passes +3e38 at
+    masked cells)."""
     f32 = np.float32
     in0, in1 = plan["inner_shape"]
     off0, off1 = plan["offset"]
@@ -292,7 +315,7 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
             return acc, he
 
         # Dense steps, in the reference's sections (pallas_sweep.py:641-757)
-        acc = torch.full_like(z_inner, _NEG_INIT)
+        acc = torch.full_like(z_inner, _NEG_INIT) if init is None else init
         if emit_argmax:
             acc = (acc, torch.full((in0, in1), _replay.ID_NONE,
                                    dtype=torch.int32, device=dev),
@@ -400,12 +423,34 @@ def _horizon_rows(z_org, trig, plan):
     return row
 
 
+def _add_tilt(raw, trig, tilt_ramp):
+    """``(raw + ux * A) + uy * B`` per azimuth row, ``(ux, uy)`` the host
+    table's (sin, cos) (``pallas_sweep.py:1015-1016``)."""
+    ra, rb = tilt_ramp
+    tab = torch.from_numpy(trig).to(raw.device)
+    ux, uy = tab[:, 0, None, None], tab[:, 1, None, None]
+    return (raw + ux * ra) + uy * rb
+
+
 def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
-                 emit_argmax=False):
+                 tilt_ramp=None, mask=None, emit_argmax=False):
     """Raw ratios (A, in0, in1) in plain torch (K1's plain version); with
-    ``emit_argmax`` ``(raw, ids, aux)`` (see :func:`sweep_plain`)."""
-    return sweep_plain(z_inner, levels, plan, outer_shape, trig.shape[0],
-                       _horizon_rows(z_org, trig, plan), emit_argmax)
+    ``emit_argmax`` ``(raw, ids, aux)`` (see :func:`sweep_plain`).
+    ``tilt_ramp``: ``(A, B)`` (in0, in1) float32; ``mask``: (in0, in1)
+    uint8, nonzero where a cell is swept; both on ``z_org``'s device, as
+    :func:`sweep_args` makes them."""
+    init = None
+    if mask is not None:
+        init = torch.where(mask != 0, _NEG_INIT, _POS_INIT).to(torch.float32)
+    res = sweep_plain(z_inner, levels, plan, outer_shape, trig.shape[0],
+                      _horizon_rows(z_org, trig, plan), emit_argmax, init)
+    raw = res[0] if emit_argmax else res
+    if tilt_ramp is not None:
+        raw = _add_tilt(raw, trig, tilt_ramp)
+    if mask is not None:
+        # a masked cell keeps its init, as the kernel writes it
+        raw = torch.where(mask != 0, raw, _POS_INIT)
+    return (raw,) + res[1:] if emit_argmax else raw
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +475,10 @@ class _HzParams(ctypes.Structure):
            for n in ("dx", "dy", "step", "dist", "half_step", "two_step",
                      "inv_l0", "inv_l0_sq", "inv_l1", "inv_l1_sq",
                      "s_m1_safe", "s_m1_masked", "x0", "y0", "lo2_0",
-                     "lo2_step", "hi2_step", "hi2_two_step")])
+                     "lo2_step", "hi2_step", "hi2_two_step")]
+        + [("ramp_a", ctypes.c_void_p), ("ramp_b", ctypes.c_void_p),
+           ("mask", ctypes.c_void_p), ("blocks", ctypes.c_void_p),
+           ("n_blocks", ctypes.c_int)])
 
 
 def kernel_lib():
@@ -455,7 +503,8 @@ def kernel_lib():
 def kernel_params(z_org, z_inner, levels, plan, outer_shape, n_rows, out):
     """``HzParams`` of one launch of K1 or K2 over ``n_rows`` azimuths or
     suns writing ``out``, with every field the two modes share; the tensors
-    are checked as the kernel takes them."""
+    are checked as the kernel takes them.  The variant pointers (ramp, mask,
+    block list) start null, as ctypes zero-fills a structure."""
     dev = z_org.device
     for t in (z_org, z_inner, *levels, out):
         if (t.device != dev or t.dtype != torch.float32
@@ -502,32 +551,78 @@ def launch(lib, entry, prm, dev):
         raise RuntimeError(f"horizon_sweep kernel launch failed: {msg}")
 
 
+def live_blocks(mask):
+    """(n, 2) int32 (block row, block column) of the kernel's 32 x 8 blocks
+    that hold a nonzero cell of ``mask`` (in0, in1), row-major, on
+    ``mask``'s device: the counterpart of ``pallas_sweep.tile_schedule``
+    at the kernel's block."""
+    in0, in1 = mask.shape
+    nb0 = -(-in0 // BLOCK_ROWS)
+    nb1 = -(-in1 // BLOCK_COLS)
+    full = torch.zeros((nb0 * BLOCK_ROWS, nb1 * BLOCK_COLS), dtype=torch.bool,
+                       device=mask.device)
+    full[:in0, :in1] = mask != 0
+    live = full.view(nb0, BLOCK_ROWS, nb1, BLOCK_COLS).any(dim=3).any(dim=1)
+    return torch.nonzero(live).to(torch.int32).contiguous()
+
+
+def _check_inner(t, what, dtype, plan, dev):
+    in0, in1 = plan["inner_shape"]
+    if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+            or tuple(t.shape) != (in0, in1)):
+        raise ValueError(f"{what} must be a contiguous {dtype} tensor of "
+                         f"the inner shape {(in0, in1)} on {dev}")
+
+
 def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
-                emit_argmax=False):
+                tilt_ramp=None, mask=None, emit_argmax=False):
     """Raw ratios (A, in0, in1) from kernel K1 on ``z_org``'s card;
     ``emit_argmax``: ``(raw, ids, aux)`` from K1's argmax variant, as
-    :func:`_ratio_plain` returns them."""
+    :func:`_ratio_plain` returns them.  With ``mask`` the outputs are first
+    filled with a masked cell's values (raw 3e38, id ID_NONE, D 1), and
+    only the live blocks are launched; with no live block nothing is."""
     global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
+    global MASK_KERNEL_LAUNCHES, TILT_KERNEL_LAUNCHES
     dev = z_org.device
     in0, in1 = plan["inner_shape"]
     shape = (trig.shape[0], in0, in1)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def output(fill, dtype):
+        if mask is None:
+            return torch.empty(shape, dtype=dtype, device=dev)
+        return torch.full(shape, fill, dtype=dtype, device=dev)
+
+    out = output(_POS_INIT, torch.float32)
     prm = kernel_params(z_org, z_inner, levels, plan, outer_shape,
                         trig.shape[0], out)
     trig_t = torch.from_numpy(trig).to(dev)
     prm.trig = trig_t.data_ptr()
     if emit_argmax:
-        ids = torch.empty(shape, dtype=torch.int32, device=dev)
-        aux = torch.empty(shape, dtype=torch.float32, device=dev)
+        ids = output(_replay.ID_NONE, torch.int32)
+        aux = output(1.0, torch.float32)
         prm.ids, prm.aux = ids.data_ptr(), aux.data_ptr()
+    result = (out, ids, aux) if emit_argmax else out
+    if tilt_ramp is not None:
+        for t, what in zip(tilt_ramp, ("tilt_ramp[0]", "tilt_ramp[1]")):
+            _check_inner(t, what, torch.float32, plan, dev)
+        prm.ramp_a, prm.ramp_b = (t.data_ptr() for t in tilt_ramp)
+    if mask is not None:
+        _check_inner(mask, "mask", torch.uint8, plan, dev)
+        blocks = live_blocks(mask)
+        if blocks.shape[0] == 0:
+            return result
+        prm.mask, prm.blocks = mask.data_ptr(), blocks.data_ptr()
+        prm.n_blocks = blocks.shape[0]
     lib = kernel_lib()
     launch(lib, lib.horizon_sweep_argmax_launch if emit_argmax
            else lib.horizon_sweep_launch, prm, dev)
     if emit_argmax:
         ARGMAX_KERNEL_LAUNCHES += 1
-        return out, ids, aux
-    KERNEL_LAUNCHES += 1
-    return out
+    else:
+        KERNEL_LAUNCHES += 1
+    MASK_KERNEL_LAUNCHES += mask is not None
+    TILT_KERNEL_LAUNCHES += tilt_ramp is not None
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -567,13 +662,26 @@ def check_pyramid(pyramid, z, pads):
     return levels
 
 
+def _inner_tensor(a, what, dtype, inner_shape, dev):
+    """``a`` (a tensor or an array) as a contiguous ``dtype`` tensor of the
+    inner shape on ``dev``, detached."""
+    t = (torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
+         else torch.as_tensor(a))
+    if tuple(t.shape) != tuple(inner_shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected the "
+                         f"inner shape {tuple(inner_shape)}")
+    return t.detach().to(device=dev, dtype=dtype).contiguous()
+
+
 def sweep_args(z_outer, *, dx, dy, offset, inner_shape, azim_num,
                dist_search, hori_acc=0.25, ray_org_elev=0.01, rel_err=None,
-               max_level=10, pyramid=None):
+               max_level=10, pyramid=None, tilt_ramp=None, mask=None):
     """The sweep's inputs ``(z_org, z_inner, levels, trig, plan,
-    outer_shape)`` for :func:`_ratio_cuda` / :func:`_ratio_plain`, from the
-    arguments of :func:`horizon_sweep_fused` (validated as it validates
-    them).  ``z_outer`` must be a float32 tensor."""
+    outer_shape, tilt_ramp, mask)`` for :func:`_ratio_cuda` /
+    :func:`_ratio_plain`, from the arguments of :func:`horizon_sweep_fused`
+    (validated as it validates them).  ``z_outer`` must be a float32
+    tensor; ``tilt_ramp`` comes back as two float32 tensors and ``mask`` as
+    a uint8 tensor on its device, each of the inner shape (or None)."""
     z = z_outer
     check_block(z, offset, inner_shape)
     if int(azim_num) < 1:
@@ -583,6 +691,17 @@ def sweep_args(z_outer, *, dx, dy, offset, inner_shape, azim_num,
                       offset=(off0, off1), dist_search=dist_search, dx=dx,
                       dy=dy, hori_acc=hori_acc, rel_err=rel_err,
                       max_level=max_level)
+    if tilt_ramp is not None:
+        if len(tilt_ramp) != 2:
+            raise ValueError("tilt_ramp must be a pair (A, B)")
+        tilt_ramp = tuple(_inner_tensor(r, f"tilt_ramp[{n}]", torch.float32,
+                                        (in0, in1), z.device)
+                          for n, r in enumerate(tilt_ramp))
+    if mask is not None:
+        dtype = getattr(mask, "dtype", None)
+        if dtype not in (np.uint8, np.bool_, torch.uint8, torch.bool):
+            raise TypeError(f"mask must be uint8 or bool, got {dtype}")
+        mask = _inner_tensor(mask, "mask", torch.uint8, (in0, in1), z.device)
     if pyramid is None:
         levels = _mip.padded_levels(z, plan["pads"])
     else:
@@ -590,7 +709,21 @@ def sweep_args(z_outer, *, dx, dy, offset, inner_shape, azim_num,
     z_inner = z[off0:off0 + in0, off1:off1 + in1].contiguous()
     z_org = z_inner + float(_f32(ray_org_elev))
     return (z_org, z_inner, levels, trig_table(int(azim_num)), plan,
-            tuple(z.shape))
+            tuple(z.shape), tilt_ramp, mask)
+
+
+def _all_masked(args):
+    """The mask of :func:`sweep_args`'s ``args`` has no cell to sweep."""
+    return args[7] is not None and not bool(args[7].any())
+
+
+def _low_lim_fill(args, elev_ang_low_lim):
+    """The all-masked result: the lower limit everywhere
+    (``pallas_sweep.py:1228-1229``), (in0, in1, A)."""
+    in0, in1 = args[4]["inner_shape"]
+    return torch.full((in0, in1, args[3].shape[0]),
+                      math.radians(elev_ang_low_lim), dtype=torch.float32,
+                      device=args[0].device)
 
 
 def _angles(ratio, elev_ang_low_lim, elev_ang_up_lim):
@@ -613,45 +746,79 @@ def raw_cotangent(raw, g, lims):
             / (1.0 + raw * raw)).contiguous()
 
 
+def ramp_cotangent(graw, trig):
+    """Cotangent of the tilt ramp (A, B) from that of the raw ratios
+    (A, in0, in1): ``(sum_a graw sin, sum_a graw cos)`` over the float32
+    table (``_hz_bwd_replay``, ``pallas_sweep.py:2672-2680``)."""
+    tab = torch.from_numpy(trig).to(graw.device)
+    return (torch.einsum("aij,a->ij", graw, tab[:, 0]),
+            torch.einsum("aij,a->ij", graw, tab[:, 1]))
+
+
 class _HorizonSweepFn(torch.autograd.Function):
     """The sweep with its winner-replay backward (``_pallas_hz`` with
     ``_hz_fwd`` / ``_hz_bwd_replay``, ``pallas_sweep.py:1651-1692,
     2659-2703``).  Forward: K1's argmax variant (CUDA) or the plain argmax
-    sweep (CPU), saving raw, ids and aux.  Backward: the cotangent chained
-    through clip and arctan, then K3 (CUDA) or the plain replay (CPU),
-    then the pyramid's VJP."""
+    sweep (CPU), with the tilt ramp and the mask when given, saving raw,
+    ids and aux.  Backward: the cotangent chained through clip and arctan;
+    for ``z`` K3 (CUDA) or the plain replay (CPU), then the pyramid's VJP
+    (masked cells hold ID_NONE and a clipped angle, so they add nothing);
+    for the ramp :func:`ramp_cotangent`."""
 
     @staticmethod
-    def forward(ctx, z, kw):
-        args = sweep_args(z, **kw["sweep"])
+    def forward(ctx, z, ramp_a, ramp_b, kw):
+        ramp = None if ramp_a is None else (ramp_a, ramp_b)
+        args = sweep_args(z, tilt_ramp=ramp, **kw["sweep"])
+        ctx.lims, ctx.has_ramp = kw["lims"], ramp is not None
+        ctx.empty = _all_masked(args)
+        if ctx.empty:
+            ctx.save_for_backward(z)
+            ctx.inner_shape = args[4]["inner_shape"]
+            return _low_lim_fill(args, kw["lims"][0])
         ratio_fn = _ratio_cuda if z.is_cuda else _ratio_plain
         raw, ids, aux = ratio_fn(*args, emit_argmax=True)
-        trig, plan = args[3], args[4]
         ctx.save_for_backward(z, raw, ids, aux)
-        ctx.plan, ctx.trig, ctx.lims = plan, trig, kw["lims"]
+        ctx.plan, ctx.trig = args[4], args[3]
         return _angles(raw.clone(), *kw["lims"])
 
     @staticmethod
     def backward(ctx, g):
+        need_z, need_a, need_b = ctx.needs_input_grad[:3]
+        if ctx.empty:
+            (z,) = ctx.saved_tensors
+            zero = z.new_zeros(ctx.inner_shape)
+            return (torch.zeros_like(z) if need_z else None,
+                    zero if need_a else None, zero if need_b else None, None)
         z, raw, ids, aux = ctx.saved_tensors
         graw = raw_cotangent(raw, g, ctx.lims)
-        level_cots, zcot = _replay.backward_replay(
-            tuple(z.shape), graw, ids, aux, ctx.plan,
-            _replay.horizon_shifts(ctx.trig, ctx.plan))
-        return _replay.z_cotangent(z, ctx.plan, level_cots, zcot), None
+        dz = dra = drb = None
+        if need_z:
+            level_cots, zcot = _replay.backward_replay(
+                tuple(z.shape), graw, ids, aux, ctx.plan,
+                _replay.horizon_shifts(ctx.trig, ctx.plan))
+            dz = _replay.z_cotangent(z, ctx.plan, level_cots, zcot)
+        if ctx.has_ramp and (need_a or need_b):
+            dra, drb = ramp_cotangent(graw, ctx.trig)
+        return dz, dra, drb, None
 
 
 def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
                         dist_search, hori_acc=0.25, elev_ang_low_lim=-15.0,
                         elev_ang_up_lim=89.98, ray_org_elev=0.01,
                         rel_err=None, max_level=10, pyramid=None,
-                        tilt_ramp=None):
+                        tilt_ramp=None, mask=None):
     """Planar gridded horizon via the fused sweep.
 
-    Same contract as ``horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas``
-    without mask and tilt ramp: uniform azimuths ``2*pi*k/azim_num``,
-    ``z_outer`` the (H, W) outer heightfield, ``offset``/``inner_shape``
-    the inner block, ``dist_search`` in metres.
+    Same contract as ``horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas``:
+    uniform azimuths ``2*pi*k/azim_num``, ``z_outer`` the (H, W) outer
+    heightfield, ``offset``/``inner_shape`` the inner block, ``dist_search``
+    in metres.  ``tilt_ramp``: optional pair (A, B) of (in0, in1) arrays or
+    tensors adding ``sin(az)*A + cos(az)*B`` to the ratio before the arctan
+    (the curved-Earth correction, A = n_x/n_z, B = n_y/n_z of the cell's
+    normal).  ``mask``: optional (in0, in1) uint8 or bool, nonzero where a
+    cell is swept; masked cells hold the upper elevation limit (callers
+    apply their fill), and a mask with no such cell gives the lower limit
+    everywhere without a launch.
 
     A CUDA ``z_outer`` runs kernel K1 (built with nvcc on first use; a
     failed build or launch raises); a CPU ``z_outer`` runs
@@ -659,47 +826,53 @@ def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
     the layout of :func:`horayzon_tpu_torch.ops.mip.padded_levels`, on
     ``z_outer``'s device.
 
-    Differentiable w.r.t. ``z_outer``: when it requires grad (and grad
-    mode is on), the sweep runs as :class:`_HorizonSweepFn`, the argmax
-    forward with the winner-replay backward (K1's argmax variant and K3 on
-    the card, their plain versions on the CPU); the gradient is the one
-    ``jax.grad`` takes through ``horizon_sweep_pallas``.  That path builds
-    its pyramid from ``z_outer`` and takes no ``pyramid``.  ``tilt_ramp``
-    (the curved-Earth correction) is not ported yet.
+    Differentiable w.r.t. ``z_outer`` and the ramp: when either requires
+    grad (and grad mode is on), the sweep runs as :class:`_HorizonSweepFn`,
+    the argmax forward with the winner-replay backward (K1's argmax variant
+    and K3 on the card, their plain versions on the CPU); the gradient is
+    the one ``jax.grad`` takes through ``horizon_sweep_pallas``.  That path
+    builds its pyramid from ``z_outer`` and takes no ``pyramid``.
 
     Returns (in0, in1, azim_num) float32 [radian] on ``z_outer``'s device.
     """
-    if tilt_ramp is not None:
-        raise NotImplementedError(
-            "tilt_ramp and its cotangent come with the curved gridded slice "
-            "(ROADMAP.md Queue 1 item 7)")
     z = torch.as_tensor(z_outer)
     if z.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no horizon sweep for device {z.device}")
     sweep_kw = dict(dx=dx, dy=dy, offset=offset, inner_shape=inner_shape,
                     azim_num=azim_num, dist_search=dist_search,
                     hori_acc=hori_acc, ray_org_elev=ray_org_elev,
-                    rel_err=rel_err, max_level=max_level)
+                    rel_err=rel_err, max_level=max_level, mask=mask)
     lims = (elev_ang_low_lim, elev_ang_up_lim)
-    if z.requires_grad and torch.is_grad_enabled():
+    ramp = (None, None) if tilt_ramp is None else tuple(tilt_ramp)
+    if len(ramp) != 2:
+        raise ValueError("tilt_ramp must be a pair (A, B)")
+    if torch.is_grad_enabled() and (z.requires_grad or any(
+            isinstance(r, torch.Tensor) and r.requires_grad for r in ramp)):
         if pyramid is not None:
             raise NotImplementedError("the gradient path builds its pyramid "
                                       "from z_outer; pass no pyramid")
+        ramp = tuple(None if r is None else torch.as_tensor(r).to(
+            device=z.device, dtype=torch.float32) for r in ramp)
         return _HorizonSweepFn.apply(z.to(torch.float32).contiguous(),
-                                     dict(sweep=sweep_kw, lims=lims))
+                                     *ramp, dict(sweep=sweep_kw, lims=lims))
     ratio_fn = _ratio_cuda if z.device.type == "cuda" else _ratio_plain
-    return _run(ratio_fn, z, lims, dict(sweep_kw, pyramid=pyramid))
+    return _run(ratio_fn, z, lims, dict(sweep_kw, pyramid=pyramid,
+                                        tilt_ramp=tilt_ramp))
 
 
 def _run(ratio_fn, z_outer, lims, sweep_kw):
     z = torch.as_tensor(z_outer).detach().to(torch.float32).contiguous()
-    return _angles(ratio_fn(*sweep_args(z, **sweep_kw)), *lims)
+    args = sweep_args(z, **sweep_kw)
+    if _all_masked(args):
+        return _low_lim_fill(args, lims[0])
+    return _angles(ratio_fn(*args), *lims)
 
 
 def horizon_sweep_plain(z_outer, *, dx, dy, offset, inner_shape, azim_num,
                         dist_search, hori_acc=0.25, elev_ang_low_lim=-15.0,
                         elev_ang_up_lim=89.98, ray_org_elev=0.01,
-                        rel_err=None, max_level=10, pyramid=None):
+                        rel_err=None, max_level=10, pyramid=None,
+                        tilt_ramp=None, mask=None):
     """:func:`horizon_sweep_fused` in plain torch on any device, forward
     only: the CPU path, and the reference kernel K1 is held against on the
     card."""
@@ -707,4 +880,5 @@ def horizon_sweep_plain(z_outer, *, dx, dy, offset, inner_shape, azim_num,
                 dict(dx=dx, dy=dy, offset=offset, inner_shape=inner_shape,
                      azim_num=azim_num, dist_search=dist_search,
                      hori_acc=hori_acc, ray_org_elev=ray_org_elev,
-                     rel_err=rel_err, max_level=max_level, pyramid=pyramid))
+                     rel_err=rel_err, max_level=max_level, pyramid=pyramid,
+                     tilt_ramp=tilt_ramp, mask=mask))

@@ -1,8 +1,9 @@
-"""Kernels K1 (csrc/horizon_sweep.cu, with its argmax variant), K2 (the
-shadow mode of the same source, with its argmax variant) and K3 and K4
-(csrc/horizon_replay_bwd.cu, horizon and shadow modes) on the card,
-against their plain torch versions on the same card, and the gradient
-paths and the shadow ``Terrain`` they make.
+"""Kernels K1 (csrc/horizon_sweep.cu, with its argmax, mask and tilt-ramp
+variants), K2 (the shadow mode of the same source, with its argmax
+variant) and K3 and K4 (csrc/horizon_replay_bwd.cu, horizon and shadow
+modes) on the card, against their plain torch versions on the same card,
+and the gradient paths, the masked and curved ``horizon_gridded``, the
+``CurvedPipeline`` and the shadow ``Terrain`` they make.
 
 Marked ``cuda`` and skipped without a CUDA device.  This file imports no
 JAX, so on a machine with the card it runs without the JAX package:
@@ -18,7 +19,10 @@ summed in another order); two K3 runs bit-equal.  K2 against its plain
 version: the metric within 1e-3 m and ``metric > 0`` equal (the two do the
 same float32 operations in the same order, so they agree bit for bit on
 every case measured); K2-argmax's metric, ids and D equal; K4 against the
-plain shadow replay as K3 against its plain version.  A CUDA ``Terrain``
+plain shadow replay as K3 against its plain version.  K1's mask and
+tilt-ramp variants: raw ratios, ids and D bit-equal to the plain versions';
+masked cells and blocks that are not launched hold 3e38, ID_NONE and 1;
+unmasked cells bit-equal to the dense run.  A CUDA ``Terrain``
 against a CPU one: codes equal
 and ``sw_dir_cor`` within 1e-5 plus 1e-6 relative outside a tie zone
 (metric within 1e-3 m of 0, sun dot products within 1e-6 of a threshold:
@@ -29,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from horayzon_tpu_torch import auxiliary, shadow, topo_param
+from horayzon_tpu_torch import auxiliary, horizon, shadow, topo_param
+from horayzon_tpu_torch.models import CurvedPipeline
 from horayzon_tpu_torch.ops import _build, fused_sweep, replay
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 
@@ -440,3 +445,193 @@ def test_cuda_terrain_without_kernel_raises(cuda, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="horizon_sweep.cu"):
         t.shadow(np.array([1.0e7, 0.0, 1.5e6], np.float32))
     assert ss.KERNEL_LAUNCHES == n0
+
+
+def _variant_inputs(name):
+    """(z, kw, ramp, mask) of a mask / tilt-ramp case: the kernel cases
+    above with ramps of a few milliradians and an island mask that leaves
+    whole 32 x 8 blocks unlaunched."""
+    z, kw = _case(name)
+    in0, in1 = kw["inner_shape"]
+    rng = np.random.default_rng(2)
+    ramp = tuple(rng.uniform(-2e-3, 2e-3, (in0, in1)).astype(np.float32)
+                 for _ in range(2))
+    yy, xx = np.mgrid[0:in0, 0:in1]
+    mask = ((((yy - 0.4 * in0) / (0.3 * in0)) ** 2
+             + ((xx - 0.6 * in1) / (0.2 * in1)) ** 2) <= 1.0).astype(np.uint8)
+    mask[::7, ::5] = 1                       # scattered cells elsewhere
+    return z, kw, ramp, mask
+
+
+VARIANT_CASES = ["bumps96_d2500", "halo12_dxdy", "spike_d6000",
+                 "inner512_d20000"]
+
+
+@pytest.mark.parametrize("variant", ["tilt", "mask", "tilt_mask"])
+@pytest.mark.parametrize("name", VARIANT_CASES)
+def test_variant_kernel_matches_plain(cuda, name, variant):
+    """K1 and K1-argmax with the tilt ramp, the mask or both: raw ratios,
+    ids and D bit-equal to the plain versions'; the ramp moves no id."""
+    z, kw, ramp, mask = _variant_inputs(name)
+    args = fused_sweep.sweep_args(
+        torch.from_numpy(z).to(cuda), **kw,
+        tilt_ramp=ramp if "tilt" in variant else None,
+        mask=mask if "mask" in variant else None)
+    n0 = (fused_sweep.MASK_KERNEL_LAUNCHES, fused_sweep.TILT_KERNEL_LAUNCHES)
+    raw = fused_sweep._ratio_cuda(*args)
+    a_raw, ids, aux = fused_sweep._ratio_cuda(*args, emit_argmax=True)
+    launched = (fused_sweep.MASK_KERNEL_LAUNCHES - n0[0],
+                fused_sweep.TILT_KERNEL_LAUNCHES - n0[1])
+    assert launched == (2 * ("mask" in variant), 2 * ("tilt" in variant))
+    p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*args, emit_argmax=True)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, a_raw) and torch.equal(raw, p_raw)
+    assert torch.equal(ids, p_ids) and torch.equal(aux, p_aux)
+    dense = fused_sweep._ratio_cuda(*args[:6], emit_argmax=True)
+    keep = torch.ones_like(ids, dtype=torch.bool)
+    if "mask" in variant:
+        keep = torch.from_numpy(mask != 0).to(cuda).expand_as(ids)
+        assert (raw[~keep] == 3.0e38).all()
+        assert (ids[~keep] == replay.ID_NONE).all()
+        assert (aux[~keep] == 1.0).all()
+    assert torch.equal(ids[keep], dense[1][keep])
+    assert torch.equal(aux[keep], dense[2][keep])
+    if "tilt" not in variant:
+        assert torch.equal(raw[keep], dense[0][keep])
+
+
+def test_unlaunched_blocks_hold_the_masked_values(cuda):
+    """A mask whose live cells fill 2 of the 4 x 1 blocks of a 32^2 inner
+    domain: the other blocks are never launched and hold what a masked
+    cell holds (3e38, ID_NONE, D 1), which K3 then reads as no winner;
+    an all-masked mask launches nothing."""
+    z, kw = _case("bumps96_d2500")
+    zt = torch.from_numpy(z).to(cuda)
+    mask = np.zeros((32, 32), np.uint8)
+    mask[9, 3] = 1                          # block (1, 0)
+    mask[30:, 20:] = 1                      # block (3, 0)
+    assert fused_sweep.live_blocks(torch.from_numpy(mask)).tolist() == \
+        [[1, 0], [3, 0]]
+    args = fused_sweep.sweep_args(zt, mask=mask, **kw)
+    n0 = fused_sweep.MASK_KERNEL_LAUNCHES
+    raw, ids, aux = fused_sweep._ratio_cuda(*args, emit_argmax=True)
+    assert fused_sweep.MASK_KERNEL_LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    keep = torch.from_numpy(mask != 0).to(cuda).expand_as(raw)
+    assert (raw[~keep] == 3.0e38).all() and (aux[~keep] == 1.0).all()
+    assert (ids[~keep] == replay.ID_NONE).all()
+    assert (ids[keep] < replay.ID_NONE).all()
+    # the gradient through the mask equals the CPU path's
+    grads = []
+    for dev in (cuda, "cpu"):
+        zg = torch.from_numpy(z).to(dev).requires_grad_(True)
+        h = fused_sweep.horizon_sweep_fused(zg, mask=mask, **kw)
+        w = torch.from_numpy(mask != 0).to(dev)[..., None]
+        torch.mean(torch.where(w, h, 0.0) ** 2).backward()
+        grads.append(zg.grad.cpu())
+    scale = grads[1].abs().max().item()
+    assert scale > 0.0
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-5 * scale
+    empty = np.zeros((32, 32), np.uint8)
+    n0 = (fused_sweep.KERNEL_LAUNCHES, fused_sweep.MASK_KERNEL_LAUNCHES)
+    got = fused_sweep.horizon_sweep_fused(zt, mask=empty, **kw)
+    assert (fused_sweep.KERNEL_LAUNCHES,
+            fused_sweep.MASK_KERNEL_LAUNCHES) == n0
+    assert (got == np.float32(np.radians(-15.0))).all()
+
+
+def test_masked_gridded_bit_equal_to_dense(cuda):
+    """``horizon_gridded`` with a mask on the card: unmasked cells bit-equal
+    to the dense run, masked cells the fill, one launch of the variant."""
+    n, halo, dx = 352, 96, 25.0
+    z = gaussian_bumps_terrain(n, n, seed=8, amp=600.0)
+    x1 = np.arange(n, dtype=np.float32) * dx
+    x, y = np.meshgrid(x1, x1[::-1].copy())
+    inner = n - 2 * halo
+    vn = np.zeros((inner, inner, 3), np.float32)
+    vn[..., 2] = 1.0
+    vno = np.zeros((inner, inner, 3), np.float32)
+    vno[..., 1] = 1.0
+    vg = auxiliary.rearrange_pad_buffer(x, y, z)
+    mask = _variant_inputs("bumps96_d2500")[3]
+    mask = np.kron(mask, np.ones((5, 5), np.uint8))[:inner, :inner]
+    kw = dict(dist_search=2.0, azim_num=12, verbose=False, hori_fill=-4.0,
+              device=cuda)
+    dense, _ = horizon.horizon_gridded(vg, n, n, vn, vno, halo, halo, **kw)
+    n0 = fused_sweep.MASK_KERNEL_LAUNCHES
+    got, _ = horizon.horizon_gridded(vg, n, n, vn, vno, halo, halo,
+                                     mask=mask, **kw)
+    assert fused_sweep.MASK_KERNEL_LAUNCHES == n0 + 1
+    keep = torch.from_numpy(mask == 1).to(cuda)
+    assert torch.equal(got[keep], dense[keep])
+    assert (got[~keep] == -4.0).all()
+
+
+def _curved_pipeline_inputs():
+    """tests/test_curved.py:187-208's bump on a 100^2 lon/lat grid."""
+    n, dlat = 100, 0.002
+    lat = 45.0 + (np.arange(n)[::-1] - n / 2) * dlat
+    lon = 7.0 + (np.arange(n) - n / 2) * dlat
+    lon2, lat2 = np.meshgrid(lon, lat)
+    elevation = (500.0 * np.exp(-((lon2 - 7.0) ** 2 + (lat2 - 45.0) ** 2)
+                                / (2 * 0.02 ** 2))).astype(np.float32)
+    domain = {"lon_min": 6.97, "lon_max": 7.03,
+              "lat_min": 44.97, "lat_max": 45.03}
+    return lon, lat, elevation, domain
+
+
+def test_curved_pipeline_on_card(cuda):
+    """``CurvedPipeline`` with ``device="cuda"`` against the CPU pipeline
+    (the plain versions): the lattice horizon's raw ratios are bit-equal,
+    so the horizon agrees to the card's and the CPU's arctan (1e-5 rad),
+    SVF within 1e-5; one K1-tilt launch per run, tensors on the card."""
+    lon, lat, elevation, domain = _curved_pipeline_inputs()
+    outs = []
+    for dev in (cuda, "cpu"):
+        n0 = fused_sweep.TILT_KERNEL_LAUNCHES
+        out = CurvedPipeline(lon, lat, elevation, domain, dist_search=5.0,
+                             azim_num=16, ellps="sphere", device=dev).run()
+        assert fused_sweep.TILT_KERNEL_LAUNCHES == n0 + (dev is cuda)
+        outs.append(out)
+    gpu, cpu = outs
+    assert all(t.is_cuda for t in gpu.values())
+    assert (gpu["hori"].cpu() - cpu["hori"]).abs().max().item() <= TOL
+    assert (gpu["svf"].cpu() - cpu["svf"]).abs().max().item() <= 1e-5
+    svf = gpu["svf"]
+    assert torch.isfinite(svf).all() and (svf > 0.5).all() \
+        and (svf <= 1.001).all()
+    # the lattice sweep alone: bit-equal raw ratios
+    pipe = CurvedPipeline(lon, lat, elevation, domain, dist_search=5.0,
+                          azim_num=16, ellps="sphere", device=cuda)
+    pipe.build_geometry()
+    lat_p = horizon.curved_lattice(pipe.x, pipe.y, pipe.z, pipe.vec_norm,
+                                   pipe.offset_0, pipe.offset_1)
+    i_lo, i_hi, j_lo, j_hi = lat_p["box"]
+    args = fused_sweep.sweep_args(
+        torch.from_numpy(lat_p["pg"].z).to(cuda), dx=lat_p["pg"].grid.dx,
+        dy=lat_p["pg"].grid.dy, offset=(i_lo, j_lo),
+        inner_shape=(i_hi - i_lo, j_hi - j_lo), azim_num=16,
+        dist_search=5000.0, tilt_ramp=lat_p["ramp"])
+    assert torch.equal(fused_sweep._ratio_cuda(*args),
+                       fused_sweep._ratio_plain(*args))
+
+
+def test_tilt_gradient_on_card(cuda):
+    """The z and ramp gradients through K1-argmax with the ramp and the
+    mask, then K3, against the CPU path's within 1e-5 of max |.|."""
+    z, kw, ramp, mask = _variant_inputs("halo12_dxdy")
+    grads = []
+    for dev in (cuda, "cpu"):
+        zg = torch.from_numpy(z).to(dev).requires_grad_(True)
+        ra, rb = (torch.from_numpy(r).to(dev).requires_grad_(True)
+                  for r in ramp)
+        h = fused_sweep.horizon_sweep_fused(zg, tilt_ramp=(ra, rb),
+                                            mask=mask, **kw)
+        w = torch.from_numpy(mask != 0).to(dev)[..., None]
+        g = torch.autograd.grad(torch.mean(torch.where(w, h, 0.0) ** 2),
+                                (zg, ra, rb))
+        grads.append([t.cpu() for t in g])
+    for got, want in zip(*grads):
+        scale = want.abs().max().item()
+        assert scale > 0.0 and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 1e-5 * scale

@@ -457,9 +457,15 @@ def test_terrain_fit_matches_jax_loop(reference):
 def test_gradient_path_arguments():
     z, kw = CASES["bumps96_d900_a4"]
     zt = torch.from_numpy(z).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fused_sweep.horizon_sweep_fused(
-            zt, tilt_ramp=(torch.zeros(32, 32), torch.zeros(32, 32)), **kw)
+    # the tilt ramp is ported (tests/test_torch_curved.py); a zero ramp is
+    # the untilted sweep, and its gradient reaches the ramp
+    ra = torch.zeros(32, 32, requires_grad=True)
+    h = fused_sweep.horizon_sweep_fused(zt, tilt_ramp=(ra, torch.zeros(
+        32, 32)), **kw)
+    assert torch.equal(h.detach(), fused_sweep.horizon_sweep_fused(
+        z, **kw))
+    (ga,) = torch.autograd.grad(h.sum(), (ra,))
+    assert ga.abs().max().item() > 0.0
     plan = fused_sweep.plan_sweep(z.shape, **{
         k: kw[k] for k in ("inner_shape", "offset", "dist_search", "dx",
                            "dy")})

@@ -94,11 +94,9 @@ def test_horizon_gridded_validation_matches_reference():
 
 
 def test_unported_branches_raise():
+    """The branches still to port raise; masks with zeros and curved grids
+    are ported (tests/test_torch_masked.py, tests/test_torch_curved.py)."""
     p = _planar_inputs()
-    mask = np.ones((p["inner"],) * 2, dtype=np.uint8)
-    mask[:4] = 0
-    with pytest.raises(NotImplementedError, match="mask with zeros"):
-        _gridded(p, mask=mask)
     with pytest.raises(NotImplementedError, match="vert_simp"):
         _gridded(p, vert_simp=np.zeros(9, np.float32),
                  tri_ind_simp=np.zeros(3, np.int32))
@@ -108,11 +106,10 @@ def test_unported_branches_raise():
     tilted[..., 0] = 0.1
     with pytest.raises(NotImplementedError, match="vec_norm"):
         _gridded(dict(p, vec_norm=tilted))
-    xc = p["x"] + 0.3 * p["y"]               # sheared: not a regular grid
-    curved = dict(p, vert_grid=auxiliary.rearrange_pad_buffer(
-        xc.astype(np.float32), p["y"], p["z"]))
-    with pytest.raises(NotImplementedError, match="curved"):
-        _gridded(curved)
+    mask = np.ones((p["inner"],) * 2, dtype=np.uint8)
+    mask[:4] = 0
+    hori, _ = _gridded(p, mask=mask, hori_fill=-2.0)
+    assert (hori[:4] == -2.0).all() and (hori[4:] > -0.3).all()
 
 
 def test_topo_param_matches_reference():
@@ -187,6 +184,8 @@ def test_planar_pipeline_matches_reference():
 
 
 def test_planar_pipeline_mask_with_zeros_not_ported():
+    """A mask with zeros, once not ported, now runs the mask variant:
+    masked cells get the fill (0), the others the unmasked run's values."""
     n, dx = 80, 25.0
     z = np.zeros((n, n), dtype=np.float32)
     x = np.arange(n, dtype=np.float32) * dx
@@ -200,16 +199,18 @@ def test_planar_pipeline_mask_with_zeros_not_ported():
     in1 = pipe.slice_in[1].stop - pipe.slice_in[1].start
     mask = np.ones((in0, in1), dtype=np.uint8)
     mask[:5] = 0
-    with pytest.raises(NotImplementedError, match="mask with zeros"):
-        pipe.run(mask=mask)
+    masked = pipe.run(mask=mask)
     out = pipe.run(mask=np.ones((in0, in1), dtype=np.uint8))
     # flat plane: the horizon is the ray-origin offset seen from afar
     assert out["hori"].abs().max().item() < 1e-3
+    assert (masked["hori"][:5] == 0.0).all()
+    assert torch.equal(masked["hori"][5:], out["hori"][5:])
 
 
 def test_import_loads_no_jax():
     code = ("import sys, horayzon_tpu_torch, horayzon_tpu_torch.ops.fused_sweep, "
-            "horayzon_tpu_torch.ops.replay, horayzon_tpu_torch.models.terrain_fit;"
+            "horayzon_tpu_torch.ops.replay, horayzon_tpu_torch.models.terrain_fit,"
+            " horayzon_tpu_torch.regrid, horayzon_tpu_torch.direction;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('horayzon_tpu.') or "
             "m == 'horayzon_tpu');"

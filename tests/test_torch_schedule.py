@@ -1,6 +1,7 @@
 """The port's copies of the reference's pure-NumPy helpers equal the
 originals: the sweep schedule, the vertex buffer, the grid detection, the
-coordinate transformations and the solar ephemeris.
+coordinate transformations, the solar ephemeris, the ellipsoid directions
+and the curved mesh's planarisation.
 
 The copies exist because importing ``horayzon_tpu`` loads JAX, which the
 port never does.  Equality here is exact (same NumPy code, same inputs).
@@ -12,11 +13,14 @@ import numpy as np
 import pytest
 
 from horayzon_tpu import auxiliary as aux_ref
+from horayzon_tpu import direction as direction_ref
+from horayzon_tpu import regrid as regrid_ref
 from horayzon_tpu import sun_position as sun_ref
 from horayzon_tpu import terrain as terrain_ref
 from horayzon_tpu import transform as transform_ref
 from horayzon_tpu.ops import sweep as sweep_ref
-from horayzon_tpu_torch import auxiliary, sun_position, terrain, transform
+from horayzon_tpu_torch import (auxiliary, direction, regrid, sun_position,
+                                terrain, transform)
 from horayzon_tpu_torch.ops import sweep
 
 
@@ -172,3 +176,54 @@ def test_sun_position_matches_reference():
     for elev in (30.0, -5.0, np.linspace(-10.0, 80.0, 7)):
         _same(sun_position.sun_position_planar(azim, elev, dist=1.0e7),
               sun_ref.sun_position_planar(azim, elev, dist=1.0e7))
+
+
+def test_direction_matches_reference():
+    rng = np.random.default_rng(4)
+    lon = rng.uniform(-180.0, 180.0, (5, 6))
+    lat = rng.uniform(-85.0, 85.0, (5, 6))
+    h = rng.uniform(-100.0, 4000.0, (5, 6)).astype(np.float32)
+    vn = direction.surf_norm(lon, lat)
+    _same(vn, direction_ref.surf_norm(lon, lat))
+    for ellps in ("sphere", "GRS80", "WGS84"):
+        ecef = transform.lonlat2ecef(lon, lat, h, ellps)
+        _same(direction.north_dir(*ecef, vn, ellps),
+              direction_ref.north_dir(*ecef, vn, ellps))
+    for mod in (direction, direction_ref):
+        with pytest.raises(ValueError, match="Inconsistent"):
+            mod.surf_norm(lon, lat[:-1])
+        with pytest.raises(ValueError, match="ellps"):
+            mod.north_dir(*transform.lonlat2ecef(lon, lat, h, "sphere"), vn,
+                          "mars")
+
+
+def test_regrid_matches_reference():
+    """``planarize`` (and with it ``invert_mapping`` and ``_bilinear``) on
+    a curved ENU mesh, and the grid's helper methods."""
+    n, dlat = 40, 0.002
+    lat = 45.0 + (np.arange(n)[::-1] - n / 2) * dlat
+    lon = 7.0 + (np.arange(n) - n / 2) * dlat
+    lon2, lat2 = np.meshgrid(lon, lat)
+    elev = (300.0 * np.exp(-((lon2 - 7.0) ** 2 + (lat2 - 45.0) ** 2)
+                           / (2 * 0.01 ** 2))).astype(np.float32)
+    trans = transform.TransformerEcef2enu(7.0, 45.0, "WGS84")
+    x, y, z = transform.ecef2enu(
+        *transform.lonlat2ecef(lon2, lat2, elev, "WGS84"), trans)
+    got, ref = regrid.planarize(x, y, z), regrid_ref.planarize(x, y, z)
+    assert dataclasses.astuple(got.grid) == dataclasses.astuple(ref.grid)
+    for key in ("z", "valid", "fi", "fj"):
+        _same(getattr(got, key), getattr(ref, key))
+    _same(got.sample_source_field(lon2), ref.sample_source_field(lon2))
+    _same(got.to_regular_indices(x[3:9, 4:7], y[3:9, 4:7]),
+          ref.to_regular_indices(x[3:9, 4:7], y[3:9, 4:7]))
+    _same(regrid.planarize(x, y, z, target_spacing=250.0).z,
+          regrid_ref.planarize(x, y, z, target_spacing=250.0).z)
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(6, 7, 3))
+    fi, fj = rng.uniform(-1, 6, (4, 5)), rng.uniform(-1, 7, (4, 5))
+    _same(regrid._bilinear(a, fi, fj), regrid_ref._bilinear(a, fi, fj))
+    _same(regrid.invert_mapping(x, y, x[::7, ::5], y[::7, ::5]),
+          regrid_ref.invert_mapping(x, y, x[::7, ::5], y[::7, ::5]))
+    for mod in (regrid, regrid_ref):
+        with pytest.raises(ValueError, match="Inconsistent"):
+            mod.planarize(x, y, z[:-1])
