@@ -9,9 +9,9 @@ Phases, each of which ends the run with a nonzero exit on failure:
 
 1. environment: torch, CUDA, the card, its name and power limit;
 2. build: kernels K1 and K2 with their argmax variants
-   (csrc/horizon_sweep.cu, one template) and K3 and K4
-   (csrc/horizon_replay_bwd.cu, one template), one nvcc each for sm_90a,
-   in parallel;
+   (csrc/horizon_sweep.cu, one template), K3 and K4
+   (csrc/horizon_replay_bwd.cu, one template) and K5 (csrc/read_floor.cu),
+   one nvcc each for sm_90a, in parallel;
 3. K1 against its plain torch version on the card, on three small cases;
 4. the main path, ``PlanarPipeline.run`` at the bench headline shape
    (25 m grid, 2048^2 outer, 1024^2 inner, 32 azimuths, 20 km search),
@@ -67,10 +67,32 @@ I. curved: ``bench.py:60-197``'s curved masked scene (1024^2 lon/lat at
    WGS84, 20 km, 120 azimuths) with its wall split into host
    planarisation, K1-tilt and read-back, SVF range and peak memory;
    K1-tilt against its plain version there;
-9. one JSON line per kernel (launches on its main path, error against its
-   plain version, its time and the plain version's, its bound and
-   ``library_ms`` null), then the result line
-   ``{"ok": true, "device": {...}}``.
+J. K5, the read floor (csrc/read_floor.cu): every mode and source against
+   its plain version on a small window, bit-equal; then its own main path,
+   ``read_floor.time_modes`` (what ``tools/read_floor_torch.py`` runs), at
+   K1's bench cell (1024^2 cells, 32 first-quadrant directions, 246 steps)
+   on a 2048^2 and a 5120^2 window, one line per mode and window, and
+   ``stream`` alone on a 16384^2 window (1 GiB: device memory's read rate);
+   the ``bilinear`` L2 mode against its plain version at the bench window;
+K. multires: on two small scenes K1, K1-argmax and K3 over the combined
+   fine + coarse pyramid against their plain versions (bit-equal; K3 within
+   rtol 1e-5 and bit-equal across two runs) and both gradients against the
+   CPU path; then ``horizon_sweep_multires_fused`` at the defaults of
+   ``examples/horizon/gridded_planar_dem_2m.py`` (2 m grid, fine 5120^2,
+   inner 1024^2, 20 km, 60 azimuths, ratio 16): wall, K1 alone, range
+   checks, peak memory; on a 128^2 crop of that pyramid (every sixth
+   azimuth) K1's run and a K1-argmax launch bit-equal to the plain argmax
+   sweep, and K3 on the crop's winners within rtol 1e-5 of the plain
+   backward over the eight combined levels, bit-equal across two runs; the
+   gradient step ``mean(h^2).backward()`` timed, both gradients finite,
+   nonzero and equal across two runs; ``horizon_gridded(vert_simp=...)``
+   once on a mid-size scene against the full-resolution run;
+9. one JSON line of all nine kernels (launches on its main path, error
+   against its plain version, its time and the plain version's, its bound
+   and ``library_ms`` null), then the result line
+   ``{"ok": true, "device": {...}}``.  K5 is on no user path of the
+   library: its launches are those of its own entry, the timing run of
+   phase J.
 
 TF32 is switched off for matmuls and cuDNN, so nothing here runs in
 reduced precision.  Imports nothing of JAX.
@@ -89,7 +111,7 @@ from horayzon_tpu_torch import (auxiliary, direction, horizon, shadow,
 from horayzon_tpu_torch.models import (CurvedPipeline, PlanarPipeline,
                                        terrain_fit)
 from horayzon_tpu_torch.ops import _build, fused_sweep, mip, replay
-from horayzon_tpu_torch.ops import shadow_sweep
+from horayzon_tpu_torch.ops import multires, read_floor, shadow_sweep
 
 #: Horizon-angle tolerance [rad] of K1 against the plain version.
 TOL = 1.0e-5
@@ -106,7 +128,9 @@ MASK_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:196"
 TILT_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:219"
 #: Shadow metric tolerance [m] of K2 against the plain version.
 SHADOW_TOL = 1.0e-3
-KERNELS = ("horizon_sweep", "horizon_replay_bwd")
+READ_FLOOR_SOURCE = "horayzon_tpu_torch/csrc/read_floor.cu"
+READ_FLOOR_REPLACES = "tools/read_floor.py:53"
+KERNELS = ("horizon_sweep", "horizon_replay_bwd", "read_floor")
 #: Peaks of one H100 SXM (NVIDIA's data sheet): float32 operations outside
 #: the tensor cores per second, HBM bytes per second.
 PEAK_F32_OPS = 67.0e12
@@ -834,6 +858,453 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
     return launches, err, tilt_ms, plain_ms, bnd
 
 
+def seeded_window(n, dev, seed=0):
+    """(n, n) float32 standard normals made on the card from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, n), generator=gen, device=dev,
+                       dtype=torch.float32)
+
+
+def phase_j(dev, card):
+    """K5.  Returns its row of the kernels line: (launches, max abs error,
+    ms, plain ms, bound) of the ``bilinear`` L2 mode at the bench window."""
+    print("== J. K5 (the read floor) against its plain versions, then timed")
+    win_s = seeded_window(224, dev, seed=1)[:160].contiguous()
+    trig_s = read_floor.first_quadrant_trig(5)
+    kw = dict(cells=(20, 70), n_steps=37, offset=(8, 32), chunk=8)
+    err = 0.0
+    for mode, source in read_floor.MEASURED:
+        n0 = read_floor.KERNEL_LAUNCHES
+        got = read_floor.read_floor(win_s, trig_s, mode, source=source, **kw)
+        want = read_floor.read_floor_plain(win_s, trig_s, mode,
+                                           source=source, **kw)
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+        check(read_floor.KERNEL_LAUNCHES == n0 + 1
+              and torch.equal(got, want),
+              f"K5 {mode}/{source}: launched once, bit-equal to its plain "
+              f"version (20 x 70 cells, 5 directions, 37 steps, chunk 8)")
+    cells, a_num, n_steps, chunk, iters = (1024, 1024), 32, 246, 32, 10
+    trig = read_floor.first_quadrant_trig(a_num)
+    rows, ld = read_floor.strip_layout("bilinear", trig, n_steps, n_steps)
+    print(f"  a block's strip for all {n_steps} steps: {rows} x {ld} cells = "
+          f"{rows * ld * 4 / 1024:.0f} KB (over the "
+          f"{read_floor.MAX_SMEM_BYTES / 1024:.0f} KB a block can have); "
+          f"staged per chunk of {chunk} steps")
+    # K5's own main path: the tool's timing run on both windows
+    read_floor.KERNEL_LAUNCHES = 0
+    timed = {}
+    for n in (2048, 5120):
+        win = seeded_window(n, dev)
+        print(f"  window {n}^2 ({win.numel() * 4 / 2**20:.0f} MiB), "
+              f"{cells[0]}^2 cells x {a_num} directions x {n_steps} steps, "
+              f"mean of {iters} launches  [{card}]")
+        for row in read_floor.time_modes(win, cells=cells, a_num=a_num,
+                                         n_steps=n_steps, chunk=chunk,
+                                         iters=iters):
+            timed[(n, row["mode"], row["source"])] = row
+            print(f"    {read_floor.format_row(row)}")
+        win.max()
+        lib_ms = cuda_ms(win.max, iters)
+        print(f"    torch max over the window (one pass, never called by "
+              f"the port): {lib_ms:.4f} ms, "
+              f"{win.numel() * 4 / lib_ms / 1e9:.3f} TB/s")
+        if n == 2048:
+            bench_win = win
+    # stream alone on a window twenty times L2: device memory's read rate
+    # (the 105 MB window's row still mixes L2 hits in)
+    n = 16384
+    win = seeded_window(n, dev)
+    print(f"  window {n}^2 ({win.numel() * 4 / 2**20:.0f} MiB), stream alone"
+          f"  [{card}]")
+    (row,) = read_floor.time_modes(win, cells=cells, a_num=a_num,
+                                   n_steps=n_steps, iters=iters,
+                                   pairs=(("stream", "l2"),))
+    print(f"    {read_floor.format_row(row)}")
+    lib_ms = cuda_ms(win.max, iters)
+    print(f"    torch max over the window (one pass, never called by the "
+          f"port): {lib_ms:.4f} ms, "
+          f"{win.numel() * 4 / lib_ms / 1e9:.3f} TB/s")
+    check(row["tb_per_s"] * 1e12 <= PEAK_HBM_BYTES,
+          f"stream on the {n}^2 window reads {row['tb_per_s']:.3f} TB/s, "
+          f"within device memory's {PEAK_HBM_BYTES / 1e12:.2f} TB/s (the "
+          f"5120^2 window's {timed[(5120, 'stream', 'l2')]['tb_per_s']:.3f} "
+          f"TB/s is a mix with L2)")
+    del win
+    launches = read_floor.KERNEL_LAUNCHES
+    check(launches == (2 * len(read_floor.MEASURED) + 1) * (iters + 1),
+          f"K5's timing run launched it {launches} times")
+    got = read_floor.read_floor(bench_win, trig, "bilinear", cells=cells,
+                                n_steps=n_steps)
+    plain_ms, want = event_ms(lambda: read_floor.read_floor_plain(
+        bench_win, trig, "bilinear", cells=cells, n_steps=n_steps))
+    err = max(err, (got - want).abs().max().item())
+    check(torch.equal(got, want), "K5 bilinear/l2 bit-equal to its plain "
+          "version at the bench window")
+    w = read_floor.work("bilinear", cells, a_num, n_steps)
+    bnd = bound(tensor_bytes(bench_win, got) + trig.nbytes, w["ops"])
+    ms = timed[(2048, "bilinear", "l2")]["ms"]
+    print(f"  K5 bilinear/l2 at the 2048^2 window: {ms:.3f} ms; plain torch "
+          f"version {plain_ms:.1f} ms; bound {bnd[0]:.3f} ms ({bnd[1]})  "
+          f"[{card}]")
+    alu = timed[(2048, "alu", "l2")]["tops_per_s"] * 1e12
+    print(f"  float32 ceiling as the kernels are built (--fmad=false): "
+          f"{alu / 1e12:.2f} T op/s against the data sheet's "
+          f"{PEAK_F32_OPS / 1e12:.0f} TFLOP/s")
+    return (launches, err, ms, plain_ms, bnd), alu
+
+
+def multires_small_scenes():
+    """(name, z_fine, z_coarse, kwargs) of the two scenes of
+    tests/test_torch_multires.py on the bench's terrain generator: ratio 4
+    with a 96-cell halo, and ratio 2 with dx != |dy|, an odd fine shape
+    and the inner block off centre."""
+    def pool(z, r):
+        h, w = z.shape
+        return z[:h - h % r, :w - w % r].reshape(h // r, r, w // r, r).max(
+            axis=(1, 3))
+
+    halo_full = int(4000.0 / 25.0) + 16
+    full = make_terrain(32 + 2 * halo_full, 32 + 2 * halo_full, seed=9)
+    i0 = halo_full - 96
+    full2 = make_terrain(400, 400, seed=17)
+    return [
+        ("r2_halo96", np.ascontiguousarray(full[i0:i0 + 224, i0:i0 + 224]),
+         pool(full, 4),
+         dict(ratio_log2=2, coarse_offset=(i0, i0), dx=25.0, dy=-25.0,
+              offset=(96, 96), inner_shape=(32, 32), dist_search=4000.0,
+              hori_acc=2.0, azim_num=8)),
+        ("r1_dxdy_odd", np.ascontiguousarray(full2[100:233, 100:241]),
+         pool(full2, 2),
+         dict(ratio_log2=1, coarse_offset=(100, 100), dx=25.0, dy=-30.0,
+              offset=(50, 54), inner_shape=(32, 32), dist_search=3000.0,
+              hori_acc=2.0, azim_num=8))]
+
+
+def multires_args(zf, zc, kw):
+    """The sweep's inputs over the combined pyramid of ``zf``, ``zc``
+    (tensors on one device) for the multires keywords ``kw``."""
+    geo = {k: kw[k] for k in ("dx", "dy", "offset", "inner_shape",
+                              "dist_search", "hori_acc")}
+    levels = multires.multires_levels(zf, zc, ratio_log2=kw["ratio_log2"],
+                                      coarse_offset=kw["coarse_offset"],
+                                      **geo)
+    return fused_sweep.sweep_args(zf, pyramid=levels,
+                                  azim_num=kw["azim_num"], **geo)
+
+
+def multires_2m_scene(inner=1024, halo_fine=2048, ratio_log2=4,
+                      dist_km=20.0, dx=2.0):
+    """The synthetic scene of examples/horizon/gridded_planar_dem_2m.py
+    (:82-103, seed 2): 30 gaussian mountains over the coarse extent, the
+    fine grid the coarse window repeated plus 3 m of 2 m-scale noise."""
+    r = 2 ** ratio_log2
+    n_fine = inner + 2 * halo_fine
+    rng = np.random.default_rng(2)
+    n_coarse = int(np.ceil((n_fine * dx + 2 * dist_km * 1000.0) / (r * dx)))
+    yy, xx = np.mgrid[0:n_coarse, 0:n_coarse].astype(np.float64)
+    zc = np.zeros((n_coarse, n_coarse))
+    for _ in range(30):
+        cy, cx = rng.uniform(0, n_coarse, 2)
+        sig = rng.uniform(10, n_coarse / 6)
+        zc += rng.uniform(200, 2000) * np.exp(
+            -(((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2)))
+    z_coarse = zc.astype(np.float32)
+    fo_c = (n_coarse - n_fine // r) // 2
+    window = z_coarse[fo_c:fo_c + n_fine // r, fo_c:fo_c + n_fine // r]
+    z_fine = np.repeat(np.repeat(window, r, 0), r, 1)
+    z_fine = (z_fine + 3.0 * rng.standard_normal(z_fine.shape).astype(
+        np.float32)).astype(np.float32)
+    kw = dict(ratio_log2=ratio_log2, coarse_offset=(fo_c * r, fo_c * r),
+              dx=dx, dy=-dx, offset=(halo_fine, halo_fine),
+              inner_shape=(inner, inner), dist_search=dist_km * 1000.0,
+              hori_acc=0.25, azim_num=60)
+    return z_fine, z_coarse, kw
+
+
+def tin_scene(dx=25.0, n_fine=1024, inner=512, dist_km=10.0, pool=8):
+    """A mid-size TIN run: the bench's terrain over the full search
+    extent, the fine window around the inner block, and a TIN through the
+    ``pool`` x max-pooled terrain (two triangles per quad), as
+    tests/test_multires.py:104-169 builds its own."""
+    halo_full = int(dist_km * 1000.0 / dx) + 16
+    halo_fine = (n_fine - inner) // 2
+    n_full = inner + 2 * halo_full
+    full = make_terrain(n_full, n_full, seed=13)
+    x = np.arange(n_full, dtype=np.float64) * dx
+    y = -np.arange(n_full, dtype=np.float64) * dx
+    i0 = halo_full - halo_fine
+    h = n_full - n_full % pool
+    pooled = full[:h, :h].reshape(h // pool, pool, h // pool, pool).max(
+        axis=(1, 3))
+    nc = pooled.shape[0]
+    xv, yv = np.meshgrid(x[:nc * pool:pool] - i0 * dx,
+                         y[:nc * pool:pool] + i0 * dx)
+    verts = np.stack([xv, yv, pooled.astype(np.float64)],
+                     axis=-1).reshape(-1, 3).astype(np.float32)
+    jj, ii = np.meshgrid(np.arange(nc - 1), np.arange(nc - 1))
+    a = (ii * nc + jj).ravel()
+    tris = np.concatenate([
+        np.stack([a, a + 1, a + nc], -1),
+        np.stack([a + 1, a + nc + 1, a + nc], -1)]).astype(np.int32).ravel()
+
+    def vert_grid(xa, ya, za):
+        x2, y2 = np.meshgrid(xa, ya)
+        return auxiliary.rearrange_pad_buffer(
+            x2.astype(np.float32), y2.astype(np.float32),
+            za.astype(np.float32))
+
+    vec_norm = np.zeros((inner, inner, 3), np.float32)
+    vec_norm[..., 2] = 1.0
+    vec_north = np.zeros((inner, inner, 3), np.float32)
+    vec_north[..., 1] = 1.0
+    sl = slice(i0, i0 + n_fine)
+    return dict(
+        full=(vert_grid(x, y, full), n_full, n_full, vec_norm, vec_north,
+              halo_full, halo_full, dist_km),
+        fine=(vert_grid(x[sl] - i0 * dx, y[sl] + i0 * dx, full[sl, sl]),
+              n_fine, n_fine, vec_norm, vec_north, halo_fine, halo_fine,
+              dist_km),
+        tin=dict(vert_simp=verts.ravel(), num_vert_simp=len(verts),
+                 tri_ind_simp=tris, num_tri_simp=len(tris) // 3))
+
+
+def phase_k(dev, card):
+    """Multires.  Returns the max abs errors of K1-argmax's raw ratios and
+    of K3's cotangents against their plain versions on the crop of the 2 m
+    cell's pyramid."""
+    print("== K. multires: the combined fine + coarse pyramid")
+    for name, zf_np, zc_np, kw in multires_small_scenes():
+        zf = torch.from_numpy(zf_np).to(dev)
+        zc = torch.from_numpy(zc_np).to(dev)
+        sargs = multires_args(zf, zc, kw)
+        plan, trig, levels = sargs[4], sargs[3], sargs[2]
+        print(f"  {name}: {len(levels)} levels, the first "
+              f"{kw['ratio_log2']} from the fine grid {tuple(zf.shape)}, "
+              f"pads {plan['pads']}")
+        raw, ids, aux = fused_sweep._ratio_cuda(*sargs, emit_argmax=True)
+        raw_k1 = fused_sweep._ratio_cuda(*sargs)
+        p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*sargs,
+                                                       emit_argmax=True)
+        torch.cuda.synchronize()
+        check(torch.equal(raw_k1, p_raw) and torch.equal(raw, p_raw),
+              f"{name}: K1 and K1-argmax on the combined pyramid bit-equal "
+              f"to the plain sweep")
+        n2 = 2 * plan["n_dense"]
+        check(torch.equal(ids, p_ids) and torch.equal(aux, p_aux),
+              f"{name}: ids and aux equal ({int((ids >= n2).sum())} of "
+              f"{ids.numel()} winners on mip levels)")
+        g = torch.from_numpy(np.random.default_rng(7).normal(
+            size=tuple(raw.shape)).astype(np.float32)).to(dev)
+        bargs = (tuple(zf.shape), g, ids, aux, plan,
+                 replay.horizon_shifts(trig, plan))
+        cots, zcot = replay._bwd_cuda(*bargs)
+        cots2, zcot2 = replay._bwd_cuda(*bargs)
+        p_cots, p_zcot = replay.backward_replay_plain(*bargs)
+        torch.cuda.synchronize()
+        check([tuple(c.shape) for c in cots]
+              == [tuple(t.shape) for t in levels],
+              f"{name}: K3's cotangents have the combined levels' shapes")
+        errs = [rel_err(a, b) for a, b in zip(cots + [zcot],
+                                              p_cots + [p_zcot])]
+        check(max(errs) <= BWD_RTOL,
+              f"{name}: K3 within rtol {BWD_RTOL} of the plain backward "
+              f"(per output: {', '.join(f'{e:.1e}' for e in errs)})")
+        check(all(torch.equal(a, b) for a, b in zip(cots + [zcot],
+                                                     cots2 + [zcot2])),
+              f"{name}: two K3 runs bit-equal")
+        # both gradients through the entry, the card against the CPU path
+        grads = []
+        for d in (dev, "cpu"):
+            tf = torch.from_numpy(zf_np).to(d).requires_grad_(True)
+            tc = torch.from_numpy(zc_np).to(d).requires_grad_(True)
+            h = multires.horizon_sweep_multires_fused(tf, tc, **kw)
+            grads.append([t.cpu() for t in torch.autograd.grad(
+                torch.mean(h ** 2), (tf, tc))])
+        errs = [rel_err(a, b) for a, b in zip(*grads)]
+        check(max(errs) <= BWD_RTOL and all(
+            b.abs().max().item() > 0.0 for b in grads[1]),
+              f"{name}: d/dz_fine and d/dz_coarse on the card within rtol "
+              f"{BWD_RTOL} of the CPU path ({errs[0]:.1e}, {errs[1]:.1e})")
+
+    print("  the defaults of examples/horizon/gridded_planar_dem_2m.py")
+    t0 = time.perf_counter()
+    zf_np, zc_np, kw = multires_2m_scene()
+    print(f"  scene made on the host in {time.perf_counter() - t0:.1f} s: "
+          f"fine {zf_np.shape} at {kw['dx']:g} m, coarse {zc_np.shape} at "
+          f"{kw['dx'] * 2 ** kw['ratio_log2']:g} m")
+    zf = torch.from_numpy(zf_np).to(dev)
+    zc = torch.from_numpy(zc_np).to(dev)
+    in0, in1 = kw["inner_shape"]
+    a_num = kw["azim_num"]
+
+    def forward():
+        return multires.horizon_sweep_multires_fused(zf, zc, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    forward()
+    torch.cuda.synchronize()
+    peak_f = torch.cuda.max_memory_allocated()
+    fused_sweep.KERNEL_LAUNCHES = 0
+    wall, w_min, w_max, hori = wall_runs(forward, 3)
+    # the warm-up of wall_runs is a run of the main path too
+    k1_launches = fused_sweep.KERNEL_LAUNCHES - 1
+    print(f"  horizon_sweep_multires_fused, {in0}x{in1} x {a_num} azimuths: "
+          f"median {wall:.4f} s wall of 3 (min {w_min:.4f}, max "
+          f"{w_max:.4f}), {in0 * in1 * a_num / wall:.4e} "
+          f"(cell*azimuth)/s; peak {peak_f / 2**20:.1f} MiB allocated "
+          f"({base / 2**20:.1f} MiB before the call)  [{card}]")
+    check(k1_launches == 3, f"the multires path launched K1 once per run "
+          f"({k1_launches} in 3 runs)")
+    check(tuple(hori.shape) == (in0, in1, a_num) and hori.is_cuda
+          and bool(torch.isfinite(hori).all()), "hori shape, device, finite")
+    lo, hi = np.radians(-15.0), np.radians(89.98)
+    check(hori.min().item() >= lo - 1e-6 and hori.max().item() <= hi + 1e-6
+          and hori.max().item() > 0.0,
+          f"hori within the elevation limits: [{hori.min().item():.4f}, "
+          f"{hori.max().item():.4f}] rad, mean "
+          f"{np.degrees(hori.mean().item()):.2f} deg")
+    sargs = multires_args(zf, zc, kw)
+    plan = sargs[4]
+    n_mip = sum(ph[1] for ph in plan["phases_meta"][1:])
+    samples = plan["nx"] * 2 + (plan["n_dense"] - plan["nx"]) + n_mip
+    raw = fused_sweep._ratio_cuda(*sargs)
+    k1_ms = cuda_ms(lambda: fused_sweep._ratio_cuda(*sargs), 5)
+    k1_bound = sweep_bound(sargs, shadow=False, argmax=False)
+    print(f"  K1 alone on the combined pyramid ({len(sargs[2])} levels, "
+          f"level 0 {tensor_bytes(sargs[2][0]) / 1e6:.0f} MB, {samples} "
+          f"samples per (cell, azimuth), {n_mip} of them mip reads): "
+          f"{k1_ms:.3f} ms, {1e9 * k1_ms / (in0 * in1 * a_num * samples):.3f}"
+          f" ps per sample; bound {k1_bound[0]:.3f} ms ({k1_bound[1]})  "
+          f"[{card}]")
+    check(torch.equal(fused_sweep._angles(raw.clone(), -15.0, 89.98), hori),
+          "the entry's angles are K1's on the combined pyramid")
+    # a 128^2 crop, every sixth azimuth: K1's full run, then K1-argmax and
+    # K3 launched on the crop, each against its plain version over this
+    # pyramid (level 0 beyond L2, eight combined levels)
+    off = kw["offset"][0] + in0 // 2 - 64
+    geo = {k: kw[k] for k in ("dx", "dy", "dist_search", "hori_acc")}
+    crop = fused_sweep.sweep_args(zf, pyramid=sargs[2], offset=(off, off),
+                                  inner_shape=(128, 128), azim_num=a_num,
+                                  **geo)
+    crop = crop[:3] + (crop[3][::6],) + crop[4:]
+    c_plan, c_trig = crop[4], crop[3]
+    p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*crop, emit_argmax=True)
+    c0 = off - kw["offset"][0]
+    got = raw[::6, c0:c0 + 128, c0:c0 + 128]
+    err = (torch.atan(got) - torch.atan(p_raw)).abs().max().item()
+    check(err <= TOL, f"128^2 crop, 10 azimuths, against the plain sweep: "
+          f"{err:.3e} rad (bit-equal: {torch.equal(got, p_raw)})")
+    c_raw, c_ids, c_aux = fused_sweep._ratio_cuda(*crop, emit_argmax=True)
+    torch.cuda.synchronize()
+    am_err = (c_raw - p_raw).abs().max().item()
+    n2 = 2 * c_plan["n_dense"]
+    n_fine_mip = sum(ph[1] for ph in c_plan["phases_meta"][1:]
+                     if ph[0] < kw["ratio_log2"])
+    check(torch.equal(c_raw, p_raw) and torch.equal(c_ids, p_ids)
+          and torch.equal(c_aux, p_aux),
+          f"K1-argmax on the crop: raw, ids and aux bit-equal to the plain "
+          f"argmax sweep ({int((c_ids >= n2).sum())} of {c_ids.numel()} "
+          f"winners on mip levels, {int((c_ids >= n2 + n_fine_mip).sum())} "
+          f"on coarse-derived ones)")
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=tuple(c_raw.shape)).astype(np.float32)).to(dev)
+    c_bargs = (tuple(zf.shape), g, c_ids, c_aux, c_plan,
+               replay.horizon_shifts(c_trig, c_plan))
+    cots, zcot = replay._bwd_cuda(*c_bargs)
+    cots2, zcot2 = replay._bwd_cuda(*c_bargs)
+    p_cots, p_zcot = replay.backward_replay_plain(*c_bargs)
+    torch.cuda.synchronize()
+    check([tuple(c.shape) for c in cots]
+          == [tuple(t.shape) for t in sargs[2]],
+          f"K3 on the crop: cotangents have the {len(cots)} combined "
+          f"levels' shapes")
+    pairs = list(zip(cots + [zcot], p_cots + [p_zcot]))
+    errs = [rel_err(a, b) for a, b in pairs]
+    bwd_err = max((a - b).abs().max().item() for a, b in pairs)
+    reached = [lvl for lvl, c in enumerate(p_cots)
+               if c.abs().max().item() > 0.0]
+    check(max(errs) <= BWD_RTOL and 0 in reached
+          and max(reached) >= kw["ratio_log2"],
+          f"K3 on the crop within rtol {BWD_RTOL} of the plain backward, "
+          f"levels {reached} receive cotangent, fine and coarse-derived "
+          f"(per output: {', '.join(f'{e:.1e}' for e in errs)})")
+    check(all(torch.equal(a, b) for a, b in zip(cots + [zcot],
+                                                 cots2 + [zcot2])),
+          "K3 on the crop: two runs bit-equal")
+    del (c_raw, c_ids, c_aux, p_ids, p_aux, g, c_bargs, cots, zcot, cots2,
+         zcot2, p_cots, p_zcot, pairs)
+    del raw, p_raw, got, hori
+
+    def grad_step():
+        tf = zf.clone().requires_grad_(True)
+        tc = zc.clone().requires_grad_(True)
+        h = multires.horizon_sweep_multires_fused(tf, tc, **kw)
+        torch.mean(h ** 2).backward()
+        return tf.grad, tc.grad
+
+    torch.cuda.reset_peak_memory_stats()
+    event_ms(grad_step)
+    peak_g = torch.cuda.max_memory_allocated()
+    fused_sweep.ARGMAX_KERNEL_LAUNCHES = 0
+    replay.KERNEL_LAUNCHES = 0
+    steps = [event_ms(grad_step) for _ in range(2)]
+    am_launches = fused_sweep.ARGMAX_KERNEL_LAUNCHES
+    k3_launches = replay.KERNEL_LAUNCHES
+    (ms_a, (gf, gc)), (ms_b, (gf2, gc2)) = steps
+    print(f"  mean(h^2) + backward(): {ms_a:.2f} and {ms_b:.2f} ms between "
+          f"CUDA events ({min(ms_a, ms_b) / (1e3 * wall):.3f} x the forward "
+          f"wall); peak {peak_g / 2**20:.1f} MiB allocated  [{card}]")
+    check(am_launches == 2 and k3_launches == 2,
+          f"the gradient step launched K1-argmax ({am_launches}) and K3 "
+          f"({k3_launches}) once per step in 2 steps")
+    for what, g_ in (("z_fine", gf), ("z_coarse", gc)):
+        check(bool(torch.isfinite(g_).all()) and g_.abs().max().item() > 0.0,
+              f"{what}.grad finite and nonzero (max |g| "
+              f"{g_.abs().max().item():.3e}, "
+              f"{int((g_ != 0).sum())} cells)")
+    check(torch.equal(gf, gf2) and torch.equal(gc, gc2),
+          "both gradients bit-equal across two steps")
+    del gf, gc, gf2, gc2, steps
+    am = fused_sweep._ratio_cuda(*sargs, emit_argmax=True)
+    am_ms = cuda_ms(lambda: fused_sweep._ratio_cuda(*sargs,
+                                                    emit_argmax=True), 3)
+    g = torch.ones_like(am[0]) / am[0].numel()
+    bargs = (tuple(zf.shape), g, am[1], am[2], plan,
+             replay.horizon_shifts(sargs[3], plan))
+    replay._bwd_cuda(*bargs)
+    k3_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs), 3)
+    print(f"  at this shape alone: K1-argmax {am_ms:.3f} ms, K3 {k3_ms:.3f} "
+          f"ms  [{card}]")
+    del am, g, bargs, sargs, crop, zf, zc
+    mr_am_err, mr_bwd_err = am_err, bwd_err
+
+    print("  horizon_gridded(vert_simp=...) on a mid-size scene")
+    t0 = time.perf_counter()
+    sc = tin_scene()
+    print(f"  scene and TIN ({sc['tin']['num_tri_simp']} triangles) made on "
+          f"the host in {time.perf_counter() - t0:.1f} s")
+    gk = dict(azim_num=32, hori_acc=0.25, verbose=False, device=dev)
+    fused_sweep.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    h_tin, _ = horizon.horizon_gridded(*sc["fine"], **gk, **sc["tin"])
+    torch.cuda.synchronize()
+    tin_s = time.perf_counter() - t0
+    check(fused_sweep.KERNEL_LAUNCHES == 1, "the TIN route launched K1 once")
+    h_full, _ = horizon.horizon_gridded(*sc["full"], **gk)
+    d = torch.rad2deg((h_tin - h_full).abs())
+    print(f"  TIN route {tuple(h_tin.shape)}: {tin_s:.2f} s wall (host "
+          f"rasterisation included); against the full-resolution run: max "
+          f"{d.max().item():.3f} deg, mean {d.mean().item():.4f} deg  "
+          f"[{card}]")
+    check(bool(torch.isfinite(h_tin).all()) and d.max().item() < 2.0
+          and d.mean().item() < 0.25,
+          "TIN route finite, within 2 deg of the full-resolution run "
+          "everywhere and 0.25 deg (hori_acc) on average")
+    return mr_am_err, mr_bwd_err
+
+
 def main():
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1440,8 +1911,22 @@ def main():
      tilt_bound) = phase_i(dev, azim_num, card, curved_bench_scene(), 256,
                            512, srtm_like_scene())
 
+    t_j = time.perf_counter()
+    k5_row, alu_rate = phase_j(dev, card)
+    for what, bnd in (("K1", k1_bound), ("K2", k2_bound)):
+        if bnd[1] == "operations":
+            print(f"  {what}'s operation bound {bnd[0]:.3f} ms at "
+                  f"{PEAK_F32_OPS / 1e12:.0f} TFLOP/s is "
+                  f"{bnd[0] * PEAK_F32_OPS / alu_rate:.3f} ms at the "
+                  f"measured alu rate")
+    t_k = time.perf_counter()
+    mr_am_err, mr_bwd_err = phase_k(dev, card)
+    am_err, bwd_err = max(am_err, mr_am_err), max(bwd_err, mr_bwd_err)
+    print(f"  phase J {t_k - t_j:.1f} s, phase K "
+          f"{time.perf_counter() - t_k:.1f} s")
+
     print("== 9. result")
-    print(f"  phases 1-I in {time.perf_counter() - t_run:.1f} s")
+    print(f"  phases 1-K in {time.perf_counter() - t_run:.1f} s")
     rows = [
         ("horizon_sweep (K1)", KERNEL_SOURCE, REPLACES, launches, max_err,
          k1_ms, plain_ms, k1_bound),
@@ -1460,9 +1945,12 @@ def main():
          mask_bound),
         ("horizon_sweep tilt (K1-tilt)", KERNEL_SOURCE, TILT_REPLACES,
          tilt_launches, max(var_err, tilt_err), tilt_ms, tilt_plain_ms,
-         tilt_bound)]
-    # no single PyTorch call computes a sweep or a winner replay, so
-    # library_ms is null for every kernel
+         tilt_bound),
+        # K5 is on no user path of the library; its launches are those of
+        # its own entry, read_floor.time_modes, in phase J
+        ("read_floor (K5)", READ_FLOOR_SOURCE, READ_FLOOR_REPLACES) + k5_row]
+    # no single PyTorch call computes a sweep, a winner replay or the
+    # shifted bilinear running max, so library_ms is null for every kernel
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,

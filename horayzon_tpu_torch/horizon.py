@@ -3,9 +3,12 @@
 """Public horizon API: the counterpart of :mod:`horayzon_tpu.horizon`.
 
 ``horizon_gridded`` keeps the reference's signature (plus ``device``) and
-its validation, and runs two branches through
+its validation, and runs three branches through
 :func:`horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`: a regular
-planar grid with default vectors, masked or not, and a curved (irregular)
+planar grid with default vectors, masked or not; the same with a simplified
+outer TIN (``vert_simp``), which :func:`_tin_gridded` rasterises to a coarse
+far field and sweeps over a combined fine + coarse pyramid
+(:mod:`horayzon_tpu_torch.ops.multires`); and a curved (irregular)
 grid, which :func:`_curved_gridded` planarises, sweeps with the tilt ramp
 and reads back.  The other branches are not ported yet and raise
 ``NotImplementedError`` naming their item in ROADMAP.md's Queue 1.  One
@@ -15,6 +18,7 @@ multiples, and a mask needs no tile chooser: the kernel skips the 32 x 8
 blocks that hold no unmasked cell.
 """
 
+import math
 import time
 
 import numpy as np
@@ -23,6 +27,8 @@ import torch
 from horayzon_tpu_torch import regrid as _regrid
 from horayzon_tpu_torch import terrain as _terrain
 from horayzon_tpu_torch.ops import fused_sweep as _fused
+from horayzon_tpu_torch.ops import multires as _multires
+from horayzon_tpu_torch.ops import sweep as _sweep
 
 _VALID_ALGOS = ("discrete_sampling", "binary_search", "guess_constant",
                 "sweep")
@@ -116,20 +122,28 @@ def horizon_gridded(
     if (vert_simp is None) != (tri_ind_simp is None):
         raise ValueError("vert_simp and tri_ind_simp must be provided "
                          "together")
-    if vert_simp is not None:
-        raise _not_ported("the simplified outer TIN (vert_simp)", 11)
+    if vert_simp is not None and grid is None:
+        raise ValueError("the simplified outer TIN (vert_simp) is only "
+                         "supported on planar regular grids (reference "
+                         "usage: gridded_planar_DEM_2m)")
     if engine == "sweep":
         raise _not_ported("engine='sweep'", 10)
     masked = mask.min() == 0
-    if grid is not None and not _terrain.is_default_planar_vectors(
-            vec_norm, vec_north):
+    if (grid is not None and vert_simp is None
+            and not _terrain.is_default_planar_vectors(vec_norm, vec_north)):
         raise _not_ported("non-default vec_norm/vec_north", 10)
 
     t0 = time.perf_counter()
     sweep_kw = dict(azim_num=azim_num, dist_search=dist_search * 1000.0,
                     hori_acc=hori_acc, elev_ang_low_lim=elev_ang_low_lim,
                     ray_org_elev=ray_org_elev)
-    if grid is None:
+    if vert_simp is not None:
+        hori = _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
+                            num_tri_simp, offset=(offset_0, offset_1),
+                            inner_shape=inner_shape,
+                            mask=mask if masked else None, device=device,
+                            **sweep_kw)
+    elif grid is None:
         hori = _curved_gridded(x, y, z, vec_norm, offset_0, offset_1,
                                mask=mask if masked else None, device=device,
                                **sweep_kw)
@@ -157,6 +171,75 @@ def horizon_gridded(
               f"{n_cells} ({100.0 * n_cells / mask.size:.2f} % of the "
               f"domain)")
     return hori, torch.from_numpy(azim).to(device)
+
+
+def tin_ratio_log2(grid, fine_shape, vert_simp, num_vert_simp, tri_ind_simp,
+                   num_tri_simp, *, offset, inner_shape, dist_search,
+                   hori_acc):
+    """log2 of the coarse / fine spacing ratio of a TIN run
+    (``horayzon_tpu/horizon.py:608-645``): from the TIN's mean triangle
+    footprint (two triangles per quad of coarse cells), clipped to 1..8,
+    then reduced until the fine grid's halo covers every phase that reads
+    a fine-derived level; raises the halo ``ValueError`` if even ratio 1
+    does not fit.  ``dist_search`` in metres.
+
+    The halo is that of the inner block as it is: the reference's kernel
+    route validates against the block padded to tile multiples
+    (``horizon.py:621-649``), which can shrink the halo and with it the
+    ratio."""
+    tris = np.asarray(tri_ind_simp, dtype=np.int32).reshape(-1)
+    n_tri = int(min(num_tri_simp, len(tris) // 3))
+    vxy = np.asarray(vert_simp, dtype=np.float32).reshape(-1, 3)[
+        :max(1, int(num_vert_simp))]
+    bbox_cells = (max(np.ptp(vxy[:, 0]) / abs(grid.dx), 1.0)
+                  * max(np.ptp(vxy[:, 1]) / abs(grid.dy), 1.0))
+    cells_per_tri = max(bbox_cells / max(n_tri, 1), 2.0)
+    ratio_log2 = int(np.clip(round(math.log2(math.sqrt(cells_per_tri
+                                                       / 2.0))), 1, 8))
+    step = min(abs(grid.dx), abs(grid.dy))
+    schedule = _sweep.build_schedule(step, dist_search,
+                                     _sweep.default_rel_err(hori_acc))
+    while True:
+        try:
+            _multires.validate_fine_halo(schedule, ratio_log2, step, offset,
+                                         inner_shape, fine_shape)
+            return ratio_log2
+        except ValueError:
+            if ratio_log2 == 1:
+                raise
+            ratio_log2 -= 1
+
+
+def _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
+                 num_tri_simp, *, offset, inner_shape, azim_num, dist_search,
+                 hori_acc, elev_ang_low_lim, ray_org_elev, mask=None,
+                 device="cuda"):
+    """Gridded horizon with a simplified outer TIN as the far field
+    (``horayzon_tpu/horizon.py:585-681``, the fused-kernel route): the TIN
+    is rasterised on the host onto a coarse lattice aligned with the fine
+    grid (:func:`~horayzon_tpu_torch.ops.multires.coarse_grid_from_tin`) at
+    the ratio of :func:`tin_ratio_log2`, and the sweep runs on ``device``
+    over the combined fine + coarse pyramid.  Masked cells read values
+    that the caller overwrites with its fill.  Returns (in0, in1,
+    azim_num) float32 on ``device``."""
+    tris = np.asarray(tri_ind_simp, dtype=np.int32).reshape(-1)
+    tris = tris[:3 * int(min(num_tri_simp, len(tris) // 3))]
+    verts = np.asarray(vert_simp, dtype=np.float32)
+    ratio_log2 = tin_ratio_log2(
+        grid, z.shape, verts, num_vert_simp, tris, num_tri_simp,
+        offset=offset, inner_shape=inner_shape, dist_search=dist_search,
+        hori_acc=hori_acc)
+    z_coarse, coarse_offset = _multires.coarse_grid_from_tin(
+        verts, tris, grid=grid, fine_shape=z.shape, z_fine=z,
+        ratio_log2=ratio_log2, dist_search=dist_search)
+    return _multires.horizon_sweep_multires_fused(
+        torch.from_numpy(np.ascontiguousarray(z)).to(device),
+        torch.from_numpy(z_coarse).to(device), ratio_log2=ratio_log2,
+        coarse_offset=coarse_offset, dx=grid.dx, dy=grid.dy, offset=offset,
+        inner_shape=inner_shape, azim_num=azim_num, dist_search=dist_search,
+        hori_acc=hori_acc, elev_ang_low_lim=elev_ang_low_lim,
+        ray_org_elev=ray_org_elev,
+        mask=None if mask is None else torch.from_numpy(mask).to(device))
 
 
 def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,

@@ -43,6 +43,7 @@ shadow mode, kernel K2, of :mod:`horayzon_tpu_torch.ops.shadow_sweep`.
 
 import ctypes
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -658,7 +659,7 @@ def check_pyramid(pyramid, z, pads):
             raise ValueError(f"pyramid level {lvl} has shape "
                              f"{tuple(t.shape)}, expected "
                              f"{(hl + 2 * p, wl + 2 * p)}")
-        levels.append(t.to(torch.float32).contiguous())
+        levels.append(t.detach().to(torch.float32).contiguous())
     return levels
 
 
@@ -758,18 +759,28 @@ def ramp_cotangent(graw, trig):
 class _HorizonSweepFn(torch.autograd.Function):
     """The sweep with its winner-replay backward (``_pallas_hz`` with
     ``_hz_fwd`` / ``_hz_bwd_replay``, ``pallas_sweep.py:1651-1692,
-    2659-2703``).  Forward: K1's argmax variant (CUDA) or the plain argmax
-    sweep (CPU), with the tilt ramp and the mask when given, saving raw,
-    ids and aux.  Backward: the cotangent chained through clip and arctan;
-    for ``z`` K3 (CUDA) or the plain replay (CPU), then the pyramid's VJP
+    2659-2703``; with ``levels`` the multires ``_mr_hz``,
+    ``horayzon_tpu/ops/multires.py:334-395``).  Forward: K1's argmax
+    variant (CUDA) or the plain argmax sweep (CPU), with the tilt ramp and
+    the mask when given, saving raw, ids and aux.  Backward: the cotangent
+    chained through clip and arctan; K3 (CUDA) or the plain replay (CPU)
     (masked cells hold ID_NONE and a clipped angle, so they add nothing);
-    for the ramp :func:`ramp_cotangent`."""
+    for the ramp :func:`ramp_cotangent`.
+
+    Without ``levels`` the pyramid is ``z``'s own and the replay's level
+    cotangents go through its VJP to ``z``.  With ``levels`` (the padded
+    pyramid as further inputs, e.g. a combined fine + coarse one) they are
+    returned as the levels' own cotangents, for autograd to carry to
+    whatever the caller built the levels from, and ``z`` gets the ray
+    origins' cotangent at the inner block alone."""
 
     @staticmethod
-    def forward(ctx, z, ramp_a, ramp_b, kw):
+    def forward(ctx, z, ramp_a, ramp_b, kw, *levels):
         ramp = None if ramp_a is None else (ramp_a, ramp_b)
-        args = sweep_args(z, tilt_ramp=ramp, **kw["sweep"])
+        args = sweep_args(z, tilt_ramp=ramp, pyramid=levels or None,
+                          **kw["sweep"])
         ctx.lims, ctx.has_ramp = kw["lims"], ramp is not None
+        ctx.own_pyramid = not levels
         ctx.empty = _all_masked(args)
         if ctx.empty:
             ctx.save_for_backward(z)
@@ -784,22 +795,34 @@ class _HorizonSweepFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         need_z, need_a, need_b = ctx.needs_input_grad[:3]
+        need_lv = ctx.needs_input_grad[4:]
         if ctx.empty:
             (z,) = ctx.saved_tensors
             zero = z.new_zeros(ctx.inner_shape)
             return (torch.zeros_like(z) if need_z else None,
-                    zero if need_a else None, zero if need_b else None, None)
+                    zero if need_a else None, zero if need_b else None,
+                    None) + (None,) * len(need_lv)
         z, raw, ids, aux = ctx.saved_tensors
         graw = raw_cotangent(raw, g, ctx.lims)
         dz = dra = drb = None
-        if need_z:
+        dlv = (None,) * len(need_lv)
+        if need_z or any(need_lv):
             level_cots, zcot = _replay.backward_replay(
                 tuple(z.shape), graw, ids, aux, ctx.plan,
                 _replay.horizon_shifts(ctx.trig, ctx.plan))
-            dz = _replay.z_cotangent(z, ctx.plan, level_cots, zcot)
+            if ctx.own_pyramid:
+                dz = _replay.z_cotangent(z, ctx.plan, level_cots, zcot)
+            else:
+                dlv = tuple(c if n else None
+                            for c, n in zip(level_cots, need_lv))
+                if need_z:
+                    (off0, off1), (in0, in1) = (ctx.plan["offset"],
+                                                ctx.plan["inner_shape"])
+                    dz = torch.zeros_like(z)
+                    dz[off0:off0 + in0, off1:off1 + in1] = zcot
         if ctx.has_ramp and (need_a or need_b):
             dra, drb = ramp_cotangent(graw, ctx.trig)
-        return dz, dra, drb, None
+        return (dz, dra, drb, None) + dlv
 
 
 def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
@@ -826,12 +849,18 @@ def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
     the layout of :func:`horayzon_tpu_torch.ops.mip.padded_levels`, on
     ``z_outer``'s device.
 
-    Differentiable w.r.t. ``z_outer`` and the ramp: when either requires
-    grad (and grad mode is on), the sweep runs as :class:`_HorizonSweepFn`,
-    the argmax forward with the winner-replay backward (K1's argmax variant
-    and K3 on the card, their plain versions on the CPU); the gradient is
-    the one ``jax.grad`` takes through ``horizon_sweep_pallas``.  That path
-    builds its pyramid from ``z_outer`` and takes no ``pyramid``.
+    Differentiable w.r.t. ``z_outer``, the ramp and the levels of a given
+    ``pyramid``: when any of them requires grad (and grad mode is on), the
+    sweep runs as :class:`_HorizonSweepFn`, the argmax forward with the
+    winner-replay backward (K1's argmax variant and K3 on the card, their
+    plain versions on the CPU); the gradient is the one ``jax.grad`` takes
+    through ``horizon_sweep_pallas``.  A given ``pyramid`` is an input of
+    its own there: each level receives the replay's cotangent, which
+    autograd carries on to whatever the levels were built from (both grids
+    of :func:`horayzon_tpu_torch.ops.multires.combined_pyramid`), and
+    ``z_outer`` receives only the ray origins' share.  Levels that do not
+    require grad beside a ``z_outer`` that does therefore give an
+    incomplete gradient of ``z_outer``: the call warns.
 
     Returns (in0, in1, azim_num) float32 [radian] on ``z_outer``'s device.
     """
@@ -846,15 +875,25 @@ def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
     ramp = (None, None) if tilt_ramp is None else tuple(tilt_ramp)
     if len(ramp) != 2:
         raise ValueError("tilt_ramp must be a pair (A, B)")
+    levels = () if pyramid is None else tuple(pyramid)
     if torch.is_grad_enabled() and (z.requires_grad or any(
-            isinstance(r, torch.Tensor) and r.requires_grad for r in ramp)):
-        if pyramid is not None:
-            raise NotImplementedError("the gradient path builds its pyramid "
-                                      "from z_outer; pass no pyramid")
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in ramp + levels)):
+        if z.requires_grad and levels and not any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in levels):
+            warnings.warn(
+                "z_outer requires grad but no level of the given pyramid "
+                "does: z_outer receives the ray origins' share of the "
+                "gradient alone.  Build the levels under autograd from "
+                "z_outer (mip.padded_levels, multires.multires_levels or "
+                "multires.horizon_sweep_multires_fused), or leave pyramid "
+                "out.", stacklevel=2)
         ramp = tuple(None if r is None else torch.as_tensor(r).to(
             device=z.device, dtype=torch.float32) for r in ramp)
         return _HorizonSweepFn.apply(z.to(torch.float32).contiguous(),
-                                     *ramp, dict(sweep=sweep_kw, lims=lims))
+                                     *ramp, dict(sweep=sweep_kw, lims=lims),
+                                     *levels)
     ratio_fn = _ratio_cuda if z.device.type == "cuda" else _ratio_plain
     return _run(ratio_fn, z, lims, dict(sweep_kw, pyramid=pyramid,
                                         tilt_ramp=tilt_ramp))

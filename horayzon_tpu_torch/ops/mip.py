@@ -106,3 +106,34 @@ def pyramid_from_jax(levels_np, pads, device):
                                        lo:lv.shape[1] - hi_c])
         out.append(torch.from_numpy(crop).to(device))
     return out
+
+
+def combined_pyramid_from_jax(levels_np, pads, fine_shape, device):
+    """Port-layout padded levels from the JAX package's *combined*
+    fine + coarse pyramid.
+
+    ``levels_np``: the arrays of ``horayzon_tpu.ops.multires.
+    combined_pyramid(..., pad_extra=LEVEL_PAD_EXTRA)`` as numpy arrays for
+    a fine grid of ``fine_shape``.  Each has ``pads[l]`` plus the low
+    margin of :data:`JAX_LEVEL_PAD_EXTRA` before fine cell 0; a
+    coarse-derived level may run past the high margins (the reference pads
+    one only if it is short), so the crop is taken from the low side:
+    ``ceil(hf / 2^l) + 2 * pads[l]`` rows and columns, the layout of
+    :func:`padded_levels` and of
+    :func:`horayzon_tpu_torch.ops.multires.combined_pyramid`."""
+    if len(levels_np) != len(pads):
+        raise ValueError(f"{len(levels_np)} levels for {len(pads)} pads")
+    lo = JAX_LEVEL_PAD_EXTRA[0]
+    out = []
+    for lv, (hl, wl), p in zip(levels_np,
+                               level_shapes(tuple(fine_shape), len(pads)),
+                               pads):
+        lv = np.asarray(lv, dtype=np.float32)
+        rows, cols = hl + 2 * p, wl + 2 * p
+        if lv.ndim != 2 or lv.shape[0] < lo + rows or lv.shape[1] < lo + cols:
+            raise ValueError(f"level of shape {lv.shape} is too small for a "
+                             f"padded level of {(rows, cols)} in the JAX "
+                             f"layout")
+        crop = np.ascontiguousarray(lv[lo:lo + rows, lo:lo + cols])
+        out.append(torch.from_numpy(crop).to(device))
+    return out

@@ -1,9 +1,10 @@
 """Kernels K1 (csrc/horizon_sweep.cu, with its argmax, mask and tilt-ramp
 variants), K2 (the shadow mode of the same source, with its argmax
-variant) and K3 and K4 (csrc/horizon_replay_bwd.cu, horizon and shadow
-modes) on the card, against their plain torch versions on the same card,
-and the gradient paths, the masked and curved ``horizon_gridded``, the
-``CurvedPipeline`` and the shadow ``Terrain`` they make.
+variant), K3 and K4 (csrc/horizon_replay_bwd.cu, horizon and shadow
+modes) and K5 (csrc/read_floor.cu) on the card, against their plain torch
+versions on the same card, and the gradient paths, the masked and curved
+``horizon_gridded``, the ``CurvedPipeline``, the shadow ``Terrain`` and
+the multires sweep they make.
 
 Marked ``cuda`` and skipped without a CUDA device.  This file imports no
 JAX, so on a machine with the card it runs without the JAX package:
@@ -27,6 +28,11 @@ against a CPU one: codes equal
 and ``sw_dir_cor`` within 1e-5 plus 1e-6 relative outside a tie zone
 (metric within 1e-3 m of 0, sun dot products within 1e-6 of a threshold:
 the card's arccos, tan and power may differ from the CPU's by an ulp).
+K5: every mode and source bit-equal to its plain version.  Multires: the
+card's angles within 1e-5 rad of the CPU path's (the raw ratios are
+bit-equal, the arctan may differ by an ulp), masked cells aside bit-equal
+to the dense run on the card, both gradients within rtol 1e-5 of the CPU
+path.
 """
 
 import numpy as np
@@ -35,7 +41,8 @@ import torch
 
 from horayzon_tpu_torch import auxiliary, horizon, shadow, topo_param
 from horayzon_tpu_torch.models import CurvedPipeline
-from horayzon_tpu_torch.ops import _build, fused_sweep, replay
+from horayzon_tpu_torch.ops import _build, fused_sweep, multires, replay
+from horayzon_tpu_torch.ops import read_floor
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 
 from reference_impl import gaussian_bumps_terrain
@@ -635,3 +642,166 @@ def test_tilt_gradient_on_card(cuda):
         scale = want.abs().max().item()
         assert scale > 0.0 and torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# K5, the read floor
+# ---------------------------------------------------------------------------
+
+def _floor_window(seed=0, shape=(176, 256)):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("mode,source", read_floor.MEASURED)
+def test_read_floor_kernel_bit_equal_to_plain(cuda, mode, source):
+    win = _floor_window()
+    trig = read_floor.first_quadrant_trig(6)
+    # ragged cells: the last blocks are partly past the edge
+    kw = dict(cells=(21, 75), n_steps=41, offset=(8, 32), source=source,
+              chunk=9)
+    n0 = read_floor.KERNEL_LAUNCHES
+    got = read_floor.read_floor(win.to(cuda), trig, mode, **kw)
+    assert read_floor.KERNEL_LAUNCHES == n0 + 1
+    want = read_floor.read_floor(win, trig, mode, **kw)
+    assert read_floor.KERNEL_LAUNCHES == n0 + 1     # the CPU ran the plain one
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.float32
+    assert tuple(got.shape) == (6, 21, 75)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_read_floor_large_strip_and_limits(cuda):
+    """A strip above 48 KB needs the kernel's raised limit; one above what
+    a block can have is refused before the launch."""
+    win = _floor_window(1, (512, 512)).to(cuda)
+    trig = read_floor.first_quadrant_trig(4)
+    kw = dict(cells=(64, 64), n_steps=150, offset=(0, 0))
+    rows, ld = read_floor.strip_layout("bilinear", trig, 150, 150)
+    assert 48 * 1024 < rows * ld * 4 <= read_floor.MAX_SMEM_BYTES
+    got = read_floor.read_floor(win, trig, "bilinear", source="smem",
+                                chunk=150, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, read_floor.read_floor(win, trig, "bilinear",
+                                                  **kw))
+    big = _floor_window(2, (640, 640)).to(cuda)
+    with pytest.raises(ValueError, match="shorten the chunk"):
+        read_floor.read_floor(big, trig, "bilinear", source="smem",
+                              cells=(64, 64), n_steps=246, chunk=246,
+                              offset=(0, 0))
+    with pytest.raises(ValueError, match="too small"):
+        read_floor.read_floor(win, trig, "nearest", cells=(64, 64),
+                              n_steps=500, offset=(0, 0))
+
+
+def test_read_floor_time_modes_on_card(cuda):
+    win = _floor_window(3, (256, 256)).to(cuda)
+    n0 = read_floor.KERNEL_LAUNCHES
+    rows = read_floor.time_modes(win, cells=(64, 64), a_num=4, n_steps=40,
+                                 chunk=8, iters=2)
+    assert read_floor.KERNEL_LAUNCHES == n0 + 3 * len(read_floor.MEASURED)
+    assert [(r["mode"], r["source"]) for r in rows] == list(
+        read_floor.MEASURED)
+    assert all(r["ms"] > 0.0 and r["gsamples_per_s"] > 0.0 for r in rows)
+    assert "tb_per_s" in rows[7] and "tops_per_s" in rows[8]
+    assert all(isinstance(read_floor.format_row(r), str) for r in rows)
+
+
+# ---------------------------------------------------------------------------
+# Multires: the combined fine + coarse pyramid
+# ---------------------------------------------------------------------------
+
+def _multires_case():
+    """tests/test_multires.py:46-82's scene with the isolated far ridge of
+    :191-259 on the coarse grid."""
+    dx, dist, inner, halo_fine = 25.0, 4000.0, 32, 96
+    halo_full = int(dist / dx) + 16
+    n_full = inner + 2 * halo_full
+    full = gaussian_bumps_terrain(n_full, n_full, seed=9, amp=500.0)
+    i0 = halo_full - halo_fine
+    z_fine = np.ascontiguousarray(full[i0:i0 + inner + 2 * halo_fine,
+                                       i0:i0 + inner + 2 * halo_fine])
+    h = n_full - n_full % 4
+    z_coarse = full[:h, :h].reshape(h // 4, 4, h // 4, 4).max(axis=(1, 3))
+    z_coarse[(halo_full - 120) // 4,
+             (halo_full - 16) // 4:(halo_full + 48) // 4] += 900.0
+    kw = dict(ratio_log2=2, coarse_offset=(i0, i0), dx=dx, dy=-dx,
+              offset=(halo_fine, halo_fine), inner_shape=(inner, inner),
+              dist_search=dist, hori_acc=2.0, azim_num=8)
+    return z_fine, z_coarse, kw
+
+
+def test_multires_kernel_matches_plain(cuda):
+    z_fine, z_coarse, kw = _multires_case()
+    zf, zc = torch.from_numpy(z_fine), torch.from_numpy(z_coarse)
+    n0 = fused_sweep.KERNEL_LAUNCHES
+    got = multires.horizon_sweep_multires_fused(zf.to(cuda), zc.to(cuda),
+                                                **kw)
+    assert fused_sweep.KERNEL_LAUNCHES == n0 + 1
+    want = multires.horizon_sweep_multires_fused(zf, zc, **kw)
+    torch.cuda.synchronize()
+    # raw ratios are bit-equal (chip_smoke.py phase K); the card's arctan
+    # may differ from the CPU's by an ulp
+    assert got.is_cuda and (got.cpu() - want).abs().max().item() <= TOL
+    mask = np.zeros(kw["inner_shape"], dtype=np.uint8)
+    mask[3:20, 5:28] = 1
+    got_m = multires.horizon_sweep_multires_fused(
+        zf.to(cuda), zc.to(cuda), mask=mask, **kw)
+    keep = torch.from_numpy(mask == 1)
+    assert torch.equal(got_m[keep.to(cuda)], got[keep.to(cuda)])
+
+
+def test_multires_gradients_on_card(cuda):
+    z_fine, z_coarse, kw = _multires_case()
+    grads = []
+    n_am, n_k3 = fused_sweep.ARGMAX_KERNEL_LAUNCHES, replay.KERNEL_LAUNCHES
+    for dev in (cuda, "cpu"):
+        tf = torch.from_numpy(z_fine).to(dev).requires_grad_(True)
+        tc = torch.from_numpy(z_coarse).to(dev).requires_grad_(True)
+        h = multires.horizon_sweep_multires_fused(tf, tc, **kw)
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            torch.mean(h ** 2), (tf, tc))])
+    assert fused_sweep.ARGMAX_KERNEL_LAUNCHES == n_am + 1
+    assert replay.KERNEL_LAUNCHES == n_k3 + 1
+    for got, want in zip(*grads):
+        scale = want.abs().max().item()
+        assert scale > 0.0 and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+def test_tin_route_on_card(cuda):
+    """``horizon_gridded(vert_simp=...)`` on the card against the CPU."""
+    dx, inner, halo_fine, r = 25.0, 16, 48, 4
+    halo_full = int(2000.0 / dx) + 16
+    n_full = inner + 2 * halo_full
+    full = gaussian_bumps_terrain(n_full, n_full, seed=13, amp=600.0)
+    i0 = halo_full - halo_fine
+    n_fine = inner + 2 * halo_fine
+    h = n_full - n_full % r
+    pooled = full[:h, :h].reshape(h // r, r, h // r, r).max(axis=(1, 3))
+    nc = pooled.shape[0]
+    xa = np.arange(n_full, dtype=np.float64) * dx
+    xv, yv = np.meshgrid(xa[:nc * r:r] - i0 * dx, -xa[:nc * r:r] + i0 * dx)
+    verts = np.stack([xv, yv, pooled.astype(np.float64)],
+                     axis=-1).reshape(-1, 3).astype(np.float32)
+    jj, ii = np.meshgrid(np.arange(nc - 1), np.arange(nc - 1))
+    a = (ii * nc + jj).ravel()
+    tris = np.concatenate([
+        np.stack([a, a + 1, a + nc], -1),
+        np.stack([a + 1, a + nc + 1, a + nc], -1)]).astype(np.int32).ravel()
+    x2, y2 = np.meshgrid(xa[:n_fine], -xa[:n_fine])
+    vg = auxiliary.rearrange_pad_buffer(
+        x2.astype(np.float32), y2.astype(np.float32),
+        np.ascontiguousarray(full[i0:i0 + n_fine, i0:i0 + n_fine]))
+    vec_norm = np.zeros((inner, inner, 3), np.float32)
+    vec_norm[..., 2] = 1.0
+    vec_north = np.zeros((inner, inner, 3), np.float32)
+    vec_north[..., 1] = 1.0
+    out = [horizon.horizon_gridded(
+        vg, n_fine, n_fine, vec_norm, vec_north, halo_fine, halo_fine, 2.0,
+        azim_num=8, hori_acc=2.0, verbose=False, device=dev,
+        vert_simp=verts.ravel(), num_vert_simp=len(verts),
+        tri_ind_simp=tris, num_tri_simp=len(tris) // 3)[0]
+        for dev in (cuda, "cpu")]
+    assert out[0].is_cuda
+    assert (out[0].cpu() - out[1]).abs().max().item() <= TOL

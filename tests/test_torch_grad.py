@@ -470,8 +470,25 @@ def test_gradient_path_arguments():
         k: kw[k] for k in ("inner_shape", "offset", "dist_search", "dx",
                            "dy")})
     levels = mip.padded_levels(torch.from_numpy(z), plan["pads"])
-    with pytest.raises(NotImplementedError, match="pyramid"):
-        fused_sweep.horizon_sweep_fused(zt, pyramid=levels, **kw)
+    # a prebuilt pyramid is an input of its own on the gradient path: the
+    # same values, and z receives the ray origins' share alone
+    # (tests/test_torch_multires.py holds the gradients)
+    lv = [t.clone().requires_grad_(True) for t in levels]
+    hp = fused_sweep.horizon_sweep_fused(zt, pyramid=lv, **kw)
+    assert hp.requires_grad and torch.equal(hp.detach(), h.detach())
+    gz, g0 = torch.autograd.grad(torch.mean(hp ** 2), (zt, lv[0]))
+    # levels that do not require grad beside a z that does: the call warns
+    # that z's gradient is that share alone, zero off the inner block
+    with pytest.warns(UserWarning, match="ray origins' share"):
+        hw = fused_sweep.horizon_sweep_fused(zt, pyramid=levels, **kw)
+    assert torch.equal(hw.detach(), h.detach())
+    (gw,) = torch.autograd.grad(torch.mean(hw ** 2), (zt,))
+    assert torch.equal(gw, gz) and g0.abs().max().item() > 0.0
+    (o0, o1), (i0, i1) = kw["offset"], kw["inner_shape"]
+    inner = torch.zeros_like(gw, dtype=torch.bool)
+    inner[o0:o0 + i0, o1:o1 + i1] = True
+    assert gw[inner].abs().max().item() > 0.0
+    assert gw[~inner].abs().max().item() == 0.0
     # no grad mode: the forward-only path, the same values
     with torch.no_grad():
         h0 = fused_sweep.horizon_sweep_fused(zt, **kw)

@@ -94,11 +94,12 @@ def test_horizon_gridded_validation_matches_reference():
 
 
 def test_unported_branches_raise():
-    """The branches still to port raise; masks with zeros and curved grids
-    are ported (tests/test_torch_masked.py, tests/test_torch_curved.py)."""
+    """The branches still to port raise; masks with zeros, curved grids
+    and the simplified outer TIN are ported (tests/test_torch_masked.py,
+    tests/test_torch_curved.py, tests/test_torch_multires.py)."""
     p = _planar_inputs()
-    with pytest.raises(NotImplementedError, match="vert_simp"):
-        _gridded(p, vert_simp=np.zeros(9, np.float32),
+    with pytest.raises(NotImplementedError, match="engine='sweep'"):
+        _gridded(p, engine="sweep", vert_simp=np.zeros(9, np.float32),
                  tri_ind_simp=np.zeros(3, np.int32))
     with pytest.raises(NotImplementedError, match="engine='sweep'"):
         _gridded(p, engine="sweep")

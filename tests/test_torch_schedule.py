@@ -1,7 +1,8 @@
 """The port's copies of the reference's pure-NumPy helpers equal the
 originals: the sweep schedule, the vertex buffer, the grid detection, the
-coordinate transformations, the solar ephemeris, the ellipsoid directions
-and the curved mesh's planarisation.
+coordinate transformations, the solar ephemeris, the ellipsoid directions,
+the curved mesh's planarisation and the multires host helpers (the TIN
+rasteriser, the coarse grid from a TIN, the fine-halo check).
 
 The copies exist because importing ``horayzon_tpu`` loads JAX, which the
 port never does.  Equality here is exact (same NumPy code, same inputs).
@@ -18,10 +19,11 @@ from horayzon_tpu import regrid as regrid_ref
 from horayzon_tpu import sun_position as sun_ref
 from horayzon_tpu import terrain as terrain_ref
 from horayzon_tpu import transform as transform_ref
+from horayzon_tpu.ops import multires as multires_ref
 from horayzon_tpu.ops import sweep as sweep_ref
 from horayzon_tpu_torch import (auxiliary, direction, regrid, sun_position,
                                 terrain, transform)
-from horayzon_tpu_torch.ops import sweep
+from horayzon_tpu_torch.ops import multires, sweep
 
 
 def _same_schedule(a, b):
@@ -227,3 +229,89 @@ def test_regrid_matches_reference():
     for mod in (regrid, regrid_ref):
         with pytest.raises(ValueError, match="Inconsistent"):
             mod.planarize(x, y, z[:-1])
+
+
+def _plane_tin():
+    """tests/test_multires.py:85-101: two triangles over [0, 100] x
+    [-100, 0] of a sloping plane."""
+    verts = np.array([[0.0, 0.0, 10.0], [100.0, 0.0, 20.0],
+                      [0.0, -100.0, 30.0], [100.0, -100.0, 40.0]],
+                     dtype=np.float32).ravel()
+    return verts, np.array([0, 1, 2, 1, 3, 2], dtype=np.int32)
+
+
+@pytest.mark.parametrize("origin,shape", [((0.0, 0.0), (5, 5)),
+                                          ((-50.0, 0.0), (2, 2)),
+                                          ((12.5, -6.25), (7, 4))])
+def test_rasterize_tin_matches_reference(origin, shape):
+    verts, tris = _plane_tin()
+    kw = dict(origin_xy=origin, spacing_xy=(25.0, -25.0), shape=shape)
+    got = multires.rasterize_tin(verts, tris, **kw)
+    want = multires_ref.rasterize_tin(verts, tris, **kw)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    if origin == (0.0, 0.0):
+        xj = np.arange(5) * 25.0
+        yi = np.arange(5) * -25.0
+        np.testing.assert_allclose(
+            got, 10.0 + 0.1 * xj[None, :] - 0.2 * yi[:, None], atol=1e-4)
+    if origin == (-50.0, 0.0):
+        assert (got[:, 0] < -1e4).all()     # outside all triangles
+
+
+@pytest.mark.parametrize("ratio_log2,fine_shape", [(2, (40, 40)),
+                                                   (1, (37, 45)),
+                                                   (3, (64, 48))])
+def test_coarse_grid_from_tin_matches_reference(ratio_log2, fine_shape):
+    """A bumpy TIN over a fine grid with an odd shape: the rasterised,
+    vertex-scattered and fine-overlaid coarse grid and its offset."""
+    rng = np.random.default_rng(5)
+    r = 2 ** ratio_log2
+    dx, dy, dist = 25.0, -25.0, 600.0
+    n = 14
+    xs = np.linspace(-700.0, 1900.0, n)
+    ys = np.linspace(700.0, -1900.0, n)
+    xv, yv = np.meshgrid(xs, ys)
+    zv = 300.0 * np.sin(xv / 400.0) * np.cos(yv / 500.0) + 20.0 * rng.normal(
+        size=xv.shape)
+    verts = np.stack([xv, yv, zv], -1).reshape(-1, 3).astype(np.float32)
+    jj, ii = np.meshgrid(np.arange(n - 1), np.arange(n - 1))
+    a = (ii * n + jj).ravel()
+    tris = np.concatenate([np.stack([a, a + 1, a + n], -1),
+                           np.stack([a + 1, a + n + 1, a + n], -1)]).astype(
+                               np.int32).ravel()
+    z_fine = (100.0 * rng.normal(size=fine_shape)).astype(np.float32)
+    kw = dict(fine_shape=fine_shape, z_fine=z_fine, ratio_log2=ratio_log2,
+              dist_search=dist)
+    got, got_off = multires.coarse_grid_from_tin(
+        verts.ravel(), tris, grid=terrain.GridSpec(
+            x0=0.0, y0=0.0, dx=dx, dy=dy, shape=fine_shape), **kw)
+    want, want_off = multires_ref.coarse_grid_from_tin(
+        verts.ravel(), tris, grid=terrain_ref.GridSpec(
+            x0=0.0, y0=0.0, dx=dx, dy=dy, shape=fine_shape), **kw)
+    assert tuple(got_off) == tuple(want_off)
+    assert got_off[0] % r == 0 and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert (got > -1e4).any()
+
+
+@pytest.mark.parametrize("ratio_log2,offset,ok", [(2, (31, 31), False),
+                                                  (1, (31, 33), True),
+                                                  (4, (240, 250), True),
+                                                  (5, (240, 250), False)])
+def test_validate_fine_halo_matches_reference(ratio_log2, offset, ok):
+    sched = sweep.build_schedule(25.0, 20000.0, sweep.default_rel_err(2.0))
+    sched_ref = sweep_ref.build_schedule(25.0, 20000.0,
+                                         sweep_ref.default_rel_err(2.0))
+    inner = (8, 8)
+    fine = (2 * offset[0] + 8, 2 * offset[1] + 8)
+    args = (ratio_log2, 25.0, offset, inner, fine)
+    if ok:
+        assert multires.validate_fine_halo(sched, *args) == \
+            multires_ref._validate_fine_halo(sched_ref, *args) == min(offset)
+        return
+    with pytest.raises(ValueError, match="halo") as e_ref:
+        multires_ref._validate_fine_halo(sched_ref, *args)
+    with pytest.raises(ValueError, match="halo") as e_got:
+        multires.validate_fine_halo(sched, *args)
+    assert str(e_got.value) == str(e_ref.value)
