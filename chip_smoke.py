@@ -18,7 +18,11 @@ Phases, each of which ends the run with a nonzero exit on failure:
    timed with CUDA events, with output checks and a cropped comparison
    against the plain version; then K1 and the plain sweep timed alone;
 5. K1's argmax variant and K3 against their plain versions on the small
-   cases plus one whose d1 range ends in a single step; K3 run twice;
+   cases, one whose d1 range ends in a single step and a contention scene
+   (a tall spike at the centre of a flat 256^2 grid, whose winners crowd
+   onto a few cells); K3 run twice, bit-equal to its plain version and
+   across the runs, each level's fixed-point words and precision bound
+   printed;
 6. the gradient path at the bench's gradient row (``bench.py:470-486``):
    forward and loss + ``backward()`` timed, the gradient checked and
    compared across two runs; K1-argmax and K3 timed alone against their
@@ -75,15 +79,15 @@ J. K5, the read floor (csrc/read_floor.cu): every mode and source against
    ``stream`` alone on a 16384^2 window (1 GiB: device memory's read rate);
    the ``bilinear`` L2 mode against its plain version at the bench window;
 K. multires: on two small scenes K1, K1-argmax and K3 over the combined
-   fine + coarse pyramid against their plain versions (bit-equal; K3 within
-   rtol 1e-5 and bit-equal across two runs) and both gradients against the
+   fine + coarse pyramid against their plain versions (bit-equal, K3 also
+   across two runs) and both gradients against the
    CPU path; then ``horizon_sweep_multires_fused`` at the defaults of
    ``examples/horizon/gridded_planar_dem_2m.py`` (2 m grid, fine 5120^2,
    inner 1024^2, 20 km, 60 azimuths, ratio 16): wall, K1 alone, range
    checks, peak memory; on a 128^2 crop of that pyramid (every sixth
    azimuth) K1's run and a K1-argmax launch bit-equal to the plain argmax
-   sweep, and K3 on the crop's winners within rtol 1e-5 of the plain
-   backward over the eight combined levels, bit-equal across two runs; the
+   sweep, and K3 on the crop's winners bit-equal to the plain backward
+   over the eight combined levels and across two runs; the
    gradient step ``mean(h^2).backward()`` timed, both gradients finite,
    nonzero and equal across two runs; ``horizon_gridded(vert_simp=...)``
    once on a mid-size scene against the full-resolution run;
@@ -115,8 +119,10 @@ from horayzon_tpu_torch.ops import multires, read_floor, shadow_sweep
 
 #: Horizon-angle tolerance [rad] of K1 against the plain version.
 TOL = 1.0e-5
-#: K3 against the plain backward: relative to max |.| of each cotangent
-#: (the two sum the same terms in another order).
+#: Gradients on the card against the CPU path, relative to max |.| of each
+#: (the arctan chain around the replay may differ by an ulp).  K3 and K4
+#: themselves are bit-equal to their plain versions: both round the same
+#: terms to the same fixed-point grid and sum them exactly.
 BWD_RTOL = 1.0e-5
 KERNEL_SOURCE = "horayzon_tpu_torch/csrc/horizon_sweep.cu"
 REPLACES = "horayzon_tpu/ops/pallas_sweep.py:157"
@@ -430,26 +436,54 @@ def sweep_bound(sargs, shadow, argmax):
 def replay_bound(g, ids, aux, plan, cots, zcot, shadow):
     """Bound of one replay launch (K3 or K4) for the winners this record
     holds (the work depends on the data: only winners contribute).
-    Operations counted from csrc/horizon_replay_bwd.cu: a level-0 sample 20
-    (geometry 6, corner weights 10, adds 4); a point winner one sample and
-    a coefficient 2, a parabola three samples, envelopes 15 and a
-    coefficient 4, a mip winner 10; each winner's z_org term 2 (K3) or 4
-    (K4) and, for K4, dm/dz_org 16 per (cell, sun).  Bytes: g, ids, aux
-    (and z_org, the sun table) read, the level cotangents and zcot
-    written."""
+    Operations counted from csrc/horizon_replay_bwd.cu, whose two winner
+    passes (the level maxima, the scatter) both decode every winner: per
+    pass a point's distance and coefficient 3 (K4: 1), a parabola's
+    coefficients 20 (K4: 18), a mip winner's distance, rounding and
+    coefficient 9 (K4: 7); in the scatter a level-0 sample's corners 8 and
+    each term's product and rounding to the grid 4 (a float64 multiply and
+    rint counted as one operation each); each winner's z_org term 3 and,
+    for K4, dm/dz_org 16 per (cell, sun).  Bytes: g, ids, aux (and z_org,
+    the sun table) read, the level cotangents and zcot written."""
     n2 = 2 * plan["n_dense"]
     dense = ids < n2
     n_point = int((dense & (ids % 2 == 0)).sum())
     n_quad = int((dense & (ids % 2 == 1) & (aux > 1e-3)).sum())
     n_mip = int(((ids >= n2) & (ids < replay.ID_NONE)).sum())
-    zt = 4 if shadow else 2
-    ops = (n_point * (22 + zt) + n_quad * (79 + zt) + n_mip * (10 + zt)
+    sample = 8 + 4 * 4
+    point, quad, mip_w = ((1, 18, 7) if shadow else (3, 20, 9))
+    ops = (n_point * (2 * point + sample + 3)
+           + n_quad * (2 * quad + 3 * sample + 3)
+           + n_mip * (2 * mip_w + 4 + 3)
            + (16 * ids.numel() if shadow else 0))
     # the (rows, 2) shift table; K4 also the (rows, 8) sun table and z_org
     moved = tensor_bytes(g, ids, aux, *cots, zcot) + ids.shape[0] * 8
     if shadow:
         moved += ids.shape[0] * 32 + tensor_bytes(zcot)
     return bound(moved, ops)
+
+
+def print_levels(name):
+    """Each level's fixed-point accumulation in the last replay run: the
+    plan's bound 2**c_bits on the terms per target, one or two int64 words,
+    the largest |coefficient| and the rounding bound per target."""
+    for lvl, c_bits, words, m, bnd in replay.level_report():
+        print(f"  {name}: level {lvl}: c_bits {c_bits}, {words} word(s), "
+              f"max |coefficient| {m:.4e}, precision bound {bnd:.3e}")
+
+
+def check_replay(name, what, runs, want):
+    """Two runs of kernel ``what`` (K3 or K4), each ``cots + [zcot]``,
+    bit-equal to each other and to the plain version's ``want``.  Returns
+    the largest abs difference to the plain version."""
+    got, again = runs
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two {what} runs bit-equal")
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{name}: {what} bit-equal to its plain version ({len(got)} "
+          f"outputs, largest difference {err:.1e})")
+    return err
 
 
 def check_shadow_argmax(name, args, origin):
@@ -483,9 +517,8 @@ def check_shadow_argmax(name, args, origin):
 def check_shadow_replay(name, args, origin, g, record=None):
     """K4 against the plain shadow replay on the K2-argmax ``record``
     ``(ids, aux)`` of ``args`` (run here when None) for the metric
-    cotangent ``g``: within BWD_RTOL of max |.| of each cotangent, and two
-    K4 runs bit-equal.  Returns (max abs difference, the plain version's
-    ms)."""
+    cotangent ``g``: two K4 runs bit-equal to each other and to the plain
+    version.  Returns (max abs difference, the plain version's ms)."""
     z_org, table, plan = args[0], args[3], args[4]
     if record is None:
         record = shadow_sweep._metric_cuda(*args, grid_origin=origin,
@@ -493,19 +526,14 @@ def check_shadow_replay(name, args, origin, g, record=None):
     ids, aux = record
     bargs = (tuple(args[5]), g, ids, aux, plan)
     shadow = (table, z_org, origin)
-    cots, dzo = replay._bwd_cuda(*bargs, shadow=shadow)
-    cots2, dzo2 = replay._bwd_cuda(*bargs, shadow=shadow)
+    runs = [replay._bwd_cuda(*bargs, shadow=shadow) for _ in range(2)]
     plain_ms, (p_cots, p_dzo) = event_ms(
         lambda: replay.backward_replay_plain(*bargs, shadow=shadow))
-    got, want = cots + [dzo], p_cots + [p_dzo]
-    errs = [rel_err(a, b) for a, b in zip(got, want)]
-    check(max(errs) <= BWD_RTOL and dzo.abs().max().item() > 0.0,
-          f"{name}: K4 within rtol {BWD_RTOL} of the plain shadow replay "
-          f"(per output: {', '.join(f'{e:.1e}' for e in errs)})")
-    check(all(torch.equal(a, b) for a, b in zip(got, cots2 + [dzo2])),
-          f"{name}: two K4 runs bit-equal")
-    return max((a - b).abs().max().item() for a, b in zip(got, want)), \
-        plain_ms
+    check(runs[0][1].abs().max().item() > 0.0,
+          f"{name}: the ray origins' cotangent is nonzero")
+    err = check_replay(name, "K4", [c + [z] for c, z in runs],
+                       p_cots + [p_dzo])
+    return err, plain_ms
 
 
 def kink_check(dev):
@@ -1098,21 +1126,14 @@ def phase_k(dev, card):
             size=tuple(raw.shape)).astype(np.float32)).to(dev)
         bargs = (tuple(zf.shape), g, ids, aux, plan,
                  replay.horizon_shifts(trig, plan))
-        cots, zcot = replay._bwd_cuda(*bargs)
-        cots2, zcot2 = replay._bwd_cuda(*bargs)
+        runs = [replay._bwd_cuda(*bargs) for _ in range(2)]
         p_cots, p_zcot = replay.backward_replay_plain(*bargs)
         torch.cuda.synchronize()
-        check([tuple(c.shape) for c in cots]
+        check([tuple(c.shape) for c in runs[0][0]]
               == [tuple(t.shape) for t in levels],
               f"{name}: K3's cotangents have the combined levels' shapes")
-        errs = [rel_err(a, b) for a, b in zip(cots + [zcot],
-                                              p_cots + [p_zcot])]
-        check(max(errs) <= BWD_RTOL,
-              f"{name}: K3 within rtol {BWD_RTOL} of the plain backward "
-              f"(per output: {', '.join(f'{e:.1e}' for e in errs)})")
-        check(all(torch.equal(a, b) for a, b in zip(cots + [zcot],
-                                                     cots2 + [zcot2])),
-              f"{name}: two K3 runs bit-equal")
+        check_replay(name, "K3", [c + [z] for c, z in runs],
+                     p_cots + [p_zcot])
         # both gradients through the entry, the card against the CPU path
         grads = []
         for d in (dev, "cpu"):
@@ -1212,29 +1233,23 @@ def phase_k(dev, card):
         size=tuple(c_raw.shape)).astype(np.float32)).to(dev)
     c_bargs = (tuple(zf.shape), g, c_ids, c_aux, c_plan,
                replay.horizon_shifts(c_trig, c_plan))
-    cots, zcot = replay._bwd_cuda(*c_bargs)
-    cots2, zcot2 = replay._bwd_cuda(*c_bargs)
+    runs = [replay._bwd_cuda(*c_bargs) for _ in range(2)]
     p_cots, p_zcot = replay.backward_replay_plain(*c_bargs)
     torch.cuda.synchronize()
-    check([tuple(c.shape) for c in cots]
+    check([tuple(c.shape) for c in runs[0][0]]
           == [tuple(t.shape) for t in sargs[2]],
-          f"K3 on the crop: cotangents have the {len(cots)} combined "
+          f"K3 on the crop: cotangents have the {len(p_cots)} combined "
           f"levels' shapes")
-    pairs = list(zip(cots + [zcot], p_cots + [p_zcot]))
-    errs = [rel_err(a, b) for a, b in pairs]
-    bwd_err = max((a - b).abs().max().item() for a, b in pairs)
     reached = [lvl for lvl, c in enumerate(p_cots)
                if c.abs().max().item() > 0.0]
-    check(max(errs) <= BWD_RTOL and 0 in reached
-          and max(reached) >= kw["ratio_log2"],
-          f"K3 on the crop within rtol {BWD_RTOL} of the plain backward, "
-          f"levels {reached} receive cotangent, fine and coarse-derived "
-          f"(per output: {', '.join(f'{e:.1e}' for e in errs)})")
-    check(all(torch.equal(a, b) for a, b in zip(cots + [zcot],
-                                                 cots2 + [zcot2])),
-          "K3 on the crop: two runs bit-equal")
-    del (c_raw, c_ids, c_aux, p_ids, p_aux, g, c_bargs, cots, zcot, cots2,
-         zcot2, p_cots, p_zcot, pairs)
+    check(0 in reached and max(reached) >= kw["ratio_log2"],
+          f"K3 on the crop: levels {reached} receive cotangent, fine and "
+          f"coarse-derived")
+    bwd_err = check_replay("K3 on the crop", "K3",
+                           [c + [z] for c, z in runs], p_cots + [p_zcot])
+    print_levels("the crop")
+    del (c_raw, c_ids, c_aux, p_ids, p_aux, g, c_bargs, runs, p_cots,
+         p_zcot)
     del raw, p_raw, got, hori
 
     def grad_step():
@@ -1277,6 +1292,7 @@ def phase_k(dev, card):
     k3_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs), 3)
     print(f"  at this shape alone: K1-argmax {am_ms:.3f} ms, K3 {k3_ms:.3f} "
           f"ms  [{card}]")
+    print_levels("2 m cell")
     del am, g, bargs, sargs, crop, zf, zc
     mr_am_err, mr_bwd_err = am_err, bwd_err
 
@@ -1460,20 +1476,37 @@ def main():
             size=tuple(raw.shape)).astype(np.float32)).to(dev)
         bargs = (tuple(zs.shape), g, ids, aux, plan,
                  replay.horizon_shifts(trig, plan))
-        cots, zcot = replay._bwd_cuda(*bargs)
-        cots2, zcot2 = replay._bwd_cuda(*bargs)
+        k_runs = [replay._bwd_cuda(*bargs) for _ in range(2)]
         p_cots, p_zcot = replay.backward_replay_plain(*bargs)
         torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(cots + [zcot],
-                                              p_cots + [p_zcot])]
-        bwd_err = max(bwd_err, max((a - b).abs().max().item() for a, b in
-                                   zip(cots + [zcot], p_cots + [p_zcot])))
-        check(max(errs) <= BWD_RTOL,
-              f"{name}: K3 within rtol {BWD_RTOL} of the plain backward "
-              f"(per output: {', '.join(f'{e:.1e}' for e in errs)})")
-        check(all(torch.equal(a, b) for a, b in zip(cots + [zcot],
-                                                     cots2 + [zcot2])),
-              f"{name}: two K3 runs bit-equal")
+        bwd_err = max(bwd_err, check_replay(name, "K3",
+                                            [c + [z] for c, z in k_runs],
+                                            p_cots + [p_zcot]))
+        print_levels(name)
+    # contention: a tall spike at the centre of a flat grid; most winners
+    # land on a few level-0 cells, the far ones on a few coarse cells
+    z_c = np.zeros((256, 256), dtype=np.float32)
+    z_c[128, 128] = 2000.0
+    sargs = fused_sweep.sweep_args(
+        torch.from_numpy(z_c).to(dev), offset=(64, 64),
+        inner_shape=(128, 128), azim_num=16, dist_search=8000.0, dx=25.0,
+        dy=-25.0)
+    raw, ids, aux = fused_sweep._ratio_cuda(*sargs, emit_argmax=True)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=tuple(raw.shape)).astype(np.float32)).to(dev)
+    bargs = (tuple(z_c.shape), g, ids, aux, sargs[4],
+             replay.horizon_shifts(sargs[3], sargs[4]))
+    k_runs = [replay._bwd_cuda(*bargs) for _ in range(2)]
+    p_cots, p_zcot = replay.backward_replay_plain(*bargs)
+    torch.cuda.synchronize()
+    hit = [int((c != 0).sum()) for c in p_cots]
+    check(hit[0] < 4000 and len(hit) > 1 and hit[1] > 0,
+          f"contention scene: {ids.numel()} winners onto {hit} cells of the "
+          f"levels")
+    bwd_err = max(bwd_err, check_replay("contention scene", "K3",
+                                        [c + [z] for c, z in k_runs],
+                                        p_cots + [p_zcot]))
+    print_levels("contention scene")
 
     print("== 6. gradient path at the bench's gradient row")
     grad_kw = dict(dx=dx, dy=-dx, offset=(halo, halo),
@@ -1537,14 +1570,14 @@ def main():
              replay.horizon_shifts(trig, plan))
     replay._bwd_cuda(*bargs)
     k3_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs), 10)
-    cots, zcot = replay._bwd_cuda(*bargs)
+    k_runs = [replay._bwd_cuda(*bargs) for _ in range(2)]
+    print_levels("gradient row")
+    cots, zcot = k_runs[0]
     k3_plain_ms, (p_cots, p_zcot) = event_ms(
         lambda: replay.backward_replay_plain(*bargs))
-    errs = [rel_err(a, b) for a, b in zip(cots + [zcot], p_cots + [p_zcot])]
-    bwd_err = max(bwd_err, max((a - b).abs().max().item() for a, b in
-                               zip(cots + [zcot], p_cots + [p_zcot])))
-    check(max(errs) <= BWD_RTOL,
-          f"K3 within rtol {BWD_RTOL} of the plain backward at this shape")
+    bwd_err = max(bwd_err, check_replay("gradient row", "K3",
+                                        [c + [z] for c, z in k_runs],
+                                        p_cots + [p_zcot]))
     am_bound = sweep_bound(sargs, shadow=False, argmax=True)
     k3_bound = replay_bound(graw, ids, aux, plan, cots, zcot, shadow=False)
     print(f"  K1-argmax alone: {am_ms:.3f} ms; plain argmax sweep: "
@@ -1552,7 +1585,7 @@ def main():
           f"({am_bound[1]})  [{card}]")
     print(f"  K3 alone: {k3_ms:.3f} ms; plain backward: {k3_plain_ms:.1f} ms;"
           f" bound {k3_bound[0]:.4f} ms ({k3_bound[1]})  [{card}]")
-    del p_cots, p_zcot, cots, zcot, graw, raw, ids, aux, grads
+    del p_cots, p_zcot, cots, zcot, k_runs, graw, raw, ids, aux, grads
 
     print("== 7. central finite difference on the card")
     z96 = torch.from_numpy(make_terrain(96, 96, seed=4)).to(dev)
@@ -1805,6 +1838,7 @@ def main():
     k4_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs, shadow=shadow_b), 10)
     cots, dzo = replay._bwd_cuda(*bargs, shadow=shadow_b)
     k4_bound = replay_bound(gmet, ids, aux, sargs[4], cots, dzo, shadow=True)
+    print_levels("shadow-gradient row")
     del cots, dzo
     err, k4_plain_ms = check_shadow_replay("row B", sargs, (0.0, 0.0), gmet,
                                            (ids, aux))
@@ -1887,6 +1921,7 @@ def main():
     shadow_f = (fargs[3], fargs[0], terrain._grid_origin)
     replay._bwd_cuda(*fb, shadow=shadow_f)
     k4_f_ms = cuda_ms(lambda: replay._bwd_cuda(*fb, shadow=shadow_f), 3)
+    print_levels("181 suns")
     print(f"  on the 181 suns alone: K2-argmax {k2a_f_ms:.3f} ms, K4 "
           f"{k4_f_ms:.3f} ms; the rest of a step (classification and its "
           f"backward, pyramid and its VJP, host) "

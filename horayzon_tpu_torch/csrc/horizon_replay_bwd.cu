@@ -45,24 +45,38 @@
 // reference's gates are mirrored too, including the d1 parabola gate
 // nx + 1 <= mm < n_dense, which drops a d1 single's parabola at m = nx.
 //
-// Design (both modes): a gather, so the result is deterministic without
-// float atomics.  For a fixed (azimuth, sample distance) the map from a
-// source cell to the
-// cells its sample touches is one constant shift for every cell.  So one
-// thread owns one target cell of a level's cotangent and loops over the
-// azimuths and sample slots in a fixed order; for each it reads the ids of
-// the (at most four, or k^2 on a mip level) source cells whose sample lands
-// there, and on a matching id adds that winner's term.  One more thread per
-// inner cell sums the z_org terms over the azimuths in order.  The level-0
-// pass dominates: every thread of its box computes the shift of, and reads
-// up to four ids for, 4*nx + (n_dense - nx + 2) sample slots per azimuth
-// (on an H100 at the 2048^2 / 1024^2, 32-azimuth, 20 km bench shape it
-// takes about 1.7x K1's time).  Reads go through L2; there is no
-// shared-memory staging and no presence skip yet.  Numerics as K1 and K2:
-// --fmad=false, IEEE divide and sqrt, shifts formed on the host (float32
-// trig / spacing for K3, the sun table's for K4).
+// Design (both modes): a scatter driven by the winners, made deterministic
+// by exact integer accumulation instead of float atomics.  One thread per
+// (azimuth or sun, inner cell) of the argmax record, adjacent lanes on
+// adjacent columns of one row, reads its id, g and D once, decodes its
+// winner and forms exactly the float32 terms the reference backward forms
+// for it: a point 4 (the bilinear corners of one sample), a parabola 12
+// (3 samples x 4 corners), a mip winner 1 (its coarse cell).  Each term is
+// rounded to a per-level fixed-point grid 2^-e and added as a 64-bit
+// integer into its level's target box; integer addition is associative, so
+// two runs, and the plain version that rounds the same terms to the same
+// grid (replay.py::backward_replay_plain), are bit-equal.  Four passes:
+//   1. the largest |coefficient| of each level, an order-free integer max of
+//      the float bits; with the host's bound 2^c_bits on the terms one target
+//      can receive it fixes e so that no sum can overflow
+//      (replay.py::level_scales);
+//   2. the scatter: the lanes of a warp that hit the same target are summed
+//      first (__match_any_sync, then an integer __reduce_add_sync of 22-bit
+//      pieces), one atomic per distinct target; a level with many terms per
+//      target keeps a 124-bit value in two words (62 + 62 bits);
+//   3. each box to float32, rounded once (cells outside the boxes stay 0);
+//   4. the z_org sum, one thread per inner cell over the rows in order.
+// The work is proportional to the winners.  Its bound is the record's
+// bytes (read once by each winner pass); what the card spends is the
+// scatter's warp matching and int64 atomics into L2, where the level-0 box
+// (about 18 MB at the 1024^2 bench block) stays: on an H100 at the bench's
+// gradient row the scatter is 88% of K3's 3.2 ms.
+// Numerics as K1 and K2: --fmad=false, IEEE divide and sqrt, shifts formed
+// on the host (float32 trig / spacing for K3, the sun table's for K4).
 
 #include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
 
 #define HZ_MAX_LEVELS 32
 
@@ -76,65 +90,33 @@ struct BwdParams {
   const float* sun;    // (a_num, 8) sun table (K4)
   const float* z_org;  // (in0, in1) ray-origin heights (K4)
   float* zcot;         // (in0, in1) cotangent of z_org
-  float* cot[HZ_MAX_LEVELS];  // padded level cotangents, row-major
+  unsigned long long* acc;  // fixed-point words of every level's box, zeroed
+  unsigned int* lvl_max;    // (HZ_MAX_LEVELS) bits of max |coefficient|,
+                            // zeroed
+  float* cot[HZ_MAX_LEVELS];  // padded level cotangents, row-major, zeroed
+  long long acc_off[HZ_MAX_LEVELS];  // first word of each level's box
   int lvl_w[HZ_MAX_LEVELS];   // row stride of each padded level
   int lvl_pad[HZ_MAX_LEVELS]; // sentinel margin of each level
   // target box of each level in padded coordinates: rows [r0, r1), columns
   // [c0, c1); every cell a sample of that level can touch lies inside it
   int box_r0[HZ_MAX_LEVELS], box_r1[HZ_MAX_LEVELS];
   int box_c0[HZ_MAX_LEVELS], box_c1[HZ_MAX_LEVELS];
+  int cell_off[HZ_MAX_LEVELS];   // first cell of each box among all boxes
+  int lvl_cbits[HZ_MAX_LEVELS];  // 2^c_bits bounds the terms per target
+  int lvl_words[HZ_MAX_LEVELS];  // 1 or 2 words per accumulator
   int ph_lvl[HZ_MAX_LEVELS];        // mip phase p >= 1: its pyramid level
   int ph_n[HZ_MAX_LEVELS];          // mip phase p >= 1: sample count
   float ph_s_first[HZ_MAX_LEVELS];  // mip phase p >= 1: first distance
   float ph_step[HZ_MAX_LEVELS];     // mip phase p >= 1: distance step
   int n_phases, in0, in1, a_num, off0, off1, nx, n_dense;
+  int n_cells;  // cells of all boxes
   float dx, dy, step, dist, half_step, inv_l0, inv_l1;
   float x0, y0;  // grid origin (K4)
 };
 
 namespace {
 
-struct Src {
-  const int* ids;
-  const float* g;
-  const float* aux;
-  int in0, in1;
-};
-
-// Adjoint of one bilinear level-0 read at distance s, gathered at target
-// (R, C): the source cell whose corner (ci, cj) lands there is
-// (i_base - floor(s*sh_i) - ci, j_base - floor(s*sh_j) - cj).  coef(id, cell)
-// returns the winner's coefficient for this sample, or 0 when the cell's
-// winner does not use it.  Corner weights as pallas_sweep.py:1841-1844.
-template <class Coef>
-__device__ __forceinline__ void gather0(float& acc, const Src& src, float s,
-                                        float sh_i, float sh_j, int i_base,
-                                        int j_base, Coef coef) {
-  const float dif = s * sh_i;
-  const float djf = s * sh_j;
-  const float di = floorf(dif);
-  const float dj = floorf(djf);
-  const float fi = dif - di;
-  const float fj = djf - dj;
-  const int i0 = i_base - (int)di;
-  const int j0 = j_base - (int)dj;
-#pragma unroll
-  for (int ci = 0; ci < 2; ++ci) {
-    const int i = i0 - ci;
-    if (i < 0 || i >= src.in0) continue;
-#pragma unroll
-    for (int cj = 0; cj < 2; ++cj) {
-      const int j = j0 - cj;
-      if (j < 0 || j >= src.in1) continue;
-      const long long cell = (long long)i * src.in1 + j;
-      const float cf = coef(__ldg(src.ids + cell), cell);
-      if (cf == 0.0f) continue;
-      const float wi = ci ? fi : 1.0f - fi;
-      const float wj = cj ? fj : 1.0f - fj;
-      acc += cf * wi * wj;
-    }
-  }
-}
+constexpr unsigned kFull = 0xffffffffu;
 
 // The coefficient of a sample of a point winner at distance s (K3: g / s,
 // K4: g) and the factor of a parabola winner with denominator d (K3: g / d,
@@ -158,120 +140,290 @@ __device__ __forceinline__ float envelope(int k, float qt) {
   return 2.0f * qt2 - qt;
 }
 
-// Level-0 cotangent: one thread per target cell of the level-0 box.
-template <bool S>
-__global__ void __launch_bounds__(256)
-replay_level0_kernel(const BwdParams p) {
-  const int C = p.box_c0[0] + blockIdx.x * blockDim.x + threadIdx.x;
-  const int R = p.box_r0[0] + blockIdx.y * blockDim.y + threadIdx.y;
-  if (R >= p.box_r1[0] || C >= p.box_c1[0]) return;
-  const int i_base = R - p.off0 - p.lvl_pad[0];
-  const int j_base = C - p.off1 - p.lvl_pad[0];
-  const long long plane = (long long)p.in0 * p.in1;
-  float acc = 0.0f;
-  for (int az = 0; az < p.a_num; ++az) {
-    const float sh_i = p.shift[2 * az];
-    const float sh_j = p.shift[2 * az + 1];
-    const Src src{p.ids + az * plane, p.g + az * plane, p.aux + az * plane,
-                  p.in0, p.in1};
+// The winner of one (row, inner cell), decoded.
+struct Winner {
+  int n;          // samples: 0 (no term), 1 (a point or a mip sample), 3
+  int lvl;        // 0, or the mip level of a mip sample
+  int r, c;       // level 0: the cell's padded row and column; mip: the
+                  // coarse target cell
+  float sh_i, sh_j;
+  float cf[3];    // coefficient of each sample
+  float s[3];     // distance of each level-0 sample
+};
 
-    // d2 near field, per step (pallas_sweep.py:1864-1936)
-    for (int m = 0; m < p.nx; ++m) {
-      const float s = (float)(m + 1) * p.step;
-      gather0(acc, src, s, sh_i, sh_j, i_base, j_base,
-              [&](int id, long long cell) {
-                return id == 2 * m ? per_s<S>(__ldg(src.g + cell), s) : 0.0f;
-              });
-      const float s0 = (float)m * p.step;
-      const float s_k[3] = {s0, s0 + p.half_step, s0 + p.step};
+// Decode winner t = (row, cell) of the record with the gates, distances and
+// coefficients of the reference backward (pallas_sweep.py:1824-2038):
+// points 2m at (m+1)*step; d2 parabolas 2m+1 (m < nx) at s0, s0 + half_step,
+// s0 + step with s0 = m*step; d1 parabolas 2mm+1 (nx + 1 <= mm < n_dense,
+// the gate that drops mm = nx) at the positions mm-2, mm-1, mm, i.e.
+// (mm-1+k)*step, envelope in (D - (mm-1)*step) / (2 step); parabolas only
+// where D > 1e-3; mip ids at min(s_first + m*step_l, dist) on the coarse
+// cell (off + i + round(s*sh)) >> lvl.
+template <bool S>
+__device__ __forceinline__ Winner decode(const BwdParams& p, long long t) {
+  Winner w;
+  w.n = 0;
+  w.lvl = 0;
+  w.r = w.c = 0;
+  w.sh_i = w.sh_j = 0.0f;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        gather0(acc, src, s_k[k], sh_i, sh_j, i_base, j_base,
-                [&](int id, long long cell) {
-                  if (id != 2 * m + 1) return 0.0f;
-                  const float d = __ldg(src.aux + cell);
-                  if (!(d > 1e-3f)) return 0.0f;
-                  const float gq = per_s<S>(__ldg(src.g + cell), d);
-                  return gq * envelope(k, p.inv_l0 * (d - s0));
-                });
-      }
-    }
-
-    // d1 mid field, merged per sample position q at (q+1)*step
-    // (pallas_sweep.py:1944-2005): the point winner 2q and the parabolas
-    // mm = q, q+1, q+2, whose samples are the positions mm-2, mm-1, mm
-    for (int q = max(p.nx - 2, 0); q < p.n_dense; ++q) {
-      const float s = (float)(q + 1) * p.step;
-      gather0(acc, src, s, sh_i, sh_j, i_base, j_base,
-              [&](int id, long long cell) {
-                if (id == 2 * q) {
-                  return q >= p.nx ? per_s<S>(__ldg(src.g + cell), s) : 0.0f;
-                }
-                const int mm = (id - 1) >> 1;
-                if ((id & 1) == 0 || mm < q || mm > q + 2 || mm < p.nx + 1 ||
-                    mm >= p.n_dense) {
-                  return 0.0f;
-                }
-                const float d = __ldg(src.aux + cell);
-                if (!(d > 1e-3f)) return 0.0f;
-                const float gq = per_s<S>(__ldg(src.g + cell), d);
-                const float s0 = (float)(mm - 1) * p.step;
-                // position q is sample 2 of mm = q, 1 of q+1, 0 of q+2
-                return gq * envelope(2 - (mm - q), p.inv_l1 * (d - s0));
-              });
-    }
-  }
-  p.cot[0][(long long)R * p.lvl_w[0] + C] = acc;
-}
-
-// Cotangent of mip level `lvl`: one thread per target cell of the level's
-// box.  A mip winner at distance s puts g / s (K4: g) on its coarse cell
-// (a + round(s*sh)) floor-divided by 2^lvl (pallas_sweep.py:2024-2038), so
-// the sources of target row Rc at shift ri are the k rows with
-// off0 + i + ri in [k*(Rc - pad), k*(Rc - pad) + k).
-template <bool S>
-__global__ void __launch_bounds__(256)
-replay_mip_kernel(const BwdParams p, int lvl) {
-  const int C = p.box_c0[lvl] + blockIdx.x * blockDim.x + threadIdx.x;
-  const int R = p.box_r0[lvl] + blockIdx.y * blockDim.y + threadIdx.y;
-  if (R >= p.box_r1[lvl] || C >= p.box_c1[lvl]) return;
-  const int kp = 1 << lvl;
-  const int fr0 = kp * (R - p.lvl_pad[lvl]) - p.off0;
-  const int fc0 = kp * (C - p.lvl_pad[lvl]) - p.off1;
+  for (int k = 0; k < 3; ++k) w.cf[k] = w.s[k] = 0.0f;
   const long long plane = (long long)p.in0 * p.in1;
-  float acc = 0.0f;
-  for (int az = 0; az < p.a_num; ++az) {
-    const float sh_i = p.shift[2 * az];
-    const float sh_j = p.shift[2 * az + 1];
-    const int* ids = p.ids + az * plane;
-    const float* g = p.g + az * plane;
-    int id_off = 2 * p.n_dense;
-    for (int ph = 1; ph < p.n_phases; ++ph) {
-      const int n_m = p.ph_n[ph];
-      if (p.ph_lvl[ph] == lvl) {
-        for (int m = 0; m < n_m; ++m) {
-          const float s = fminf(p.ph_s_first[ph] + (float)m * p.ph_step[ph],
-                                p.dist);
-          const int ri = __float2int_rn(s * sh_i);
-          const int rj = __float2int_rn(s * sh_j);
-          const int i_lo = max(fr0 - ri, 0);
-          const int i_hi = min(fr0 - ri + kp, p.in0);
-          const int j_lo = max(fc0 - rj, 0);
-          const int j_hi = min(fc0 - rj + kp, p.in1);
-          for (int i = i_lo; i < i_hi; ++i) {
-            for (int j = j_lo; j < j_hi; ++j) {
-              const long long cell = (long long)i * p.in1 + j;
-              if (__ldg(ids + cell) == id_off + m) {
-                acc += per_s<S>(__ldg(g + cell), s);
-              }
-            }
+  if (t >= plane * p.a_num) return w;
+  const int az = (int)(t / plane);
+  const long long cell = t - az * plane;
+  const int i = (int)(cell / p.in1);
+  const int j = (int)(cell - (long long)i * p.in1);
+  const int id = __ldg(p.ids + t);
+  const float gv = __ldg(p.g + t);
+  w.sh_i = __ldg(p.shift + 2 * az);
+  w.sh_j = __ldg(p.shift + 2 * az + 1);
+  if (id < 2 * p.n_dense) {
+    w.r = i + p.off0 + p.lvl_pad[0];
+    w.c = j + p.off1 + p.lvl_pad[0];
+    const int m = id >> 1;
+    if ((id & 1) == 0) {
+      const float s = (float)(m + 1) * p.step;
+      w.n = 1;
+      w.s[0] = s;
+      w.cf[0] = per_s<S>(gv, s);
+    } else if (m != p.nx) {
+      const float d = __ldg(p.aux + t);
+      if (d > 1e-3f) {
+        const float gq = per_s<S>(gv, d);
+        w.n = 3;
+        if (m < p.nx) {
+          const float s0 = (float)m * p.step;
+          const float qt = p.inv_l0 * (d - s0);
+          w.s[0] = s0;
+          w.s[1] = s0 + p.half_step;
+          w.s[2] = s0 + p.step;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) w.cf[k] = gq * envelope(k, qt);
+        } else {
+          const float s0 = (float)(m - 1) * p.step;
+          const float qt = p.inv_l1 * (d - s0);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            w.s[k] = (float)(m - 1 + k) * p.step;
+            w.cf[k] = gq * envelope(k, qt);
           }
         }
       }
-      id_off += n_m;
+    }
+  } else {
+    int id_off = 2 * p.n_dense;
+    for (int ph = 1; ph < p.n_phases; ++ph) {
+      const int m = id - id_off;
+      if (m >= 0 && m < p.ph_n[ph]) {
+        const int lvl = p.ph_lvl[ph];
+        const float s = fminf(p.ph_s_first[ph] + (float)m * p.ph_step[ph],
+                              p.dist);
+        const int ri = __float2int_rn(s * w.sh_i);
+        const int rj = __float2int_rn(s * w.sh_j);
+        w.n = 1;
+        w.lvl = lvl;
+        w.cf[0] = per_s<S>(gv, s);
+        w.r = ((p.off0 + i + ri) >> lvl) + p.lvl_pad[lvl];
+        w.c = ((p.off1 + j + rj) >> lvl) + p.lvl_pad[lvl];
+      }
+      id_off += p.ph_n[ph];
     }
   }
-  p.cot[lvl][(long long)R * p.lvl_w[lvl] + C] = acc;
+  return w;
+}
+
+// Calls emit(on, r, c, term) for every term of w, on false past its last:
+// every lane of the warp in step (the loops run to the warp's largest trip
+// count), so emit may synchronise the warp.  A level-0 sample's terms are
+// cf * w_i * w_j on its corners (pallas_sweep.py:1841-1844).
+template <class Emit>
+__device__ __forceinline__ void for_each_term(const Winner& w, Emit emit) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (!__any_sync(kFull, k < w.n)) break;
+    const bool has = k < w.n;
+    const bool dense = has && w.lvl == 0;
+    const bool corners = __any_sync(kFull, dense);
+    float fi = 0.0f, fj = 0.0f;
+    int r = w.r, c = w.c;
+    if (dense) {
+      const float dif = w.s[k] * w.sh_i;
+      const float djf = w.s[k] * w.sh_j;
+      const float di = floorf(dif);
+      const float dj = floorf(djf);
+      fi = dif - di;
+      fj = djf - dj;
+      r += (int)di;
+      c += (int)dj;
+    }
+#pragma unroll
+    for (int corner = 0; corner < 4; ++corner) {
+      if (corner > 0 && !corners) break;
+      const int ci = corner >> 1, cj = corner & 1;
+      bool on = has && corner == 0;
+      int tr = r, tc = c;
+      float v = w.cf[k];
+      if (dense) {
+        const float wi = ci ? fi : 1.0f - fi;
+        const float wj = cj ? fj : 1.0f - fj;
+        on = true;
+        tr += ci;
+        tc += cj;
+        v = w.cf[k] * wi * wj;
+      }
+      emit(on, tr, tc, v);  // one call site: emit synchronises the warp
+    }
+  }
+}
+
+// The fixed-point grid of level `lvl` (replay.py::level_scales): terms are
+// multiples of 2^-e, |term| < 2^(E+1) for the level's largest coefficient
+// 2^E <= max < 2^(E+1); one word e = 61 - c_bits - E, two words
+// e = 123 - 2 c_bits - E with the low word holding 62 - c_bits bits.
+struct Scale {
+  double scale, inv_scale, lo_unit, inv_lo_unit;
+  bool two;
+};
+
+__device__ __forceinline__ Scale level_scale(const BwdParams& p, int lvl) {
+  const float m = __uint_as_float(p.lvl_max[lvl]);
+  int x = 1;
+  if (m > 0.0f && m <= FLT_MAX) frexp((double)m, &x);
+  const int ex = x - 1;
+  const int cb = p.lvl_cbits[lvl];
+  Scale sc;
+  sc.two = p.lvl_words[lvl] == 2;
+  const int e = sc.two ? 123 - 2 * cb - ex : 61 - cb - ex;
+  const int lo = sc.two ? 62 - cb : 0;
+  sc.scale = ldexp(1.0, e);
+  sc.inv_scale = ldexp(1.0, -e);
+  sc.lo_unit = ldexp(1.0, lo);
+  sc.inv_lo_unit = ldexp(1.0, -lo);
+  return sc;
+}
+
+// x = rint(v * 2^e), exact in float64 (ties to even); two words
+// hi = trunc(x * 2^-lo), x - hi * 2^lo (replay.py::quantize).
+__device__ __forceinline__ void quantize(float v, const Scale& sc,
+                                         long long& q0, long long& q1) {
+  const double x = rint((double)v * sc.scale);
+  if (!sc.two) {
+    q0 = (long long)x;
+    q1 = 0;
+    return;
+  }
+  const double hi = trunc(x * sc.inv_lo_unit);
+  q0 = (long long)hi;
+  q1 = (long long)(x - hi * sc.lo_unit);
+}
+
+// Exact sum of v over the lanes of `grp` (every lane of grp calls it): three
+// 32-bit reductions of 22-bit pieces, the top piece signed, which cannot
+// carry out of 32 bits for 32 lanes.
+__device__ __forceinline__ long long group_sum(unsigned grp, long long v) {
+  const unsigned long long u = (unsigned long long)v;
+  const unsigned lo = __reduce_add_sync(grp, (unsigned)(u & 0x3fffffull));
+  const unsigned mid =
+      __reduce_add_sync(grp, (unsigned)((u >> 22) & 0x3fffffull));
+  const unsigned hi = __reduce_add_sync(grp, (unsigned)(int)(v >> 44));
+  return (long long)(((unsigned long long)(long long)(int)hi << 44) +
+                     ((unsigned long long)mid << 22) + lo);
+}
+
+// Add (q0[, q1]) at addr (nullptr: nothing) for every lane of the warp,
+// which calls it in step: lanes with the same target are summed first and
+// one of them issues the atomic(s).
+__device__ __forceinline__ void add_at(unsigned long long* addr, long long q0,
+                                       long long q1, bool two) {
+  const unsigned grp = __match_any_sync(kFull, (unsigned long long)addr);
+  if (addr == nullptr) return;
+  const unsigned lane = threadIdx.x & 31u;
+  if (grp != (1u << lane)) {
+    // `two` is the same for every lane of grp: one address, one level
+    q0 = group_sum(grp, q0);
+    if (two) q1 = group_sum(grp, q1);
+    if (lane != (unsigned)(__ffs(grp) - 1)) return;
+  }
+  atomicAdd(addr, (unsigned long long)q0);
+  if (two) atomicAdd(addr + 1, (unsigned long long)q1);
+}
+
+// Pass 1: the bits of each level's largest |coefficient| (for non-negative
+// floats the order of the bits is the order of the values, NaN above inf).
+template <bool S>
+__global__ void __launch_bounds__(256) replay_max_kernel(const BwdParams p) {
+  __shared__ unsigned smax[HZ_MAX_LEVELS];
+  if (threadIdx.x < HZ_MAX_LEVELS) smax[threadIdx.x] = 0u;
+  __syncthreads();
+  const Winner w =
+      decode<S>(p, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+  unsigned bits = 0u;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k < w.n) bits = max(bits, __float_as_uint(fabsf(w.cf[k])));
+  }
+  const int key = w.n > 0 ? w.lvl : -1;
+  const unsigned grp = __match_any_sync(kFull, key);
+  const unsigned top = __reduce_max_sync(grp, bits);
+  if (key >= 0 && (threadIdx.x & 31u) == (unsigned)(__ffs(grp) - 1) &&
+      top != 0u) {
+    atomicMax(&smax[key], top);
+  }
+  __syncthreads();
+  if (threadIdx.x < HZ_MAX_LEVELS && smax[threadIdx.x] != 0u) {
+    atomicMax(p.lvl_max + threadIdx.x, smax[threadIdx.x]);
+  }
+}
+
+// Pass 2: every term rounded to its level's grid and added into the box.
+template <bool S>
+__global__ void __launch_bounds__(256)
+replay_scatter_kernel(const BwdParams p) {
+  const Winner w =
+      decode<S>(p, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+  const int lvl = w.lvl;
+  const Scale sc = level_scale(p, lvl);
+  const int r0 = p.box_r0[lvl], c0 = p.box_c0[lvl];
+  const int bh = p.box_r1[lvl] - r0, bw = p.box_c1[lvl] - c0;
+  unsigned long long* const base = p.acc + p.acc_off[lvl];
+  const int words = sc.two ? 2 : 1;
+  for_each_term(w, [&](bool on, int r, int c, float v) {
+    unsigned long long* addr = nullptr;
+    long long q0 = 0, q1 = 0;
+    const int rr = r - r0, cc = c - c0;
+    if (on && rr >= 0 && rr < bh && cc >= 0 && cc < bw) {
+      quantize(v, sc, q0, q1);
+      if ((q0 | q1) != 0) addr = base + ((long long)rr * bw + cc) * words;
+    }
+    add_at(addr, q0, q1, sc.two);
+  });
+}
+
+// Pass 3: each box cell to float32, rounded once from float64; a level with
+// a non-finite coefficient is NaN over its box.
+__global__ void __launch_bounds__(256)
+replay_convert_kernel(const BwdParams p, int n_levels) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= p.n_cells) return;
+  int l = 0;
+  while (l + 1 < n_levels && t >= p.cell_off[l + 1]) ++l;
+  const long long local = t - p.cell_off[l];
+  const int bw = p.box_c1[l] - p.box_c0[l];
+  const int rr = (int)(local / bw);
+  const int cc = (int)(local - (long long)rr * bw);
+  const Scale sc = level_scale(p, l);
+  const unsigned long long* a = p.acc + p.acc_off[l] + local * (sc.two ? 2 : 1);
+  float out;
+  if (!(__uint_as_float(p.lvl_max[l]) <= FLT_MAX)) {
+    out = __int_as_float(0x7fc00000);
+  } else {
+    double v = (double)(long long)a[0];
+    if (sc.two) v = v * sc.lo_unit + (double)(long long)a[1];
+    out = (float)(v * sc.inv_scale);
+  }
+  p.cot[l][(long long)(p.box_r0[l] + rr) * p.lvl_w[l] + p.box_c0[l] + cc] =
+      out;
 }
 
 // The z_org term of a winner at S (a point's s, a parabola's D): K3
@@ -348,27 +500,23 @@ replay_zorg_kernel(const BwdParams p) {
   p.zcot[cell] = acc;
 }
 
-dim3 box_grid(const BwdParams& p, int lvl, dim3 block) {
-  return dim3((p.box_c1[lvl] - p.box_c0[lvl] + block.x - 1) / block.x,
-              (p.box_r1[lvl] - p.box_r0[lvl] + block.y - 1) / block.y);
-}
-
 template <bool S>
 int launch(const BwdParams* params, int n_levels, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   const BwdParams& p = *params;
-  const dim3 block(32, 8);
-  if (p.box_r1[0] > p.box_r0[0] && p.box_c1[0] > p.box_c0[0]) {
-    replay_level0_kernel<S><<<box_grid(p, 0, block), block, 0, st>>>(p);
+  const long long rows = (long long)p.a_num * p.in0 * p.in1;
+  if (rows > 0) {
+    const unsigned blocks = (unsigned)((rows + 255) / 256);
+    replay_max_kernel<S><<<blocks, 256, 0, st>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    replay_scatter_kernel<S><<<blocks, 256, 0, st>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  for (int lvl = 1; lvl < n_levels; ++lvl) {
-    if (p.box_r1[lvl] <= p.box_r0[lvl] || p.box_c1[lvl] <= p.box_c0[lvl]) {
-      continue;
-    }
-    replay_mip_kernel<S><<<box_grid(p, lvl, block), block, 0, st>>>(p, lvl);
+  if (p.n_cells > 0) {
+    replay_convert_kernel<<<(unsigned)((p.n_cells + 255) / 256), 256, 0,
+                            st>>>(p, n_levels);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const long long cells = (long long)p.in0 * p.in1;
@@ -378,9 +526,10 @@ int launch(const BwdParams* params, int n_levels, int device, void* stream) {
 
 }  // namespace
 
-// Launch K3's passes on `stream` (a cudaStream_t) of `device`: the level-0
-// gather, one gather per mip level with a non-empty box, and the z_org sum.
-// The caller zeroes the level cotangents (cells outside the boxes stay 0).
+// Launch K3's passes on `stream` (a cudaStream_t) of `device`: the level
+// maxima, the scatter, the conversion of the boxes and the z_org sum.  The
+// caller zeroes acc, lvl_max and the level cotangents (cells outside the
+// boxes stay 0).
 // Returns the first cudaError_t (0 on success).  Does not synchronise.
 extern "C" int horizon_replay_bwd_launch(const BwdParams* params, int n_levels,
                                          int device, void* stream) {

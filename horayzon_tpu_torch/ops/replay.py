@@ -12,13 +12,24 @@ envelope-theorem partials, closed-form in D, so no height is re-read.
 :func:`backward_replay` returns one cotangent array per padded pyramid
 level (the layout of :func:`mip.padded_levels`) and the (in0, in1)
 cotangent of ``z_org``; :func:`z_cotangent` routes them to the outer
-heightfield.  Two implementations of identical formulas:
+heightfield.  Two implementations of identical terms:
 
 * kernels K3 (horizon) and K4 (shadow), ``csrc/horizon_replay_bwd.cu``
-  (CUDA C++ for ``sm_90a``, a deterministic gather), run for CUDA tensors;
+  (CUDA C++ for ``sm_90a``, a scatter driven by the winners), run for CUDA
+  tensors;
 * :func:`backward_replay_plain`, a scatter in plain torch vectorised over
   the inner cells, run for CPU tensors and used on the card as the
   kernels' reference.
+
+Both accumulate the level cotangents exactly, in fixed point: every
+float32 term is rounded to a per-level grid ``2**-e`` and added as int64
+(two int64 words on a level whose targets can receive many terms), and the
+sum is converted to float32 once.  Integer addition is associative, so the
+result does not depend on the order of the terms: two kernel runs and the
+plain version are bit-equal.  ``e`` is fixed before the scatter from the
+largest coefficient of the level and :func:`fixed_point_levels`'s bound on
+the terms one target can receive, so that no sum can overflow; the
+rounding costs at most :func:`precision_bound` per target.
 
 Both take the mode the same way: the horizon mode the per-row shifts
 (:func:`horizon_shifts`) as the forward read them, the shadow mode
@@ -40,6 +51,7 @@ are one: row k has angle ``2*pi*k / a_num``.
 """
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -57,6 +69,19 @@ _MAX_LEVELS = 32
 KERNEL_LAUNCHES = 0
 #: Launches of kernel K4 (the shadow mode) made by this process.
 SHADOW_KERNEL_LAUNCHES = 0
+#: A level whose bound C on the terms per target is at most 2**18 takes one
+#: int64 word: its rounding error per target, C * 2**-e / 2, is then at most
+#: 2**-26 of its largest coefficient (a quarter of a float32 ulp).  Levels
+#: above take two words (a 124-bit value, 62 bits each).
+_ONE_WORD_BITS = 18
+#: Above 2**36 terms per target even two words round by more than 2**-16
+#: of the largest coefficient: refused.
+_MAX_C_BITS = 36
+#: ``(fixed_point_levels, maxima)`` of the last replay in this process (the
+#: kernel's or the plain version's): ``maxima`` the (levels,) float32 tensor
+#: of each level's largest |coefficient|, on the replay's device.  Read by
+#: :func:`level_report`.
+LAST_LEVELS = None
 
 
 def padded_level_shapes(z_shape, pads):
@@ -145,106 +170,160 @@ def shadow_dmdz(z_org, table, plan, grid_origin):
 
 
 # ---------------------------------------------------------------------------
+# Fixed-point accumulation (shared by the kernels and the plain version)
+# ---------------------------------------------------------------------------
+
+def fixed_point_levels(plan, a_num, n_levels):
+    """Per padded level ``(c_bits, words)``: ``2**c_bits`` bounds the terms
+    one target cell of the level can receive, and ``words`` (1 or 2) is the
+    number of int64 words its accumulator takes.
+
+    Per row (azimuth or sun) a target receives at most one term per
+    (sample slot, bilinear corner) on level 0 (4 * nx d2 slots, the d1
+    positions, 4 corners), at most ``min(4**l, in0 * in1)`` per sample of a
+    phase on mip level l, and never more than its row's winners put on the
+    level (12 and 1 per cell)."""
+    in0, in1 = plan["inner_shape"]
+    nx, n_dense = plan["nx"], plan["n_dense"]
+    cells = in0 * in1
+    slots = 4 * nx + n_dense - max(nx - 2, 0)
+    counts = [a_num * min(4 * slots, 12 * cells)] + [0] * (n_levels - 1)
+    for lvl, n_m, _, _, _ in _mip_phases(plan):
+        counts[lvl] += n_m * min(4 ** lvl, cells)
+    out = []
+    for lvl, c in enumerate(counts):
+        if lvl:
+            c = a_num * min(c, cells)
+        c_bits = (c - 1).bit_length() if c > 0 else 0
+        if c_bits > _MAX_C_BITS:
+            raise ValueError(f"level {lvl} can receive 2**{c_bits} terms per "
+                             f"cell, over the replay's 2**{_MAX_C_BITS}")
+        out.append((c_bits, 1 if c_bits <= _ONE_WORD_BITS else 2))
+    return out
+
+
+def level_scales(maxima, fixed):
+    """Per level ``(e, low_bits, words)`` from its largest |coefficient|
+    ``maxima[l]`` (a float32 value) and ``fixed[l] = (c_bits, words)``:
+    terms are rounded to multiples of ``2**-e``.  With ``2**E <= max <
+    2**(E+1)`` one word takes ``e = 61 - c_bits - E``, so that ``2**c_bits``
+    terms of at most ``2**(62 - c_bits)`` units sum to at most ``2**62``; two
+    words take ``e = 123 - 2 c_bits - E`` and split each term at
+    ``low_bits = 62 - c_bits`` (``csrc/horizon_replay_bwd.cu``'s
+    ``level_scale``)."""
+    out = []
+    for m, (c_bits, words) in zip(maxima, fixed):
+        ex = math.frexp(m)[1] - 1 if 0.0 < m < math.inf else 0
+        if words == 1:
+            out.append((61 - c_bits - ex, 0, 1))
+        else:
+            out.append((123 - 2 * c_bits - ex, 62 - c_bits, 2))
+    return out
+
+
+def precision_bound(m, c_bits, words):
+    """Largest rounding error of one target cell of a level whose largest
+    |coefficient| is ``m``: ``2**c_bits`` terms, each rounded by half a unit
+    ``2**-e``, i.e. ``m * 2**(2 c_bits - 62)`` with one word and ``m *
+    2**(3 c_bits - 124)`` with two."""
+    return m * 2.0 ** ((2 * c_bits - 62) if words == 1 else (3 * c_bits - 124))
+
+
+def quantize(term, e, low_bits, words):
+    """The int64 word(s) of float32 ``term`` on the grid ``2**-e``:
+    ``x = rint(term * 2**e)`` (exact in float64, ties to even), with two
+    words ``hi = trunc(x * 2**-low_bits)`` and ``x - hi * 2**low_bits``."""
+    x = torch.round(term.double() * 2.0 ** e)
+    if words == 1:
+        return (x.to(torch.int64),)
+    hi = torch.trunc(x * 2.0 ** -low_bits)
+    return hi.to(torch.int64), (x - hi * 2.0 ** low_bits).to(torch.int64)
+
+
+def dequantize(acc, e, low_bits, words):
+    """float32 value of the accumulated word(s) ``acc``, rounded once from
+    float64 as the kernel rounds it."""
+    v = acc[0].double()
+    if words == 2:
+        v = v * 2.0 ** low_bits + acc[1].double()
+    return (v * 2.0 ** -e).float()
+
+
+def level_report():
+    """Rows ``(level, c_bits, words, max |coefficient|, precision bound)``
+    of the last replay run in this process."""
+    fixed, maxima = LAST_LEVELS
+    return [(lvl, c_bits, words, m, precision_bound(m, c_bits, words))
+            for lvl, ((c_bits, words), m) in enumerate(zip(fixed,
+                                                           maxima.tolist()))]
+
+
+# ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def backward_replay_plain(z_shape, graw, ids, aux, plan, shifts=None,
-                          shadow=None):
-    """Winner replay in plain torch: per azimuth and sample, the winners'
-    coefficients as (in0, in1) fields, added into shifted slices of the
-    level-0 cotangent (bilinear corners) or, on mip levels, with
-    ``index_put_(accumulate=True)``.
+def _envelope(kind, qt):
+    """Envelope polynomial of a parabola's sample ``kind`` (0 at s0, 1 in
+    the middle, 2 at the far end) in q*t* (``pallas_sweep.py:1910-1914``)."""
+    qt2 = qt * qt
+    if kind == 0:
+        return 2.0 * qt2 - 3.0 * qt + 1.0
+    if kind == 1:
+        return 4.0 * qt - 4.0 * qt2
+    return 2.0 * qt2 - qt
 
-    ``graw``/``aux`` (A, in0, in1) float32, ``ids`` (A, in0, in1) int32 on
-    one device; ``plan`` from :func:`fused_sweep.plan_sweep` (its
-    ``consts`` are the float32 scalars the forward used).  The mode, as
-    :func:`backward_replay` takes it: ``shifts`` the (A, 2) float32 host
-    table of (sh_i, sh_j) of the horizon azimuths, or ``shadow = (sun_table,
-    z_org, grid_origin)``, with bare coefficients and the z_org term ``g *
-    (-1 - S * dmdz)`` (:func:`shadow_dmdz`).  Returns ``(level_cots,
-    zcot)``."""
+
+def replay_coefficients(graw, ids, aux, plan, shifts, bare):
+    """Every coefficient field of the replay, row by row: yields ``(lvl,
+    place, coef)`` with ``coef`` an (in0, in1) float32 field, 0 where the
+    cell's winner does not use this sample, and ``place`` either ``(s,
+    sh_i, sh_j)`` for a level-0 sample at distance s (spread onto its
+    bilinear corners by :func:`spread`) or the ``(rows, cols)`` index
+    tensors of the coarse cells on mip level ``lvl``.  ``bare``: the shadow
+    mode's coefficients (g instead of g / s, g / D).  Each field is formed
+    with the kernels' float32 operations in their order; a d1 position's
+    field adds the point's and up to three parabolas' terms, of which each
+    cell has at most one that is not 0."""
     f32 = np.float32
     k = plan["consts"]
     in0, in1 = plan["inner_shape"]
     off0, off1 = plan["offset"]
-    nx, n_dense = plan["nx"], plan["n_dense"]
-    pads = plan["pads"]
+    nx, n_dense, pads = plan["nx"], plan["n_dense"], plan["pads"]
     dev = graw.device
-    cots = [torch.zeros(s, dtype=torch.float32, device=dev)
-            for s in padded_level_shapes(z_shape, pads)]
-    zcot = torch.zeros((in0, in1), dtype=torch.float32, device=dev)
     rows = torch.arange(off0, off0 + in0, device=dev)
     cols = torch.arange(off1, off1 + in1, device=dev)
-    step, pad0 = k["step"], pads[0]
-    shifts = _row_shifts(shifts, shadow)
-    dmdz = None if shadow is None else shadow_dmdz(shadow[1], shadow[0],
-                                                   plan, shadow[2])
-
+    step = k["step"]
     for az in range(shifts.shape[0]):
         sh_i, sh_j = f32(shifts[az, 0]), f32(shifts[az, 1])
         g, idv, ax = graw[az], ids[az], aux[az]
-        dm = None if dmdz is None else dmdz[az]
-        zc = torch.zeros_like(zcot)
 
         def per_s(coef, s):
-            """A point winner's coefficient at distance s from
-            ``where(winner, g, 0)``: horizon g / s, shadow g."""
-            return coef * float(f32(1.0) / s) if dm is None else coef
-
-        def z_term(coef, s):
-            """The z_org term of winners with coefficient ``coef`` at S =
-            ``s`` (a distance or the D field): horizon -coef, shadow
-            coef * (-1 - S * dmdz) (pallas_sweep.py:1871, 1901)."""
-            if dm is None:
-                return -coef
-            return coef * (-1.0 - (s if isinstance(s, torch.Tensor)
-                                   else float(s)) * dm)
-
-        def scatter0(coef, s):
-            """Adjoint of the bilinear level-0 read at distance s."""
-            dif, djf = s * sh_i, s * sh_j
-            di, dj = np.floor(dif), np.floor(djf)
-            fi, fj = dif - di, djf - dj
-            r = off0 + int(di) + pad0
-            c = off1 + int(dj) + pad0
-            for ci, wi in ((0, f32(1.0) - fi), (1, fi)):
-                for cj, wj in ((0, f32(1.0) - fj), (1, fj)):
-                    cots[0][r + ci:r + ci + in0, c + cj:c + cj + in1] += (
-                        coef * float(wi) * float(wj))
+            """A point winner's coefficient at distance s from ``where(
+            winner, g, 0)``: horizon g / s, shadow g."""
+            return coef if bare else coef * float(f32(1.0) / s)
 
         def quad_coef(m):
             """g / D (shadow: g) of the parabola winners 2m+1 (D > 1e-3),
             else 0."""
             ok = (idv == 2 * m + 1) & (ax > 1e-3)
-            if dm is not None:
+            if bare:
                 return torch.where(ok, g, 0.0)
             inv_d = torch.where(ok, 1.0 / torch.where(ok, ax, 1.0), 0.0)
             return torch.where(ok, g, 0.0) * inv_d
-
-        def envelope(kind, qt):
-            qt2 = qt * qt
-            if kind == 0:
-                return 2.0 * qt2 - 3.0 * qt + 1.0
-            if kind == 1:
-                return 4.0 * qt - 4.0 * qt2
-            return 2.0 * qt2 - qt
 
         # d2 near field (pallas_sweep.py:1864-1936)
         for m in range(nx):
             s = f32(m + 1) * step
             pm = idv == 2 * m
             if bool(pm.any()):
-                coef = per_s(torch.where(pm, g, 0.0), s)
-                scatter0(coef, s)
-                zc += z_term(coef, s)
+                yield 0, (s, sh_i, sh_j), per_s(torch.where(pm, g, 0.0), s)
             if bool((idv == 2 * m + 1).any()):
                 gq = quad_coef(m)
-                zc += z_term(gq, ax)
                 s0 = f32(m) * step
                 qt = float(k["inv_l0"]) * (ax - float(s0))
                 for kind, sk in enumerate((s0, s0 + k["half_step"],
                                            s0 + step)):
-                    scatter0(gq * envelope(kind, qt), sk)
+                    yield 0, (sk, sh_i, sh_j), gq * _envelope(kind, qt)
 
         # d1 mid field, merged per position q (pallas_sweep.py:1944-2005)
         for q in range(max(nx - 2, 0), n_dense):
@@ -253,18 +332,13 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, shifts=None,
             if not bool(hit.any()):
                 continue
             coef = per_s(torch.where((idv == 2 * q) & (q >= nx), g, 0.0), s)
-            zc += z_term(coef, s)
             for off in range(3):
                 mm = q + off
-                if not nx + 1 <= mm < n_dense:
-                    continue
-                gq = quad_coef(mm)
-                s0 = f32(mm - 1) * step
-                qt = float(k["inv_l1"]) * (ax - float(s0))
-                coef = coef + gq * envelope(2 - off, qt)
-                if off == 0:
-                    zc += z_term(gq, ax)
-            scatter0(coef, s)
+                if nx + 1 <= mm < n_dense:
+                    s0 = f32(mm - 1) * step
+                    qt = float(k["inv_l1"]) * (ax - float(s0))
+                    coef = coef + quad_coef(mm) * _envelope(2 - off, qt)
+            yield 0, (s, sh_i, sh_j), coef
 
         # mip phases: g / s (shadow: g) on the coarse cell
         # (pallas_sweep.py:2024-2038, 2080-2083)
@@ -275,16 +349,132 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, shifts=None,
                 if not bool(pm.any()):
                     continue
                 s = _mip_s(s_first, step_l, m, k["dist"])
-                coef = per_s(torch.where(pm, g, 0.0), s)
-                zc += z_term(coef, s)
                 ri = int(np.rint(s * sh_i))
                 rj = int(np.rint(s * sh_j))
                 r = torch.div(rows + ri, kp, rounding_mode="floor") + pads[lvl]
                 c = torch.div(cols + rj, kp, rounding_mode="floor") + pads[lvl]
-                cots[lvl].index_put_((r[:, None], c[None, :]), coef,
-                                     accumulate=True)
-        zcot += zc
-    return cots, zcot
+                yield lvl, (r[:, None], c[None, :]), per_s(
+                    torch.where(pm, g, 0.0), s)
+
+
+def spread(plan, lvl, place, coef):
+    """The terms of one coefficient field: yields ``(index, term)`` into
+    level ``lvl``'s padded array.  A level-0 sample's four bilinear
+    corners, each a slice of the level, ``coef * w_i * w_j``
+    (``pallas_sweep.py:1841-1844``); a mip sample, the coefficient itself
+    at its index tensors."""
+    if lvl:
+        yield place, coef
+        return
+    f32 = np.float32
+    s, sh_i, sh_j = place
+    in0, in1 = plan["inner_shape"]
+    off0, off1 = plan["offset"]
+    pad0 = plan["pads"][0]
+    dif, djf = s * sh_i, s * sh_j
+    di, dj = np.floor(dif), np.floor(djf)
+    fi, fj = dif - di, djf - dj
+    r = off0 + int(di) + pad0
+    c = off1 + int(dj) + pad0
+    for ci, wi in ((0, f32(1.0) - fi), (1, fi)):
+        for cj, wj in ((0, f32(1.0) - fj), (1, fj)):
+            yield ((slice(r + ci, r + ci + in0), slice(c + cj, c + cj + in1)),
+                   coef * float(wi) * float(wj))
+
+
+def add_at(acc, index, val):
+    """``acc[index] += val`` for a slice index (level 0) or with
+    ``index_put_(accumulate=True)`` for index tensors (mip levels)."""
+    if isinstance(index[0], slice):
+        acc[index] += val
+    else:
+        acc.index_put_(index, val, accumulate=True)
+
+
+def _zorg_plain(graw, ids, aux, plan, dmdz):
+    """The z_org cotangent: each cell's winner's term at S (a point's s, a
+    parabola's D, a mip sample's s), horizon ``-(g * (1 / S))``, shadow
+    ``g * (-1 - S * dmdz)``, summed over the rows in order
+    (``pallas_sweep.py:1871-1877, 1901-1915, 1974, 2087``)."""
+    k = plan["consts"]
+    nx, n_dense = plan["nx"], plan["n_dense"]
+    zcot = torch.zeros(tuple(graw.shape[1:]), dtype=torch.float32,
+                       device=graw.device)
+    tables = [(id_off, n_m, torch.from_numpy(np.asarray(_mip_s(
+        s_first, step_l, np.arange(n_m), k["dist"]), dtype=np.float32)).to(
+            graw.device)) for _, n_m, s_first, step_l, id_off in
+        _mip_phases(plan)]
+    for az in range(graw.shape[0]):
+        g, idv, ax = graw[az], ids[az], aux[az]
+        m = idv >> 1
+        dense = idv < 2 * n_dense
+        point = dense & (idv % 2 == 0)
+        # the d1 gate drops the parabola at m == nx
+        valid = point | (dense & (idv % 2 == 1) & (m != nx) & (ax > 1e-3))
+        s = torch.where(point, (m + 1).to(torch.float32) * float(k["step"]),
+                        ax)
+        for id_off, n_m, table in tables:
+            sel = (idv >= id_off) & (idv < id_off + n_m)
+            if bool(sel.any()):
+                s = torch.where(sel, table[(idv - id_off).clamp(0, n_m - 1)
+                                           .long()], s)
+                valid = valid | sel
+        if dmdz is None:
+            term = -(g * (1.0 / s))
+        else:
+            term = g * (-1.0 - s * dmdz[az])
+        zcot += torch.where(valid, term, 0.0)
+    return zcot
+
+
+def backward_replay_plain(z_shape, graw, ids, aux, plan, shifts=None,
+                          shadow=None):
+    """Winner replay in plain torch: per row and sample, the winners'
+    coefficients as (in0, in1) fields (:func:`replay_coefficients`), their
+    terms (:func:`spread`) rounded to the level's fixed-point grid and
+    added as int64 into shifted slices of level 0 (bilinear corners) or,
+    on mip levels, with ``index_put_(accumulate=True)``; a first pass over
+    the same fields finds each level's largest |coefficient|, which fixes
+    the grid (:func:`level_scales`).
+
+    ``graw``/``aux`` (A, in0, in1) float32, ``ids`` (A, in0, in1) int32 on
+    one device; ``plan`` from :func:`fused_sweep.plan_sweep` (its
+    ``consts`` are the float32 scalars the forward used).  The mode, as
+    :func:`backward_replay` takes it: ``shifts`` the (A, 2) float32 host
+    table of (sh_i, sh_j) of the horizon azimuths, or ``shadow = (sun_table,
+    z_org, grid_origin)``, with bare coefficients and the z_org term ``g *
+    (-1 - S * dmdz)`` (:func:`shadow_dmdz`).  A level with a non-finite
+    coefficient is NaN over its target box.  Returns ``(level_cots,
+    zcot)``."""
+    global LAST_LEVELS
+    shifts = _row_shifts(shifts, shadow)
+    shapes = padded_level_shapes(z_shape, plan["pads"])
+    fixed = fixed_point_levels(plan, shifts.shape[0], len(shapes))
+    dev = graw.device
+
+    def fields():
+        return replay_coefficients(graw, ids, aux, plan, shifts,
+                                   shadow is not None)
+
+    maxima = torch.zeros(len(shapes), dtype=torch.float32, device=dev)
+    for lvl, _, coef in fields():
+        maxima[lvl] = torch.maximum(maxima[lvl], coef.abs().amax())
+    scales = level_scales(maxima.tolist(), fixed)
+    accs = [[torch.zeros(shape, dtype=torch.int64, device=dev)
+             for _ in range(words)] for shape, (_, words) in zip(shapes, fixed)]
+    for lvl, place, coef in fields():
+        for index, term in spread(plan, lvl, place, coef):
+            for acc, q in zip(accs[lvl], quantize(term, *scales[lvl])):
+                add_at(acc, index, q)
+    cots = [dequantize(acc, *scale) for acc, scale in zip(accs, scales)]
+    for cot, m, (r0, r1, c0, c1) in zip(cots, maxima.tolist(),
+                                        _target_boxes(z_shape, plan, shifts)):
+        if not math.isfinite(m):
+            cot[r0:r1, c0:c1] = math.nan
+    LAST_LEVELS = (fixed, maxima)
+    dmdz = None if shadow is None else shadow_dmdz(shadow[1], shadow[0],
+                                                   plan, shadow[2])
+    return cots, _zorg_plain(graw, ids, aux, plan, dmdz)
 
 
 # ---------------------------------------------------------------------------
@@ -297,15 +487,18 @@ class _BwdParams(ctypes.Structure):
         [("ids", ctypes.c_void_p), ("g", ctypes.c_void_p),
          ("aux", ctypes.c_void_p), ("shift", ctypes.c_void_p),
          ("sun", ctypes.c_void_p), ("z_org", ctypes.c_void_p),
-         ("zcot", ctypes.c_void_p), ("cot", ctypes.c_void_p * _MAX_LEVELS)]
+         ("zcot", ctypes.c_void_p), ("acc", ctypes.c_void_p),
+         ("lvl_max", ctypes.c_void_p), ("cot", ctypes.c_void_p * _MAX_LEVELS),
+         ("acc_off", ctypes.c_longlong * _MAX_LEVELS)]
         + [(n, ctypes.c_int * _MAX_LEVELS)
            for n in ("lvl_w", "lvl_pad", "box_r0", "box_r1", "box_c0",
-                     "box_c1", "ph_lvl", "ph_n")]
+                     "box_c1", "cell_off", "lvl_cbits", "lvl_words", "ph_lvl",
+                     "ph_n")]
         + [(n, ctypes.c_float * _MAX_LEVELS)
            for n in ("ph_s_first", "ph_step")]
         + [(n, ctypes.c_int)
            for n in ("n_phases", "in0", "in1", "a_num", "off0", "off1", "nx",
-                     "n_dense")]
+                     "n_dense", "n_cells")]
         + [(n, ctypes.c_float)
            for n in ("dx", "dy", "step", "dist", "half_step", "inv_l0",
                      "inv_l1", "x0", "y0")])
@@ -380,12 +573,20 @@ def _target_boxes(z_shape, plan, shifts):
     return boxes
 
 
+def _table_to(table, dev):
+    """A small float32 host table on the card, staged in pinned memory and
+    copied without waiting for the stream (a copy from pageable memory
+    would make the host wait for the kernels already queued)."""
+    return torch.from_numpy(np.ascontiguousarray(table, dtype=np.float32)) \
+        .pin_memory().to(dev, non_blocking=True)
+
+
 def _bwd_cuda(z_shape, graw, ids, aux, plan, shifts=None, shadow=None):
     """``(level_cots, zcot)`` from kernel K3 on ``graw``'s card (the mode
     given by ``shifts``); with ``shadow = (sun_table, z_org, grid_origin)``
     from kernel K4, which also reads the (T, 8) table and the (in0, in1)
     ray origins."""
-    global KERNEL_LAUNCHES, SHADOW_KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, SHADOW_KERNEL_LAUNCHES, LAST_LEVELS
     dev = graw.device
     in0, in1 = plan["inner_shape"]
     shifts = _row_shifts(shifts, shadow)
@@ -409,25 +610,39 @@ def _bwd_cuda(z_shape, graw, ids, aux, plan, shifts=None, shadow=None):
     shapes = padded_level_shapes(z_shape, plan["pads"])
     if len(shapes) > _MAX_LEVELS or len(phases) > _MAX_LEVELS:
         raise ValueError(f"at most {_MAX_LEVELS} pyramid levels")
+    fixed = fixed_point_levels(plan, a_num, len(shapes))
+    boxes = _target_boxes(z_shape, plan, shifts)
+    cells = [(r1 - r0) * (c1 - c0) for r0, r1, c0, c1 in boxes]
+    words = [n * w for n, (_, w) in zip(cells, fixed)]
     cots = [torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes]
     zcot = torch.empty((in0, in1), dtype=torch.float32, device=dev)
-    shift_t = torch.from_numpy(shifts).to(dev)
+    # the fixed-point accumulators of every level's box, one after another,
+    # and the bits of each level's largest |coefficient|
+    acc = torch.zeros(max(sum(words), 1), dtype=torch.int64, device=dev)
+    lvl_max = torch.zeros(_MAX_LEVELS, dtype=torch.int32, device=dev)
+    shift_t = _table_to(shifts, dev)
     prm = _BwdParams()
     prm.ids, prm.g, prm.aux = ids.data_ptr(), graw.data_ptr(), aux.data_ptr()
     prm.shift, prm.zcot = shift_t.data_ptr(), zcot.data_ptr()
+    prm.acc, prm.lvl_max = acc.data_ptr(), lvl_max.data_ptr()
     if shadow is not None:
-        sun_t = torch.from_numpy(
-            np.ascontiguousarray(table, dtype=np.float32)).to(dev)
+        sun_t = _table_to(table, dev)
         prm.sun, prm.z_org = sun_t.data_ptr(), z_org.data_ptr()
         prm.x0, prm.y0 = np.float32(grid_origin[0]), np.float32(
             grid_origin[1])
-    boxes = _target_boxes(z_shape, plan, shifts)
-    for lvl, (t, box) in enumerate(zip(cots, boxes)):
+    cell_off = np.cumsum([0] + cells)
+    acc_off = np.cumsum([0] + words)
+    for lvl, (t, box, (c_bits, n_words)) in enumerate(zip(cots, boxes,
+                                                          fixed)):
         prm.cot[lvl] = t.data_ptr()
         prm.lvl_w[lvl] = t.shape[1]
         prm.lvl_pad[lvl] = plan["pads"][lvl]
         (prm.box_r0[lvl], prm.box_r1[lvl], prm.box_c0[lvl],
          prm.box_c1[lvl]) = box
+        prm.cell_off[lvl] = int(cell_off[lvl])
+        prm.acc_off[lvl] = int(acc_off[lvl])
+        prm.lvl_cbits[lvl], prm.lvl_words[lvl] = c_bits, n_words
+    prm.n_cells = int(cell_off[-1])
     for p, (lvl, n_m, s_first, step_l) in enumerate(phases):
         prm.ph_lvl[p], prm.ph_n[p] = lvl, n_m
         prm.ph_s_first[p], prm.ph_step[p] = s_first, step_l
@@ -450,6 +665,7 @@ def _bwd_cuda(z_shape, graw, ids, aux, plan, shifts=None, shadow=None):
         KERNEL_LAUNCHES += 1
     else:
         SHADOW_KERNEL_LAUNCHES += 1
+    LAST_LEVELS = (fixed, lvl_max[:len(shapes)].view(torch.float32))
     return cots, zcot
 
 
