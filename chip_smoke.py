@@ -98,6 +98,10 @@ K. multires: on two small scenes K1, K1-argmax and K3 over the combined
    library: its launches are those of its own entry, the timing run of
    phase J.
 
+Phases 4, 6, H, I and K also launch K1 (or K1-argmax) once with its
+counters set and print the share of samples its value-exact skips passed
+over, per section, beside the full schedule's bound (``skip_report``).
+
 TF32 is switched off for matmuls and cuDNN, so nothing here runs in
 reduced precision.  Imports nothing of JAX.
 """
@@ -410,9 +414,10 @@ def sweep_bound(sargs, shadow, argmax):
     from csrc/horizon_sweep.cu: 18 per bilinear read, 4 per point
     candidate, 37 (K1) or 28 (K2) per parabola with its coefficients, 11
     per mip sample, 15 for K2's ray slope, 1 for the argmax's emit divide
-    and 4 for the tilt ramp.  The sweep has no data-dependent skips, so
-    every sample of every swept cell is counted: with a mask the unmasked
-    cells; every output is written (the masked ones by the pre-fill)."""
+    and 4 for the tilt ramp.  Every sample of the full schedule is counted
+    for every swept cell (with a mask the unmasked cells), whatever K1's
+    value-exact skips pass over (:func:`skip_report` prints the share they
+    take); every output is written (the masked ones by the pre-fill)."""
     z_org, z_inner, levels, table, plan, _ = sargs[:6]
     ramp, mask = (tuple(sargs[6:8]) + (None, None))[:2]
     nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
@@ -431,6 +436,32 @@ def sweep_bound(sargs, shadow, argmax):
     if mask is not None:
         moved += tensor_bytes(mask)
     return bound(moved, table.shape[0] * swept * per_cell)
+
+
+def skip_report(what, sargs, argmax, bnd, ms, card):
+    """One launch of K1 (``argmax``: K1-argmax) on ``sargs`` with its
+    counters set: print the share of samples its value-exact skips passed
+    over, per section, and its time beside the full schedule's bound and
+    that bound scaled to the samples taken.  Returns the share taken."""
+    plan, mask = sargs[4], (tuple(sargs[6:8]) + (None, None))[1]
+    counters = torch.zeros(len(fused_sweep.COUNTER_FIELDS),
+                           dtype=torch.int64, device=sargs[0].device)
+    fused_sweep._ratio_cuda(*sargs, emit_argmax=argmax, counters=counters)
+    d1_t, d1_s, mip_t, mip_s = counters.tolist()
+    swept = sargs[0].numel() if mask is None else int((mask != 0).sum())
+    n_mip = sum(ph[1] for ph in plan["phases_meta"][1:])
+    per_cell = 2 * plan["nx"] + (plan["n_dense"] - plan["nx"]) + n_mip
+    total = swept * sargs[3].shape[0] * per_cell
+    taken = 1.0 - (d1_s + mip_s) / total
+    print(f"  {what} skips (its counters): safe d1 pairs "
+          f"{d1_s / max(d1_t + d1_s, 1):.4f} of {d1_t + d1_s} samples "
+          f"skipped, mip {mip_s / max(mip_t + mip_s, 1):.4f} of "
+          f"{mip_t + mip_s}; {taken:.4f} of all {total} samples taken")
+    print(f"  {what}: {ms:.3f} ms against the full schedule's bound "
+          f"{bnd[0]:.3f} ms ({bnd[1]}); the samples taken alone would bound "
+          f"it at {taken * bnd[0]:.3f} ms; its time is "
+          f"{ms / (taken * bnd[0]):.2f}x that  [{card}]")
+    return taken
 
 
 def replay_bound(g, ids, aux, plan, cots, zcot, shadow):
@@ -763,6 +794,7 @@ def phase_h(dev, zt, x, y, halo, azim_num, dist_km, k1_ms, card, runs):
     bnd = sweep_bound(mvargs, shadow=False, argmax=False)
     print(f"  K1-mask on the island: plain version {plain_ms:.1f} ms; "
           f"bound {bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
+    skip_report("K1-mask (island)", mvargs, False, bnd, mask_ms, card)
     return launches, err, mask_ms, plain_ms, bnd
 
 
@@ -883,6 +915,7 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
           f"[{svf.min().item():.4f}, {svf.max().item():.4f}]  [{card}]")
     print(f"  K1-tilt: plain version {plain_ms:.1f} ms; bound "
           f"{bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
+    skip_report("K1-tilt", targs, False, bnd, tilt_ms, card)
     return launches, err, tilt_ms, plain_ms, bnd
 
 
@@ -1201,6 +1234,7 @@ def phase_k(dev, card):
           f"[{card}]")
     check(torch.equal(fused_sweep._angles(raw.clone(), -15.0, 89.98), hori),
           "the entry's angles are K1's on the combined pyramid")
+    skip_report("K1 (multires)", sargs, False, k1_bound, k1_ms, card)
     # a 128^2 crop, every sixth azimuth: K1's full run, then K1-argmax and
     # K3 launched on the crop, each against its plain version over this
     # pyramid (level 0 beyond L2, eight combined levels)
@@ -1292,6 +1326,8 @@ def phase_k(dev, card):
     k3_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs), 3)
     print(f"  at this shape alone: K1-argmax {am_ms:.3f} ms, K3 {k3_ms:.3f} "
           f"ms  [{card}]")
+    skip_report("K1-argmax (multires)", sargs, True,
+                sweep_bound(sargs, shadow=False, argmax=True), am_ms, card)
     print_levels("2 m cell")
     del am, g, bargs, sargs, crop, zf, zc
     mr_am_err, mr_bwd_err = am_err, bwd_err
@@ -1449,6 +1485,7 @@ def main():
     print(f"  K1 alone: {k1_ms:.3f} ms; plain torch sweep: {plain_ms:.1f} ms "
           f"({samples} samples per (cell, azimuth)); bound {k1_bound[0]:.3f}"
           f" ms ({k1_bound[1]})  [{card}]")
+    skip_report("K1", args, False, k1_bound, k1_ms, card)
 
     print("== 5. K1-argmax and K3 against their plain versions on the card")
     am_err = bwd_err = 0.0
@@ -1583,6 +1620,7 @@ def main():
     print(f"  K1-argmax alone: {am_ms:.3f} ms; plain argmax sweep: "
           f"{am_plain_ms:.1f} ms; bound {am_bound[0]:.3f} ms "
           f"({am_bound[1]})  [{card}]")
+    skip_report("K1-argmax", sargs, True, am_bound, am_ms, card)
     print(f"  K3 alone: {k3_ms:.3f} ms; plain backward: {k3_plain_ms:.1f} ms;"
           f" bound {k3_bound[0]:.4f} ms ({k3_bound[1]})  [{card}]")
     del p_cots, p_zcot, cots, zcot, k_runs, graw, raw, ids, aux, grads

@@ -43,12 +43,13 @@
 //     (block row, block column) pairs of 32 x 8 cells).  The launch covers
 //     the compacted list of blocks that hold an unmasked cell, the
 //     reference's compacted tile map (tile_schedule, :1130-1148) at this
-//     kernel's block.  A masked cell does no sweep: its thread writes what
-//     the reference's mask-aware init (+3e38, :627-638) leaves there, the
-//     raw value 3e38 and, in the argmax variant, ID_NONE with D = 1 / 1.
-//     Blocks that are not launched hold the same values, written by the
-//     wrapper before the launch.  Unmasked cells compute exactly what the
-//     unmasked kernel computes: there are no skips to feel the mask.
+//     kernel's block.  A masked cell's thread writes what the reference's
+//     mask-aware init (+3e38, :627-638) leaves there, the raw value 3e38
+//     and, in the argmax variant, ID_NONE with D = 1 / 1; its sweep, if its
+//     warp runs one, only votes in the skips.  Blocks that are not launched
+//     hold the same values, written by the wrapper before the launch.
+//     Unmasked cells compute exactly what the unmasked kernel computes: the
+//     skips are value-exact.
 //
 // Four entry points, one template <ARGMAX, SHADOW>: horizon_sweep_launch
 // (K1), horizon_sweep_argmax_launch (the forward of the gradient path, the
@@ -69,28 +70,66 @@
 //
 // Design: one thread per (cell, azimuth or sun); a block is 32 x 8 cells of
 // one azimuth or sun, the grid (column blocks, row blocks, azimuths or
-// suns), or with a mask (live blocks, 1, azimuths).  For a given (azimuth, step) the sample shift is the same for every
-// cell (and for a given (sun, step) too: K2's shifts are per sun), so a warp
-// along a row reads consecutive floats and its loads coalesce.  The padded
-// levels are read straight from global memory through L2 with __ldg (at the
-// 2048^2 bench grid the three levels take about 38 MB, inside the 50 MB L2;
-// K2's six levels at its bench row about 41 MB).  The kernel is bound by that
-// L2 load traffic: about 4 loads per bilinear sample and 446 samples per
-// (cell, azimuth) at the bench shape (K2: 658 per (cell, sun), 412 of them
-// single-load mip reads).  There is no
-// shared-memory staging and none of the reference's value-exact early exits
-// (directional pooled bounds, chunk and phase skips); staging strips along
-// the ray and the skips are later work.
+// suns), or with a mask (live blocks, 1, azimuths).  A warp is therefore 32
+// consecutive columns of one row under one azimuth: for a given (azimuth,
+// step) the sample shift is the same for all of them (K2's shifts are per
+// sun), so the warp reads consecutive floats and every row index it forms is
+// the same in all lanes.  The padded levels are read straight from global
+// memory through L2 with __ldg (at the 2048^2 bench grid the three levels
+// take about 38 MB, inside the 50 MB L2).
 //
-// Numerics follow the reference operation by operation so results agree to
-// a few float32 ulp: build with --fmad=false (no contraction of a*b+c) and
-// never with --use_fast_math.  Trig comes from the host float32 table; there
-// is no sinf/cosf here, because a 1-ulp shift across a rounding boundary of a
-// mip index reads a neighbouring max-pooled block.  For the same reason K2
-// takes its shifts from columns 5-6 of the sun table (ky_u/dy and kx_u/dx
-// formed in double on the host), not from a division in the kernel, and its
-// vertex-window constants 2(t_lo + 1e-3) and 2(length - 1e-3) come rounded
-// from double, as JAX rounds the reference's Python floats.
+// What bounds it: instruction issue, not L2 or load latency (the read
+// floor, csrc/read_floor.cu, runs the same reads no faster from shared
+// memory or aligned).  So the design cuts instructions per sample and the
+// samples themselves:
+//   * a per-launch step table (s, 1/s) of every sample distance, in the
+//     schedule's order, built on the host in float32 exactly as the loop
+//     forms the distances (fused_sweep.step_table) and staged in shared
+//     memory: a point candidate is (h - z_org) * inv_s with inv_s the
+//     correctly rounded reciprocal the reference multiplies by, read with a
+//     broadcast load in place of an IEEE divide per candidate;
+//   * mip indices by an arithmetic shift, (a + round(s*sh)) >> lvl: a
+//     floor division, bit-identical to the reference's biased truncating
+//     division wherever that one is a floor;
+//   * 32-bit offsets from per-level base pointers (the host refuses a level
+//     of 2^31 elements or more);
+//   * K1 only: the reference's value-exact skips, decided per warp.  The
+//     safe d1 pairs run in chunks of 16 pairs (32 samples) and the mip
+//     phases in chunks of 32 samples, with one check per phase before its
+//     chunks.  For a chunk each lane takes one sample (a phase: every 32nd)
+//     and forms the exact level cells the warp's 32 cells read there: one
+//     row (two for a bilinear read) and a run of columns.  It takes the
+//     maximum D of the 8 x 8 pooled companion (fused_sweep.pool8) over them,
+//     the warp reduces D with __shfl_xor_sync, and each lane bounds its own
+//     candidates: mip (D - z_org) * inv_s at the chunk's first or, for a
+//     negative numerator, last reciprocal, which float rounding cannot
+//     exceed (it is monotone); d1 the parabola's overshoot
+//     D + 0.125 (D - lo) with lo the minimum of the same cells in a
+//     min-pooled level 0, over the distance of the sample before the
+//     chunk, plus a slack for the rounding of the parabola's stationary
+//     value.  The warp skips when
+//     every lane's bound is at most its running value (__all_sync); the
+//     update is strict, so no skipped candidate could have changed a value,
+//     a winner id or D.  A skipped d1 chunk re-reads its last sample into h1
+//     at the distance the loop forms (the table's), so skipping never moves
+//     a value.  Lanes with no swept cell (masked, or past in1) run on a
+//     clamped cell with a running value of +3e38 and always vote to skip;
+//     a warp without a swept cell returns at once.  K2 takes no skips.
+//
+// With params->counters set, each warp adds the (cell, row) samples it took
+// and skipped in the safe d1 pairs and in the mip phases (four unsigned
+// 64-bit counters); null on every library path.
+//
+// Numerics follow the reference operation by operation so results agree
+// bit for bit with the plain version: build with --fmad=false (no
+// contraction of a*b+c) and never with --use_fast_math.  Trig comes from the
+// host float32 table; there is no sinf/cosf here, because a 1-ulp shift
+// across a rounding boundary of a mip index reads a neighbouring max-pooled
+// block.  For the same reason K2 takes its shifts from columns 5-6 of the
+// sun table (ky_u/dy and kx_u/dx formed in double on the host), not from a
+// division in the kernel, and its vertex-window constants 2(t_lo + 1e-3) and
+// 2(length - 1e-3) come rounded from double, as JAX rounds the reference's
+// Python floats.
 
 #include <cuda_runtime.h>
 
@@ -129,6 +168,15 @@ struct HzParams {
   const unsigned char* mask;        // (in0, in1) nonzero = swept, or null
   const int* blocks;                // (n_blocks, 2) live blocks, or null
   int n_blocks;
+  // Appended for the redesign (fields are only ever appended).
+  const float2* steps;              // (n_steps) (s, 1/s): dense steps, then
+                                    // the mip phases' samples in order
+  const float* pool[HZ_MAX_LEVELS];  // 8x8 max-pool of each padded level,
+                                     // or null: no skips (K2)
+  int pool_w[HZ_MAX_LEVELS];        // row stride of each pooled level
+  const float* pool_min0;           // 8x8 min-pool of padded level 0
+  unsigned long long* counters;     // 4 sample counters, or null
+  int n_steps;
 };
 
 namespace {
@@ -142,6 +190,17 @@ constexpr int kBlockCols = 32;
 constexpr int kBlockRows = 8;
 // No-winner id (pallas_sweep.py:44): larger than every candidate id.
 constexpr int kIdNone = 1 << 30;
+constexpr unsigned kFull = 0xffffffffu;
+// Skip grain: d1 pairs per chunk (32 samples) and mip samples per chunk,
+// one sample a lane (fused_sweep.D1_CHUNK_PAIRS, MIP_CHUNK).
+constexpr int kD1ChunkPairs = 16;
+constexpr int kMipChunk = 32;
+// Slack of the d1 bound (fused_sweep._D1_SLACK, _D1_REL): 2^-18 of the
+// parabola's term magnitudes and 2^-20 of the pooled maximum.
+constexpr float kD1Slack = 3.814697265625e-06f;
+constexpr float kD1Rel = 9.5367431640625e-07f;
+// Counter slots: safe d1 samples taken, skipped; mip samples taken, skipped.
+enum { kD1Taken = 0, kD1Skipped = 1, kMipTaken = 2, kMipSkipped = 3 };
 
 // Running value of one (cell, azimuth).  The plain variant keeps the
 // maximum.  The argmax variant (pallas_sweep.py:481-496, 632-638) also keeps
@@ -193,6 +252,17 @@ struct Cell {
   float m;          // ray slope toward the sun (K2)
 };
 
+// What the skips need of the warp: the outer columns of its first and last
+// cell, whether this lane holds no swept cell, the lane, the step table,
+// the lowest ray origin of its cells.
+struct Warp {
+  int b0, b1;
+  bool dead;
+  int lane;
+  const float2* tab;
+  float z_min;
+};
+
 // Bilinear level-0 read at distance s (pallas_sweep.py:388-402).
 __device__ __forceinline__ float read0(const Cell& c, float s, int* di_out,
                                        int* dj_out) {
@@ -204,7 +274,7 @@ __device__ __forceinline__ float read0(const Cell& c, float s, int* di_out,
   const float fj = djf - dj;
   const int idi = (int)di;
   const int idj = (int)dj;
-  const float* p = c.l0 + (long long)idi * c.w0 + idj;
+  const float* p = c.l0 + (idi * c.w0 + idj);
   const float v00 = __ldg(p);
   const float v01 = __ldg(p + 1);
   const float v10 = __ldg(p + c.w0);
@@ -224,15 +294,16 @@ __device__ __forceinline__ bool inside0(const Cell& c, int di, int dj) {
   return (ri >= 0) & (ri + 1 <= c.h - 1) & (cj >= 0) & (cj + 1 <= c.w - 1);
 }
 
-// Point candidate: K1 the ratio (h - z_org) / s, K2 the clearance
-// (h - z_org) - s * m (pallas_sweep.py:486-490).
+// Point candidate at the table entry e = (s, 1/s): K1 the ratio
+// (h - z_org) * (1/s), K2 the clearance (h - z_org) - s * m
+// (pallas_sweep.py:486-490).
 template <bool A, bool S>
 __device__ __forceinline__ void point_update(const Cell& c, Acc<A>& acc,
-                                             float he, float s_end, int cid) {
+                                             float he, float2 e, int cid) {
   if constexpr (S) {
-    acc.point((he - c.z_org) - s_end * c.m, cid);
+    acc.point((he - c.z_org) - e.x * c.m, cid);
   } else {
-    acc.point((he - c.z_org) * (1.0f / s_end), cid);
+    acc.point((he - c.z_org) * e.y, cid);
   }
 }
 
@@ -286,16 +357,17 @@ struct Carry {
 };
 
 // d2 step m: midpoint + endpoint reads (pallas_sweep.py:558-573); ids 2m
-// (point) and 2m+1 (parabola).
+// (point) and 2m+1 (parabola).  Distances from the step table.
 template <bool A, bool S>
 __device__ __forceinline__ void d2_step(const HzParams& p, const Cell& c,
-                                        Carry<A>& k, int m, bool masked) {
-  const float s_end = (float)(m + 1) * p.step;
-  const float s_start = s_end - p.step;
+                                        const float2* tab, Carry<A>& k, int m,
+                                        bool masked) {
+  const float2 e = tab[m];
+  const float s_start = e.x - p.step;
   int dim, djm, die, dje;
-  const float hm = read0(c, s_end - p.half_step, &dim, &djm);
-  const float he = read0(c, s_end, &die, &dje);
-  point_update<A, S>(c, k.acc, he, s_end, 2 * m);
+  const float hm = read0(c, e.x - p.half_step, &dim, &djm);
+  const float he = read0(c, e.x, &die, &dje);
+  point_update<A, S>(c, k.acc, he, e, 2 * m);
   const float a_c = (2.0f * he + 2.0f * k.h1 - 4.0f * hm) * p.inv_l0_sq;
   const float b_c = (4.0f * hm - 3.0f * k.h1 - he) * p.inv_l0;
   bool v_end = true;
@@ -314,19 +386,21 @@ __device__ __forceinline__ void d2_step(const HzParams& p, const Cell& c,
   }
 }
 
-// d1 pair of steps ending at (m+1)*step and (m+1)*step + step; carries only
-// (acc, h1[, v1]) like the reference loop (pallas_sweep.py:586-608).  Ids 2m
-// and 2(m+1) (points), 2(m+1)+1 (parabola).
+// d1 pair of steps m and m+1 (distances s_a and s_a + step, as the table
+// holds them); carries only (acc, h1[, v1]) like the reference loop
+// (pallas_sweep.py:586-608).  Ids 2m and 2(m+1) (points), 2(m+1)+1
+// (parabola).
 template <bool A, bool S>
 __device__ __forceinline__ void d1_pair(const HzParams& p, const Cell& c,
-                                        Carry<A>& k, int m, bool masked) {
-  const float s_a = (float)(m + 1) * p.step;
-  const float s_b = s_a + p.step;
+                                        const float2* tab, Carry<A>& k, int m,
+                                        bool masked) {
+  const float2 ea = tab[m];
+  const float2 eb = tab[m + 1];
   int dia, dja, dib, djb;
-  const float h_a = read0(c, s_a, &dia, &dja);
-  point_update<A, S>(c, k.acc, h_a, s_a, 2 * m);
-  const float h_b = read0(c, s_b, &dib, &djb);
-  point_update<A, S>(c, k.acc, h_b, s_b, 2 * (m + 1));
+  const float h_a = read0(c, ea.x, &dia, &dja);
+  point_update<A, S>(c, k.acc, h_a, ea, 2 * m);
+  const float h_b = read0(c, eb.x, &dib, &djb);
+  point_update<A, S>(c, k.acc, h_b, eb, 2 * (m + 1));
   const float a_c = (2.0f * h_b + 2.0f * k.h1 - 4.0f * h_a) * p.inv_l1_sq;
   const float b_c = (4.0f * h_a - 3.0f * k.h1 - h_b) * p.inv_l1;
   bool extra = true;
@@ -335,7 +409,7 @@ __device__ __forceinline__ void d1_pair(const HzParams& p, const Cell& c,
     v_b = inside0(c, dib, djb);
     extra = k.v1 && inside0(c, dia, dja) && v_b;
   }
-  quad_update<A, S>(c, k.acc, a_c, b_c, k.h1, s_b - p.two_step,
+  quad_update<A, S>(c, k.acc, a_c, b_c, k.h1, eb.x - p.two_step,
                     Win{p.two_step, 0.0f, p.lo2_0, p.hi2_two_step}, extra,
                     2 * (m + 1) + 1);
   k.h1 = h_b;
@@ -346,25 +420,144 @@ __device__ __forceinline__ void d1_pair(const HzParams& p, const Cell& c,
 // (pallas_sweep.py:610-625); ids 2m (point) and 2m+1 (parabola).
 template <bool A, bool S>
 __device__ __forceinline__ void d1_single(const HzParams& p, const Cell& c,
-                                          Carry<A>& k, int m, bool masked) {
-  const float s_end = (float)(m + 1) * p.step;
+                                          const float2* tab, Carry<A>& k,
+                                          int m, bool masked) {
+  const float2 e = tab[m];
   int die, dje;
-  const float he = read0(c, s_end, &die, &dje);
-  point_update<A, S>(c, k.acc, he, s_end, 2 * m);
+  const float he = read0(c, e.x, &die, &dje);
+  point_update<A, S>(c, k.acc, he, e, 2 * m);
   const float a_c = (2.0f * he + 2.0f * k.h2 - 4.0f * k.h1) * p.inv_l1_sq;
   const float b_c = (4.0f * k.h1 - 3.0f * k.h2 - he) * p.inv_l1;
   bool extra = true;
   if (masked) extra = k.v2 && k.v1 && inside0(c, die, dje);
-  quad_update<A, S>(c, k.acc, a_c, b_c, k.h2, s_end - p.two_step,
+  quad_update<A, S>(c, k.acc, a_c, b_c, k.h2, e.x - p.two_step,
                     Win{p.two_step, p.step, p.lo2_step, p.hi2_two_step},
                     extra, 2 * m + 1);
   k.h2 = k.h1;
   k.h1 = he;
 }
 
+// Maximum of the pooled level (stride pw) over the pooled cells that hold
+// padded-level rows [r0, r1] and columns [q0, q1]; with Q (the min-pooled
+// level of the same layout) also their minimum, into *lo.
+__device__ __forceinline__ float pooled_max(const float* P, int pw, int r0,
+                                            int r1, int q0, int q1,
+                                            const float* Q = nullptr,
+                                            float* lo = nullptr) {
+  float d = kNegInit;
+  for (int pr = r0 >> 3; pr <= (r1 >> 3); ++pr) {
+    for (int pq = q0 >> 3; pq <= (q1 >> 3); ++pq) {
+      d = fmaxf(d, __ldg(P + (pr * pw + pq)));
+      if (Q != nullptr) *lo = fminf(*lo, __ldg(Q + (pr * pw + pq)));
+    }
+  }
+  return d;
+}
+
+__device__ __forceinline__ float warp_max(float d) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    d = fmaxf(d, __shfl_xor_sync(kFull, d, off));
+  }
+  return d;
+}
+
+__device__ __forceinline__ float warp_min(float d) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    d = fminf(d, __shfl_xor_sync(kFull, d, off));
+  }
+  return d;
+}
+
+// Skip test of the safe d1 pairs whose samples are table entries
+// [mA, mA + n_s) (n_s <= 32, mA >= 1): lane l forms the level-0 cells the
+// warp's bilinear reads touch at sample mA + l, exactly as read0 forms them.
+// The bound covers every point and parabola candidate of the chunk: heights
+// lie in [lo, D], D the maximum and lo the minimum of the pooled cells (and
+// the lane's own h1, the first parabola's left sample), a parabola through
+// three of them overshoots by at most (D - lo) / 8 (pallas_sweep.py:698-718;
+// the reference takes lo over its whole window), and the stationary ratio
+// lies between the distance of sample mA - 1 and that of the last.  The
+// slack covers the rounding of the stationary value, whose terms grow as
+// (D - lo) (s / step)^2 / s, and of heights as large as |D|, |lo|, |z_org|.
+template <bool A>
+__device__ __forceinline__ bool d1_skip(const HzParams& p, const Cell& c,
+                                        const Warp& wp, const Carry<A>& k,
+                                        int mA, int n_s) {
+  float d = kNegInit;
+  float lo = kPosInit;
+  if (wp.lane < n_s) {
+    const float s = wp.tab[mA + wp.lane].x;
+    const int di = (int)floorf(s * c.sh_i);
+    const int dj = (int)floorf(s * c.sh_j);
+    const int pad = p.lvl_pad[0];
+    const int r = c.a + di + pad;
+    d = pooled_max(p.pool[0], p.pool_w[0], r, r + 1, wp.b0 + dj + pad,
+                   wp.b1 + dj + 1 + pad, p.pool_min0, &lo);
+  }
+  d = fmaxf(warp_max(d), k.h1);
+  const float lol = fminf(warp_min(lo), k.h1);
+  const float dp = d + fabsf(d) * kD1Rel;
+  const float x = (dp + 0.125f * (dp - lol)) - c.z_org;
+  const float2 e_lo = wp.tab[mA - 1];
+  const float2 e_hi = wp.tab[mA + n_s - 1];
+  const float r = e_hi.x * p.inv_l0;
+  const float slack = kD1Slack *
+                      (((dp - lol) * r) * r + fabsf(dp) + fabsf(lol) +
+                       fabsf(c.z_org)) *
+                      e_lo.y;
+  const float bound = x * (x >= 0.0f ? e_lo.y : e_hi.y) + slack;
+  return __all_sync(kFull, wp.dead || bound <= k.acc.v);
+}
+
+// Skip test of the mip samples at table entries [t, t + n) of level lvl
+// (sentinel margin pad; pooled level P of row stride pw):
+// lane l forms the cells of samples t + l, t + l + 32, ...: one level row
+// and the run of columns of the warp's 32 cells.  A mip candidate is
+// (h - z_org) * (1/s) with h <= D, which rounding keeps at or below
+// (D - z_org) * (1/s) at the chunk's largest reciprocal (the first) or, for
+// a negative numerator, its smallest (the last); and at or below
+// (D_k - z_min) * (1/s_k) for its own sample k, D_k that sample's pooled
+// maximum and z_min the warp's lowest origin.  The lane takes the smaller
+// of the two bounds.
+template <bool A>
+__device__ __forceinline__ bool mip_skip(const Cell& c, const Warp& wp,
+                                         const Carry<A>& k, const float* P,
+                                         int pw, int lvl, int pad, int t,
+                                         int n) {
+  float d = kNegInit;
+  float b_k = kNegInit;
+  for (int l = wp.lane; l < n; l += 32) {
+    const float2 e = wp.tab[t + l];
+    const int ri = __float2int_rn(e.x * c.sh_i);
+    const int rj = __float2int_rn(e.x * c.sh_j);
+    const int r = ((c.a + ri) >> lvl) + pad;
+    const float d_k = pooled_max(P, pw, r, r, ((wp.b0 + rj) >> lvl) + pad,
+                                 ((wp.b1 + rj) >> lvl) + pad);
+    d = fmaxf(d, d_k);
+    b_k = fmaxf(b_k, (d_k - wp.z_min) * e.y);
+  }
+  d = warp_max(d);
+  const float x = d - c.z_org;
+  const float bound =
+      fminf(x * (x >= 0.0f ? wp.tab[t].y : wp.tab[t + n - 1].y),
+            warp_max(b_k));
+  return __all_sync(kFull, wp.dead || bound <= k.acc.v);
+}
+
 template <bool ARGMAX, bool SHADOW>
 __global__ void __launch_bounds__(kBlockCols * kBlockRows)
 horizon_sweep_kernel(const HzParams p) {
+  // The step table, once per block, read by every thread with broadcast
+  // loads.
+  extern __shared__ float2 tab[];
+  for (int t = threadIdx.y * kBlockCols + threadIdx.x; t < p.n_steps;
+       t += kBlockCols * kBlockRows) {
+    tab[t] = p.steps[t];
+  }
+  __syncthreads();
+
   // With a mask the grid's x runs over the compacted list of live blocks.
   int bi = blockIdx.y;
   int bj = blockIdx.x;
@@ -372,30 +565,39 @@ horizon_sweep_kernel(const HzParams p) {
     bi = p.blocks[2 * blockIdx.x];
     bj = p.blocks[2 * blockIdx.x + 1];
   }
-  const int j = bj * kBlockCols + threadIdx.x;
   const int i = bi * kBlockRows + threadIdx.y;
   const int az = blockIdx.z;
-  if (i >= p.in0 || j >= p.in1) return;
-  const long long cell = (long long)i * p.in1 + j;
+  // A warp is one row of the block: the whole warp leaves together.
+  if (i >= p.in0) return;
+  const int j = bj * kBlockCols + threadIdx.x;
+  const bool in_cols = j < p.in1;
+  const int cell = i * p.in1 + (in_cols ? j : p.in1 - 1);
   const long long o = (long long)az * p.in0 * p.in1 + cell;
-  if (p.mask != nullptr && p.mask[cell] == 0) {
+  const bool masked = p.mask != nullptr && p.mask[cell] == 0;
+  if (masked && in_cols) {
     p.out[o] = kPosInit;
     if constexpr (ARGMAX) {
       p.ids[o] = kIdNone;
       p.aux[o] = 1.0f;
     }
-    return;
   }
+  Warp wp;
+  wp.dead = masked || !in_cols;
+  if (__all_sync(kFull, wp.dead)) return;
+  wp.lane = threadIdx.x;
+  wp.tab = tab;
+  wp.b0 = p.off1 + bj * kBlockCols;
+  wp.b1 = p.off1 + min(bj * kBlockCols + kBlockCols - 1, p.in1 - 1);
 
   Cell c;
   c.a = p.off0 + i;
-  c.b = p.off1 + j;
+  c.b = p.off1 + (in_cols ? j : p.in1 - 1);
   c.h = p.h;
   c.w = p.w;
   c.w0 = p.lvl_w[0];
-  c.l0 = p.lvl[0] + (long long)(c.a + p.lvl_pad[0]) * c.w0 +
-         (c.b + p.lvl_pad[0]);
+  c.l0 = p.lvl[0] + ((c.a + p.lvl_pad[0]) * c.w0 + (c.b + p.lvl_pad[0]));
   c.z_org = p.z_org[cell];
+  wp.z_min = warp_min(c.z_org);
   const float zi = p.z_inner[cell];
   c.m = 0.0f;
   if constexpr (SHADOW) {
@@ -419,66 +621,109 @@ horizon_sweep_kernel(const HzParams p) {
     c.sh_j = ux / p.dx;
   }
 
+  // A lane without a swept cell starts at the masked init: it never
+  // updates and always votes to skip.
   Carry<ARGMAX> k{Acc<ARGMAX>{}, zi, zi, true, true};
+  if (wp.dead) k.acc.v = kPosInit;
   constexpr bool A = ARGMAX;
   constexpr bool S = SHADOW;
+  // Skips: K1 with its pooled companions (uniform across the launch).
+  const bool skips = !SHADOW && p.pool[0] != nullptr;
+  unsigned cnt[4] = {0u, 0u, 0u, 0u};
 
   // Dense steps, in the reference's sections (pallas_sweep.py:641-757).
-  for (int m = 0; m < p.ns2; ++m) d2_step<A, S>(p, c, k, m, false);
-  for (int m = p.ns2; m < p.nx; ++m) d2_step<A, S>(p, c, k, m, true);
+  for (int m = 0; m < p.ns2; ++m) d2_step<A, S>(p, c, tab, k, m, false);
+  for (int m = p.ns2; m < p.nx; ++m) d2_step<A, S>(p, c, tab, k, m, true);
   if (p.ns1 > p.nx) {
     const int n_pairs = (p.ns1 - p.nx) / 2;
     const bool odd = (p.ns1 - p.nx) % 2;
-    for (int q = 0; q < n_pairs; ++q) {
-      d1_pair<A, S>(p, c, k, p.nx + 2 * q, false);
+    // the safe pairs in chunks (the d1 chunk skip, pallas_sweep.py:666-726)
+    for (int q0 = 0; q0 < n_pairs; q0 += kD1ChunkPairs) {
+      const int q1 = min(q0 + kD1ChunkPairs, n_pairs);
+      const int mA = p.nx + 2 * q0;
+      const int n_s = 2 * (q1 - q0);
+      if (skips && mA >= 1 && d1_skip<A>(p, c, wp, k, mA, n_s)) {
+        // the chunk's last sample, at the distance the pairs form
+        int di, dj;
+        k.h1 = read0(c, tab[mA + n_s - 1].x, &di, &dj);
+        cnt[kD1Skipped] += n_s;
+        continue;
+      }
+      for (int q = q0; q < q1; ++q) {
+        d1_pair<A, S>(p, c, tab, k, p.nx + 2 * q, false);
+      }
+      cnt[kD1Taken] += n_s;
     }
     if (n_pairs > 0 && odd) {
       int di, dj;
       k.h2 = read0(c, p.s_m1_safe, &di, &dj);
     }
-    if (odd) d1_single<A, S>(p, c, k, p.nx + 2 * n_pairs, false);
+    if (odd) d1_single<A, S>(p, c, tab, k, p.nx + 2 * n_pairs, false);
   }
   if (p.n_dense > p.ns1) {
     const int n_pairs = (p.n_dense - p.ns1) / 2;
     const bool odd = (p.n_dense - p.ns1) % 2;
     for (int q = 0; q < n_pairs; ++q) {
-      d1_pair<A, S>(p, c, k, p.ns1 + 2 * q, true);
+      d1_pair<A, S>(p, c, tab, k, p.ns1 + 2 * q, true);
     }
     if (n_pairs > 0 && odd) {
       int di, dj;
       k.h2 = read0(c, p.s_m1_masked, &di, &dj);
       k.v2 = inside0(c, di, dj);
     }
-    if (odd) d1_single<A, S>(p, c, k, p.ns1 + 2 * n_pairs, true);
+    if (odd) d1_single<A, S>(p, c, tab, k, p.ns1 + 2 * n_pairs, true);
   }
 
-  // Mip phases: nearest reads of level `lvl` (pallas_sweep.py:808-857).
-  // Index (a + round(s*sh)) floor-divided by 2^lvl; the positive bias keeps
-  // the truncating division a floor, as the reference's does.  Ids count on
-  // from 2 * n_dense, phase after phase (pallas_sweep.py:776-781).
-  int id_off = 2 * p.n_dense;
+  // Mip phases: nearest reads of level `lvl` (pallas_sweep.py:808-857),
+  // index (a + round(s*sh)) >> lvl, a floor division.  Ids count on from
+  // 2 * n_dense, phase after phase (pallas_sweep.py:776-781), and so do the
+  // table entries.  With skips, one test for the whole phase
+  // (pallas_sweep.py:980-1008), then one per chunk of 32 samples
+  // (:945-972).
+  int t = p.n_dense;
   for (int ph = 1; ph < p.n_phases; ++ph) {
     const int lvl = p.ph_lvl[ph];
-    const int kp = 1 << lvl;
-    const int bias = kp * 16384;
     const int wl = p.lvl_w[lvl];
     const int pad = p.lvl_pad[lvl];
-    const float* L = p.lvl[lvl];
+    const float* L = p.lvl[lvl] + (pad * wl + pad);
     const int n_m = p.ph_n[ph];
-    const float s_first = p.ph_s_first[ph];
-    const float step_l = p.ph_step[ph];
-    for (int m = 0; m < n_m; ++m) {
-      const float s = fminf(s_first + (float)m * step_l, p.dist);
-      const int ri = __float2int_rn(s * c.sh_i);
-      const int rj = __float2int_rn(s * c.sh_j);
-      const int r = (c.a + ri + bias) / kp - bias / kp + pad;
-      const int q = (c.b + rj + bias) / kp - bias / kp + pad;
-      const float hs = __ldg(L + (long long)r * wl + q);
-      point_update<A, S>(c, k.acc, hs, s, id_off + m);
+    const int id0 = 2 * p.n_dense + (t - p.n_dense);
+    if (skips && mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl,
+                             pad, t, n_m)) {
+      cnt[kMipSkipped] += n_m;
+      t += n_m;
+      continue;
     }
-    id_off += n_m;
+    for (int m0 = 0; m0 < n_m; m0 += kMipChunk) {
+      const int n = min(kMipChunk, n_m - m0);
+      if (skips && n < n_m &&
+          mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl, pad,
+                      t + m0, n)) {
+        cnt[kMipSkipped] += n;
+        continue;
+      }
+      for (int m = m0; m < m0 + n; ++m) {
+        const float2 e = tab[t + m];
+        const int r = (c.a + __float2int_rn(e.x * c.sh_i)) >> lvl;
+        const int q = (c.b + __float2int_rn(e.x * c.sh_j)) >> lvl;
+        const float hs = __ldg(L + (r * wl + q));
+        point_update<A, S>(c, k.acc, hs, e, id0 + m);
+      }
+      cnt[kMipTaken] += n;
+    }
+    t += n_m;
   }
 
+  if (p.counters != nullptr) {
+    // the warp's samples, once per swept cell
+    const unsigned live = __popc(__ballot_sync(kFull, !wp.dead));
+    if (wp.lane == 0) {
+      for (int f = 0; f < 4; ++f) {
+        atomicAdd(p.counters + f, (unsigned long long)cnt[f] * live);
+      }
+    }
+  }
+  if (wp.dead) return;
   if constexpr (ARGMAX) {
     // the deferred divide (pallas_sweep.py:1010-1014); 1 / 1 for points
     const float d = k.acc.d;
@@ -508,8 +753,9 @@ int launch(const HzParams* params, int device, void* stream) {
     if (params->n_blocks <= 0) return (int)cudaSuccess;
     grid = dim3(params->n_blocks, 1, params->a_num);
   }
+  const size_t smem = sizeof(float2) * (size_t)params->n_steps;
   horizon_sweep_kernel<ARGMAX, SHADOW>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(*params);
+      <<<grid, block, smem, (cudaStream_t)stream>>>(*params);
   return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,11 @@ halo, mip phases) and round like it: scalar shift arithmetic in float32 from
 the host trig table, constants rounded from double as JAX rounds Python
 floats.  Both have the argmax variant of the gradient path, whose record
 (winner ids, stationary denominators) the winner-replay backward of
-:mod:`horayzon_tpu_torch.ops.replay` replays.  The reference's early exits
-are value-exact and are not ported yet.
+:mod:`horayzon_tpu_torch.ops.replay` replays.  The kernel also takes the
+reference's value-exact early exits (the d1 chunk, mip phase and mip chunk
+skips), decided per warp from the 8 x 8 pooled companions of the levels
+(:func:`skip_inputs`); they never move a value, so the plain version has
+none, and :func:`warp_skip_plain` models them for the tests.
 
 The mask and tilt-ramp variants follow ``_kernel``'s ``has_mask`` and
 ``horizon_tilt`` modes.  A masked cell starts its running value at +3e38
@@ -64,6 +67,16 @@ _MAX_LEVELS = 32
 #: Deepest mip level: the reference's floor-division bias 2^lvl * 16384
 #: must fit int32.
 _MAX_LEVEL_INDEX = 16
+#: Shared memory of the kernel's step table (no opt-in above 48 KB).
+_MAX_STEP_BYTES = 48 * 1024
+#: The skips' grain (kD1ChunkPairs, kMipChunk of csrc/horizon_sweep.cu):
+#: safe d1 pairs per chunk and mip samples per chunk, one sample a lane.
+D1_CHUNK_PAIRS = 16
+MIP_CHUNK = 32
+#: Slack of the d1 bound (kD1Slack, kD1Rel): 2^-18 of the parabola's term
+#: magnitudes, 2^-20 of the pooled maximum.
+_D1_SLACK = np.float32(2.0 ** -18)
+_D1_REL = np.float32(2.0 ** -20)
 
 #: Launches of kernel K1 made by this process (incremented only where the
 #: wrapper launches it).
@@ -76,6 +89,10 @@ ARGMAX_KERNEL_LAUNCHES = 0
 #: whose variant it runs.
 MASK_KERNEL_LAUNCHES = 0
 TILT_KERNEL_LAUNCHES = 0
+#: The counters a launch of K1 adds to when :func:`_ratio_cuda` is given
+#: ``counters`` (the kernel's slots, in order): (cell, azimuth) samples of
+#: swept cells.
+COUNTER_FIELDS = ("d1_taken", "d1_skipped", "mip_taken", "mip_skipped")
 
 
 def plan_sweep(outer_shape, *, inner_shape, offset, dist_search, dx, dy,
@@ -171,6 +188,32 @@ def _constants(plan):
         hi2_two_step=_f32(2.0 * (2.0 * step - 1e-3)))
 
 
+def step_table(plan):
+    """(n, 2) float32 ``(s, 1/s)`` of every sample of the schedule, in the
+    order of the sample ids: the dense steps, then each mip phase's samples.
+    Each distance is formed in float32 as the sweep's loop forms it (no
+    FMA): ``float32(m + 1) * step`` for a d2 step, a d1 single and the first
+    step of a d1 pair, the first step's distance ``+ step`` for the second;
+    ``min(s_first + float32(m) * step_l, dist)`` for a mip sample.  ``1/s``
+    is the correctly rounded reciprocal that the point candidate
+    ``(h - z_org) * (1/s)`` multiplies by.  The kernel stages this table in
+    shared memory (csrc/horizon_sweep.cu)."""
+    f32 = np.float32
+    k = plan["consts"]
+    nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
+    s = np.arange(1, n_dense + 1, dtype=np.int64).astype(f32) * k["step"]
+    for lo, hi in ((nx, ns1), (ns1, n_dense)):
+        if hi > lo:
+            second = np.arange(lo + 1, lo + 2 * ((hi - lo) // 2), 2)
+            s[second] = s[second - 1] + k["step"]
+    parts = [s]
+    for _, n_m, s_first, step_l in plan["phases_meta"][1:]:
+        m = np.arange(n_m, dtype=np.int64).astype(f32)
+        parts.append(np.minimum(f32(s_first) + m * f32(step_l), k["dist"]))
+    s = np.concatenate(parts).astype(f32)
+    return np.stack([s, f32(1.0) / s], axis=-1)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -184,7 +227,7 @@ def _check_rows(what, lo, hi, size):
 
 
 def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
-                emit_argmax=False, init=None):
+                emit_argmax=False, init=None, chunk_hook=None):
     """The loop skeleton of ``pallas_sweep.py::_kernel`` in plain torch,
     shared by the plain versions of K1 (horizon) and K2 (shadow).
 
@@ -206,7 +249,18 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
     winning parabola's stationary denominator D (``pallas_sweep.py:481-496,
     632-638, 1010-1014``).  ``init``: the running value's start, (in0, in1)
     float32 (default -3e38 everywhere; the mask variant passes +3e38 at
-    masked cells)."""
+    masked cells).
+
+    ``chunk_hook``: for tests of K1's skips.  The safe d1 pairs and the mip
+    phases then run in the kernel's chunks, and before each chunk (a mip
+    phase too) ``chunk_hook(ev)`` gets a dict ``ev`` (``kind`` "d1", "mip"
+    or "mip_phase", ``row``, ``sh`` = (sh_i, sh_j), ``first`` and ``n``, the
+    chunk's samples as entries of :func:`step_table`, ``level``, ``acc``
+    the running value and ``h1``) and returns None or an (in0, in1) bool
+    tensor of the cells that skip it: they keep their running record, and
+    after a skipped d1 chunk h1 is re-read at the table's distance of its
+    last sample.  After the chunk it gets ``ev`` again with ``cand_max``,
+    each cell's largest candidate of the chunk."""
     f32 = np.float32
     in0, in1 = plan["inner_shape"]
     off0, off1 = plan["offset"]
@@ -229,9 +283,14 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
         cv = (cols + dj >= 0) & (cols + dj + 1 <= w - 1)
         return rv[:, None] & cv[None, :]
 
+    track = [None]     # the open chunk's largest candidates (chunk_hook)
+    steps = None if chunk_hook is None else step_table(plan)
+
     def update(acc, cand, cid, num=None, den=None):
         """Running max; with argmax also the winner's id and, for a
         parabola candidate, its (g, a) pair."""
+        if track[0] is not None:
+            track[0] = torch.maximum(track[0], cand)
         if not emit_argmax:
             return torch.maximum(acc, cand)
         v, i, n, d = acc
@@ -331,10 +390,44 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
             acc, he, v_end = d2_step(m, acc, h1, True)
             h2, h1, v2, v1 = h1, he, v1, v_end
         nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
+        def chunk(ev, run, acc, h1=None):
+            """``run(acc, h1) -> (acc, h1)`` over one chunk, with the
+            hook's skips applied."""
+            if chunk_hook is None:
+                return run(acc, h1)
+            ev = dict(ev, row=r_idx, sh=(sh_i, sh_j),
+                      acc=acc[0] if emit_argmax else acc, h1=h1)
+            skip = chunk_hook(ev)
+            outer, track[0] = track[0], torch.full_like(z_inner, _NEG_INIT)
+            acc2, h1_2 = run(acc, h1)
+            chunk_hook(dict(ev, cand_max=track[0]))
+            track[0] = (None if outer is None
+                        else torch.maximum(outer, track[0]))
+            if skip is None:
+                return acc2, h1_2
+            if emit_argmax:
+                acc2 = tuple(torch.where(skip, a, b)
+                             for a, b in zip(acc, acc2))
+            else:
+                acc2 = torch.where(skip, acc, acc2)
+            if h1 is not None:
+                last = steps[ev["first"] + ev["n"] - 1, 0]
+                h1_2 = torch.where(skip, read0(last)[0], h1_2)
+            return acc2, h1_2
+
         if ns1 > nx:
             n_pairs = (ns1 - nx) // 2
-            for q in range(n_pairs):
-                acc, h1, _ = d1_pair(nx + 2 * q, acc, h1, False)
+            for q0 in range(0, n_pairs, D1_CHUNK_PAIRS):
+                q1 = min(q0 + D1_CHUNK_PAIRS, n_pairs)
+
+                def pairs(acc, h1, q0=q0, q1=q1):
+                    for q in range(q0, q1):
+                        acc, h1, _ = d1_pair(nx + 2 * q, acc, h1, False)
+                    return acc, h1
+
+                acc, h1 = chunk(dict(kind="d1", first=nx + 2 * q0,
+                                     n=2 * (q1 - q0), level=0), pairs, acc,
+                                h1)
             if n_pairs > 0 and (ns1 - nx) % 2:
                 h2 = read0(k["s_m1_safe"])[0]
             if (ns1 - nx) % 2:
@@ -358,24 +451,47 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
             kp = 2 ** lvl
             bias = kp * 16384
             lvl_t, pad = levels[lvl], pads[lvl]
-            for m in range(n_m):
-                s = np.minimum(f32(s_first) + f32(m) * f32(step_l), k["dist"])
-                ri = int(np.rint(s * sh_i))
-                rj = int(np.rint(s * sh_j))
-                _check_rows(f"a level-{lvl} row",
-                            (off0 + ri + bias) // kp - bias // kp + pad,
-                            (off0 + in0 - 1 + ri + bias) // kp - bias // kp
-                            + pad + 1, lvl_t.shape[0])
-                _check_rows(f"a level-{lvl} column",
-                            (off1 + rj + bias) // kp - bias // kp + pad,
-                            (off1 + in1 - 1 + rj + bias) // kp - bias // kp
-                            + pad + 1, lvl_t.shape[1])
-                r = (torch.div(rows + (ri + bias), kp, rounding_mode="trunc")
-                     - bias // kp + pad)
-                c = (torch.div(cols + (rj + bias), kp, rounding_mode="trunc")
-                     - bias // kp + pad)
-                hs = lvl_t.index_select(0, r).index_select(1, c)
-                acc = point_update(acc, hs, s, id_off + m)
+
+            def samples(acc, m0, m1, lvl=lvl, kp=kp, bias=bias, lvl_t=lvl_t,
+                        pad=pad, s_first=s_first, step_l=step_l,
+                        id_off=id_off):
+                for m in range(m0, m1):
+                    s = np.minimum(f32(s_first) + f32(m) * f32(step_l),
+                                   k["dist"])
+                    ri = int(np.rint(s * sh_i))
+                    rj = int(np.rint(s * sh_j))
+                    _check_rows(f"a level-{lvl} row",
+                                (off0 + ri + bias) // kp - bias // kp + pad,
+                                (off0 + in0 - 1 + ri + bias) // kp
+                                - bias // kp + pad + 1, lvl_t.shape[0])
+                    _check_rows(f"a level-{lvl} column",
+                                (off1 + rj + bias) // kp - bias // kp + pad,
+                                (off1 + in1 - 1 + rj + bias) // kp
+                                - bias // kp + pad + 1, lvl_t.shape[1])
+                    r = (torch.div(rows + (ri + bias), kp,
+                                   rounding_mode="trunc") - bias // kp + pad)
+                    c = (torch.div(cols + (rj + bias), kp,
+                                   rounding_mode="trunc") - bias // kp + pad)
+                    hs = lvl_t.index_select(0, r).index_select(1, c)
+                    acc = point_update(acc, hs, s, id_off + m)
+                return acc
+
+            def phase(acc, _, n_m=n_m, lvl=lvl, samples=samples,
+                      t0=id_off - n_dense):
+                """The phase in chunks of MIP_CHUNK samples."""
+                for m0 in range(0, n_m, MIP_CHUNK):
+                    m1 = min(m0 + MIP_CHUNK, n_m)
+                    if m1 - m0 == n_m:
+                        acc = samples(acc, m0, m1)
+                        continue
+                    acc = chunk(dict(kind="mip", first=t0 + m0, n=m1 - m0,
+                                     level=lvl),
+                                lambda a, _, m0=m0, m1=m1:
+                                (samples(a, m0, m1), None), acc)[0]
+                return acc, None
+
+            acc = chunk(dict(kind="mip_phase", first=id_off - n_dense,
+                             n=n_m, level=lvl), phase, acc)[0]
             id_off += n_m
         if emit_argmax:
             acc, ids[r_idx], num, den = acc
@@ -454,6 +570,92 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
     return (raw,) + res[1:] if emit_argmax else raw
 
 
+def warp_skip_plain(ev, pooled, pool_min0, plan, z_org):
+    """K1's skip test (``d1_skip``, ``mip_skip`` of csrc/horizon_sweep.cu)
+    in plain torch, for every warp of row ``ev["row"]`` at once: the
+    ``chunk_hook`` event ``ev`` of :func:`sweep_plain`, the pooled
+    companions of :func:`skip_inputs`, the ray origins
+    ``z_org``.  Returns ``(bound, skip)``, (in0, in1): each cell's bound on
+    the chunk's candidates, and whether its warp (32 consecutive columns of
+    a row, as the kernel's) skips the chunk.  The same float32 operations as
+    the kernel's, for the tests of the skips; the library never calls it."""
+    f32 = np.float32
+    in0, in1 = plan["inner_shape"]
+    off0, off1 = plan["offset"]
+    dev = z_org.device
+    tab = step_table(plan)
+    first, n, lvl = ev["first"], ev["n"], ev["level"]
+    sh_i, sh_j = ev["sh"]
+    acc = ev["acc"]
+    rows = torch.arange(off0, off0 + in0, device=dev)
+    w0 = torch.arange(0, in1, BLOCK_COLS, device=dev)
+    b0 = off1 + w0
+    b1 = off1 + torch.clamp(w0 + BLOCK_COLS - 1, max=in1 - 1)
+    pad = plan["pads"][lvl]
+    pool_l = pooled[lvl]
+
+    def box_max(r, q0, q1, pool=pool_l, minimum=False):
+        """Max (or min) of the pooled cells over padded rows r (in0,) and
+        columns [q0, q1] (warps,): (in0, warps)."""
+        p0, p1 = q0 >> 3, q1 >> 3
+        width = int((p1 - p0).max()) + 1
+        idx = torch.minimum(p0[:, None] + torch.arange(width, device=dev),
+                            p1[:, None])
+        vals = pool[r >> 3][:, idx]
+        return vals.amin(dim=-1) if minimum else vals.amax(dim=-1)
+
+    d = torch.full((in0, len(w0)), _NEG_INIT, device=dev)
+    lo = torch.full((in0, len(w0)), _POS_INIT, device=dev)
+    b_k = torch.full((in0, len(w0)), _NEG_INIT, device=dev)
+    z_pad = torch.full((in0, len(w0) * BLOCK_COLS), _POS_INIT, device=dev)
+    z_pad[:, :in1] = z_org
+    z_min = z_pad.view(in0, -1, BLOCK_COLS).amin(dim=2)
+    for t in range(first, first + n):
+        s = tab[t, 0]
+        if ev["kind"] == "d1":
+            di, dj = int(np.floor(s * sh_i)), int(np.floor(s * sh_j))
+            r = rows + di + pad
+            q0, q1 = b0 + dj + pad, b1 + dj + 1 + pad
+            for rr in (r, r + 1):
+                d = torch.maximum(d, box_max(rr, q0, q1))
+                lo = torch.minimum(lo, box_max(rr, q0, q1, pool_min0, True))
+        else:
+            ri, rj = int(np.rint(s * sh_i)), int(np.rint(s * sh_j))
+            d_k = box_max(((rows + ri) >> lvl) + pad,
+                          ((b0 + rj) >> lvl) + pad, ((b1 + rj) >> lvl) + pad)
+            d = torch.maximum(d, d_k)
+            b_k = torch.maximum(b_k, (d_k - z_min) * float(tab[t, 1]))
+    d = d.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1]
+    lo = lo.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1]
+    e_lo, e_hi = tab[first - 1 if ev["kind"] == "d1" else first],\
+        tab[first + n - 1]
+    if ev["kind"] == "d1":
+        h1 = ev["h1"]
+        d = torch.maximum(d, h1)
+        lol = torch.minimum(lo, h1)
+        dp = d + d.abs() * float(_D1_REL)
+        x = (dp + 0.125 * (dp - lol)) - z_org
+        r = float(f32(e_hi[0] * plan["consts"]["inv_l0"]))
+        slack = (float(_D1_SLACK) * (((((dp - lol) * r) * r + dp.abs())
+                                      + lol.abs()) + z_org.abs())
+                 ) * float(e_lo[1])
+        bound = x * torch.where(x >= 0.0, float(e_lo[1]),
+                                float(e_hi[1])) + slack
+        if first < 1:
+            bound = torch.full_like(bound, float("inf"))
+    else:
+        x = d - z_org
+        bound = torch.minimum(
+            x * torch.where(x >= 0.0, float(e_lo[1]), float(e_hi[1])),
+            b_k.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1])
+    vote = bound <= acc
+    n_w = len(w0) * BLOCK_COLS
+    full = torch.ones((in0, n_w), dtype=torch.bool, device=dev)
+    full[:, :in1] = vote
+    skip = full.view(in0, -1, BLOCK_COLS).all(dim=2)
+    return bound, skip.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1]
+
+
 # ---------------------------------------------------------------------------
 # Kernels K1 and K2 (csrc/horizon_sweep.cu)
 # ---------------------------------------------------------------------------
@@ -479,7 +681,14 @@ class _HzParams(ctypes.Structure):
                      "lo2_step", "hi2_step", "hi2_two_step")]
         + [("ramp_a", ctypes.c_void_p), ("ramp_b", ctypes.c_void_p),
            ("mask", ctypes.c_void_p), ("blocks", ctypes.c_void_p),
-           ("n_blocks", ctypes.c_int)])
+           ("n_blocks", ctypes.c_int),
+           # appended for the redesign: the step table, the pooled
+           # companions (K1's skips), the level-0 floor, the counters
+           ("steps", ctypes.c_void_p),
+           ("pool", ctypes.c_void_p * _MAX_LEVELS),
+           ("pool_w", ctypes.c_int * _MAX_LEVELS),
+           ("pool_min0", ctypes.c_void_p), ("counters", ctypes.c_void_p),
+           ("n_steps", ctypes.c_int)])
 
 
 def kernel_lib():
@@ -505,7 +714,10 @@ def kernel_params(z_org, z_inner, levels, plan, outer_shape, n_rows, out):
     """``HzParams`` of one launch of K1 or K2 over ``n_rows`` azimuths or
     suns writing ``out``, with every field the two modes share; the tensors
     are checked as the kernel takes them.  The variant pointers (ramp, mask,
-    block list) start null, as ctypes zero-fills a structure."""
+    block list), the pooled companions and the counters start null, as
+    ctypes zero-fills a structure.  The step table (:func:`step_table`) goes
+    to the card through pinned memory without waiting for the stream; the
+    structure keeps it alive (``prm.keep``) until the launch is queued."""
     dev = z_org.device
     for t in (z_org, z_inner, *levels, out):
         if (t.device != dev or t.dtype != torch.float32
@@ -520,7 +732,18 @@ def kernel_params(z_org, z_inner, levels, plan, outer_shape, n_rows, out):
     phases = plan["phases_meta"]
     if len(levels) > _MAX_LEVELS or len(phases) > _MAX_LEVELS:
         raise ValueError(f"at most {_MAX_LEVELS} pyramid levels")
+    if max(t.numel() for t in (z_org, *levels)) >= 2 ** 31:
+        raise ValueError("the sweep kernel addresses a level and the inner "
+                         "domain with 32-bit offsets: each must hold fewer "
+                         "than 2^31 cells")
+    steps = step_table(plan)
+    if steps.nbytes > _MAX_STEP_BYTES:
+        raise ValueError(f"{steps.shape[0]} samples per (cell, row): the "
+                         f"step table exceeds {_MAX_STEP_BYTES} bytes of "
+                         f"shared memory")
     prm = _HzParams()
+    prm.keep = [_replay._table_to(steps, dev)]
+    prm.steps, prm.n_steps = prm.keep[0].data_ptr(), steps.shape[0]
     prm.z_org, prm.z_inner = z_org.data_ptr(), z_inner.data_ptr()
     prm.out = out.data_ptr()
     for lvl, t in enumerate(levels):
@@ -575,13 +798,24 @@ def _check_inner(t, what, dtype, plan, dev):
                          f"the inner shape {(in0, in1)} on {dev}")
 
 
+def skip_inputs(levels):
+    """What K1's skips read beside the levels: the 8 x 8 max-pooled
+    companion of each padded level and the min-pooled one of level 0 (the
+    floor of the bilinear samples of a d1 chunk), from
+    :func:`horayzon_tpu_torch.ops.mip.pool8`, on the levels' device."""
+    return _mip.pool8(levels), _mip.pool8(levels[:1], minimum=True)[0]
+
+
 def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
-                tilt_ramp=None, mask=None, emit_argmax=False):
+                tilt_ramp=None, mask=None, emit_argmax=False, counters=None):
     """Raw ratios (A, in0, in1) from kernel K1 on ``z_org``'s card;
     ``emit_argmax``: ``(raw, ids, aux)`` from K1's argmax variant, as
     :func:`_ratio_plain` returns them.  With ``mask`` the outputs are first
     filled with a masked cell's values (raw 3e38, id ID_NONE, D 1), and
-    only the live blocks are launched; with no live block nothing is."""
+    only the live blocks are launched; with no live block nothing is.
+    ``counters``: a (4,) int64 tensor on the card to which the launch adds
+    the (cell, azimuth) samples of swept cells it took and skipped in the
+    safe d1 pairs and in the mip phases (:data:`COUNTER_FIELDS`)."""
     global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
     global MASK_KERNEL_LAUNCHES, TILT_KERNEL_LAUNCHES
     dev = z_org.device
@@ -596,8 +830,18 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
     out = output(_POS_INIT, torch.float32)
     prm = kernel_params(z_org, z_inner, levels, plan, outer_shape,
                         trig.shape[0], out)
-    trig_t = torch.from_numpy(trig).to(dev)
-    prm.trig = trig_t.data_ptr()
+    pooled, pool_min0 = skip_inputs(levels)
+    trig_t = _replay._table_to(trig, dev)
+    prm.keep += [trig_t, pool_min0, *pooled]
+    prm.trig, prm.pool_min0 = trig_t.data_ptr(), pool_min0.data_ptr()
+    for lvl, t in enumerate(pooled):
+        prm.pool[lvl], prm.pool_w[lvl] = t.data_ptr(), t.shape[1]
+    if counters is not None:
+        if (counters.device != dev or counters.dtype != torch.int64
+                or tuple(counters.shape) != (len(COUNTER_FIELDS),)):
+            raise ValueError(f"counters must be a ({len(COUNTER_FIELDS)},) "
+                             f"int64 tensor on {dev}")
+        prm.counters = counters.data_ptr()
     if emit_argmax:
         ids = output(_replay.ID_NONE, torch.int32)
         aux = output(1.0, torch.float32)

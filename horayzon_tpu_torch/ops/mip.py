@@ -12,7 +12,9 @@ The sweep reads the pyramid as *padded levels*: level ``l`` surrounded by
 ``pads[l]`` sentinel cells on every side (:func:`padded_levels`).  This is
 the state the sweep carries; :func:`pyramid_from_jax` lays out the JAX
 package's padded levels the same way.  :func:`padded_levels_vjp` carries a
-gradient from the padded levels back to the heightfield.
+gradient from the padded levels back to the heightfield.  :func:`pool8`
+builds the 8 x 8 max-pooled companion of each padded level, which bounds
+the heights behind the sweep kernel's value-exact skips.
 """
 
 import numpy as np
@@ -65,6 +67,29 @@ def padded_levels(z, pads):
     levels = build_pyramid(z, len(pads))
     return [F.pad(lv, (p, p, p, p), value=PAD_VALUE).contiguous()
             for lv, p in zip(levels, pads)]
+
+
+def pool8(levels, minimum=False):
+    """8 x 8 max-pooled companion of each padded level: cell ``(P, Q)`` is
+    the maximum of padded rows ``[8P, 8P + 8)`` and columns ``[8Q, 8Q + 8)``,
+    the level first padded with :data:`PAD_VALUE` to multiples of 8.  The
+    counterpart of ``horayzon_tpu.ops.pallas_sweep._pool8`` without its
+    margins for the TPU's window copies (equal to it on the shared extent).
+    ``minimum``: the minimum in place of the maximum.  The companions only
+    bound the heights the kernel's skips pass over, so they are built
+    without autograd.  Returns contiguous float32 tensors of
+    ``(ceil(H / 8), ceil(W / 8))``."""
+    pooled = []
+    with torch.no_grad():
+        for lv in levels:
+            h, w = lv.shape
+            h8, w8 = -(-h // 8), -(-w // 8)
+            zp = F.pad(lv.to(torch.float32), (0, 8 * w8 - w, 0, 8 * h8 - h),
+                       value=PAD_VALUE)
+            blocks = zp.view(h8, 8, w8, 8)
+            pooled.append((blocks.amin(dim=(1, 3)) if minimum
+                           else blocks.amax(dim=(1, 3))).contiguous())
+    return pooled
 
 
 def padded_levels_vjp(z, pads, level_cots):

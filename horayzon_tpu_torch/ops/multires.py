@@ -19,7 +19,10 @@ fused kernel ``pallas_sweep.py::_kernel`` and the replay ``_bwd_kernel`` on
 a pyramid that is not the outer grid's own.  Here the same two kernels run,
 K1 / K1-argmax (``csrc/horizon_sweep.cu``) and K3
 (``csrc/horizon_replay_bwd.cu``), unchanged: they take a row stride and a
-pad per level and never ask where a level came from.
+pad per level and never ask where a level came from.  K1's skips bound the
+far field with the 8 x 8 pooled companions of these combined levels
+(``fused_sweep.skip_inputs``), so a coarse-derived level bounds what the
+sweep reads of it.
 
 What bounds it on this card: the sweep, as in the single-grid run.  K1 is
 bound by the instructions it executes per sample, not by where its loads come

@@ -157,7 +157,8 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     prm = _fused.kernel_params(z_org, z_inner, levels, plan, outer_shape,
                                table.shape[0], out)
-    table_t = torch.from_numpy(np.ascontiguousarray(table)).to(dev)
+    table_t = _replay._table_to(table, dev)
+    prm.keep.append(table_t)
     prm.sun = table_t.data_ptr()
     prm.x0, prm.y0 = _F32(grid_origin[0]), _F32(grid_origin[1])
     if emit_argmax:

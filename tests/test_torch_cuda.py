@@ -47,6 +47,7 @@ from horayzon_tpu_torch.ops import read_floor
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 
 from reference_impl import gaussian_bumps_terrain
+from torch_scenes import SKIP_SCENES, skip_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -829,3 +830,150 @@ def test_tin_route_on_card(cuda):
         for dev in (cuda, "cpu")]
     assert out[0].is_cuda
     assert (out[0].cpu() - out[1]).abs().max().item() <= TOL
+
+
+def _model_counts(args, emit_argmax):
+    """The (4,) counters of a K1 launch on ``args`` as the plain model of
+    its skip test (``fused_sweep.warp_skip_plain``) decides them, and the
+    plain sweep that skips where the model does."""
+    z_org, z_inner, levels, trig, plan, outer = [
+        a.cpu() if isinstance(a, torch.Tensor) else a for a in args[:6]]
+    levels = [t.cpu() for t in levels]
+    mask = None if args[7] is None else args[7].cpu()
+    pooled, pool_min0 = fused_sweep.skip_inputs(levels)
+    swept = (torch.ones_like(z_org, dtype=torch.bool) if mask is None
+             else mask != 0)
+    counts = [0, 0, 0, 0]
+    phase_skip = {}
+
+    def hook(ev):
+        if "cand_max" in ev:
+            return None
+        _, skip = fused_sweep.warp_skip_plain(ev, pooled, pool_min0, plan,
+                                                  z_org)
+        n, kind = ev["n"], ev["kind"]
+        if kind == "d1":
+            counts[0] += n * int((swept & ~skip).sum())
+            counts[1] += n * int((swept & skip).sum())
+        elif kind == "mip_phase":
+            # a phase that runs is counted by its chunks, unless it is one
+            phase_skip[ev["row"]] = skip
+            counts[3] += n * int((swept & skip).sum())
+            if n <= fused_sweep.MIP_CHUNK:
+                counts[2] += n * int((swept & ~skip).sum())
+        else:
+            live = swept & ~phase_skip[ev["row"]]
+            counts[2] += n * int((live & ~skip).sum())
+            counts[3] += n * int((live & skip).sum())
+        return skip
+
+    init = None
+    if mask is not None:
+        init = torch.where(mask != 0, -3.0e38, 3.0e38).to(torch.float32)
+    fused_sweep.sweep_plain(z_inner, levels, plan, outer, trig.shape[0],
+                            fused_sweep._horizon_rows(z_org, trig, plan),
+                            emit_argmax, init, chunk_hook=hook)
+    return counts
+
+
+def _skip_args(cuda, name, variant):
+    """``sweep_args`` of a skip scene on the card, with the variant's
+    ramps (a few milliradians) and, where the scene has none, a mask."""
+    z, kw, mask = skip_scene(name)
+    in0, in1 = kw["inner_shape"]
+    rng = np.random.default_rng(4)
+    ramp = None
+    if "tilt" in variant:
+        ramp = tuple(rng.uniform(-2e-3, 2e-3, (in0, in1)).astype(np.float32)
+                     for _ in range(2))
+    if "mask" in variant and mask is None:
+        mask = (rng.uniform(size=(in0, in1)) < 0.3).astype(np.uint8)
+        mask[:, 40:] = 0
+    elif "mask" not in variant:
+        mask = None
+    return fused_sweep.sweep_args(torch.from_numpy(z).to(cuda),
+                                  tilt_ramp=ramp, mask=mask, **kw)
+
+
+@pytest.mark.parametrize("variant", ["plain", "mask", "tilt", "tilt_mask"])
+@pytest.mark.parametrize("name", SKIP_SCENES)
+def test_skip_scenes_bit_equal_and_counted(cuda, name, variant):
+    args = _skip_args(cuda, name, variant)
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda)
+    raw = fused_sweep._ratio_cuda(*args, counters=counters)
+    a_raw, ids, aux = fused_sweep._ratio_cuda(*args, emit_argmax=True)
+    p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*args, emit_argmax=True)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, p_raw) and torch.equal(a_raw, p_raw)
+    assert torch.equal(ids, p_ids) and torch.equal(aux, p_aux)
+    got = counters.tolist()
+    assert got == _model_counts(args, False)
+    if name == "flat_pit":
+        assert got[2] == 0 and got[3] > 0      # every mip sample skipped
+    if name.startswith("spike") and variant == "plain":
+        assert got[2] > 0
+
+
+def test_spike_azimuth_skips_nothing_on_its_side(cuda):
+    """Toward the far spike (azimuth 0, north) the warp whose strip holds
+    it runs every chunk that reaches it: its mip samples are taken."""
+    args = _skip_args(cuda, "spike_inside", "plain")
+    north = args[:3] + (args[3][:1],) + args[4:]
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda)
+    raw, ids, _ = fused_sweep._ratio_cuda(*north, emit_argmax=True,
+                                          counters=counters)
+    p_raw, p_ids, _ = fused_sweep._ratio_plain(*north, emit_argmax=True)
+    assert torch.equal(raw, p_raw) and torch.equal(ids, p_ids)
+    n2 = 2 * north[4]["n_dense"]
+    # the spike's column (last of the first warp) wins through a mip read
+    assert bool((ids[0, :, 31] >= n2).all())
+    assert counters.tolist() == _model_counts(north, True)
+    assert counters[2].item() > 0
+
+
+def test_multires_crop_bit_equal_with_skips(cuda):
+    z_fine, z_coarse, kw = _multires_case()
+    geo = {k: kw[k] for k in ("dx", "dy", "offset", "inner_shape",
+                              "dist_search", "hori_acc")}
+    zf = torch.from_numpy(z_fine).to(cuda)
+    levels = multires.multires_levels(
+        zf, torch.from_numpy(z_coarse).to(cuda), ratio_log2=kw["ratio_log2"],
+        coarse_offset=kw["coarse_offset"], **geo)
+    for mask in (None, np.eye(*kw["inner_shape"], dtype=np.uint8)):
+        args = fused_sweep.sweep_args(zf, pyramid=levels, mask=mask,
+                                      azim_num=kw["azim_num"], **geo)
+        counters = torch.zeros(4, dtype=torch.int64, device=cuda)
+        raw = fused_sweep._ratio_cuda(*args, counters=counters)
+        a_raw, ids, aux = fused_sweep._ratio_cuda(*args, emit_argmax=True)
+        p_raw, p_ids, p_aux = fused_sweep._ratio_plain(*args,
+                                                       emit_argmax=True)
+        torch.cuda.synchronize()
+        assert torch.equal(raw, p_raw) and torch.equal(a_raw, p_raw)
+        assert torch.equal(ids, p_ids) and torch.equal(aux, p_aux)
+        assert counters.tolist() == _model_counts(args, False)
+
+
+@pytest.mark.parametrize("name", ["random", "plateau"])
+def test_shadow_kernels_bit_equal_on_skip_scenes(cuda, name):
+    """K2 and K2-argmax take the step table, the shifts and the 32-bit
+    offsets but no skips: still bit-equal to their plain versions."""
+    z, kw, _ = skip_scene(name)
+    zt = torch.from_numpy(z).to(cuda)
+    (o0, o1), (in0, in1) = kw["offset"], kw["inner_shape"]
+    z_in = zt[o0:o0 + in0, o1:o1 + in1].contiguous()
+    h, w = z.shape
+    c = (0.5 * (w - 1) * 25.0, -0.5 * (h - 1) * 25.0)
+    suns = np.array([[c[0] + 2.0e5, c[1] + 1.0e5, 1.5e4],
+                     [c[0] - 1.0e5, c[1] + 2.0e5, 0.8e4]], np.float32)
+    table, _ = ss.shadow_sun_table(suns, c, 25.0, -25.0)
+    args = ss.metric_args(zt, z_in + float(np.float32(0.05)), z_in, table,
+                          offset=kw["offset"], inner_shape=kw["inner_shape"],
+                          dx=25.0, dy=-25.0)
+    for emit in (False, True):
+        got = ss._metric_cuda(*args, grid_origin=(0.0, 0.0),
+                              emit_argmax=emit)
+        ref = ss._metric_plain(*args, grid_origin=(0.0, 0.0),
+                               emit_argmax=emit)
+        torch.cuda.synchronize()
+        for g, r in zip(got if emit else (got,), ref if emit else (ref,)):
+            assert torch.equal(g, r)
