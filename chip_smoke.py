@@ -30,28 +30,37 @@ Phases, each of which ends the run with a nonzero exit on failure:
 7. a central finite-difference check of the gradient on the card;
 8. the trainer: ``TerrainFit`` at the defaults of
    ``examples/horizon/terrain_fit_gradient.py``, held to its checks;
-A. K2 (the shadow sweep) against its plain torch version on the card, on
-   the small cases of ``tests/test_torch_shadow.py``;
+A. K2 (the shadow sweep, with its value-exact skips) against its plain
+   torch version on the card, bit-equal, on the small cases of
+   ``tests/test_torch_shadow.py``; K2 with its sign-exact arm bit-equal to
+   the plain sweep that skips where the plain model of its votes does
+   (``shadow_sweep.metric_model``), with the exact metric's sign;
 B. the bench's shadow row (``bench.py:420-446``): K2 alone at the 2048^2 /
    1024^2 shape with a 16-sun track, timed with CUDA events, and the plain
-   version once on the same inputs, compared on the full output;
+   version once on the same inputs, bit-equal on the full output; the
+   share of samples K2's skips pass over (its counters beside the plain
+   model's, which they must equal);
 C. the shadow main path, ``shadow.Terrain`` at the defaults of
    ``examples/shadow/gridded_planar_dem_artificial.py`` (hemisphere, 800^2
    at 100 m, 600^2 inner, 181 suns at 30 degrees): ``sw_dir_cor_batch`` and
-   ``shadow_batch`` timed and held to the example's analytic check, codes
-   of a few suns against those from the plain metric;
+   ``shadow_batch`` (K2 sign-exact) timed and held to the example's
+   analytic check, the codes of all 181 suns against those from the plain
+   exact metric; K2 alone on the 181 suns, sign-exact and exact, each
+   bit-equal to its plain model, with its skip shares;
 D. K2-argmax and the shadow replay K4 against their plain versions on
-   phase A's cases (K4 run twice);
+   phase A's cases (K4 run twice), bit-equal;
 E. the bench's shadow-gradient row (``bench.py:521-543``): loss
    ``mean(sigmoid(metric / 2))`` at phase B's shape and track, forward and
    loss + ``backward()`` timed, ``z.grad`` checked and compared across two
-   runs; K2-argmax and K4 timed alone against their plain versions;
+   runs; K2-argmax (with its skip shares) and K4 timed alone against their
+   plain versions;
 F. the shadow gradient's main path, ``Terrain.sw_dir_cor_soft`` on phase
    C's terrain and 181 suns: the straight-through value against
-   ``sw_dir_cor_batch``, ``mean().backward()`` timed, peak memory, K4 alone
-   on the 181-sun record, K2-argmax and K4 against their plain versions on
-   4 suns, then the kink and central-difference check of
-   ``tests/test_grad.py:155-210`` on a small case;
+   ``sw_dir_cor_batch``, ``mean().backward()`` timed, peak memory,
+   K2-argmax (with its skip shares) and K4 alone on the 181-sun record,
+   K2-argmax and K4 against their plain versions on 4 suns, then the kink
+   and central-difference check of ``tests/test_grad.py:155-210`` on a
+   small case;
 G. K1's mask and tilt-ramp variants (tilt, mask, both; plain and argmax)
    against their plain versions on phase 5's cases, bit-equal; an
    all-masked mask (no launch); a scattered mask that leaves whole blocks
@@ -100,7 +109,11 @@ K. multires: on two small scenes K1, K1-argmax and K3 over the combined
 
 Phases 4, 6, H, I and K also launch K1 (or K1-argmax) once with its
 counters set and print the share of samples its value-exact skips passed
-over, per section, beside the full schedule's bound (``skip_report``).
+over, per section, and its time beside two bounds: that of the work this
+run's data needs (the samples taken, from the counters, with the skip
+tests; the ``bound_ms`` of the ``kernels`` line) and the full schedule's
+(``skip_report``); phases B, C, E and F do the same for K2 and K2-argmax,
+beside the plain model's counts.
 
 TF32 is switched off for matmuls and cuDNN, so nothing here runs in
 reduced precision.  Imports nothing of JAX.
@@ -136,8 +149,6 @@ SHADOW_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2885"
 SHADOW_BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2470"
 MASK_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:196"
 TILT_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:219"
-#: Shadow metric tolerance [m] of K2 against the plain version.
-SHADOW_TOL = 1.0e-3
 READ_FLOOR_SOURCE = "horayzon_tpu_torch/csrc/read_floor.cu"
 READ_FLOOR_REPLACES = "tools/read_floor.py:53"
 KERNELS = ("horizon_sweep", "horizon_replay_bwd", "read_floor")
@@ -407,26 +418,47 @@ def tensor_bytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def sweep_bound(sargs, shadow, argmax):
+#: Float32 operations per lane of the skip tests in csrc/horizon_sweep.cu,
+#: K1's (False) and K2's value-exact ones (True): a d1 chunk's (d1_skip,
+#: d1_skip_shadow; its box taken at its least, 4 pooled cells), a mip
+#: test's fixed part and each sample slot a lane forms in it (mip_skip,
+#: mip_skip_shadow; one pooled cell a slot).
+D1_TEST_OPS = {False: 47, True: 49}
+MIP_TEST_OPS = {False: 15, True: 17}
+MIP_SLOT_OPS = {False: 9, True: 10}
+
+
+def sweep_bound(sargs, shadow, argmax, counts=None):
     """Bound of one sweep launch (K1, K2 or an argmax variant) on the
     inputs ``sargs`` = (z_org, z_inner, levels, table, plan, shape[,
     tilt_ramp, mask]).  The float32 operations per (cell, row) are counted
     from csrc/horizon_sweep.cu: 18 per bilinear read, 4 per point
     candidate, 37 (K1) or 28 (K2) per parabola with its coefficients, 11
     per mip sample, 15 for K2's ray slope, 1 for the argmax's emit divide
-    and 4 for the tilt ramp.  Every sample of the full schedule is counted
-    for every swept cell (with a mask the unmasked cells), whatever K1's
-    value-exact skips pass over (:func:`skip_report` prints the share they
-    take); every output is written (the masked ones by the pre-fill)."""
+    and 4 for the tilt ramp; every input is read and every output written
+    once (the masked ones by the pre-fill).
+
+    Without ``counts`` every sample of the full schedule is counted for
+    every swept cell (with a mask the unmasked cells).  ``counts``: the
+    kernel's counters from a launch on the same inputs
+    (``fused_sweep.COUNTER_FIELDS``); then only the work this run's data
+    needs is counted: the samples taken, the re-read of h1 after each
+    skipped d1 chunk (at least one per 32 samples skipped), and the skip
+    tests every warp makes, one per d1 chunk (K1: the safe pairs'; K2:
+    safe and masked) and one per mip phase (:data:`D1_TEST_OPS`,
+    :data:`MIP_TEST_OPS`, :data:`MIP_SLOT_OPS`).  The chunk tests inside a
+    phase that runs are left out, since the counters do not say how many
+    ran, so this stays a lower bound."""
     z_org, z_inner, levels, table, plan, _ = sargs[:6]
     ramp, mask = (tuple(sargs[6:8]) + (None, None))[:2]
     nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
-    n_mip = sum(ph[1] for ph in plan["phases_meta"][1:])
+    phases = plan["phases_meta"][1:]
+    n_mip = sum(ph[1] for ph in phases)
     quads = nx + sum((hi - lo + 1) // 2
                      for lo, hi in ((nx, ns1), (ns1, n_dense)) if hi > lo)
-    per_cell = (18 * (nx + n_dense) + 4 * n_dense
-                + (28 if shadow else 37) * quads + 11 * n_mip
-                + (15 if shadow else 0) + (1 if argmax else 0)
+    quad_ops = 28 if shadow else 37
+    per_cell = (18 * (nx + n_dense) + 4 * n_dense + quad_ops * quads
+                + 11 * n_mip + (15 if shadow else 0) + (1 if argmax else 0)
                 + (4 if ramp is not None else 0))
     swept = z_org.numel() if mask is None else int((mask != 0).sum())
     moved = (tensor_bytes(z_org, z_inner, *levels) + table.nbytes
@@ -435,33 +467,87 @@ def sweep_bound(sargs, shadow, argmax):
         moved += tensor_bytes(*ramp)
     if mask is not None:
         moved += tensor_bytes(mask)
-    return bound(moved, table.shape[0] * swept * per_cell)
+    ops = table.shape[0] * swept * per_cell
+    if counts is not None:
+        d1_s, mip_s = counts["d1_skipped"], counts["mip_skipped"]
+        ops -= d1_s * (18 + 4 + quad_ops / 2) + mip_s * 11
+        ops += 18 * d1_s / 32
+        def d1_tests(lo, hi):
+            """The tested chunks of the d1 pairs of steps [lo, hi)."""
+            return sum(1 for q0 in range(0, max(hi - lo, 0) // 2,
+                                         fused_sweep.D1_CHUNK_PAIRS)
+                       if lo + 2 * q0 >= 1)
+
+        n_d1 = d1_tests(nx, ns1) + (d1_tests(ns1, n_dense) if shadow else 0)
+        tests = (D1_TEST_OPS[shadow] * n_d1
+                 + sum(MIP_TEST_OPS[shadow] + MIP_SLOT_OPS[shadow] * n / 32
+                       for _, n, _, _ in phases))
+        ops += table.shape[0] * swept * tests
+    return bound(moved, ops)
 
 
-def skip_report(what, sargs, argmax, bnd, ms, card):
+def skip_report(what, sargs, argmax, ms, card, launch=None, model=None):
     """One launch of K1 (``argmax``: K1-argmax) on ``sargs`` with its
-    counters set: print the share of samples its value-exact skips passed
-    over, per section, and its time beside the full schedule's bound and
-    that bound scaled to the samples taken.  Returns the share taken."""
+    counters set, or of ``launch(counters)`` (K2, :func:`k2_counted`):
+    print the share of samples its skips passed over, per section, and its
+    time beside the bound of the work this run's data needs and the full
+    schedule's bound (:func:`sweep_bound` with and without the counters).
+    ``model``: the count dict of ``shadow_sweep.metric_model`` on the same
+    inputs and mode, printed per section and held equal to the counters.
+    Returns the bound of the work needed, ``(bound_ms, bound_by)``."""
     plan, mask = sargs[4], (tuple(sargs[6:8]) + (None, None))[1]
+    shadow = launch is not None
     counters = torch.zeros(len(fused_sweep.COUNTER_FIELDS),
                            dtype=torch.int64, device=sargs[0].device)
-    fused_sweep._ratio_cuda(*sargs, emit_argmax=argmax, counters=counters)
-    d1_t, d1_s, mip_t, mip_s = counters.tolist()
+    if launch is None:
+        fused_sweep._ratio_cuda(*sargs, emit_argmax=argmax,
+                                counters=counters)
+    else:
+        launch(counters)
+    got = dict(zip(fused_sweep.COUNTER_FIELDS, counters.tolist()))
     swept = sargs[0].numel() if mask is None else int((mask != 0).sum())
     n_mip = sum(ph[1] for ph in plan["phases_meta"][1:])
     per_cell = 2 * plan["nx"] + (plan["n_dense"] - plan["nx"]) + n_mip
     total = swept * sargs[3].shape[0] * per_cell
-    taken = 1.0 - (d1_s + mip_s) / total
-    print(f"  {what} skips (its counters): safe d1 pairs "
-          f"{d1_s / max(d1_t + d1_s, 1):.4f} of {d1_t + d1_s} samples "
-          f"skipped, mip {mip_s / max(mip_t + mip_s, 1):.4f} of "
-          f"{mip_t + mip_s}; {taken:.4f} of all {total} samples taken")
-    print(f"  {what}: {ms:.3f} ms against the full schedule's bound "
-          f"{bnd[0]:.3f} ms ({bnd[1]}); the samples taken alone would bound "
-          f"it at {taken * bnd[0]:.3f} ms; its time is "
-          f"{ms / (taken * bnd[0]):.2f}x that  [{card}]")
-    return taken
+    taken = 1.0 - (got["d1_skipped"] + got["mip_skipped"]) / total
+    print(f"  {what} skips (its counters): {skip_shares(got)}; "
+          f"{taken:.4f} of all {total} samples taken")
+    if model is not None:
+        print(f"  {what} skips (the plain model): {skip_shares(model)}")
+        check(all(got[f] == model[f] for f in fused_sweep.COUNTER_FIELDS),
+              f"{what}: the kernel's four counters equal the plain model's")
+    full = sweep_bound(sargs, shadow, argmax)
+    need = sweep_bound(sargs, shadow, argmax, got)
+    print(f"  {what}: {ms:.3f} ms against the bound of the work this run "
+          f"needs (samples taken, re-reads, skip tests) {need[0]:.3f} ms "
+          f"({need[1]}), {ms / need[0]:.2f}x that; the full schedule's "
+          f"bound {full[0]:.3f} ms ({full[1]})  [{card}]")
+    return need
+
+
+def k2_counted(sargs, origin, **kw):
+    """``launch(counters)`` of K2 on ``sargs`` for :func:`skip_report`;
+    ``kw``: ``emit_argmax``, ``exact_metric``, ``pooled``."""
+    return lambda counters: shadow_sweep._metric_cuda(
+        *sargs, grid_origin=origin, counters=counters, **kw)
+
+
+def skip_shares(counts):
+    """The share of samples skipped per section of a count dict: the
+    kernels' counters (``fused_sweep.COUNTER_FIELDS``: K1's d1 pairs are
+    the safe ones, K2's also the masked ones), or
+    ``shadow_sweep.metric_model``'s with K2's masked pairs apart."""
+    d1_t, d1_s = counts["d1_taken"], counts["d1_skipped"]
+    parts = [f"d1 pairs {d1_s / max(d1_t + d1_s, 1):.4f} of {d1_t + d1_s}"]
+    if "masked_d1_taken" in counts:
+        m_t, m_s = counts["masked_d1_taken"], counts["masked_d1_skipped"]
+        s_t, s_s = d1_t - m_t, d1_s - m_s
+        parts += [f"safe {s_s / max(s_t + s_s, 1):.4f} of {s_t + s_s}",
+                  f"masked {m_s / max(m_t + m_s, 1):.4f} of {m_t + m_s}"]
+    mip_t, mip_s = counts["mip_taken"], counts["mip_skipped"]
+    parts.append(f"mip {mip_s / max(mip_t + mip_s, 1):.4f} of "
+                 f"{mip_t + mip_s} skipped")
+    return ", ".join(parts)
 
 
 def replay_bound(g, ids, aux, plan, cots, zcot, shadow):
@@ -519,11 +605,11 @@ def check_replay(name, what, runs, want):
 
 def check_shadow_argmax(name, args, origin):
     """K2-argmax on ``args`` (the inputs of ``shadow_sweep._metric_cuda``)
-    against K2 and the plain argmax sweep: the metric bit-equal to K2's,
-    within SHADOW_TOL of the plain one with ``metric > 0`` equal, the winner
-    ids and D bit-equal to the plain version's (the same float32 operations
-    in the same order, as phase 5 holds K1-argmax).  Returns (max abs metric
-    difference, the plain version's ms)."""
+    against K2 and the plain argmax sweep: the metric, the winner ids and D
+    bit-equal to the plain version's (the same float32 operations in the
+    same order, as phase 5 holds K1-argmax, and value-exact skips), the
+    metric also to K2's.  Returns (max abs metric difference, the plain
+    version's ms)."""
     met, ids, aux = shadow_sweep._metric_cuda(*args, grid_origin=origin,
                                               emit_argmax=True)
     k2 = shadow_sweep._metric_cuda(*args, grid_origin=origin)
@@ -536,10 +622,9 @@ def check_shadow_argmax(name, args, origin):
           f"{int((ids != p_ids).sum())} ids and {int((aux != p_aux).sum())} D "
           f"differ; {int(((ids < n2) & (ids % 2 == 1)).sum())} parabola and "
           f"{int((ids >= n2).sum())} mip winners of {ids.numel()}")
-    check(torch.equal(met, k2) and err <= SHADOW_TOL
-          and torch.equal(met > 0, p_met > 0),
-          f"{name}: K2-argmax metric bit-equal to K2's, within {SHADOW_TOL} "
-          f"m of the plain argmax sweep, metric > 0 equal")
+    check(torch.equal(met, k2) and torch.equal(met, p_met),
+          f"{name}: K2-argmax metric bit-equal to K2's and to the plain "
+          f"argmax sweep's")
     check(torch.equal(ids, p_ids) and torch.equal(aux, p_aux),
           f"{name}: winner ids and D bit-equal to the plain argmax sweep's")
     return err, plain_ms
@@ -791,10 +876,9 @@ def phase_h(dev, zt, x, y, halo, azim_num, dist_km, k1_ms, card, runs):
     err = (raw - p_raw)[keep].abs().max().item()
     check(torch.equal(raw, p_raw), "island: K1-mask bit-equal to the plain "
           "version on the full output")
-    bnd = sweep_bound(mvargs, shadow=False, argmax=False)
-    print(f"  K1-mask on the island: plain version {plain_ms:.1f} ms; "
-          f"bound {bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
-    skip_report("K1-mask (island)", mvargs, False, bnd, mask_ms, card)
+    print(f"  K1-mask on the island: plain version {plain_ms:.1f} ms  "
+          f"[{card}]")
+    bnd = skip_report("K1-mask (island)", mvargs, False, mask_ms, card)
     return launches, err, mask_ms, plain_ms, bnd
 
 
@@ -898,7 +982,6 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
     err = (raw - p_raw).abs().max().item()
     check(torch.equal(raw, p_raw), "K1-tilt bit-equal to the plain version "
           "on the pipeline's lattice box")
-    bnd = sweep_bound(targs, shadow=False, argmax=False)
     i_lo, i_hi, j_lo, j_hi = lat_c["box"]
     hori_r = fused_sweep._angles(raw, pipe.elev_ang_low_lim, 89.98)
     fi = np.clip(lat_c["fi"] - i_lo, 0.0, i_hi - i_lo - 1.0)
@@ -913,9 +996,8 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
           f"{tilt_ms:.3f} ms, read-back {rb_ms:.3f} ms; peak "
           f"{peak / 2**20:.1f} MiB allocated; svf "
           f"[{svf.min().item():.4f}, {svf.max().item():.4f}]  [{card}]")
-    print(f"  K1-tilt: plain version {plain_ms:.1f} ms; bound "
-          f"{bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
-    skip_report("K1-tilt", targs, False, bnd, tilt_ms, card)
+    print(f"  K1-tilt: plain version {plain_ms:.1f} ms  [{card}]")
+    bnd = skip_report("K1-tilt", targs, False, tilt_ms, card)
     return launches, err, tilt_ms, plain_ms, bnd
 
 
@@ -1225,16 +1307,14 @@ def phase_k(dev, card):
     samples = plan["nx"] * 2 + (plan["n_dense"] - plan["nx"]) + n_mip
     raw = fused_sweep._ratio_cuda(*sargs)
     k1_ms = cuda_ms(lambda: fused_sweep._ratio_cuda(*sargs), 5)
-    k1_bound = sweep_bound(sargs, shadow=False, argmax=False)
     print(f"  K1 alone on the combined pyramid ({len(sargs[2])} levels, "
           f"level 0 {tensor_bytes(sargs[2][0]) / 1e6:.0f} MB, {samples} "
           f"samples per (cell, azimuth), {n_mip} of them mip reads): "
           f"{k1_ms:.3f} ms, {1e9 * k1_ms / (in0 * in1 * a_num * samples):.3f}"
-          f" ps per sample; bound {k1_bound[0]:.3f} ms ({k1_bound[1]})  "
-          f"[{card}]")
+          f" ps per sample  [{card}]")
     check(torch.equal(fused_sweep._angles(raw.clone(), -15.0, 89.98), hori),
           "the entry's angles are K1's on the combined pyramid")
-    skip_report("K1 (multires)", sargs, False, k1_bound, k1_ms, card)
+    skip_report("K1 (multires)", sargs, False, k1_ms, card)
     # a 128^2 crop, every sixth azimuth: K1's full run, then K1-argmax and
     # K3 launched on the crop, each against its plain version over this
     # pyramid (level 0 beyond L2, eight combined levels)
@@ -1326,8 +1406,7 @@ def phase_k(dev, card):
     k3_ms = cuda_ms(lambda: replay._bwd_cuda(*bargs), 3)
     print(f"  at this shape alone: K1-argmax {am_ms:.3f} ms, K3 {k3_ms:.3f} "
           f"ms  [{card}]")
-    skip_report("K1-argmax (multires)", sargs, True,
-                sweep_bound(sargs, shadow=False, argmax=True), am_ms, card)
+    skip_report("K1-argmax (multires)", sargs, True, am_ms, card)
     print_levels("2 m cell")
     del am, g, bargs, sargs, crop, zf, zc
     mr_am_err, mr_bwd_err = am_err, bwd_err
@@ -1481,11 +1560,9 @@ def main():
     plain_ms = cuda_ms(lambda: fused_sweep._ratio_plain(*args), 1)
     samples = plan["nx"] * 2 + (plan["n_dense"] - plan["nx"]) + sum(
         ph[1] for ph in plan["phases_meta"][1:])
-    k1_bound = sweep_bound(args, shadow=False, argmax=False)
     print(f"  K1 alone: {k1_ms:.3f} ms; plain torch sweep: {plain_ms:.1f} ms "
-          f"({samples} samples per (cell, azimuth)); bound {k1_bound[0]:.3f}"
-          f" ms ({k1_bound[1]})  [{card}]")
-    skip_report("K1", args, False, k1_bound, k1_ms, card)
+          f"({samples} samples per (cell, azimuth))  [{card}]")
+    k1_bound = skip_report("K1", args, False, k1_ms, card)
 
     print("== 5. K1-argmax and K3 against their plain versions on the card")
     am_err = bwd_err = 0.0
@@ -1615,12 +1692,10 @@ def main():
     bwd_err = max(bwd_err, check_replay("gradient row", "K3",
                                         [c + [z] for c, z in k_runs],
                                         p_cots + [p_zcot]))
-    am_bound = sweep_bound(sargs, shadow=False, argmax=True)
     k3_bound = replay_bound(graw, ids, aux, plan, cots, zcot, shadow=False)
     print(f"  K1-argmax alone: {am_ms:.3f} ms; plain argmax sweep: "
-          f"{am_plain_ms:.1f} ms; bound {am_bound[0]:.3f} ms "
-          f"({am_bound[1]})  [{card}]")
-    skip_report("K1-argmax", sargs, True, am_bound, am_ms, card)
+          f"{am_plain_ms:.1f} ms  [{card}]")
+    am_bound = skip_report("K1-argmax", sargs, True, am_ms, card)
     print(f"  K3 alone: {k3_ms:.3f} ms; plain backward: {k3_plain_ms:.1f} ms;"
           f" bound {k3_bound[0]:.4f} ms ({k3_bound[1]})  [{card}]")
     del p_cots, p_zcot, cots, zcot, k_runs, graw, raw, ids, aux, grads
@@ -1703,9 +1778,25 @@ def main():
               f"{(got > 0).float().mean().item():.3f} occluded")
         check(shadow_sweep.KERNEL_LAUNCHES == n0 + 1,
               f"{name}: K2 launched once")
-        check(bool(torch.isfinite(got).all()) and err <= SHADOW_TOL
-              and torch.equal(got > 0, ref > 0),
-              f"{name}: finite, within {SHADOW_TOL} m, metric > 0 equal")
+        check(bool(torch.isfinite(got).all()) and torch.equal(got, ref),
+              f"{name}: finite, bit-equal to the plain version (its "
+              f"value-exact skips move no value)")
+        sargs_a = shadow_sweep.metric_args(
+            zs, z_org_s, z_in_s, table,
+            **{k: kw[k] for k in ("offset", "inner_shape", "dx", "dy")})
+        sign_k2 = shadow_sweep._metric_cuda(*sargs_a, grid_origin=origin,
+                                            exact_metric=False)
+        model, counts = shadow_sweep.metric_model(
+            *sargs_a, grid_origin=origin, exact_metric=False)
+        torch.cuda.synchronize()
+        print(f"  {name}: sign-exact K2: "
+              f"{int((sign_k2 != ref).sum())} of {ref.numel()} values below "
+              f"the exact metric; the model's skips: {skip_shares(counts)}")
+        check(torch.equal(sign_k2, model)
+              and torch.equal(sign_k2 > 0, ref > 0)
+              and bool((sign_k2 <= ref).all()),
+              f"{name}: sign-exact K2 bit-equal to its plain model, with the "
+              f"exact metric's sign and at most its value")
 
     print("== B. the bench's shadow row: K2 alone at 2048^2 / 1024^2")
     n_sun = 16
@@ -1737,20 +1828,24 @@ def main():
         *sargs, grid_origin=(0.0, 0.0)))
     err = (got - ref).abs().max().item()
     sh_err = max(sh_err, err)
-    k2_bound = sweep_bound(sargs, shadow=True, argmax=False)
     print(f"  K2 alone: {k2_ms:.3f} ms for {n_sun} suns, "
           f"{k2_ms / n_sun:.4f} ms per sun, "
           f"{inner * inner * n_sun / (k2_ms * 1e-3):.4e} (cell*sun)/s; "
-          f"plain torch sweep: {k2_plain_ms:.1f} ms; bound "
-          f"{k2_bound[0]:.3f} ms ({k2_bound[1]})  [{card}]")
+          f"plain torch sweep: {k2_plain_ms:.1f} ms  [{card}]")
     print(f"  max |metric_K2 - metric_plain| = {err:.3e} m, "
           f"{int((got != ref).sum())} of {got.numel()} differ; "
           f"{(got > 0).float().mean().item():.4f} occluded")
-    check(bool(torch.isfinite(got).all()) and err <= SHADOW_TOL
-          and torch.equal(got > 0, ref > 0),
-          f"K2 within {SHADOW_TOL} m of the plain version, metric > 0 "
-          f"equal, on the full output")
-    del got, ref
+    check(bool(torch.isfinite(got).all()) and torch.equal(got, ref),
+          "K2 bit-equal to the plain version on the full output")
+    t0 = time.perf_counter()
+    model, b_counts = shadow_sweep.metric_model(*sargs,
+                                                grid_origin=(0.0, 0.0))
+    print(f"  the plain model of K2's skips: {time.perf_counter() - t0:.1f} s")
+    check(torch.equal(model, ref), "the model's skipping sweep bit-equal to "
+          "the plain version")
+    k2_bound = skip_report("K2 (row B)", sargs, False, k2_ms, card,
+                           k2_counted(sargs, (0.0, 0.0)), b_counts)
+    del got, ref, model
 
     print("== C. shadow main path: Terrain at the artificial example's "
           "defaults")
@@ -1800,11 +1895,61 @@ def main():
     check(codes.dtype == torch.uint8 and codes.max().item() <= 3
           and counts.sum().item() == codes.numel(),
           f"shadow codes in {{0, 1, 2, 3}}: counts {counts.tolist()}")
-    few = [0, 45, 100, 150]
-    plain_codes = terrain._run(suns[few], "shadow", plain=True)
-    check(torch.equal(plain_codes, codes[few]),
-          f"codes of suns {few} equal those from the plain metric")
+    t0 = time.perf_counter()
+    plain_codes = terrain._run(suns, "shadow", plain=True)
+    check(torch.equal(plain_codes, codes),
+          f"the codes of all {len(suns)} suns (from sign-exact K2) equal "
+          f"those from the plain exact metric "
+          f"({time.perf_counter() - t0:.1f} s)")
     del sw, codes, plain_codes
+    fld = terrain._fields
+
+    def terrain_args(sun_rows):
+        table_f, _ = shadow_sweep.shadow_sun_table(
+            sun_rows, terrain._center, terrain.grid.dx, terrain.grid.dy)
+        return shadow_sweep.metric_args(
+            terrain._z_outer, fld["z_org"], fld["z_inner"], table_f,
+            offset=terrain.offset, inner_shape=terrain.comp_shape,
+            dx=terrain.grid.dx, dy=terrain.grid.dy, hori_acc=terrain.acc,
+            pyramid=terrain._levels, pooled=terrain._pooled)
+
+    cargs = terrain_args(suns)
+    origin_c, pooled_c = terrain._grid_origin, terrain._pooled
+
+    def k2_c(exact):
+        return shadow_sweep._metric_cuda(*cargs, grid_origin=origin_c,
+                                         exact_metric=exact, pooled=pooled_c)
+
+    c_ms = {}
+    for exact in (False, True):
+        k2_c(exact)
+        c_ms[exact] = cuda_ms(lambda: k2_c(exact), 3)
+    t0 = time.perf_counter()
+    model_s, counts_s = shadow_sweep.metric_model(
+        *cargs, grid_origin=origin_c, exact_metric=False, pooled=pooled_c)
+    model_e, counts_e = shadow_sweep.metric_model(
+        *cargs, grid_origin=origin_c, pooled=pooled_c)
+    print(f"  the plain model of K2's skips, both modes: "
+          f"{time.perf_counter() - t0:.1f} s")
+    got_s, got_e = k2_c(False), k2_c(True)
+    print(f"  K2 on the 181 suns alone: sign-exact {c_ms[False]:.3f} ms, "
+          f"exact {c_ms[True]:.3f} ms; sign-exact values below the exact "
+          f"ones on "
+          f"{int((got_s != got_e).sum())} of {got_e.numel()} (cell, sun)  "
+          f"[{card}]")
+    check(torch.equal(got_e, model_e), "exact K2 bit-equal to the plain "
+          "sweep on all 181 suns")
+    check(torch.equal(got_s, model_s)
+          and torch.equal(got_s > 0, got_e > 0)
+          and bool((got_s <= got_e).all()),
+          "sign-exact K2 bit-equal to its plain model on all 181 suns, with "
+          "the exact metric's sign and at most its value")
+    del model_s, model_e, got_s, got_e
+    skip_report("K2 sign-exact (181 suns)", cargs, False, c_ms[False], card,
+                k2_counted(cargs, origin_c, exact_metric=False,
+                           pooled=pooled_c), counts_s)
+    skip_report("K2 exact (181 suns)", cargs, False, c_ms[True], card,
+                k2_counted(cargs, origin_c, pooled=pooled_c), counts_e)
 
     print("== D. K2-argmax and K4 against their plain versions on the card")
     sa_err = sb_err = 0.0
@@ -1866,7 +2011,6 @@ def main():
     err, k2a_plain_ms = check_shadow_argmax("row B", sargs, (0.0, 0.0))
     sa_err = max(sa_err, err)
     met, ids, aux = k2a_run()
-    k2a_bound = sweep_bound(sargs, shadow=True, argmax=True)
     sig = torch.sigmoid(met / 2.0)
     gmet = sig * (1.0 - sig) * (0.5 / met.numel())   # d loss / d metric
     del sig, met
@@ -1882,8 +2026,11 @@ def main():
                                            (ids, aux))
     sb_err = max(sb_err, err)
     print(f"  K2-argmax alone: {k2a_ms:.3f} ms ({k2a_ms / k2_ms:.3f} x K2); "
-          f"plain argmax sweep: {k2a_plain_ms:.1f} ms; "
-          f"bound {k2a_bound[0]:.3f} ms ({k2a_bound[1]})  [{card}]")
+          f"plain argmax sweep: {k2a_plain_ms:.1f} ms  [{card}]")
+    # the argmax variant keeps K2's running value, so it skips as K2 does
+    k2a_bound = skip_report("K2-argmax (row E)", sargs, True, k2a_ms, card,
+                            k2_counted(sargs, (0.0, 0.0), emit_argmax=True),
+                            b_counts)
     print(f"  K4 alone: {k4_ms:.3f} ms; plain shadow replay: "
           f"{k4_plain_ms:.1f} ms; bound {k4_bound[0]:.4f} ms "
           f"({k4_bound[1]}); the rest of a gradient step (loss, pyramid and "
@@ -1934,21 +2081,12 @@ def main():
           f"elevation.grad finite and nonzero (max |g| "
           f"{gz.abs().max().item():.3e})")
     del hard, out, gz
-    fld = terrain._fields
-
-    def terrain_args(sun_rows):
-        table_f, _ = shadow_sweep.shadow_sun_table(
-            sun_rows, terrain._center, terrain.grid.dx, terrain.grid.dy)
-        return shadow_sweep.metric_args(
-            terrain._z_outer, fld["z_org"], fld["z_inner"], table_f,
-            offset=terrain.offset, inner_shape=terrain.comp_shape,
-            dx=terrain.grid.dx, dy=terrain.grid.dy, hori_acc=terrain.acc)
-
-    fargs = terrain_args(suns)
+    fargs = cargs
 
     def k2a_f():
         return shadow_sweep._metric_cuda(
-            *fargs, grid_origin=terrain._grid_origin, emit_argmax=True)
+            *fargs, grid_origin=terrain._grid_origin, emit_argmax=True,
+            pooled=pooled_c)
 
     k2a_f()
     k2a_f_ms = cuda_ms(k2a_f, 3)
@@ -1964,7 +2102,11 @@ def main():
           f"{k4_f_ms:.3f} ms; the rest of a step (classification and its "
           f"backward, pyramid and its VJP, host) "
           f"{1e3 * f_wall - k2a_f_ms - k4_f_ms:.1f} ms  [{card}]")
+    skip_report("K2-argmax (181 suns)", fargs, True, k2a_f_ms, card,
+                k2_counted(fargs, terrain._grid_origin, emit_argmax=True,
+                           pooled=pooled_c), counts_e)
     del met, ids, aux, g, fb, shadow_f, fargs
+    few = [0, 45, 100, 150]
     fargs = terrain_args(suns[few])
     sa_err = max(sa_err, check_shadow_argmax(f"suns {few}", fargs,
                                              terrain._grid_origin)[0])

@@ -28,8 +28,11 @@
 // parabola its vertex value where the segment is concave and the vertex lies
 // inside the window (:426-453, :487-489).  A positive metric means the cell
 // is terrain-occluded; the metric (T, in0, in1) is written as it is.  K2
-// computes what the reference computes with exact_metric=True: none of its
-// skips (value-exact or sign-exact) run here.
+// takes the reference's shadow-mode skips, decided per warp (below): with
+// params->sign_exact zero the value-exact ones, so it computes what the
+// reference computes with exact_metric=True; with it set (never in the
+// argmax variant) also the sign-exact arm of exact_metric=False, whose
+// metric keeps its sign and never exceeds the exact one.
 //
 // K1's two variants (pallas_sweep.py:196-229, launched through
 // pallas_forward_fn :1469-1496) are nullable pointers of HzParams, so the
@@ -93,7 +96,7 @@
 //     division wherever that one is a floor;
 //   * 32-bit offsets from per-level base pointers (the host refuses a level
 //     of 2^31 elements or more);
-//   * K1 only: the reference's value-exact skips, decided per warp.  The
+//   * the reference's value-exact skips, decided per warp.  The
 //     safe d1 pairs run in chunks of 16 pairs (32 samples) and the mip
 //     phases in chunks of 32 samples, with one check per phase before its
 //     chunks.  For a chunk each lane takes one sample (a phase: every 32nd)
@@ -104,8 +107,9 @@
 //     candidates: mip (D - z_org) * inv_s at the chunk's first or, for a
 //     negative numerator, last reciprocal, which float rounding cannot
 //     exceed (it is monotone); d1 the parabola's overshoot
-//     D + 0.125 (D - lo) with lo the minimum of the same cells in a
-//     min-pooled level 0, over the distance of the sample before the
+//     D + 0.125 (D - lo) with lo the minimum of the same cells' in-domain
+//     heights (mip.pool8_floor: the pairs that may skip read in-domain
+//     stencils only), over the distance of the sample before the
 //     chunk, plus a slack for the rounding of the parabola's stationary
 //     value.  The warp skips when
 //     every lane's bound is at most its running value (__all_sync); the
@@ -114,11 +118,21 @@
 //     at the distance the loop forms (the table's), so skipping never moves
 //     a value.  Lanes with no swept cell (masked, or past in1) run on a
 //     clamped cell with a running value of +3e38 and always vote to skip;
-//     a warp without a swept cell returns at once.  K2 takes no skips.
+//     a warp without a swept cell returns at once.
+//   * K2's skips (d1_skip_shadow, mip_skip_shadow) take the same chunks and
+//     boxes; each lane bounds the clearance (h - z_org) - s m of its
+//     candidates with its own origin and slope, the mip bound needs no
+//     slack and the d1 bound a slack derived at d1_skip_shadow.  K2 also
+//     chunks the masked d1 pairs past n_safe: a skipped masked chunk
+//     re-reads h1 and re-forms its validity v1 as the pair would.  The
+//     sign-exact arm adds, per lane, bound <= 0 (no candidate of the chunk
+//     can make the metric positive) or acc > 0 (it is positive already);
+//     each arm keeps the sign of metric > 0, so their OR does.
 //
 // With params->counters set, each warp adds the (cell, row) samples it took
-// and skipped in the safe d1 pairs and in the mip phases (four unsigned
-// 64-bit counters); null on every library path.
+// and skipped in the d1 pairs (K1: the safe ones; K2: safe and masked) and
+// in the mip phases (four unsigned 64-bit counters); null on every library
+// path.
 //
 // Numerics follow the reference operation by operation so results agree
 // bit for bit with the plain version: build with --fmad=false (no
@@ -172,11 +186,13 @@ struct HzParams {
   const float2* steps;              // (n_steps) (s, 1/s): dense steps, then
                                     // the mip phases' samples in order
   const float* pool[HZ_MAX_LEVELS];  // 8x8 max-pool of each padded level,
-                                     // or null: no skips (K2)
+                                     // or null: no skips
   int pool_w[HZ_MAX_LEVELS];        // row stride of each pooled level
-  const float* pool_min0;           // 8x8 min-pool of padded level 0
+  const float* pool_min0;           // 8x8 min-pool of the in-domain cells
+                                    // of padded level 0 (mip.pool8_floor)
   unsigned long long* counters;     // 4 sample counters, or null
   int n_steps;
+  int sign_exact;                   // K2: the sign-exact arm of the skips
 };
 
 namespace {
@@ -254,13 +270,14 @@ struct Cell {
 
 // What the skips need of the warp: the outer columns of its first and last
 // cell, whether this lane holds no swept cell, the lane, the step table,
-// the lowest ray origin of its cells.
+// the lowest ray origin of its cells and (K2) their lowest ray slope.
 struct Warp {
   int b0, b1;
   bool dead;
   int lane;
   const float2* tab;
   float z_min;
+  float m_min;
 };
 
 // Bilinear level-0 read at distance s (pallas_sweep.py:388-402).
@@ -546,8 +563,114 @@ __device__ __forceinline__ bool mip_skip(const Cell& c, const Warp& wp,
   return __all_sync(kFull, wp.dead || bound <= k.acc.v);
 }
 
+// K2's vote on a chunk whose candidates this lane bounds by `bound`: the
+// value-exact arm (bound <= acc) and, with `sign`, the sign-exact arm
+// (bound <= 0: no candidate of the chunk is positive; acc > 0: the cell is
+// occluded already), each of which keeps the sign of the metric.
+__device__ __forceinline__ bool shadow_vote(const Warp& wp, float bound,
+                                            float acc, bool sign) {
+  bool yes = wp.dead || bound <= acc;
+  if (sign) yes = yes || bound <= 0.0f || acc > 0.0f;
+  return __all_sync(kFull, yes);
+}
+
+// K2's skip test of the d1 pairs at table entries [mA, mA + n_s) (n_s <=
+// 32, mA >= 1), safe or (`masked`) past n_safe.  The warp's box of
+// level-0 cells as d1_skip forms it: D its pooled maximum, lo the minimum
+// of its in-domain cells (a valid parabola reads no sentinel), each with
+// the lane's h1 when the chunk's first parabola may be valid (always for a
+// safe chunk, else v1).  A point candidate (h - z_org) - s m with
+// h <= dp = D (1 + 2^-20) (the bilinear read's rounding) and s in the
+// chunk is at most (dp - z_org) - min(s_lo m, s_hi m), s_lo the distance
+// of sample mA - 1 and s_hi that of the last, because every rounding is
+// monotone.  A parabola candidate is the vertex value
+// ((h0 - z_org) - s_start m) - (d d / 4) / a of the parabola P through
+// three samples in [lo, dp], taken when its vertex t* = d / (2 |a|) lies in
+// the window: in exact arithmetic it is P(t*) - z_org - m (s_start + t*),
+// with P(t*) <= dp + (dp - lo) / 8 (the overshoot of a parabola through
+// three equispaced samples) and s_start + t* in [s_lo, s_hi].  Its
+// rounding, from the coefficients a_c, b_c (errors of a few ulp of the
+// heights, over the window's length), from (h0 - z_org) - s_start m, and
+// from d d / (4 a) (at most 4 (dp - lo) in size, since the vertex lies in
+// the window), stays below 48 ulp of (dp - lo) + |dp| + |lo| + |z_org| +
+// max |s m|; the slack takes 64 ulp (2^-18) of that sum.
+template <bool A>
+__device__ __forceinline__ bool d1_skip_shadow(const HzParams& p,
+                                               const Cell& c, const Warp& wp,
+                                               const Carry<A>& k, int mA,
+                                               int n_s, bool masked,
+                                               bool sign) {
+  if (sign && __all_sync(kFull, wp.dead || k.acc.v > 0.0f)) return true;
+  float d = kNegInit;
+  float lo = kPosInit;
+  if (wp.lane < n_s) {
+    const float s = wp.tab[mA + wp.lane].x;
+    const int di = (int)floorf(s * c.sh_i);
+    const int dj = (int)floorf(s * c.sh_j);
+    const int pad = p.lvl_pad[0];
+    const int r = c.a + di + pad;
+    d = pooled_max(p.pool[0], p.pool_w[0], r, r + 1, wp.b0 + dj + pad,
+                   wp.b1 + dj + 1 + pad, p.pool_min0, &lo);
+  }
+  d = warp_max(d);
+  float lol = warp_min(lo);
+  if (!masked || k.v1) {
+    d = fmaxf(d, k.h1);
+    lol = fminf(lol, k.h1);
+  }
+  const float dp = d + fabsf(d) * kD1Rel;
+  const float lw = fminf(lol, dp);
+  const float gap = dp - lw;
+  const float hp = dp + 0.125f * gap;
+  const float sm_lo = wp.tab[mA - 1].x * c.m;
+  const float sm_hi = wp.tab[mA + n_s - 1].x * c.m;
+  const float slack =
+      ((((gap + fabsf(dp)) + fabsf(lw)) + fabsf(c.z_org)) +
+       fmaxf(fabsf(sm_lo), fabsf(sm_hi))) *
+      kD1Slack;
+  const float bound = ((hp - c.z_org) - fminf(sm_lo, sm_hi)) + slack;
+  return shadow_vote(wp, bound, k.acc.v, sign);
+}
+
+// K2's skip test of the mip samples at table entries [t, t + n) of level
+// lvl, the cells formed as mip_skip forms them.  A mip candidate
+// (h - z_org) - s m with h <= D is at most (D - z_org) - min(s_t m,
+// s_{t+n-1} m) (monotone roundings, min for either sign of m: the
+// reference's bound, pallas_sweep.py:960-967, 983-999, with the lane's own
+// origin and slope); and at most (D_k - z_min) - s_k m_min for its own
+// sample k, D_k that sample's pooled maximum, z_min and m_min the warp's
+// lowest origin and slope.  The lane takes the smaller of the two bounds.
+template <bool A>
+__device__ __forceinline__ bool mip_skip_shadow(const Cell& c,
+                                                const Warp& wp,
+                                                const Carry<A>& k,
+                                                const float* P, int pw,
+                                                int lvl, int pad, int t,
+                                                int n, bool sign) {
+  if (sign && __all_sync(kFull, wp.dead || k.acc.v > 0.0f)) return true;
+  float d = kNegInit;
+  float b_k = kNegInit;
+  for (int l = wp.lane; l < n; l += 32) {
+    const float s = wp.tab[t + l].x;
+    const int ri = __float2int_rn(s * c.sh_i);
+    const int rj = __float2int_rn(s * c.sh_j);
+    const int r = ((c.a + ri) >> lvl) + pad;
+    const float d_k = pooled_max(P, pw, r, r, ((wp.b0 + rj) >> lvl) + pad,
+                                 ((wp.b1 + rj) >> lvl) + pad);
+    d = fmaxf(d, d_k);
+    b_k = fmaxf(b_k, (d_k - wp.z_min) - s * wp.m_min);
+  }
+  d = warp_max(d);
+  const float own =
+      (d - c.z_org) - fminf(wp.tab[t].x * c.m, wp.tab[t + n - 1].x * c.m);
+  return shadow_vote(wp, fminf(own, warp_max(b_k)), k.acc.v, sign);
+}
+
+// Five blocks of 256 threads per SM: the register cap (51) brings K2 from
+// 60 registers to 48 without spills (about 2% faster on the hemisphere
+// example's 181 suns on an H100), and K1 (40) is under it already.
 template <bool ARGMAX, bool SHADOW>
-__global__ void __launch_bounds__(kBlockCols * kBlockRows)
+__global__ void __launch_bounds__(kBlockCols * kBlockRows, 5)
 horizon_sweep_kernel(const HzParams p) {
   // The step table, once per block, read by every thread with broadcast
   // loads.
@@ -600,6 +723,7 @@ horizon_sweep_kernel(const HzParams p) {
   wp.z_min = warp_min(c.z_org);
   const float zi = p.z_inner[cell];
   c.m = 0.0f;
+  wp.m_min = 0.0f;
   if constexpr (SHADOW) {
     // Per-cell ray slope toward sun `az` (pallas_sweep.py:352-374): the
     // lattice coordinates of the cell's global outer row and column.
@@ -614,6 +738,7 @@ horizon_sweep_kernel(const HzParams p) {
     c.m = (szr / mag) / fmaxf(adv, 1.0e-4f);
     c.sh_i = sun[5];  // row cells per metre
     c.sh_j = sun[6];
+    wp.m_min = warp_min(c.m);
   } else {
     const float ux = p.trig[2 * az];
     const float uy = p.trig[2 * az + 1];
@@ -627,8 +752,10 @@ horizon_sweep_kernel(const HzParams p) {
   if (wp.dead) k.acc.v = kPosInit;
   constexpr bool A = ARGMAX;
   constexpr bool S = SHADOW;
-  // Skips: K1 with its pooled companions (uniform across the launch).
-  const bool skips = !SHADOW && p.pool[0] != nullptr;
+  // Skips with the pooled companions, and K2's sign-exact arm (uniform
+  // across the launch).
+  const bool skips = p.pool[0] != nullptr;
+  const bool sign = SHADOW && !ARGMAX && p.sign_exact != 0;
   unsigned cnt[4] = {0u, 0u, 0u, 0u};
 
   // Dense steps, in the reference's sections (pallas_sweep.py:641-757).
@@ -642,7 +769,9 @@ horizon_sweep_kernel(const HzParams p) {
       const int q1 = min(q0 + kD1ChunkPairs, n_pairs);
       const int mA = p.nx + 2 * q0;
       const int n_s = 2 * (q1 - q0);
-      if (skips && mA >= 1 && d1_skip<A>(p, c, wp, k, mA, n_s)) {
+      if (skips && mA >= 1 &&
+          (S ? d1_skip_shadow<A>(p, c, wp, k, mA, n_s, false, sign)
+             : d1_skip<A>(p, c, wp, k, mA, n_s))) {
         // the chunk's last sample, at the distance the pairs form
         int di, dj;
         k.h1 = read0(c, tab[mA + n_s - 1].x, &di, &dj);
@@ -663,8 +792,24 @@ horizon_sweep_kernel(const HzParams p) {
   if (p.n_dense > p.ns1) {
     const int n_pairs = (p.n_dense - p.ns1) / 2;
     const bool odd = (p.n_dense - p.ns1) % 2;
-    for (int q = 0; q < n_pairs; ++q) {
-      d1_pair<A, S>(p, c, tab, k, p.ns1 + 2 * q, true);
+    // K2 runs the masked pairs in chunks too: a skipped chunk restores
+    // what the next one reads, h1 and its validity v1, from its last sample
+    for (int q0 = 0; q0 < n_pairs; q0 += kD1ChunkPairs) {
+      const int q1 = min(q0 + kD1ChunkPairs, n_pairs);
+      const int mA = p.ns1 + 2 * q0;
+      const int n_s = 2 * (q1 - q0);
+      if (S && skips && mA >= 1 &&
+          d1_skip_shadow<A>(p, c, wp, k, mA, n_s, true, sign)) {
+        int di, dj;
+        k.h1 = read0(c, tab[mA + n_s - 1].x, &di, &dj);
+        k.v1 = inside0(c, di, dj);
+        cnt[kD1Skipped] += n_s;
+        continue;
+      }
+      for (int q = q0; q < q1; ++q) {
+        d1_pair<A, S>(p, c, tab, k, p.ns1 + 2 * q, true);
+      }
+      if (S) cnt[kD1Taken] += n_s;
     }
     if (n_pairs > 0 && odd) {
       int di, dj;
@@ -688,8 +833,11 @@ horizon_sweep_kernel(const HzParams p) {
     const float* L = p.lvl[lvl] + (pad * wl + pad);
     const int n_m = p.ph_n[ph];
     const int id0 = 2 * p.n_dense + (t - p.n_dense);
-    if (skips && mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl,
-                             pad, t, n_m)) {
+    if (skips &&
+        (S ? mip_skip_shadow<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl,
+                                pad, t, n_m, sign)
+           : mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl, pad, t,
+                         n_m))) {
       cnt[kMipSkipped] += n_m;
       t += n_m;
       continue;
@@ -697,8 +845,10 @@ horizon_sweep_kernel(const HzParams p) {
     for (int m0 = 0; m0 < n_m; m0 += kMipChunk) {
       const int n = min(kMipChunk, n_m - m0);
       if (skips && n < n_m &&
-          mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl, pad,
-                      t + m0, n)) {
+          (S ? mip_skip_shadow<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl,
+                                  pad, t + m0, n, sign)
+             : mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl, pad,
+                           t + m0, n))) {
         cnt[kMipSkipped] += n;
         continue;
       }

@@ -89,9 +89,10 @@ ARGMAX_KERNEL_LAUNCHES = 0
 #: whose variant it runs.
 MASK_KERNEL_LAUNCHES = 0
 TILT_KERNEL_LAUNCHES = 0
-#: The counters a launch of K1 adds to when :func:`_ratio_cuda` is given
-#: ``counters`` (the kernel's slots, in order): (cell, azimuth) samples of
-#: swept cells.
+#: The counters a launch of K1 (or K2) adds to when :func:`_ratio_cuda`
+#: (``shadow_sweep._metric_cuda``) is given ``counters`` (the kernel's
+#: slots, in order): (cell, row) samples of swept cells, the d1 slots over
+#: the safe pairs (K2: the masked pairs too).
 COUNTER_FIELDS = ("d1_taken", "d1_skipped", "mip_taken", "mip_skipped")
 
 
@@ -251,16 +252,18 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
     float32 (default -3e38 everywhere; the mask variant passes +3e38 at
     masked cells).
 
-    ``chunk_hook``: for tests of K1's skips.  The safe d1 pairs and the mip
-    phases then run in the kernel's chunks, and before each chunk (a mip
-    phase too) ``chunk_hook(ev)`` gets a dict ``ev`` (``kind`` "d1", "mip"
-    or "mip_phase", ``row``, ``sh`` = (sh_i, sh_j), ``first`` and ``n``, the
-    chunk's samples as entries of :func:`step_table`, ``level``, ``acc``
-    the running value and ``h1``) and returns None or an (in0, in1) bool
-    tensor of the cells that skip it: they keep their running record, and
-    after a skipped d1 chunk h1 is re-read at the table's distance of its
-    last sample.  After the chunk it gets ``ev`` again with ``cand_max``,
-    each cell's largest candidate of the chunk."""
+    ``chunk_hook``: for tests of the kernel's skips.  The d1 pairs (safe
+    and masked) and the mip phases run in the kernel's chunks, and before
+    each chunk (a mip phase too) ``chunk_hook(ev)`` gets a dict ``ev``
+    (``kind`` "d1", "mip" or "mip_phase", ``row``, ``sh`` = (sh_i, sh_j),
+    ``first`` and ``n``, the chunk's samples as entries of
+    :func:`step_table`, ``level``, ``acc`` the running value, ``h1``, and
+    for a d1 chunk ``masked`` and ``v1``, the validity carried into it)
+    and returns None or an (in0, in1) bool tensor of the cells that skip
+    it: they keep their running record, and after a skipped d1 chunk h1
+    (and v1) is re-read at the table's distance of its last sample.  After
+    the chunk it gets ``ev`` again with ``cand_max``, each cell's largest
+    candidate of the chunk."""
     f32 = np.float32
     in0, in1 = plan["inner_shape"]
     off0, off1 = plan["offset"]
@@ -390,30 +393,36 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
             acc, he, v_end = d2_step(m, acc, h1, True)
             h2, h1, v2, v1 = h1, he, v1, v_end
         nx, ns1, n_dense = plan["nx"], plan["ns1"], plan["n_dense"]
-        def chunk(ev, run, acc, h1=None):
-            """``run(acc, h1) -> (acc, h1)`` over one chunk, with the
-            hook's skips applied."""
+        def chunk(ev, run, acc, carry=None):
+            """``run(acc, carry) -> (acc, carry)`` over one chunk, with the
+            hook's skips applied; ``carry`` is None (mip), h1 (a safe d1
+            chunk) or (h1, v1) (a masked one)."""
             if chunk_hook is None:
-                return run(acc, h1)
+                return run(acc, carry)
+            h1, v1 = carry if isinstance(carry, tuple) else (carry, ones)
             ev = dict(ev, row=r_idx, sh=(sh_i, sh_j),
-                      acc=acc[0] if emit_argmax else acc, h1=h1)
+                      acc=acc[0] if emit_argmax else acc, h1=h1, v1=v1)
             skip = chunk_hook(ev)
             outer, track[0] = track[0], torch.full_like(z_inner, _NEG_INIT)
-            acc2, h1_2 = run(acc, h1)
+            acc2, carry2 = run(acc, carry)
             chunk_hook(dict(ev, cand_max=track[0]))
             track[0] = (None if outer is None
                         else torch.maximum(outer, track[0]))
             if skip is None:
-                return acc2, h1_2
+                return acc2, carry2
             if emit_argmax:
                 acc2 = tuple(torch.where(skip, a, b)
                              for a, b in zip(acc, acc2))
             else:
                 acc2 = torch.where(skip, acc, acc2)
-            if h1 is not None:
-                last = steps[ev["first"] + ev["n"] - 1, 0]
-                h1_2 = torch.where(skip, read0(last)[0], h1_2)
-            return acc2, h1_2
+            if carry is not None:
+                he, di, dj = read0(steps[ev["first"] + ev["n"] - 1, 0])
+                if isinstance(carry, tuple):
+                    carry2 = (torch.where(skip, he, carry2[0]),
+                              torch.where(skip, inside0(di, dj), carry2[1]))
+                else:
+                    carry2 = torch.where(skip, he, carry2)
+            return acc2, carry2
 
         if ns1 > nx:
             n_pairs = (ns1 - nx) // 2
@@ -425,9 +434,9 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
                         acc, h1, _ = d1_pair(nx + 2 * q, acc, h1, False)
                     return acc, h1
 
-                acc, h1 = chunk(dict(kind="d1", first=nx + 2 * q0,
-                                     n=2 * (q1 - q0), level=0), pairs, acc,
-                                h1)
+                acc, h1 = chunk(dict(kind="d1", masked=False,
+                                     first=nx + 2 * q0, n=2 * (q1 - q0),
+                                     level=0), pairs, acc, h1)
             if n_pairs > 0 and (ns1 - nx) % 2:
                 h2 = read0(k["s_m1_safe"])[0]
             if (ns1 - nx) % 2:
@@ -435,8 +444,19 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
                 h2, h1 = h1, he
         if n_dense > ns1:
             n_pairs = (n_dense - ns1) // 2
-            for q in range(n_pairs):
-                acc, h1, v1 = d1_pair(ns1 + 2 * q, acc, h1, True, v1)
+            for q0 in range(0, n_pairs, D1_CHUNK_PAIRS):
+                q1 = min(q0 + D1_CHUNK_PAIRS, n_pairs)
+
+                def mpairs(acc, hv, q0=q0, q1=q1):
+                    h1, v1 = hv
+                    for q in range(q0, q1):
+                        acc, h1, v1 = d1_pair(ns1 + 2 * q, acc, h1, True, v1)
+                    return acc, (h1, v1)
+
+                acc, (h1, v1) = chunk(dict(kind="d1", masked=True,
+                                           first=ns1 + 2 * q0,
+                                           n=2 * (q1 - q0), level=0),
+                                      mpairs, acc, (h1, v1))
             if n_pairs > 0 and (n_dense - ns1) % 2:
                 h2, di, dj = read0(k["s_m1_masked"])
                 v2 = inside0(di, dj)
@@ -570,15 +590,20 @@ def _ratio_plain(z_org, z_inner, levels, trig, plan, outer_shape,
     return (raw,) + res[1:] if emit_argmax else raw
 
 
-def warp_skip_plain(ev, pooled, pool_min0, plan, z_org):
-    """K1's skip test (``d1_skip``, ``mip_skip`` of csrc/horizon_sweep.cu)
+def warp_skip_plain(ev, pooled, pool_min0, plan, z_org, m=None,
+                    sign_exact=False):
+    """The kernel's skip test (``d1_skip``, ``mip_skip`` and, with ``m``,
+    K2's ``d1_skip_shadow``, ``mip_skip_shadow`` of csrc/horizon_sweep.cu)
     in plain torch, for every warp of row ``ev["row"]`` at once: the
     ``chunk_hook`` event ``ev`` of :func:`sweep_plain`, the pooled
-    companions of :func:`skip_inputs`, the ray origins
-    ``z_org``.  Returns ``(bound, skip)``, (in0, in1): each cell's bound on
+    companions of :func:`skip_inputs`, the ray origins ``z_org`` and, in
+    the shadow mode, the row's ray slopes ``m`` (in0, in1).  ``sign_exact``: K2's sign-exact arm (a lane
+    also votes to skip when its bound is at most 0 or its running value is
+    positive).  Returns ``(bound, skip)``, (in0, in1): each cell's bound on
     the chunk's candidates, and whether its warp (32 consecutive columns of
-    a row, as the kernel's) skips the chunk.  The same float32 operations as
-    the kernel's, for the tests of the skips; the library never calls it."""
+    a row, as the kernel's) skips the chunk.  The same float32 operations
+    as the kernel's, for the tests of the skips; the library never calls
+    it."""
     f32 = np.float32
     in0, in1 = plan["inner_shape"]
     off0, off1 = plan["offset"]
@@ -587,49 +612,85 @@ def warp_skip_plain(ev, pooled, pool_min0, plan, z_org):
     first, n, lvl = ev["first"], ev["n"], ev["level"]
     sh_i, sh_j = ev["sh"]
     acc = ev["acc"]
+    shadow = m is not None
     rows = torch.arange(off0, off0 + in0, device=dev)
     w0 = torch.arange(0, in1, BLOCK_COLS, device=dev)
     b0 = off1 + w0
     b1 = off1 + torch.clamp(w0 + BLOCK_COLS - 1, max=in1 - 1)
     pad = plan["pads"][lvl]
     pool_l = pooled[lvl]
+    n_w = len(w0) * BLOCK_COLS
 
     def box_max(r, q0, q1, pool=pool_l, minimum=False):
-        """Max (or min) of the pooled cells over padded rows r (in0,) and
-        columns [q0, q1] (warps,): (in0, warps)."""
+        """Max (or min) of the pooled cells over padded rows r (k, in0) and
+        columns [q0, q1] (k, warps), for k samples: (k, in0, warps)."""
         p0, p1 = q0 >> 3, q1 >> 3
         width = int((p1 - p0).max()) + 1
-        idx = torch.minimum(p0[:, None] + torch.arange(width, device=dev),
-                            p1[:, None])
-        vals = pool[r >> 3][:, idx]
+        idx = torch.minimum(p0[..., None] + torch.arange(width, device=dev),
+                            p1[..., None])
+        vals = pool[(r >> 3)[:, :, None, None], idx[:, None, :, :]]
         return vals.amin(dim=-1) if minimum else vals.amax(dim=-1)
 
-    d = torch.full((in0, len(w0)), _NEG_INIT, device=dev)
-    lo = torch.full((in0, len(w0)), _POS_INIT, device=dev)
-    b_k = torch.full((in0, len(w0)), _NEG_INIT, device=dev)
-    z_pad = torch.full((in0, len(w0) * BLOCK_COLS), _POS_INIT, device=dev)
-    z_pad[:, :in1] = z_org
-    z_min = z_pad.view(in0, -1, BLOCK_COLS).amin(dim=2)
-    for t in range(first, first + n):
-        s = tab[t, 0]
-        if ev["kind"] == "d1":
-            di, dj = int(np.floor(s * sh_i)), int(np.floor(s * sh_j))
-            r = rows + di + pad
-            q0, q1 = b0 + dj + pad, b1 + dj + 1 + pad
-            for rr in (r, r + 1):
-                d = torch.maximum(d, box_max(rr, q0, q1))
-                lo = torch.minimum(lo, box_max(rr, q0, q1, pool_min0, True))
+    def warp_min(x):
+        """(in0, warps) minimum over each warp's cells (a lane past in1
+        runs on the last cell, which its warp already holds)."""
+        full = torch.full((in0, n_w), _POS_INIT, device=dev)
+        full[:, :in1] = x
+        return full.view(in0, -1, BLOCK_COLS).amin(dim=2)
+
+    def lanes(x):
+        return x.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1]
+
+    def col(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)[:, None]
+
+    z_min = warp_min(z_org)
+    s = tab[first:first + n, 0]
+    if ev["kind"] == "d1":
+        # the 2 x 2 stencils of every sample: rows r and r + 1
+        di, dj = col(np.floor(s * sh_i).astype(np.int64)), col(
+            np.floor(s * sh_j).astype(np.int64))
+        r = rows[None, :] + di + pad
+        r = torch.cat([r, r + 1])
+        q0 = (b0[None, :] + dj + pad).repeat(2, 1)
+        q1 = (b1[None, :] + dj + 1 + pad).repeat(2, 1)
+        d = box_max(r, q0, q1).amax(dim=0)
+        lo = box_max(r, q0, q1, pool_min0, True).amin(dim=0)
+    else:
+        ri, rj = col(np.rint(s * sh_i).astype(np.int64)), col(
+            np.rint(s * sh_j).astype(np.int64))
+        d_k = box_max(((rows[None, :] + ri) >> lvl) + pad,
+                      ((b0[None, :] + rj) >> lvl) + pad,
+                      ((b1[None, :] + rj) >> lvl) + pad)
+        d = d_k.amax(dim=0)
+        lo = torch.full_like(d, _POS_INIT)
+        s_k = torch.from_numpy(s).to(dev)[:, None, None]
+        if shadow:
+            b_k = ((d_k - z_min) - s_k * warp_min(m)).amax(dim=0)
         else:
-            ri, rj = int(np.rint(s * sh_i)), int(np.rint(s * sh_j))
-            d_k = box_max(((rows + ri) >> lvl) + pad,
-                          ((b0 + rj) >> lvl) + pad, ((b1 + rj) >> lvl) + pad)
-            d = torch.maximum(d, d_k)
-            b_k = torch.maximum(b_k, (d_k - z_min) * float(tab[t, 1]))
-    d = d.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1]
-    lo = lo.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1]
+            inv_k = torch.from_numpy(tab[first:first + n, 1]).to(dev)
+            b_k = ((d_k - z_min) * inv_k[:, None, None]).amax(dim=0)
+    d, lo = lanes(d), lanes(lo)
     e_lo, e_hi = tab[first - 1 if ev["kind"] == "d1" else first],\
         tab[first + n - 1]
-    if ev["kind"] == "d1":
+    if ev["kind"] == "d1" and shadow:
+        # the lane's h1 is the first parabola's left sample, unless that
+        # parabola is invalid (a masked chunk with v1 false)
+        own = ev["v1"] if ev["masked"] else torch.ones_like(d, dtype=bool)
+        d = torch.where(own, torch.maximum(d, ev["h1"]), d)
+        lol = torch.where(own, torch.minimum(lo, ev["h1"]), lo)
+        dp = d + d.abs() * float(_D1_REL)
+        lw = torch.minimum(lol, dp)
+        gap = dp - lw
+        hp = dp + 0.125 * gap
+        sm_lo = float(e_lo[0]) * m
+        sm_hi = float(e_hi[0]) * m
+        slack = ((((gap + dp.abs()) + lw.abs()) + z_org.abs())
+                 + torch.maximum(sm_lo.abs(), sm_hi.abs())) * float(_D1_SLACK)
+        bound = ((hp - z_org) - torch.minimum(sm_lo, sm_hi)) + slack
+        if first < 1:
+            bound = torch.full_like(bound, float("inf"))
+    elif ev["kind"] == "d1":
         h1 = ev["h1"]
         d = torch.maximum(d, h1)
         lol = torch.minimum(lo, h1)
@@ -643,17 +704,23 @@ def warp_skip_plain(ev, pooled, pool_min0, plan, z_org):
                                 float(e_hi[1])) + slack
         if first < 1:
             bound = torch.full_like(bound, float("inf"))
+    elif shadow:
+        bound = torch.minimum(
+            (d - z_org) - torch.minimum(float(e_lo[0]) * m,
+                                        float(e_hi[0]) * m),
+            lanes(b_k))
     else:
         x = d - z_org
         bound = torch.minimum(
             x * torch.where(x >= 0.0, float(e_lo[1]), float(e_hi[1])),
-            b_k.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1])
+            lanes(b_k))
     vote = bound <= acc
-    n_w = len(w0) * BLOCK_COLS
+    if sign_exact:
+        vote = vote | (bound <= 0.0) | (acc > 0.0)
     full = torch.ones((in0, n_w), dtype=torch.bool, device=dev)
     full[:, :in1] = vote
     skip = full.view(in0, -1, BLOCK_COLS).all(dim=2)
-    return bound, skip.repeat_interleave(BLOCK_COLS, dim=1)[:, :in1]
+    return bound, lanes(skip)
 
 
 # ---------------------------------------------------------------------------
@@ -683,12 +750,14 @@ class _HzParams(ctypes.Structure):
            ("mask", ctypes.c_void_p), ("blocks", ctypes.c_void_p),
            ("n_blocks", ctypes.c_int),
            # appended for the redesign: the step table, the pooled
-           # companions (K1's skips), the level-0 floor, the counters
+           # companions (the skips), the level-0 floor, the counters
            ("steps", ctypes.c_void_p),
            ("pool", ctypes.c_void_p * _MAX_LEVELS),
            ("pool_w", ctypes.c_int * _MAX_LEVELS),
            ("pool_min0", ctypes.c_void_p), ("counters", ctypes.c_void_p),
-           ("n_steps", ctypes.c_int)])
+           ("n_steps", ctypes.c_int),
+           # K2's sign-exact arm of the skips
+           ("sign_exact", ctypes.c_int)])
 
 
 def kernel_lib():
@@ -798,12 +867,24 @@ def _check_inner(t, what, dtype, plan, dev):
                          f"the inner shape {(in0, in1)} on {dev}")
 
 
-def skip_inputs(levels):
-    """What K1's skips read beside the levels: the 8 x 8 max-pooled
-    companion of each padded level and the min-pooled one of level 0 (the
-    floor of the bilinear samples of a d1 chunk), from
-    :func:`horayzon_tpu_torch.ops.mip.pool8`, on the levels' device."""
-    return _mip.pool8(levels), _mip.pool8(levels[:1], minimum=True)[0]
+def check_counters(counters, dev):
+    """``counters`` is what a launch may add its sample counts to."""
+    if (counters.device != dev or counters.dtype != torch.int64
+            or tuple(counters.shape) != (len(COUNTER_FIELDS),)):
+        raise ValueError(f"counters must be a ({len(COUNTER_FIELDS)},) "
+                         f"int64 tensor on {dev}")
+
+
+def skip_inputs(levels, plan):
+    """What the skips of K1 and K2 read beside the levels: the 8 x 8
+    max-pooled companion of each padded level
+    (:func:`horayzon_tpu_torch.ops.mip.pool8`) and the 8 x 8 min-pooled
+    floor of level 0's in-domain cells
+    (:func:`horayzon_tpu_torch.ops.mip.pool8_floor`; a d1 chunk that may
+    skip reads only in-domain stencils: K1's safe pairs, and K2's valid
+    parabolas), on the levels' device.  The ``pooled`` of
+    ``shadow_sweep.shadow_metric_fused``."""
+    return _mip.pool8(levels), _mip.pool8_floor(levels[0], plan["pads"][0])
 
 
 def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
@@ -830,17 +911,14 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
     out = output(_POS_INIT, torch.float32)
     prm = kernel_params(z_org, z_inner, levels, plan, outer_shape,
                         trig.shape[0], out)
-    pooled, pool_min0 = skip_inputs(levels)
+    pooled, pool_min0 = skip_inputs(levels, plan)
     trig_t = _replay._table_to(trig, dev)
     prm.keep += [trig_t, pool_min0, *pooled]
     prm.trig, prm.pool_min0 = trig_t.data_ptr(), pool_min0.data_ptr()
     for lvl, t in enumerate(pooled):
         prm.pool[lvl], prm.pool_w[lvl] = t.data_ptr(), t.shape[1]
     if counters is not None:
-        if (counters.device != dev or counters.dtype != torch.int64
-                or tuple(counters.shape) != (len(COUNTER_FIELDS),)):
-            raise ValueError(f"counters must be a ({len(COUNTER_FIELDS)},) "
-                             f"int64 tensor on {dev}")
+        check_counters(counters, dev)
         prm.counters = counters.data_ptr()
     if emit_argmax:
         ids = output(_replay.ID_NONE, torch.int32)

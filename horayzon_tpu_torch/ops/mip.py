@@ -14,7 +14,8 @@ the state the sweep carries; :func:`pyramid_from_jax` lays out the JAX
 package's padded levels the same way.  :func:`padded_levels_vjp` carries a
 gradient from the padded levels back to the heightfield.  :func:`pool8`
 builds the 8 x 8 max-pooled companion of each padded level, which bounds
-the heights behind the sweep kernel's value-exact skips.
+the heights behind the sweep kernel's skips, and :func:`pool8_floor` the
+floor of level 0's in-domain heights behind its d1 skips.
 """
 
 import numpy as np
@@ -69,15 +70,14 @@ def padded_levels(z, pads):
             for lv, p in zip(levels, pads)]
 
 
-def pool8(levels, minimum=False):
+def pool8(levels):
     """8 x 8 max-pooled companion of each padded level: cell ``(P, Q)`` is
     the maximum of padded rows ``[8P, 8P + 8)`` and columns ``[8Q, 8Q + 8)``,
     the level first padded with :data:`PAD_VALUE` to multiples of 8.  The
     counterpart of ``horayzon_tpu.ops.pallas_sweep._pool8`` without its
     margins for the TPU's window copies (equal to it on the shared extent).
-    ``minimum``: the minimum in place of the maximum.  The companions only
-    bound the heights the kernel's skips pass over, so they are built
-    without autograd.  Returns contiguous float32 tensors of
+    The companions only bound the heights the kernel's skips pass over, so
+    they are built without autograd.  Returns contiguous float32 tensors of
     ``(ceil(H / 8), ceil(W / 8))``."""
     pooled = []
     with torch.no_grad():
@@ -87,9 +87,25 @@ def pool8(levels, minimum=False):
             zp = F.pad(lv.to(torch.float32), (0, 8 * w8 - w, 0, 8 * h8 - h),
                        value=PAD_VALUE)
             blocks = zp.view(h8, 8, w8, 8)
-            pooled.append((blocks.amin(dim=(1, 3)) if minimum
-                           else blocks.amax(dim=(1, 3))).contiguous())
+            pooled.append(blocks.amax(dim=(1, 3)).contiguous())
     return pooled
+
+
+def pool8_floor(level, pad):
+    """8 x 8 min-pooled companion of the in-domain cells of a padded level
+    (``pad`` sentinel cells on every side), in :func:`pool8`'s layout: the
+    sentinel margin and the fill to multiples of 8 count as ``-PAD_VALUE``,
+    above any height, so a pooled cell's value is the lowest in-domain
+    height it holds (``-PAD_VALUE`` where it holds none).  The floor of a
+    parabola whose samples all lie in the domain, for the d1 skips of both
+    sweep modes."""
+    with torch.no_grad():
+        h, w = level.shape
+        h8, w8 = -(-h // 8), -(-w // 8)
+        zp = torch.full((8 * h8, 8 * w8), -PAD_VALUE, dtype=torch.float32,
+                        device=level.device)
+        zp[pad:h - pad, pad:w - pad] = level[pad:h - pad, pad:w - pad]
+        return zp.view(h8, 8, w8, 8).amin(dim=(1, 3)).contiguous()
 
 
 def padded_levels_vjp(z, pads, level_cots):

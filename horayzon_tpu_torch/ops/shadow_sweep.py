@@ -1,9 +1,8 @@
 # Copyright (c) 2026
 # MIT License
 """Fused planar shadow sweep: the counterpart of
-``horayzon_tpu.ops.pallas_sweep.shadow_metric_pallas`` with
-``exact_metric=True``, and of its differentiable form
-``shadow_metric_pallas_diff``.
+``horayzon_tpu.ops.pallas_sweep.shadow_metric_pallas`` and of its
+differentiable form ``shadow_metric_pallas_diff``.
 
 For every inner cell and each sun of a track, :func:`shadow_metric_fused`
 returns the occlusion metric: the maximum along the cell's ray toward the
@@ -23,15 +22,22 @@ implementations of identical arithmetic:
 Both follow ``pallas_sweep.py::_kernel(mode="shadow")``: the ray slope from
 the sun table (:352-380), the clearance of a point sample (:487-489) and
 the vertex value of a concave parabola segment (:426-437), rounded as the
-reference rounds them.  None of the reference's skips run, so the value is
-its ``exact_metric=True`` value.
+reference rounds them.  K2 also takes the reference's shadow-mode skips,
+decided per warp from the pooled companions of the levels
+(``fused_sweep.skip_inputs``, as K1's): with ``exact_metric=True`` the
+value-exact ones, which move no value, so K2 returns the exact metric; with
+``exact_metric=False`` also the sign-exact arm, for callers that only
+threshold the metric at 0 (``Terrain``): its metric keeps the exact one's
+sign and never exceeds it.  The plain version takes no skips and returns
+the exact metric; :func:`metric_model` runs it with the skips the kernel
+takes, for the tests and the smoke run.
 
 The gradient path (:class:`_ShadowSweepFn`, taken when ``z_outer`` or
 ``z_org_r`` requires grad) runs the argmax variant, K2-argmax on the card
-(winner ids and the vertex denominator D = s0 + t*), and the shadow
-winner-replay backward, kernel K4 of ``csrc/horizon_replay_bwd.cu``
-(``replay.backward_replay`` in the shadow mode); on the CPU their plain
-versions.
+(winner ids and the vertex denominator D = s0 + t*, with the value-exact
+skips), and the shadow winner-replay backward, kernel K4 of
+``csrc/horizon_replay_bwd.cu`` (``replay.backward_replay`` in the shadow
+mode); on the CPU their plain versions.
 """
 
 import math
@@ -92,18 +98,14 @@ def plan_shadow(outer_shape, *, inner_shape, offset, dx, dy, hori_acc=0.25,
                              hori_acc=hori_acc, rel_err=rel_err)
 
 
-def _shadow_rows(z_org, table, plan, grid_origin):
-    """``row_mode`` of :func:`fused_sweep.sweep_plain` for K2: per sun the
-    shifts of the table's columns 5-6, the ray-slope field ``m`` and the
-    clearance candidates (``pallas_sweep.py:352-380, 426-453, 487-489``)."""
-    k = plan["consts"]
+def ray_slopes(z_org, table, plan, grid_origin):
+    """``slope(t)``: the (in0, in1) float32 ray slopes ``m`` of the cells
+    toward sun ``t`` of ``table``, as K2 forms them
+    (``pallas_sweep.py:352-374``)."""
     xr, yr = lattice_xy(plan, grid_origin, z_org.device)
-    # (lo2, hi2) of each window: d2 step, d1 pair, d1 single
-    wins = ((k["lo2_0"], k["hi2_step"]), (k["lo2_0"], k["hi2_two_step"]),
-            (k["lo2_step"], k["hi2_two_step"]))
 
-    def row(t):
-        sun_x, sun_y, sun_z, kx_u, ky_u, sh_i, sh_j = table[t, :7]
+    def slope(t):
+        sun_x, sun_y, sun_z, kx_u, ky_u = table[t, :5]
         sxr = float(sun_x) - xr                  # (in1,)
         syr = float(sun_y) - yr                  # (in0,)
         szr = float(sun_z) - z_org
@@ -111,7 +113,24 @@ def _shadow_rows(z_org, table, plan, grid_origin):
                        + szr * szr)
         adv = ((sxr * float(kx_u))[None, :]
                + (syr * float(ky_u))[:, None]) / mag
-        m = (szr / mag) / torch.clamp_min(adv, float(_F32(1.0e-4)))
+        return (szr / mag) / torch.clamp_min(adv, float(_F32(1.0e-4)))
+
+    return slope
+
+
+def _shadow_rows(z_org, table, plan, grid_origin):
+    """``row_mode`` of :func:`fused_sweep.sweep_plain` for K2: per sun the
+    shifts of the table's columns 5-6, the ray-slope field ``m`` and the
+    clearance candidates (``pallas_sweep.py:352-380, 426-453, 487-489``)."""
+    k = plan["consts"]
+    slope = ray_slopes(z_org, table, plan, grid_origin)
+    # (lo2, hi2) of each window: d2 step, d1 pair, d1 single
+    wins = ((k["lo2_0"], k["hi2_step"]), (k["lo2_0"], k["hi2_two_step"]),
+            (k["lo2_step"], k["hi2_two_step"]))
+
+    def row(t):
+        sh_i, sh_j = table[t, 5:7]
+        m = slope(t)
 
         def point(he, s):
             return (he - z_org) - m * float(s)
@@ -136,31 +155,64 @@ def _shadow_rows(z_org, table, plan, grid_origin):
 
 def _metric_plain(z_org, z_inner, levels, table, plan, outer_shape,
                   grid_origin, emit_argmax=False):
-    """The metric (T, in0, in1) in plain torch (K2's plain version); with
-    ``emit_argmax`` ``(metric, ids, aux)`` as K2-argmax returns them (ids
-    in the horizon layout, aux the D of a parabola winner)."""
+    """The exact metric (T, in0, in1) in plain torch (K2's plain version);
+    with ``emit_argmax`` ``(metric, ids, aux)`` as K2-argmax returns them
+    (ids in the horizon layout, aux the D of a parabola winner)."""
     return _fused.sweep_plain(z_inner, levels, plan, outer_shape,
                               table.shape[0],
                               _shadow_rows(z_org, table, plan, grid_origin),
                               emit_argmax)
 
 
+def _check_pooled(pooled, levels):
+    """``pooled`` as ``fused_sweep.skip_inputs`` builds it for ``levels``."""
+    if len(pooled) != 2 or len(pooled[0]) != len(levels):
+        raise ValueError("pooled must be (the pooled levels, the level-0 "
+                         "floor) of skip_inputs, one pooled level per level")
+    for t, lv in zip((*pooled[0], pooled[1]), (*levels, levels[0])):
+        want = (-(-lv.shape[0] // 8), -(-lv.shape[1] // 8))
+        if (not isinstance(t, torch.Tensor) or t.device != lv.device
+                or t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != want):
+            raise ValueError(f"a pooled companion is not a contiguous "
+                             f"float32 tensor of shape {want} on "
+                             f"{lv.device}")
+
+
 def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
-                 grid_origin, emit_argmax=False):
+                 grid_origin, emit_argmax=False, exact_metric=True,
+                 pooled=None, counters=None):
     """The metric (T, in0, in1) from kernel K2 on ``z_org``'s card;
     ``emit_argmax``: ``(metric, ids, aux)`` from K2-argmax, as
-    :func:`_metric_plain` returns them."""
+    :func:`_metric_plain` returns them.  The kernel takes the value-exact
+    skips and, with ``exact_metric=False``, the sign-exact arm.
+    ``pooled``: ``fused_sweep.skip_inputs`` of ``levels`` (built here
+    when None).  ``counters``: a (4,) int64 tensor on the card to which the launch adds
+    the (cell, sun) samples it took and skipped in the d1 pairs and the mip
+    phases (``fused_sweep.COUNTER_FIELDS``)."""
     global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
+    if emit_argmax and not exact_metric:
+        raise ValueError("emit_argmax requires exact_metric=True")
     dev = z_org.device
     in0, in1 = plan["inner_shape"]
     shape = (table.shape[0], in0, in1)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     prm = _fused.kernel_params(z_org, z_inner, levels, plan, outer_shape,
                                table.shape[0], out)
+    if pooled is None:
+        pooled = _fused.skip_inputs(levels, plan)
+    _check_pooled(pooled, levels)
     table_t = _replay._table_to(table, dev)
-    prm.keep.append(table_t)
+    prm.keep += [table_t, pooled[1], *pooled[0]]
     prm.sun = table_t.data_ptr()
+    prm.pool_min0 = pooled[1].data_ptr()
+    for lvl, t in enumerate(pooled[0]):
+        prm.pool[lvl], prm.pool_w[lvl] = t.data_ptr(), t.shape[1]
+    prm.sign_exact = 0 if exact_metric else 1
     prm.x0, prm.y0 = _F32(grid_origin[0]), _F32(grid_origin[1])
+    if counters is not None:
+        _fused.check_counters(counters, dev)
+        prm.counters = counters.data_ptr()
     if emit_argmax:
         ids = torch.empty(shape, dtype=torch.int32, device=dev)
         aux = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -175,12 +227,70 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
     return out
 
 
+def metric_model(z_org, z_inner, levels, table, plan, outer_shape,
+                 grid_origin, emit_argmax=False, exact_metric=True,
+                 pooled=None):
+    """K2 (``exact_metric=False``: its sign-exact arm too) in plain torch
+    on the inputs of :func:`_metric_cuda`: the plain sweep run in the
+    kernel's chunks, skipping where the plain model of the kernel's
+    per-warp test (``fused_sweep.warp_skip_plain``) skips.  Returns
+    ``(result, counts)``: the result as :func:`_metric_cuda` returns it,
+    and a dict of the samples of (cell, sun) taken and skipped, under
+    ``fused_sweep.COUNTER_FIELDS`` (what the kernel's counters hold) and
+    ``masked_d1_taken`` / ``masked_d1_skipped`` (the masked pairs' share
+    of the d1 counts).  For the tests and the smoke run; the library never
+    calls it."""
+    if emit_argmax and not exact_metric:
+        raise ValueError("emit_argmax requires exact_metric=True")
+    if pooled is None:
+        pooled = _fused.skip_inputs(levels, plan)
+    slope = ray_slopes(z_org, table, plan, grid_origin)
+    names = _fused.COUNTER_FIELDS + ("masked_d1_taken", "masked_d1_skipped")
+    counts = dict.fromkeys(names, 0)
+    state = {}
+
+    def hook(ev):
+        if "cand_max" in ev:
+            return None
+        if state.get("row") != ev["row"]:
+            state.update(row=ev["row"], m=slope(ev["row"]))
+        _, skip = _fused.warp_skip_plain(ev, pooled[0], pooled[1], plan,
+                                         z_org, m=state["m"],
+                                         sign_exact=not exact_metric)
+        n, kind = ev["n"], ev["kind"]
+        took, skipped = n * int((~skip).sum()), n * int(skip.sum())
+        if kind == "d1":
+            counts["d1_taken"] += took
+            counts["d1_skipped"] += skipped
+            if ev["masked"]:
+                counts["masked_d1_taken"] += took
+                counts["masked_d1_skipped"] += skipped
+        elif kind == "mip_phase":
+            # a phase that runs is counted by its chunks, unless it is one
+            state["phase_skip"] = skip
+            counts["mip_skipped"] += skipped
+            if n <= _fused.MIP_CHUNK:
+                counts["mip_taken"] += took
+        else:
+            live = ~state["phase_skip"]
+            counts["mip_taken"] += n * int((live & ~skip).sum())
+            counts["mip_skipped"] += n * int((live & skip).sum())
+        return skip
+
+    res = _fused.sweep_plain(z_inner, levels, plan, outer_shape,
+                             table.shape[0],
+                             _shadow_rows(z_org, table, plan, grid_origin),
+                             emit_argmax, chunk_hook=hook)
+    return res, counts
+
+
 def metric_args(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
                 inner_shape, dx, dy, hori_acc=0.25, rel_err=None,
-                pyramid=None):
+                pyramid=None, pooled=None):
     """The inputs ``(z_org, z_inner, levels, table, plan, outer_shape)`` of
     :func:`_metric_cuda` / :func:`_metric_plain` from the arguments of
-    :func:`shadow_metric_fused`, validated as it validates them."""
+    :func:`shadow_metric_fused`, validated as it validates them (``pooled``
+    only with the ``pyramid`` it was built from)."""
     z = torch.as_tensor(z_outer)
     if z.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no shadow sweep for device {z.device}")
@@ -203,9 +313,13 @@ def metric_args(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
                        offset=tuple(offset), dx=dx, dy=dy,
                        hori_acc=hori_acc, rel_err=rel_err)
     if pyramid is None:
+        if pooled is not None:
+            raise ValueError("pooled needs the pyramid it was built from")
         levels = _mip.padded_levels(z, plan["pads"])
     else:
         levels = _fused.check_pyramid(pyramid, z, plan["pads"])
+    if pooled is not None:
+        _check_pooled(pooled, levels)
     return (fields[0], fields[1], levels, table, plan, tuple(z.shape))
 
 
@@ -222,9 +336,13 @@ class _ShadowSweepFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z_outer, z_org_r, z_inner_r, kw):
         args = metric_args(z_outer, z_org_r, z_inner_r, **kw["metric"])
-        fn = _metric_cuda if args[0].is_cuda else _metric_plain
-        met, ids, aux = fn(*args, grid_origin=kw["grid_origin"],
-                           emit_argmax=True)
+        if args[0].is_cuda:
+            met, ids, aux = _metric_cuda(
+                *args, grid_origin=kw["grid_origin"], emit_argmax=True,
+                pooled=kw["metric"]["pooled"])
+        else:
+            met, ids, aux = _metric_plain(
+                *args, grid_origin=kw["grid_origin"], emit_argmax=True)
         z_org, _, _, table, plan, _ = args
         ctx.save_for_backward(z_outer, z_org, ids, aux)
         ctx.table, ctx.plan, ctx.grid_origin = table, plan, kw["grid_origin"]
@@ -244,39 +362,49 @@ class _ShadowSweepFn(torch.autograd.Function):
 
 def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
                         inner_shape, dx, dy, grid_origin, hori_acc=0.25,
-                        rel_err=None, pyramid=None):
+                        rel_err=None, pyramid=None, pooled=None,
+                        exact_metric=True):
     """Batched shadow occlusion metric via the fused sweep.
 
     The contract of ``horayzon_tpu.ops.pallas_sweep.shadow_metric_pallas``
-    with ``exact_metric=True`` and no mask: ``z_outer`` the (H, W) outer
-    heightfield, ``z_org_r`` / ``z_inner_r`` the (in0, in1) ray-origin and
-    terrain heights of the inner block at ``offset``, ``sun_table`` the
-    (T, 8) table of :func:`shadow_sun_table`, ``grid_origin`` the (x, y) of
-    outer cell (0, 0); ``dx``, ``dy`` signed spacings [metre].  The rays
-    run to the outer grid's diagonal (:func:`plan_shadow`).  There is no
-    tile: the inner block is swept as it is.
+    with no mask: ``z_outer`` the (H, W) outer heightfield, ``z_org_r`` /
+    ``z_inner_r`` the (in0, in1) ray-origin and terrain heights of the
+    inner block at ``offset``, ``sun_table`` the (T, 8) table of
+    :func:`shadow_sun_table`, ``grid_origin`` the (x, y) of outer cell
+    (0, 0); ``dx``, ``dy`` signed spacings [metre].  The rays run to the
+    outer grid's diagonal (:func:`plan_shadow`).  There is no tile: the
+    inner block is swept as it is.
 
     A CUDA ``z_outer`` runs kernel K2 (built with nvcc on first use; a
-    failed build or launch raises); a CPU ``z_outer`` runs the plain torch
-    version.  ``pyramid``: optional padded levels in the layout of
+    failed build or launch raises) with the value-exact skips;
+    ``exact_metric=False`` adds their sign-exact arm, for callers that only
+    threshold the metric at 0: the metric then has the exact one's sign
+    and is at most the exact one, but not its value.  A CPU ``z_outer``
+    runs the plain torch version, which returns the exact metric either
+    way.  ``pyramid``: optional padded levels in the layout of
     :func:`horayzon_tpu_torch.ops.mip.padded_levels` on ``z_outer``'s
-    device (a ``Terrain`` builds them once).
+    device, and ``pooled`` their ``fused_sweep.skip_inputs`` (a
+    ``Terrain`` builds both once).
 
     Differentiable w.r.t. ``z_outer`` and ``z_org_r``: when either requires
     grad (and grad mode is on) the metric runs as :class:`_ShadowSweepFn`
     (K2-argmax and K4 on the card, their plain versions on the CPU); the
     gradients are those ``jax.grad`` takes through
-    ``shadow_metric_pallas_diff``.  When ``z_outer`` requires grad the
-    pyramid is built from it, and no ``pyramid`` may be passed.
+    ``shadow_metric_pallas_diff``.  That path needs ``exact_metric=True``
+    (the sign-exact arm may drop the winner): otherwise it raises
+    ``ValueError``.  When ``z_outer`` requires grad the pyramid is built
+    from it, and no ``pyramid`` may be passed.
 
     Returns (T, in0, in1) float32 on ``z_outer``'s device; > 0 means the
     cell is terrain-occluded."""
     kw = dict(sun_table=sun_table, offset=offset, inner_shape=inner_shape,
               dx=dx, dy=dy, hori_acc=hori_acc, rel_err=rel_err,
-              pyramid=pyramid)
+              pyramid=pyramid, pooled=pooled)
     diff = [isinstance(t, torch.Tensor) and t.requires_grad
             for t in (z_outer, z_org_r)]
     if any(diff) and torch.is_grad_enabled():
+        if not exact_metric:
+            raise ValueError("emit_argmax requires exact_metric=True")
         if diff[0] and pyramid is not None:
             raise NotImplementedError("the gradient path builds its pyramid "
                                       "from z_outer; pass no pyramid")
@@ -286,8 +414,10 @@ def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
         return _ShadowSweepFn.apply(z, z_org, z_inner_r,
                                     dict(metric=kw, grid_origin=grid_origin))
     args = metric_args(z_outer, z_org_r, z_inner_r, **kw)
-    fn = _metric_cuda if args[0].is_cuda else _metric_plain
-    return fn(*args, grid_origin=grid_origin)
+    if args[0].is_cuda:
+        return _metric_cuda(*args, grid_origin=grid_origin,
+                            exact_metric=exact_metric, pooled=pooled)
+    return _metric_plain(*args, grid_origin=grid_origin)
 
 
 def shadow_metric_plain(z_outer, z_org_r, z_inner_r, sun_table, *, offset,

@@ -12,7 +12,10 @@ differentiable ``sw_dir_cor_soft``.  The occlusion test runs as one fused
 sweep over the whole sun batch
 (:func:`horayzon_tpu_torch.ops.shadow_sweep.shadow_metric_fused`: kernel K2
 on a CUDA device, its plain torch version on the CPU), on the padded
-max-mip pyramid built once at :meth:`Terrain.initialise`; the per-cell
+max-mip pyramid and the pooled companions of its skips built once at
+:meth:`Terrain.initialise`.  The queries only threshold the metric at 0,
+so K2 runs its sign-exact skips there, as the reference's ``Terrain``
+does; ``sw_dir_cor_soft`` takes the exact metric.  The per-cell
 classification (:func:`_classify`) is elementwise torch on the same
 device.  ``sw_dir_cor_soft`` runs the metric's gradient path (K2-argmax
 and the winner-replay backward K4 on the card).  Curved (irregular) meshes
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from horayzon_tpu_torch import terrain as _terrain
+from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import mip as _mip
 from horayzon_tpu_torch.ops import refraction as _refraction
 from horayzon_tpu_torch.ops import shadow_sweep as _ss
@@ -219,6 +223,9 @@ class Terrain:
                                     offset=self.offset, dx=grid.dx,
                                     dy=grid.dy, hori_acc=self.acc)
         self._levels = _mip.padded_levels(self._z_outer, self.plan["pads"])
+        # and the pooled companions behind K2's skips (the reference keeps
+        # them as _pallas_pooled)
+        self._pooled = _fused.skip_inputs(self._levels, self.plan)
 
         def on_dev(a, dtype=torch.float32):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -254,18 +261,26 @@ class Terrain:
     def _metric(self, sun_positions, plain=False):
         """The occlusion metric (T, in0, in1) for a (T, 3) sun track and
         the (T,) near-vertical flags of the sun table (the sun straight
-        above the domain centre: no horizontal marching direction).
-        ``plain``: the plain torch sweep on the terrain's device in place
-        of kernel K2."""
+        above the domain centre: no horizontal marching direction).  The
+        queries only threshold it at 0, so on the card K2 runs its
+        sign-exact arm (``exact_metric=False``, as
+        ``horayzon_tpu/shadow.py:494-505`` asks): the sign is exact, the
+        value is not.  ``plain``: the plain torch sweep (the exact metric)
+        on the terrain's device in place of kernel K2."""
         table, near_vert = _ss.shadow_sun_table(
             sun_positions, self._center, self.grid.dx, self.grid.dy)
-        fn = _ss.shadow_metric_plain if plain else _ss.shadow_metric_fused
         f = self._fields
-        metric = fn(self._z_outer, f["z_org"], f["z_inner"], table,
-                    offset=self.offset, inner_shape=self.comp_shape,
-                    dx=self.grid.dx, dy=self.grid.dy,
-                    grid_origin=self._grid_origin, hori_acc=self.acc,
-                    pyramid=self._levels)
+        kw = dict(offset=self.offset, inner_shape=self.comp_shape,
+                  dx=self.grid.dx, dy=self.grid.dy,
+                  grid_origin=self._grid_origin, hori_acc=self.acc,
+                  pyramid=self._levels)
+        if plain:
+            metric = _ss.shadow_metric_plain(self._z_outer, f["z_org"],
+                                             f["z_inner"], table, **kw)
+        else:
+            metric = _ss.shadow_metric_fused(
+                self._z_outer, f["z_org"], f["z_inner"], table,
+                pooled=self._pooled, exact_metric=False, **kw)
         return metric, near_vert
 
     def _run(self, sun_position, mode, plain=False):
@@ -346,12 +361,13 @@ class Terrain:
         z_org = z_inner + _RAY_ORG_ELEV * self._fields["norm"][..., 2]
         table, near_vert = _ss.shadow_sun_table(
             sp, self._center, self.grid.dx, self.grid.dy)
+        own = z is self._z_outer and not z.requires_grad
         metric = _ss.shadow_metric_fused(
             z, z_org, z_inner, table, offset=self.offset,
             inner_shape=self.comp_shape, dx=self.grid.dx, dy=self.grid.dy,
             grid_origin=self._grid_origin, hori_acc=self.acc,
-            pyramid=(self._levels if z is self._z_outer
-                     and not z.requires_grad else None))
+            pyramid=self._levels if own else None,
+            pooled=self._pooled if own else None)
         nv = torch.from_numpy(near_vert).to(metric.device)[:, None, None]
         occluded = (metric > 0.0) & ~nv
         metric = torch.where(nv, -1.0e30, metric)

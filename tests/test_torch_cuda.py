@@ -18,17 +18,19 @@ arctan; the argmax variant's raw ratios, ids and D are equal.  K3 against
 the plain backward: bit-equal (the same float32 terms, accumulated exactly
 in fixed point on the same grid), and two K3 runs bit-equal, also on a
 contention scene whose winners crowd onto a few targets.  K2 against its plain
-version: the metric within 1e-3 m and ``metric > 0`` equal (the two do the
-same float32 operations in the same order, so they agree bit for bit on
-every case measured); K2-argmax's metric, ids and D equal; K4 against the
+version: bit-equal (the same float32 operations in the same order, and
+value-exact skips); K2-argmax's metric, ids and D equal; on the shadow
+skip scenes K2 and K2-argmax bit-equal and their skip counters equal to the
+plain model's, and K2's sign-exact arm bit-equal to the plain sweep that
+skips where the model does, with the exact metric's sign; K4 against the
 plain shadow replay as K3 against its plain version.  K1's mask and
 tilt-ramp variants: raw ratios, ids and D bit-equal to the plain versions';
 masked cells and blocks that are not launched hold 3e38, ID_NONE and 1;
-unmasked cells bit-equal to the dense run.  A CUDA ``Terrain``
-against a CPU one: codes equal
-and ``sw_dir_cor`` within 1e-5 plus 1e-6 relative outside a tie zone
-(metric within 1e-3 m of 0, sun dot products within 1e-6 of a threshold:
-the card's arccos, tan and power may differ from the CPU's by an ulp).
+unmasked cells bit-equal to the dense run.  A CUDA ``Terrain`` (K2
+sign-exact) against a CPU one (the exact plain metric): codes equal and
+``sw_dir_cor`` within 1e-5 plus 1e-6 relative on every cell but those whose
+sun dot products lie within 1e-6 of a threshold (the card's arccos, tan and
+power may differ from the CPU's by an ulp).
 K5: every mode and source bit-equal to its plain version.  Multires: the
 card's angles within 1e-5 rad of the CPU path's (the raw ratios are
 bit-equal, the arctan may differ by an ulp), masked cells aside bit-equal
@@ -47,7 +49,8 @@ from horayzon_tpu_torch.ops import read_floor
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 
 from reference_impl import gaussian_bumps_terrain
-from torch_scenes import SKIP_SCENES, skip_scene
+from torch_scenes import (SHADOW_SKIP_SCENES, SKIP_SCENES,
+                          shadow_skip_scene, skip_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -313,8 +316,7 @@ def test_shadow_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert got.is_cuda and tuple(got.shape) == (len(rel),) + inner
     assert torch.isfinite(got).all()
-    assert (got - ref).abs().max().item() <= 1.0e-3
-    assert torch.equal(got > 0, ref > 0)
+    assert torch.equal(got, ref)
 
 
 def _shadow_args(cuda, name):
@@ -416,11 +418,12 @@ def test_cuda_terrain_matches_cpu_terrain(cuda, refrac_cor):
                      device=dev)
         terrains.append(t)
     tg, tc = terrains
-    metric = tc._metric(suns)[0]
     _, dot_ts = shadow.sun_dots(tc._fields, suns, refrac_cor)
     dot_min = float(np.float32(np.cos(np.radians(tg.ang_max))))
-    tie = ((metric.abs() <= 1.0e-3) | (dot_ts.abs() <= 1.0e-6)
-           | ((dot_ts - dot_min).abs() <= 1.0e-6))
+    # the card's sign-exact K2 gives the CPU's exact metric's sign on every
+    # cell; only the sun dots, formed by each device's own arithmetic, may
+    # fall on the other side of a threshold
+    tie = ((dot_ts.abs() <= 1.0e-6) | ((dot_ts - dot_min).abs() <= 1.0e-6))
     n0 = ss.KERNEL_LAUNCHES
     codes = tg.shadow_batch(suns)
     sw = tg.sw_dir_cor_batch(suns)
@@ -840,15 +843,15 @@ def _model_counts(args, emit_argmax):
         a.cpu() if isinstance(a, torch.Tensor) else a for a in args[:6]]
     levels = [t.cpu() for t in levels]
     mask = None if args[7] is None else args[7].cpu()
-    pooled, pool_min0 = fused_sweep.skip_inputs(levels)
+    pooled, pool_min0 = fused_sweep.skip_inputs(levels, plan)
     swept = (torch.ones_like(z_org, dtype=torch.bool) if mask is None
              else mask != 0)
     counts = [0, 0, 0, 0]
     phase_skip = {}
 
     def hook(ev):
-        if "cand_max" in ev:
-            return None
+        if "cand_max" in ev or ev.get("masked"):
+            return None     # K1 runs its masked d1 pairs without a test
         _, skip = fused_sweep.warp_skip_plain(ev, pooled, pool_min0, plan,
                                                   z_org)
         n, kind = ev["n"], ev["kind"]
@@ -955,8 +958,8 @@ def test_multires_crop_bit_equal_with_skips(cuda):
 
 @pytest.mark.parametrize("name", ["random", "plateau"])
 def test_shadow_kernels_bit_equal_on_skip_scenes(cuda, name):
-    """K2 and K2-argmax take the step table, the shifts and the 32-bit
-    offsets but no skips: still bit-equal to their plain versions."""
+    """K2 and K2-argmax with the step table, the shifts, the 32-bit offsets
+    and their value-exact skips: bit-equal to their plain versions."""
     z, kw, _ = skip_scene(name)
     zt = torch.from_numpy(z).to(cuda)
     (o0, o1), (in0, in1) = kw["offset"], kw["inner_shape"]
@@ -977,3 +980,73 @@ def test_shadow_kernels_bit_equal_on_skip_scenes(cuda, name):
         torch.cuda.synchronize()
         for g, r in zip(got if emit else (got,), ref if emit else (ref,)):
             assert torch.equal(g, r)
+
+
+def _shadow_skip_args(dev, name):
+    """``metric_args`` of a shadow skip scene on ``dev`` (grid origin
+    (0, 0))."""
+    z, off, inner, dx, dy, rel = shadow_skip_scene(name)
+    zt = torch.from_numpy(z).to(dev)
+    h, w = z.shape
+    c = (0.5 * (w - 1) * dx, 0.5 * (h - 1) * dy)
+    suns = np.array([[c[0] + a, c[1] + b, cc] for a, b, cc in rel],
+                    np.float32)
+    table, _ = ss.shadow_sun_table(suns, c, dx, dy)
+    z_in = zt[off[0]:off[0] + inner[0], off[1]:off[1] + inner[1]]
+    return ss.metric_args(zt, z_in + float(np.float32(0.05)), z_in, table,
+                          offset=off, inner_shape=inner, dx=dx, dy=dy)
+
+
+def _shadow_model(name, exact_metric):
+    """``shadow_sweep.metric_model`` on the CPU: (metric, the kernel's four
+    counters as the model counts them)."""
+    res, counts = ss.metric_model(*_shadow_skip_args("cpu", name),
+                                  grid_origin=(0.0, 0.0),
+                                  exact_metric=exact_metric)
+    return res, [counts[f] for f in fused_sweep.COUNTER_FIELDS]
+
+
+@pytest.mark.parametrize("name", SHADOW_SKIP_SCENES)
+def test_shadow_skip_scenes_bit_equal_and_counted(cuda, name):
+    """K2 and K2-argmax with their value-exact skips (the masked d1 pairs'
+    too): bit-equal to the plain versions, and each launch's counters equal
+    to the plain model's, sample for sample."""
+    args = _shadow_skip_args(cuda, name)
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda)
+    met = ss._metric_cuda(*args, grid_origin=(0.0, 0.0), counters=counters)
+    a_counters = torch.zeros(4, dtype=torch.int64, device=cuda)
+    a_met, ids, aux = ss._metric_cuda(*args, grid_origin=(0.0, 0.0),
+                                      emit_argmax=True, counters=a_counters)
+    p_met, p_ids, p_aux = ss._metric_plain(*args, grid_origin=(0.0, 0.0),
+                                           emit_argmax=True)
+    torch.cuda.synchronize()
+    assert torch.equal(met, p_met) and torch.equal(a_met, p_met)
+    assert torch.equal(ids, p_ids) and torch.equal(aux, p_aux)
+    want = _shadow_model(name, True)[1]
+    assert counters.tolist() == want and a_counters.tolist() == want
+    assert want[1] + want[3] > 0
+
+
+@pytest.mark.parametrize("name", SHADOW_SKIP_SCENES)
+def test_sign_exact_k2_matches_its_model(cuda, name):
+    """K2 with its sign-exact arm: bit-equal to the plain sweep that skips
+    where the model's sign-exact votes do, the same counters, the exact
+    metric's sign and at most its value."""
+    args = _shadow_skip_args(cuda, name)
+    counters = torch.zeros(4, dtype=torch.int64, device=cuda)
+    got = ss._metric_cuda(*args, grid_origin=(0.0, 0.0), exact_metric=False,
+                          counters=counters)
+    exact = ss._metric_plain(*args, grid_origin=(0.0, 0.0))
+    model, want = _shadow_model(name, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), model)
+    assert counters.tolist() == want
+    assert torch.equal(got > 0.0, exact > 0.0)
+    assert bool((got <= exact).all())
+
+
+def test_sign_exact_argmax_raises(cuda):
+    args = _shadow_skip_args(cuda, "flat_pit")
+    with pytest.raises(ValueError, match="exact_metric=True"):
+        ss._metric_cuda(*args, grid_origin=(0.0, 0.0), emit_argmax=True,
+                        exact_metric=False)

@@ -115,7 +115,7 @@ def test_skips_bound_every_candidate_and_keep_values(name):
     z, kw, mask = skip_scene(name)
     args = fused_sweep.sweep_args(torch.from_numpy(z), mask=mask, **kw)
     z_org, z_inner, levels, trig, plan, outer = args[:6]
-    pooled, pool_min0 = fused_sweep.skip_inputs(levels)
+    pooled, pool_min0 = fused_sweep.skip_inputs(levels, plan)
     row = fused_sweep._horizon_rows(z_org, trig, plan)
     init = None
     if mask is not None:
@@ -124,6 +124,8 @@ def test_skips_bound_every_candidate_and_keep_values(name):
     open_bounds = []
 
     def hook(ev):
+        if ev.get("masked"):
+            return None     # K1 runs its masked d1 pairs without a test
         if "cand_max" not in ev:
             bound, skip = fused_sweep.warp_skip_plain(ev, pooled, pool_min0,
                                                       plan, z_org)
