@@ -100,6 +100,25 @@ K. multires: on two small scenes K1, K1-argmax and K3 over the combined
    gradient step ``mean(h^2).backward()`` timed, both gradients finite,
    nonzero and equal across two runs; ``horizon_gridded(vert_simp=...)``
    once on a mid-size scene against the full-resolution run;
+L. curved shadows: ``shadow.Terrain`` at the defaults of
+   ``examples/shadow/gridded_curved_dem_srtm.py`` (700^2 lon/lat at 0.0012
+   degree around (-36.3, -54.35), WGS84, 20 bumps, the inner domain 0.2
+   degree in from each side in lon and 0.15 in lat, ``slope_vector_meth``
+   tilt on the card, refraction, 25 hourly suns of 2026-01-15): initialise
+   wall split into host planarisation and the rest, ``sw_dir_cor_batch``
+   and ``shadow_batch`` (K2 sign-exact over the lattice box, read back at
+   the cells) median of 3, peak memory, the codes of all 25 suns equal to
+   those from the plain exact metric, K2 alone with its skip counters
+   equal to the plain model's, ``sw_dir_cor_soft`` + ``backward()`` timed
+   (straight-through value bit-equal, the lattice gradient finite,
+   nonzero and bit-equal across runs), K2-argmax and K4 on 4 suns
+   bit-equal to their plain versions;
+M. per-location horizons: ``horizon_locations`` at the defaults of
+   ``examples/horizon/locations_curved_dem.py`` (700^2 at 0.0012 degree
+   around (8, 46.5), WGS84, 25 bumps, its 3 named locations, 20 km, 360
+   azimuths, ``hori_dist_out``), then at 10,000 locations drawn (seed 0)
+   from the inner 0.3 degree: wall split into planarisation and sweep,
+   chunks, peak memory, 64 of them against the CPU path;
 9. one JSON line of all nine kernels (launches on its main path, error
    against its plain version, its time and the plain version's, its bound
    and ``library_ms`` null), then the result line
@@ -127,12 +146,13 @@ import time
 import numpy as np
 import torch
 
-from horayzon_tpu_torch import (auxiliary, direction, horizon, shadow,
-                                sun_position, topo_param, transform)
+from horayzon_tpu_torch import (auxiliary, direction, horizon, regrid,
+                                shadow, sun_position, topo_param, transform)
 from horayzon_tpu_torch.models import (CurvedPipeline, PlanarPipeline,
                                        terrain_fit)
-from horayzon_tpu_torch.ops import _build, fused_sweep, mip, replay
-from horayzon_tpu_torch.ops import multires, read_floor, shadow_sweep
+from horayzon_tpu_torch.ops import _build, fused_sweep, locations, mip
+from horayzon_tpu_torch.ops import multires, read_floor, replay
+from horayzon_tpu_torch.ops import shadow_sweep, sweep
 
 #: Horizon-angle tolerance [rad] of K1 against the plain version.
 TOL = 1.0e-5
@@ -1436,6 +1456,356 @@ def phase_k(dev, card):
     return mr_am_err, mr_bwd_err
 
 
+def srtm_shadow_scene(n=700, dlat=0.0012, lon0=-36.3, lat0=-54.35):
+    """``examples/shadow/gridded_curved_dem_srtm.py``'s synthetic default:
+    ``n``^2 lon/lat cells of ``dlat`` degree around (lon0, lat0), 20 bumps
+    (seed 4), the inner domain 0.2 degree in from each side in lon and 0.15
+    in lat, the WGS84 ENU mesh about its centre.  Returns the mesh (x, y,
+    z), the inner slice, its normals, the lon/lat elevation and the ENU
+    transformer."""
+    lat = lat0 + (np.arange(n)[::-1] - n / 2) * dlat
+    lon = lon0 + (np.arange(n) - n / 2) * dlat
+    rng = np.random.default_rng(4)
+    lon2, lat2 = np.meshgrid(lon, lat)
+    elevation = np.zeros_like(lon2)
+    for _ in range(20):
+        clon = rng.uniform(lon.min(), lon.max())
+        clat = rng.uniform(lat.min(), lat.max())
+        sig = rng.uniform(0.01, 0.05)
+        elevation += rng.uniform(300, 2500) * np.exp(
+            -(((lon2 - clon) ** 2 + (lat2 - clat) ** 2) / (2 * sig ** 2)))
+    elevation = elevation.astype(np.float32)
+    dom = {"lon_min": float(lon.min()) + 0.2,
+           "lon_max": float(lon.max()) - 0.2,
+           "lat_min": float(lat.min()) + 0.15,
+           "lat_max": float(lat.max()) - 0.15}
+    trans = transform.TransformerEcef2enu(
+        0.5 * (dom["lon_min"] + dom["lon_max"]),
+        0.5 * (dom["lat_min"] + dom["lat_max"]), "WGS84")
+    xe, ye, ze = transform.lonlat2ecef(lon2, lat2, elevation, "WGS84")
+    x, y, z = transform.ecef2enu(xe, ye, ze, trans)
+    sl = (slice(np.where(lat >= dom["lat_max"])[0][-1],
+                np.where(lat <= dom["lat_min"])[0][0] + 1),
+          slice(np.where(lon <= dom["lon_min"])[0][-1],
+                np.where(lon >= dom["lon_max"])[0][0] + 1))
+    vn_ecef = direction.surf_norm(lon2[sl], lat2[sl])
+    vec_norm = transform.ecef2enu_vector(vn_ecef, trans)
+    return x, y, z, sl, vec_norm, elevation, trans
+
+
+def phase_l(dev, card):
+    """Phase L: curved shadows at the defaults of
+    ``examples/shadow/gridded_curved_dem_srtm.py``.  Returns the largest
+    differences of K2-argmax and K4 to their plain versions on 4 suns."""
+    print("== L. curved shadows: Terrain at the curved SRTM example's "
+          "defaults")
+    x, y, z, sl, vec_norm, elevation, trans = srtm_shadow_scene()
+    sl1 = (slice(sl[0].start - 1, sl[0].stop + 1),
+           slice(sl[1].start - 1, sl[1].stop + 1))
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    vec_tilt = topo_param.slope_vector_meth(on_dev(x[sl1]), on_dev(y[sl1]),
+                                            on_dev(z[sl1]))[1:-1, 1:-1]
+    surf = topo_param.surface_enlargement_factor(on_dev(vec_norm), vec_tilt)
+    check(vec_tilt.is_cuda and bool(torch.isfinite(vec_tilt).all())
+          and surf.min().item() > 0.999,
+          f"slope_vector_meth and the surface enlargement factor on the "
+          f"card: finite, factor [{surf.min().item():.3f}, "
+          f"{surf.max().item():.3f}]")
+    inner = tuple(vec_tilt.shape[:2])
+    terrain = shadow.Terrain()
+    t0 = time.perf_counter()
+    terrain.initialise(auxiliary.rearrange_pad_buffer(x, y, z),
+                       x.shape[0], x.shape[1], sl[0].start, sl[1].start,
+                       vec_tilt.contiguous(), vec_norm, surf,
+                       np.ascontiguousarray(elevation[sl]),
+                       np.ones(inner, np.uint8), refrac_cor=True,
+                       device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    times = [np.datetime64("2026-01-15") + np.timedelta64(h, "h")
+             for h in range(25)]
+    suns = sun_position.sun_position_enu(times, trans)
+    back = terrain._back
+    print(f"  mesh {x.shape}, inner {inner}; lattice "
+          f"{tuple(terrain._z_outer.shape)} at {terrain.grid.dx:.2f} m, box "
+          f"{terrain.comp_shape} at {terrain.offset}, up to "
+          f"{back[2].shape[1]} cells per box cell; plan "
+          f"{terrain.plan['n_dense']} dense steps, "
+          f"{len(terrain.plan['phases_meta']) - 1} mip phases")
+    print(f"  initialise {init_s:.3f} s wall: host planarisation "
+          f"{terrain.planarize_s:.3f} s, the rest (box, normals, back-map, "
+          f"pyramid, fields) {init_s - terrain.planarize_s:.3f} s  [{card}]")
+    terrain.sw_dir_cor_batch(suns)
+    terrain.shadow_batch(suns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shadow_sweep.KERNEL_LAUNCHES = 0
+    walls = {"sw_dir_cor_batch": [], "shadow_batch": []}
+    for _ in range(3):
+        for name in walls:
+            t0 = time.perf_counter()
+            out = getattr(terrain, name)(suns)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            if name == "sw_dir_cor_batch":
+                sw = out
+            else:
+                codes = out
+    launches = shadow_sweep.KERNEL_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    print("  " + "; ".join(
+        f"{k} median {np.median(v):.4f} s wall of 3 (min {min(v):.4f}, max "
+        f"{max(v):.4f})" for k, v in walls.items())
+        + f"; peak {peak / 2**20:.1f} MiB allocated  [{card}]")
+    check(launches == 6, f"the curved queries launched K2 ({launches} "
+          f"launches in 6 queries)")
+    check(tuple(sw.shape) == (25,) + inner and sw.is_cuda
+          and bool(torch.isfinite(sw).all()), "sw_dir_cor shape, device, "
+          "finite")
+    counts = torch.bincount(codes.flatten().long(), minlength=4)
+    lit = (codes == 0).float().mean(dim=(1, 2))
+    print(f"  shadow codes {counts.tolist()}; illuminated share per hour "
+          f"{np.array2string(lit.cpu().numpy(), precision=2)}")
+    check(codes.dtype == torch.uint8 and counts[3].item() == 0
+          and counts[0].item() > 0 and counts[2].item() > 0,
+          "codes in {0, 1, 2}, some cells lit and some terrain-shaded")
+    t0 = time.perf_counter()
+    plain_codes = terrain._run(suns, "shadow", plain=True)
+    check(torch.equal(plain_codes, codes),
+          f"the codes of all 25 suns (sign-exact K2 on the box, read back at "
+          f"the cells) equal those from the plain exact metric "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del sw, codes, plain_codes
+    fld = terrain._fields
+
+    def terrain_args(sun_rows):
+        table_f, _ = shadow_sweep.shadow_sun_table(
+            sun_rows, terrain._center, terrain.grid.dx, terrain.grid.dy)
+        return shadow_sweep.metric_args(
+            terrain._z_outer, fld["z_org_r"], fld["z_inner_r"], table_f,
+            offset=terrain.offset, inner_shape=terrain.comp_shape,
+            dx=terrain.grid.dx, dy=terrain.grid.dy, hori_acc=terrain.acc,
+            pyramid=terrain._levels, pooled=terrain._pooled)
+
+    largs = terrain_args(suns)
+    origin, pooled = terrain._grid_origin, terrain._pooled
+
+    def k2_l():
+        return shadow_sweep._metric_cuda(*largs, grid_origin=origin,
+                                         exact_metric=False, pooled=pooled)
+
+    k2_l()
+    k2_ms = cuda_ms(k2_l, 3)
+    model, m_counts = shadow_sweep.metric_model(
+        *largs, grid_origin=origin, exact_metric=False, pooled=pooled)
+    check(torch.equal(k2_l(), model), "sign-exact K2 bit-equal to its plain "
+          "model on the box, all 25 suns")
+    del model
+    print(f"  K2 sign-exact alone on the box: {k2_ms:.3f} ms for 25 suns  "
+          f"[{card}]")
+    skip_report("K2 sign-exact (curved box, 25 suns)", largs, False, k2_ms,
+                card, k2_counted(largs, origin, exact_metric=False,
+                                 pooled=pooled), m_counts)
+
+    hard = terrain.sw_dir_cor_batch(suns)
+    soft = terrain.sw_dir_cor_soft(suns)
+    check(torch.equal(soft, hard) and soft.grad_fn is None,
+          "straight-through value bit-equal to sw_dir_cor_batch (no "
+          "gradient asked)")
+    del soft
+
+    def soft_step():
+        zg = terrain._z_outer.clone().requires_grad_(True)
+        out = terrain.sw_dir_cor_soft(suns, elevation=zg)
+        out.mean().backward()
+        return out.detach(), zg.grad
+
+    soft_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shadow_sweep.ARGMAX_KERNEL_LAUNCHES = 0
+    replay.SHADOW_KERNEL_LAUNCHES = 0
+    s_walls, grads = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out, gz = soft_step()
+        torch.cuda.synchronize()
+        s_walls.append(time.perf_counter() - t0)
+        grads.append(gz)
+    k2a = shadow_sweep.ARGMAX_KERNEL_LAUNCHES
+    k4 = replay.SHADOW_KERNEL_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  sw_dir_cor_soft + mean().backward(), 25 suns: median "
+          f"{np.median(s_walls):.4f} s wall of 3 (min {min(s_walls):.4f}, "
+          f"max {max(s_walls):.4f}); peak {peak / 2**20:.1f} MiB allocated  "
+          f"[{card}]")
+    check(k2a == 3 and k4 == 3, f"the curved soft step launched K2-argmax "
+          f"({k2a}) and K4 ({k4}) once per step in 3 steps")
+    check(torch.equal(out, hard), "straight-through value with a gradient "
+          "asked bit-equal to sw_dir_cor_batch")
+    (o0, o1), (c0, c1) = terrain.offset, terrain.comp_shape
+    check(bool(torch.isfinite(gz).all())
+          and gz[o0:o0 + c0, o1:o1 + c1].abs().max().item() > 0.0,
+          f"lattice elevation.grad finite and nonzero on the box (max |g| "
+          f"{gz.abs().max().item():.3e})")
+    check(torch.equal(grads[-1], grads[-2]), "lattice elevation.grad "
+          "bit-equal across runs (the read-back's backward in a fixed order)")
+    del hard, out, gz, grads
+
+    def k2a_l():
+        return shadow_sweep._metric_cuda(*largs, grid_origin=origin,
+                                         emit_argmax=True, pooled=pooled)
+
+    k2a_l()
+    k2a_ms = cuda_ms(k2a_l, 3)
+    met, ids, aux = k2a_l()
+    g = torch.from_numpy(np.random.default_rng(11).normal(
+        size=tuple(met.shape)).astype(np.float32)).to(dev)
+    lb = (tuple(terrain._z_outer.shape), g, ids, aux, largs[4])
+    shadow_l = (largs[3], largs[0], origin)
+    replay._bwd_cuda(*lb, shadow=shadow_l)
+    k4_ms = cuda_ms(lambda: replay._bwd_cuda(*lb, shadow=shadow_l), 3)
+    cots, dzo = replay._bwd_cuda(*lb, shadow=shadow_l)
+    k4_bound = replay_bound(g, ids, aux, largs[4], cots, dzo, shadow=True)
+    print(f"  on the 25 suns alone: K2-argmax {k2a_ms:.3f} ms, K4 "
+          f"{k4_ms:.3f} ms (bound {k4_bound[0]:.4f} ms, {k4_bound[1]}); the "
+          f"rest of a soft step (classification, read-back and their "
+          f"backward, pyramid and its VJP, host) "
+          f"{1e3 * float(np.median(s_walls)) - k2a_ms - k4_ms:.1f} ms  "
+          f"[{card}]")
+    skip_report("K2-argmax (curved box, 25 suns)", largs, True, k2a_ms, card,
+                k2_counted(largs, origin, emit_argmax=True, pooled=pooled))
+    del met, ids, aux, g, lb, shadow_l, cots, dzo
+    few = [6, 10, 14, 18]
+    fargs = terrain_args(suns[few])
+    sa_err = check_shadow_argmax(f"curved box, suns {few}", fargs, origin)[0]
+    g = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(len(few),) + terrain.comp_shape).astype(np.float32)).to(dev)
+    sb_err = check_shadow_replay(f"curved box, suns {few}", fargs, origin,
+                                 g)[0]
+    return sa_err, sb_err
+
+
+def locations_scene(n=700, dlat=0.0012, lon0=8.0, lat0=46.5):
+    """``examples/horizon/locations_curved_dem.py``'s default terrain:
+    ``n``^2 lon/lat cells of ``dlat`` degree around (lon0, lat0), 25 bumps
+    (seed 1), the WGS84 ENU mesh about (lon0, lat0).  Returns the vertex
+    buffer, the mesh (x, y, z) and the transformer."""
+    lat = lat0 + (np.arange(n)[::-1] - n / 2) * dlat
+    lon = lon0 + (np.arange(n) - n / 2) * dlat
+    lon2, lat2 = np.meshgrid(lon, lat)
+    rng = np.random.default_rng(1)
+    elevation = np.zeros_like(lon2)
+    for _ in range(25):
+        clon = rng.uniform(lon.min(), lon.max())
+        clat = rng.uniform(lat.min(), lat.max())
+        sig = rng.uniform(0.01, 0.06)
+        elevation += rng.uniform(300, 2000) * np.exp(
+            -(((lon2 - clon) ** 2 + (lat2 - clat) ** 2) / (2 * sig ** 2)))
+    elevation = elevation.astype(np.float32)
+    trans = transform.TransformerEcef2enu(lon0, lat0, "WGS84")
+    xe, ye, ze = transform.lonlat2ecef(lon2, lat2, elevation, "WGS84")
+    x, y, z = transform.ecef2enu(xe, ye, ze, trans)
+    return auxiliary.rearrange_pad_buffer(x, y, z), (x, y, z), trans
+
+
+def location_vectors(loc_lon, loc_lat, trans):
+    """Coordinates (surface point, h = 0) and unit normals and north
+    vectors of locations, as the example forms them."""
+    lxe, lye, lze = transform.lonlat2ecef(
+        loc_lon, loc_lat, np.zeros(len(loc_lon), dtype=np.float32), "WGS84")
+    lx, ly, lz = transform.ecef2enu(lxe, lye, lze, trans)
+    coords = np.stack([lx, ly, lz], axis=-1).astype(np.float32)
+    vn_ecef = direction.surf_norm(loc_lon, loc_lat)
+    vnorth_ecef = direction.north_dir(lxe, lye, lze, vn_ecef, "WGS84")
+    return (coords, transform.ecef2enu_vector(vn_ecef, trans),
+            transform.ecef2enu_vector(vnorth_ecef, trans))
+
+
+def phase_m(dev, card):
+    """Phase M: per-location horizons at the defaults of
+    ``examples/horizon/locations_curved_dem.py``, then at 10,000
+    locations."""
+    print("== M. per-location horizons: horizon_locations on the curved "
+          "example's mesh")
+    vg, (x, y, z), trans = locations_scene()
+    t0 = time.perf_counter()
+    pg = regrid.planarize(x, y, z)
+    plan_s = time.perf_counter() - t0
+    kw = dict(dist_search=20.0, azim_num=360, hori_dist_out=True)
+    names = {"peak": (8.005, 46.505), "valley": (7.95, 46.45),
+             "ridge": (8.06, 46.56)}
+    loc = location_vectors(np.array([v[0] for v in names.values()]),
+                           np.array([v[1] for v in names.values()]), trans)
+    schedule = sweep.build_schedule(min(abs(pg.grid.dx), abs(pg.grid.dy)),
+                                    20000.0, sweep.default_rel_err(0.25))
+    chunk = locations.chunk_size(schedule, 360)
+    z_dev = torch.from_numpy(pg.z).to(dev)
+    azim = horizon.azimuth_angles(360)
+
+    def sweep_only(c, vn, vno, device=dev):
+        return locations.horizon_locations_sweep(
+            z_dev.to(device), pg.grid, c, vn, vno, azim, 20000.0, 0.25,
+            -89.98, np.float32([0.01]))
+
+    print(f"  mesh {x.shape}, lattice {pg.grid.shape} at "
+          f"{abs(pg.grid.dx):.2f} m (host planarisation {plan_s:.3f} s); "
+          f"{schedule.num_samples} samples per (location, azimuth) at 20 km, "
+          f"{chunk} locations per chunk ({locations.MAX_GATHER_ELEMS} "
+          f"elements a gather)")
+    for what, (c, vn, vno) in (("3 named", loc),
+                               ("10,000", (None, None, None))):
+        if c is None:
+            rng = np.random.default_rng(0)
+            lons = rng.uniform(8.0 - 0.15, 8.0 + 0.15, 10000)
+            lats = rng.uniform(46.5 - 0.15, 46.5 + 0.15, 10000)
+            c, vn, vno = location_vectors(lons, lats, trans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hori, dist, az = horizon.horizon_locations(
+            vg, x.shape[0], x.shape[1], c, vn, vno, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        sweep_only(c, vn, vno)
+        s_ms, (h2, d2) = event_ms(lambda: sweep_only(c, vn, vno))
+        n_loc = len(c)
+        print(f"  {what} locations: horizon_locations {wall:.3f} s wall, of "
+              f"which the sweep alone {s_ms:.1f} ms ({-(-n_loc // chunk)} "
+              f"chunk(s)) and host planarisation about {plan_s:.3f} s; peak "
+              f"{peak / 2**20:.1f} MiB allocated  [{card}]")
+        check(hori.is_cuda and tuple(hori.shape) == (n_loc, 360)
+              and bool(torch.isfinite(hori).all())
+              and bool(torch.isfinite(dist).all())
+              and dist.min().item() > 0.0 and torch.equal(hori, h2)
+              and torch.equal(dist, d2),
+              f"{what}: hori and hori_dist finite, of shape ({n_loc}, 360), "
+              f"the sweep alone equal to the entry's")
+        if n_loc == 3:
+            for i, name in enumerate(names):
+                print(f"  {name}: mean horizon "
+                      f"{np.rad2deg(hori[i].mean().item()):.2f} deg, max "
+                      f"{np.rad2deg(hori[i].max().item()):.2f} deg, mean "
+                      f"distance {dist[i].mean().item() / 1e3:.1f} km")
+            check(bool((hori.max(dim=1).values > 0.0).all()),
+                  "each named location sees terrain above its horizontal")
+        else:
+            pick = np.random.default_rng(1).choice(n_loc, 64, replace=False)
+            t0 = time.perf_counter()
+            hc, dc = sweep_only(c[pick], vn[pick], vno[pick], device="cpu")
+            cpu_s = time.perf_counter() - t0
+            pk = torch.from_numpy(pick).to(dev)
+            err = (hori[pk].cpu() - hc).abs().max().item()
+            derr = ((dist[pk].cpu() - dc).abs() / dc).max().item()
+            check(err <= 1e-6 and derr <= 1e-6,
+                  f"64 of the 10,000 against the CPU path ({cpu_s:.1f} s): "
+                  f"max |hori - cpu| {err:.2e} rad, hori_dist {derr:.2e} "
+                  f"relative, within 1e-6")
+
 def main():
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1908,7 +2278,7 @@ def main():
         table_f, _ = shadow_sweep.shadow_sun_table(
             sun_rows, terrain._center, terrain.grid.dx, terrain.grid.dy)
         return shadow_sweep.metric_args(
-            terrain._z_outer, fld["z_org"], fld["z_inner"], table_f,
+            terrain._z_outer, fld["z_org_r"], fld["z_inner_r"], table_f,
             offset=terrain.offset, inner_shape=terrain.comp_shape,
             dx=terrain.grid.dx, dy=terrain.grid.dy, hori_acc=terrain.acc,
             pyramid=terrain._levels, pooled=terrain._pooled)
@@ -2137,11 +2507,16 @@ def main():
     t_k = time.perf_counter()
     mr_am_err, mr_bwd_err = phase_k(dev, card)
     am_err, bwd_err = max(am_err, mr_am_err), max(bwd_err, mr_bwd_err)
-    print(f"  phase J {t_k - t_j:.1f} s, phase K "
-          f"{time.perf_counter() - t_k:.1f} s")
+    t_l = time.perf_counter()
+    c_sa_err, c_sb_err = phase_l(dev, card)
+    sa_err, sb_err = max(sa_err, c_sa_err), max(sb_err, c_sb_err)
+    t_m = time.perf_counter()
+    phase_m(dev, card)
+    print(f"  phase J {t_k - t_j:.1f} s, phase K {t_l - t_k:.1f} s, phase L "
+          f"{t_m - t_l:.1f} s, phase M {time.perf_counter() - t_m:.1f} s")
 
     print("== 9. result")
-    print(f"  phases 1-K in {time.perf_counter() - t_run:.1f} s")
+    print(f"  phases 1-M in {time.perf_counter() - t_run:.1f} s")
     rows = [
         ("horizon_sweep (K1)", KERNEL_SOURCE, REPLACES, launches, max_err,
          k1_ms, plain_ms, k1_bound),

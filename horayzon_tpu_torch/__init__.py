@@ -9,17 +9,20 @@ horizon (kernel K1, ``csrc/horizon_sweep.cu``) and what derives from it
 (:class:`horayzon_tpu_torch.models.PlanarPipeline`), with masks (K1's mask
 variant) and on curved grids (its tilt-ramp variant,
 :class:`horayzon_tpu_torch.models.CurvedPipeline`), its gradient (K1's
-argmax variant and K3), and planar shadow maps and ``sw_dir_cor``
+argmax variant and K3), shadow maps and ``sw_dir_cor``
 (:class:`horayzon_tpu_torch.shadow.Terrain`, kernel K2, the shadow mode of
-the same source).  ROADMAP.md lists what is still to port.
+the same source) on planar and curved meshes, per-location horizons
+(:func:`horizon_locations`) and the topographic parameters.  ROADMAP.md
+lists what is still to port.
 """
 
 from horayzon_tpu_torch import (auxiliary, direction, horizon, regrid,
                                 shadow, sun_position, terrain, topo_param,
                                 transform)
 from horayzon_tpu_torch import models, ops
-from horayzon_tpu_torch.horizon import azimuth_angles, horizon_gridded
+from horayzon_tpu_torch.horizon import (azimuth_angles, horizon_gridded,
+                                        horizon_locations)
 
 __all__ = ["auxiliary", "direction", "horizon", "regrid", "shadow",
            "sun_position", "terrain", "topo_param", "transform", "models",
-           "ops", "azimuth_angles", "horizon_gridded"]
+           "ops", "azimuth_angles", "horizon_gridded", "horizon_locations"]

@@ -15,7 +15,10 @@ and reads back.  The other branches are not ported yet and raise
 thread owns one (cell, azimuth) in the kernel, so the inner domain (or the
 curved run's lattice box) is swept as it is, with no padding to tile
 multiples, and a mask needs no tile chooser: the kernel skips the 32 x 8
-blocks that hold no unmasked cell.
+blocks that hold no unmasked cell.  ``horizon_locations`` runs the
+per-location sweep (:mod:`horayzon_tpu_torch.ops.locations`, plain torch,
+as the reference runs it in XLA), on a curved mesh over its planarised
+lattice.
 """
 
 import math
@@ -27,6 +30,7 @@ import torch
 from horayzon_tpu_torch import regrid as _regrid
 from horayzon_tpu_torch import terrain as _terrain
 from horayzon_tpu_torch.ops import fused_sweep as _fused
+from horayzon_tpu_torch.ops import locations as _locations
 from horayzon_tpu_torch.ops import multires as _multires
 from horayzon_tpu_torch.ops import sweep as _sweep
 
@@ -257,9 +261,9 @@ def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,
     up/left at the lattice's edge (``horizon.py:729-747``): the kernel
     sweeps it as it is.  Returns a dict: ``pg`` (the
     :class:`~horayzon_tpu_torch.regrid.PlanarizedGrid`), ``box``
-    ``(i_lo, i_hi, j_lo, j_hi)``, ``ramp`` (A, B) float32, ``lat_mask``
-    (uint8 or None) and ``fi``, ``fj`` (the inner cells' lattice
-    positions)."""
+    ``(i_lo, i_hi, j_lo, j_hi)``, ``norm_r`` (the box's unit normals,
+    float64), ``ramp`` (A, B) float32, ``lat_mask`` (uint8 or None) and
+    ``fi``, ``fj`` (the inner cells' lattice positions)."""
     in0, in1 = vec_norm.shape[:2]
     if pg is None:
         pg = _regrid.planarize(x, y, z)
@@ -297,8 +301,8 @@ def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,
     elif mask is not None:
         # no unmasked cell: nothing to sweep
         lat_mask = np.zeros((rin0, rin1), dtype=np.uint8)
-    return dict(pg=pg, box=(i_lo, i_hi, j_lo, j_hi), ramp=ramp,
-                lat_mask=lat_mask, fi=fi_in, fj=fj_in)
+    return dict(pg=pg, box=(i_lo, i_hi, j_lo, j_hi), norm_r=norm_r,
+                ramp=ramp, lat_mask=lat_mask, fi=fi_in, fj=fj_in)
 
 
 def read_back(hori_r, fi, fj):
@@ -349,3 +353,76 @@ def _curved_gridded(x, y, z, vec_norm, offset_0, offset_1, *, azim_num,
             device))
     return read_back(hori_r, np.clip(lat["fi"] - i_lo, 0.0, rin0 - 1.0),
                      np.clip(lat["fj"] - j_lo, 0.0, rin1 - 1.0))
+
+
+def horizon_locations(
+        vert_grid, dem_dim_0, dem_dim_1,
+        coords, vec_norm, vec_north,
+        dist_search,
+        azim_num=360,
+        hori_acc=0.25,
+        ray_algorithm="binary_search",
+        geom_type="grid",
+        elev_ang_low_lim=-89.98,
+        ray_org_elev=None,
+        hori_dist_out=False,
+        *, device="cuda"):
+    """Horizon computation for arbitrary locations
+    (``horayzon_tpu.horizon.horizon_locations``, reference horizon.pyx:218).
+
+    Signature and validation mirror the reference's (``dist_search`` in
+    kilometres).  The observer elevation is the heightfield sampled at the
+    location's (x, y), lifted by ``ray_org_elev`` (one value or one per
+    location) along its normal.  A curved (irregular) mesh is planarised
+    on the host (:func:`horayzon_tpu_torch.regrid.planarize`); the
+    locations keep their exact ENU coordinates and frames.  ``device``:
+    where the sweep runs (:mod:`horayzon_tpu_torch.ops.locations`, plain
+    torch), the card unless the caller asks for the CPU.
+
+    Returns ``(hori, azim)`` or, with ``hori_dist_out``, ``(hori,
+    hori_dist, azim)``: (L, azim_num) float32 [radian / metre] and
+    (azim_num,) float32 [radian], tensors on ``device``.
+    """
+    coords = np.asarray(coords, dtype=np.float32)
+    vec_norm = np.asarray(vec_norm, dtype=np.float32)
+    vec_north = np.asarray(vec_north, dtype=np.float32)
+    if (coords.ndim != 2) or (coords.shape[1] != 3) \
+            or (coords.shape[0] != vec_norm.shape[0]):
+        raise ValueError("'number of dimensions and/or dimension length(s) "
+                         "of 'coords' incorrect")
+    if vec_norm.shape != vec_north.shape or vec_norm.ndim != 2:
+        raise ValueError("dimension (lengths) of vec_norm and/or vec_north "
+                         "is/are erroneous")
+    if ray_algorithm not in _VALID_ALGOS:
+        raise ValueError("invalid input argument for ray_algorithm")
+    if hori_acc > 10.0:
+        raise ValueError("limit of hori_acc (10 degree) is exceeded")
+    if ray_org_elev is None:
+        ray_org_elev = np.array([0.01], dtype=np.float32)
+    ray_org_elev = np.atleast_1d(np.asarray(ray_org_elev, dtype=np.float32))
+    num_loc = coords.shape[0]
+    if len(ray_org_elev) not in (1, num_loc):
+        raise ValueError("length of array 'ray_org_elev' must be either one "
+                         "or correspond to the number of locations")
+    if ray_org_elev.min() < 0.005:
+        raise TypeError("minimal allowed value for 'ray_org_elev' is 0.005 m")
+    if len(ray_org_elev) == 1:
+        ray_org_elev = np.repeat(ray_org_elev, num_loc)
+
+    x, y, z = _terrain.decompose_vert_grid(vert_grid, dem_dim_0, dem_dim_1)
+    grid = _terrain.detect_regular_grid(x, y)
+    if grid is None:
+        # the per-location sweep measures angles in each location's own
+        # tangent frame, so it runs unchanged on the resampled lattice
+        pg = _regrid.planarize(x, y, z)
+        grid, z = pg.grid, pg.z
+
+    azim = azimuth_angles(azim_num)
+    hori, hori_dist = _locations.horizon_locations_sweep(
+        torch.from_numpy(np.ascontiguousarray(z)).to(device), grid, coords,
+        vec_norm, vec_north, azim, dist_search * 1000.0, hori_acc,
+        elev_ang_low_lim, ray_org_elev)
+    azim = torch.from_numpy(azim).to(device)
+    if hori_dist_out:
+        return hori, hori_dist, azim
+    return hori, azim

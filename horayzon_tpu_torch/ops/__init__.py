@@ -3,11 +3,12 @@
 """Sweep schedule, max-mip pyramid, the fused horizon sweep (kernel K1), its
 winner-replay backward (kernel K3), the fused shadow sweep (kernel K2), the
 multires far field (a combined fine + coarse pyramid under the same
-kernels), the read-floor microbenchmark (kernel K5) and atmospheric
-refraction."""
+kernels), the per-location horizon sweep, the read-floor microbenchmark
+(kernel K5) and atmospheric refraction."""
 
-from horayzon_tpu_torch.ops import (fused_sweep, mip, multires, read_floor,
-                                    refraction, replay, shadow_sweep, sweep)
+from horayzon_tpu_torch.ops import (fused_sweep, locations, mip, multires,
+                                    read_floor, refraction, replay,
+                                    shadow_sweep, sweep)
 
-__all__ = ["fused_sweep", "mip", "multires", "read_floor", "refraction",
-           "replay", "shadow_sweep", "sweep"]
+__all__ = ["fused_sweep", "locations", "mip", "multires", "read_floor",
+           "refraction", "replay", "shadow_sweep", "sweep"]

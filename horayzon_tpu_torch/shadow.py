@@ -5,29 +5,36 @@
 Counterpart of :mod:`horayzon_tpu.shadow` (the reference's
 ``horayzon/shadow.pyx`` + ``shadow_comp.cpp``): a :class:`Terrain` is
 initialised once with the DEM and the per-cell vectors, then queried per
-sun position or per sun track.  Ported: the regular planar grid
-(``geom_type="grid"``), ``shadow``, ``sw_dir_cor`` and their ``*_batch``
-forms, with or without refraction, with masks and fill values, and the
-differentiable ``sw_dir_cor_soft``.  The occlusion test runs as one fused
-sweep over the whole sun batch
+sun position or per sun track.  Ported: regular planar grids and curved
+(irregular, e.g. lon/lat on the ellipsoid) meshes (``geom_type="grid"``),
+``shadow``, ``sw_dir_cor`` and their ``*_batch`` forms, with or without
+refraction, with masks and fill values, and the differentiable
+``sw_dir_cor_soft``.  The occlusion test runs as one fused sweep over the
+whole sun batch
 (:func:`horayzon_tpu_torch.ops.shadow_sweep.shadow_metric_fused`: kernel K2
 on a CUDA device, its plain torch version on the CPU), on the padded
 max-mip pyramid and the pooled companions of its skips built once at
 :meth:`Terrain.initialise`.  The queries only threshold the metric at 0,
 so K2 runs its sign-exact skips there, as the reference's ``Terrain``
-does; ``sw_dir_cor_soft`` takes the exact metric.  The per-cell
-classification (:func:`_classify`) is elementwise torch on the same
-device.  ``sw_dir_cor_soft`` runs the metric's gradient path (K2-argmax
-and the winner-replay backward K4 on the card).  Curved (irregular) meshes
-and the XLA engines are not ported yet and raise ``NotImplementedError``
-naming their item in ROADMAP.md's Queue 1.
+does; ``sw_dir_cor_soft`` takes the exact metric.  A curved mesh is
+planarised onto a regular lattice (:func:`horayzon_tpu_torch.regrid.
+planarize`); the sweep runs over the lattice box of the inner cells and
+its result is read back at each cell's nearest lattice cell, while the
+per-cell classification (:func:`_classify`, elementwise torch on the same
+device) stays at the original cells.  ``sw_dir_cor_soft`` runs the
+metric's gradient path (K2-argmax and the winner-replay backward K4 on the
+card).  The XLA engines are not ported yet and raise
+``NotImplementedError`` naming their item in ROADMAP.md's Queue 1.
 """
 
 import math
+import time
 
 import numpy as np
 import torch
 
+from horayzon_tpu_torch import horizon as _horizon
+from horayzon_tpu_torch import regrid as _regrid
 from horayzon_tpu_torch import terrain as _terrain
 from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import mip as _mip
@@ -112,6 +119,48 @@ def _classify(fields, sun_positions, occluded, *, mode, refrac_cor,
     return torch.where(mask, out, fields["sw_dir_cor_fill"])
 
 
+def back_map(bi, bj, box_shape):
+    """The nearest back-map of a curved mesh's cells onto the lattice box:
+    ``bi``, ``bj`` (in0, in1) int64 box indices, and its inverse
+    ``cells`` (box cells, k) int64: the flat indices of the original cells
+    that read each box cell, in increasing order, padded with ``in0 *
+    in1`` (a zero appended to the cotangent).  Built once on the host."""
+    c0, c1 = box_shape
+    flat = (bi.astype(np.int64) * c1 + bj).ravel()
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=c0 * c1)
+    starts = np.cumsum(counts) - counts
+    cells = np.full((c0 * c1, max(int(counts.max()), 1)), flat.size,
+                    dtype=np.int64)
+    cells[flat[order], np.arange(flat.size) - starts[flat[order]]] = order
+    return bi.astype(np.int64), bj.astype(np.int64), cells
+
+
+class _GatherCells(torch.autograd.Function):
+    """``box[:, bi, bj]``: a (T, c0, c1) lattice-box field read at the
+    original cells (``horayzon_tpu/shadow.py:118-121``).  The backward
+    sums each box cell's cotangents over the inverse table ``cells``, one
+    term after another in its fixed order, so it has no atomics and is
+    bit-equal across runs on the card (autograd's own backward of the
+    index is an accumulating ``index_put_``)."""
+
+    @staticmethod
+    def forward(ctx, box, bi, bj, cells):
+        ctx.save_for_backward(cells)
+        ctx.box_shape = tuple(box.shape)
+        return box[:, bi, bj]
+
+    @staticmethod
+    def backward(ctx, g):
+        (cells,) = ctx.saved_tensors
+        t = g.shape[0]
+        gf = torch.cat([g.reshape(t, -1), g.new_zeros((t, 1))], dim=1)
+        acc = gf[:, cells[:, 0]]
+        for k in range(1, cells.shape[1]):
+            acc = acc + gf[:, cells[:, k]]
+        return acc.reshape(ctx.box_shape), None, None, None
+
+
 class Terrain:
     """Initialise-once / query-many terrain shadow engine.
 
@@ -143,7 +192,16 @@ class Terrain:
         ``engine``: "auto" and "pallas" both run the fused sweep; "sweep"
         and "scan" are not ported yet.  The inner block is swept as it is
         (one kernel thread per (cell, sun)), so it needs no room to pad to
-        tile multiples."""
+        tile multiples.
+
+        A curved (irregular) mesh is planarised on the host (NumPy
+        float64; its seconds are kept in ``planarize_s``) and the sweep
+        runs over the box of the inner cells' lattice positions
+        (``offset``, ``comp_shape``), whose ray origins lift the lattice
+        heights along the box's interpolated normals; the metric is read
+        back at each cell's nearest lattice cell before the
+        classification, which keeps each cell's own position, heights and
+        vectors (``horayzon_tpu/shadow.py:309-353``)."""
         if engine not in ("auto", "sweep", "scan", "pallas"):
             raise ValueError(
                 "engine must be 'auto', 'sweep', 'scan' or 'pallas'")
@@ -185,9 +243,6 @@ class Terrain:
         x, y, z = _terrain.decompose_vert_grid(_numpy(vert_grid), dem_dim_0,
                                                dem_dim_1)
         grid = _terrain.detect_regular_grid(x, y)
-        if grid is None:
-            raise _not_ported("a curved (irregular) mesh, which needs "
-                              "regrid.planarize,", 7)
         in0, in1 = shp
         dev = torch.device(device)
         self.device = dev
@@ -195,10 +250,9 @@ class Terrain:
         self.ang_max = float(ang_max)
         self.refrac_cor = bool(refrac_cor)
         self.acc = float(acc)
-        self.grid = grid
-        self.offset = (int(offset_0), int(offset_1))
-        self.comp_shape = (in0, in1)
+        self._curved = grid is None
 
+        # Per-cell fields of the classification, at the original cells
         sl_in = (slice(offset_0, offset_0 + in0),
                  slice(offset_1, offset_1 + in1))
         x_in = x[sl_in].astype(np.float32)
@@ -206,7 +260,39 @@ class Terrain:
         z_in = z[sl_in].astype(np.float32)
         z_org = z_in + _RAY_ORG_ELEV * vec_norm[..., 2]
 
-        # Sun directions are taken from the domain centre
+        # Lattice fields of the sweep (horayzon_tpu/shadow.py:309-353)
+        self.planarize_s = 0.0
+        back = None
+        if not self._curved:
+            z_comp = z
+            self.offset = (int(offset_0), int(offset_1))
+            self.comp_shape = (in0, in1)
+            z_inner_r, z_org_r, norm_r_z = z_in, z_org, vec_norm[..., 2]
+        else:
+            # planarise, box the inner cells' lattice positions with a
+            # -1 / +2 margin and bring the normals onto the box
+            t0 = time.perf_counter()
+            pg = _regrid.planarize(x, y, z)
+            self.planarize_s = time.perf_counter() - t0
+            lat = _horizon.curved_lattice(x, y, z, vec_norm, offset_0,
+                                          offset_1, pg=pg)
+            grid, z_comp = pg.grid, pg.z
+            i_lo, i_hi, j_lo, j_hi = lat["box"]
+            self.offset = (i_lo, j_lo)
+            self.comp_shape = (i_hi - i_lo, j_hi - j_lo)
+            norm_r_z = lat["norm_r"][..., 2]
+            z_inner_r = z_comp[i_lo:i_hi, j_lo:j_hi]
+            z_org_r = (z_inner_r
+                       + _RAY_ORG_ELEV * norm_r_z).astype(np.float32)
+            # the nearest lattice cell of every original cell
+            bi = np.clip(np.rint(lat["fi"] - i_lo).astype(np.int32), 0,
+                         self.comp_shape[0] - 1)
+            bj = np.clip(np.rint(lat["fj"] - j_lo).astype(np.int32), 0,
+                         self.comp_shape[1] - 1)
+            back = back_map(bi, bj, self.comp_shape)
+        self.grid = grid
+
+        # Sun directions are taken from the lattice's centre
         # (horayzon_tpu/shadow.py:372-375)
         x_axis = grid.x_axis()
         y_axis = grid.y_axis()
@@ -217,7 +303,7 @@ class Terrain:
         # Initialise-once: the padded max-mip pyramid of the outer grid
         # (the reference builds its BVH once here, shadow_comp.cpp:318-380)
         self._z_outer = torch.from_numpy(
-            np.ascontiguousarray(z, dtype=np.float32)).to(dev)
+            np.ascontiguousarray(z_comp, dtype=np.float32)).to(dev)
         self.plan = _ss.plan_shadow(tuple(self._z_outer.shape),
                                     inner_shape=self.comp_shape,
                                     offset=self.offset, dx=grid.dx,
@@ -233,13 +319,17 @@ class Terrain:
 
         self._fields = {
             "x_in": on_dev(x_in), "y_in": on_dev(y_in),
-            "z_org": on_dev(z_org), "z_inner": on_dev(z_in),
+            "z_org": on_dev(z_org),
             "norm": on_dev(vec_norm), "tilt": on_dev(vec_tilt),
             "surf_enl_fac": on_dev(surf_enl_fac),
             "elevation": on_dev(elevation),
             "mask": on_dev(mask == 1, torch.bool),
             "sw_dir_cor_fill": float(np.float32(sw_dir_cor_fill)),
+            "z_org_r": on_dev(z_org_r), "z_inner_r": on_dev(z_inner_r),
+            "norm_r_z": on_dev(norm_r_z),
         }
+        self._back = (None if back is None else
+                      tuple(on_dev(a, torch.int64) for a in back))
         self._initialised = True
         num_gc = int((mask == 1).sum())
         print(f"Considered grid cells (number): {num_gc}")
@@ -259,7 +349,8 @@ class Terrain:
         return sun_position
 
     def _metric(self, sun_positions, plain=False):
-        """The occlusion metric (T, in0, in1) for a (T, 3) sun track and
+        """The occlusion metric (T, c0, c1) over the swept block (the inner
+        block, or a curved mesh's lattice box) for a (T, 3) sun track and
         the (T,) near-vertical flags of the sun table (the sun straight
         above the domain centre: no horizontal marching direction).  The
         queries only threshold it at 0, so on the card K2 runs its
@@ -275,13 +366,22 @@ class Terrain:
                   grid_origin=self._grid_origin, hori_acc=self.acc,
                   pyramid=self._levels)
         if plain:
-            metric = _ss.shadow_metric_plain(self._z_outer, f["z_org"],
-                                             f["z_inner"], table, **kw)
+            metric = _ss.shadow_metric_plain(self._z_outer, f["z_org_r"],
+                                             f["z_inner_r"], table, **kw)
         else:
             metric = _ss.shadow_metric_fused(
-                self._z_outer, f["z_org"], f["z_inner"], table,
+                self._z_outer, f["z_org_r"], f["z_inner_r"], table,
                 pooled=self._pooled, exact_metric=False, **kw)
         return metric, near_vert
+
+    def at_cells(self, box):
+        """A (T, c0, c1) field of the swept block at the original cells,
+        (T, in0, in1): itself on a planar grid; on a curved mesh its value
+        at each cell's nearest lattice cell, differentiable with a
+        backward that is bit-equal across runs (:class:`_GatherCells`)."""
+        if self._back is None:
+            return box
+        return _GatherCells.apply(box, *self._back)
 
     def _run(self, sun_position, mode, plain=False):
         """Batched occlusion through the fused sweep, then classification
@@ -291,7 +391,7 @@ class Terrain:
         sp = np.atleast_2d(sun_position)
         metric, near_vert = self._metric(sp, plain)
         lit = ~torch.from_numpy(near_vert).to(metric.device)
-        occluded = (metric > 0.0) & lit[:, None, None]
+        occluded = self.at_cells((metric > 0.0) & lit[:, None, None])
         out = _classify(self._fields, sp, occluded, mode=mode,
                         refrac_cor=self.refrac_cor, ang_max=self.ang_max)
         return out[0] if single else out
@@ -337,12 +437,18 @@ class Terrain:
         bit for bit and only the gradient uses the sigmoid;
         ``straight_through=False`` gives the fully soft value.
 
-        ``elevation``: the (H, W) outer lattice heights to differentiate
+        ``elevation``: the (H, W) outer heights to differentiate
         through, a tensor on the terrain's device (default: the stored
-        heights).  The ray origins ``z_inner + 0.05 * vec_norm_z`` are
-        rebuilt from it, so gradients flow through the clearance metric
-        (K2-argmax and the winner-replay backward K4 on the card), the ray
-        slopes and the sun vectors of the classification.  The result
+        heights); on a curved mesh the planarised lattice, of the shape of
+        ``_z_outer``, not the mesh.  The ray origins ``z_inner + 0.05 *
+        n_z`` of the swept block are rebuilt from it, so gradients flow
+        through the clearance metric (K2-argmax and the winner-replay
+        backward K4 on the card), the ray slopes and, on a planar grid, the
+        sun vectors of the classification.  On a curved mesh the
+        classification keeps each cell's heights and vectors at their
+        :meth:`initialise` values, as the reference does
+        (``horayzon_tpu/shadow.py:617-620``), and the metric is read back at
+        the cells' nearest lattice cells (:meth:`at_cells`).  The result
         carries a ``grad_fn`` when ``elevation`` requires grad.  Single or
         batch sun positions, as :meth:`sw_dir_cor` and
         :meth:`sw_dir_cor_batch`."""
@@ -353,27 +459,30 @@ class Terrain:
         if (not isinstance(z, torch.Tensor)
                 or z.device != self._z_outer.device
                 or tuple(z.shape) != tuple(self._z_outer.shape)):
+            what = (" (the planarised lattice of the curved mesh)"
+                    if self._curved else "")
             raise ValueError(f"elevation must be a tensor of shape "
-                             f"{tuple(self._z_outer.shape)} on "
+                             f"{tuple(self._z_outer.shape)}{what} on "
                              f"{self._z_outer.device}")
         (o0, o1), (c0, c1) = self.offset, self.comp_shape
-        z_inner = z[o0:o0 + c0, o1:o1 + c1]
-        z_org = z_inner + _RAY_ORG_ELEV * self._fields["norm"][..., 2]
+        z_inner_r = z[o0:o0 + c0, o1:o1 + c1]
+        z_org_r = z_inner_r + _RAY_ORG_ELEV * self._fields["norm_r_z"]
         table, near_vert = _ss.shadow_sun_table(
             sp, self._center, self.grid.dx, self.grid.dy)
         own = z is self._z_outer and not z.requires_grad
         metric = _ss.shadow_metric_fused(
-            z, z_org, z_inner, table, offset=self.offset,
+            z, z_org_r, z_inner_r, table, offset=self.offset,
             inner_shape=self.comp_shape, dx=self.grid.dx, dy=self.grid.dy,
             grid_origin=self._grid_origin, hori_acc=self.acc,
             pyramid=self._levels if own else None,
             pooled=self._pooled if own else None)
         nv = torch.from_numpy(near_vert).to(metric.device)[:, None, None]
-        occluded = (metric > 0.0) & ~nv
-        metric = torch.where(nv, -1.0e30, metric)
-        out = _classify(dict(self._fields, z_org=z_org), sp, occluded,
-                        mode="sw_dir_cor", refrac_cor=self.refrac_cor,
-                        ang_max=self.ang_max, metric=metric,
-                        soft_tau=soft_tau,
+        occluded = self.at_cells((metric > 0.0) & ~nv)
+        metric = self.at_cells(torch.where(nv, -1.0e30, metric))
+        fields = (self._fields if self._curved
+                  else dict(self._fields, z_org=z_org_r))
+        out = _classify(fields, sp, occluded, mode="sw_dir_cor",
+                        refrac_cor=self.refrac_cor, ang_max=self.ang_max,
+                        metric=metric, soft_tau=soft_tau,
                         straight_through=straight_through)
         return out[0] if single else out

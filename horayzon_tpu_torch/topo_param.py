@@ -1,11 +1,14 @@
 # Copyright (c) 2026
 # MIT License
 """Derived terrain parameters in torch: slope normals, sky view factor,
-slope angle and aspect, surface enlargement factor.
+visible sky fraction, topographic openness, slope angle and aspect,
+surface enlargement factor.
 
-Counterpart of part of :mod:`horayzon_tpu.topo_param` (slope_plane_meth,
-sky_view_factor, slope_angle_aspect, surface_enlargement_factor).  Plain
-torch, batched over all cells; the per-cell 3x3 least-squares solve is the
+Counterpart of :mod:`horayzon_tpu.topo_param` (slope_plane_meth,
+slope_vector_meth, sky_view_factor, visible_sky_fraction,
+topographic_openness, slope_angle_aspect, surface_enlargement_factor),
+which computes them with XLA outside any Pallas kernel.  Plain torch,
+batched over all cells; the per-cell 3x3 least-squares solve is the
 reference's closed-form Cramer solve.  Inputs may be tensors or numpy
 arrays; everything runs on the device of the input tensors.
 """
@@ -15,8 +18,9 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["slope_plane_meth", "sky_view_factor", "slope_angle_aspect",
-           "surface_enlargement_factor"]
+__all__ = ["slope_plane_meth", "slope_vector_meth", "sky_view_factor",
+           "visible_sky_fraction", "topographic_openness",
+           "slope_angle_aspect", "surface_enlargement_factor"]
 
 
 def _as_f32(a, name):
@@ -102,13 +106,54 @@ def slope_plane_meth(x, y, z, rot_mat=None, output_rot=False):
     return out
 
 
-def sky_view_factor(azim, hori, vec_tilt):
-    """Sky view factor: fraction of isotropic sky radiation received.
+def slope_vector_meth(x, y, z, rot_mat=None, output_rot=False):
+    """Vector-based slope computation: the average of the four triangle
+    normals around each cell (Corripio 2003).
 
-    Mirrors ``horayzon_tpu.topo_param.sky_view_factor``: ``azim`` (A,)
-    [radian], ``hori`` (H, W, A) [radian], ``vec_tilt`` (H, W, 3).
-    Returns (H, W) float32.
+    Mirrors ``horayzon_tpu.topo_param.slope_vector_meth``.  Returns tilted
+    surface normal unit vectors flipped to ``z >= 0``, shape (H, W, 3)
+    float32; border cells are NaN.  ``rot_mat`` (H, W, 3, 3): optional
+    per-cell rotations; with ``output_rot`` the normals are rotated by them
+    (as the reference does), otherwise ``rot_mat`` is only validated.
     """
+    x = _as_f32(x, "x")
+    y = _as_f32(y, "y")
+    z = _as_f32(z, "z")
+    if x.shape != y.shape or y.shape != z.shape:
+        raise ValueError("Inconsistent shapes of input arrays")
+    if output_rot and (rot_mat is None):
+        raise ValueError("'rot_mat' must be provided for 'output_rot = True'")
+    if rot_mat is not None:
+        rot_mat = _as_f32(rot_mat, "rot_mat")
+        if rot_mat.shape[:2] != x.shape:
+            raise ValueError("Inconsistent shapes of input arrays")
+
+    def xyz(sl0, sl1):
+        return torch.stack([x[sl0, sl1], y[sl0, sl1], z[sl0, sl1]], dim=-1)
+
+    mid, lo, hi = slice(1, -1), slice(None, -2), slice(2, None)
+    c = xyz(mid, mid)
+    left, down = xyz(mid, lo) - c, xyz(hi, mid) - c
+    right, up = xyz(mid, hi) - c, xyz(lo, mid) - c
+    cross = torch.linalg.cross
+    vec = (((cross(left, down) + cross(down, right)) + cross(right, up))
+           + cross(up, left)) / 4.0
+    vec = vec / torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+    vec = torch.where(vec[..., 2:3] < 0.0, -vec, vec)
+    if rot_mat is not None and output_rot:
+        vec = torch.einsum("hwab,hwb->hwa", rot_mat[1:-1, 1:-1], vec)
+    out = torch.full(tuple(x.shape) + (3,), math.nan, dtype=torch.float32,
+                     device=x.device)
+    out[1:-1, 1:-1] = vec
+    return out
+
+
+def _sky_inputs(azim, hori, vec_tilt):
+    """The validated float32 ``azim`` (A,), ``hori`` (H, W, A), ``vec_tilt``
+    (H, W, 3) of the sky parameters, and ``theta``: the horizon clamped
+    from below by the tilted plane's own horizon (the plane-sphere
+    intersection, topo_param.pyx:442-449), which the sky view factor and
+    the visible sky fraction share.  Returns (azim, vec_tilt, theta)."""
     azim = _as_f32(azim, "azim")
     hori = _as_f32(hori, "hori")
     vec_tilt = _as_f32(vec_tilt, "vec_tilt")
@@ -121,14 +166,52 @@ def sky_view_factor(azim, hori, vec_tilt):
     tx = vec_tilt[..., 0:1]
     ty = vec_tilt[..., 1:2]
     tz = vec_tilt[..., 2:3]
-    # Plane-sphere intersection clamp (topo_param.pyx:442-449)
     hori_plane = torch.atan(-azim_sin * tx / tz - azim_cos * ty / tz)
-    theta = torch.maximum(hori, hori_plane)
-    term = ((tx * azim_sin + ty * azim_cos)
+    return azim, vec_tilt, torch.maximum(hori, hori_plane)
+
+
+def sky_view_factor(azim, hori, vec_tilt):
+    """Sky view factor: fraction of isotropic sky radiation received.
+
+    Mirrors ``horayzon_tpu.topo_param.sky_view_factor``: ``azim`` (A,)
+    [radian], ``hori`` (H, W, A) [radian], ``vec_tilt`` (H, W, 3).
+    Returns (H, W) float32.
+    """
+    azim, vec_tilt, theta = _sky_inputs(azim, hori, vec_tilt)
+    tx = vec_tilt[..., 0:1]
+    ty = vec_tilt[..., 1:2]
+    tz = vec_tilt[..., 2:3]
+    term = ((tx * torch.sin(azim) + ty * torch.cos(azim))
             * ((math.pi / 2.0) - theta - torch.sin(2.0 * theta) / 2.0)
             + tz * torch.cos(theta) ** 2)
     azim_spac = azim[1] - azim[0]
     return (azim_spac / (2.0 * math.pi)) * term.sum(dim=-1)
+
+
+def visible_sky_fraction(azim, hori, vec_tilt):
+    """Visible sky fraction: the solid angle of the visible sky.
+
+    Mirrors ``horayzon_tpu.topo_param.visible_sky_fraction``; arguments as
+    :func:`sky_view_factor`.  Returns (H, W) float32.
+    """
+    azim, _, theta = _sky_inputs(azim, hori, vec_tilt)
+    term = 1.0 - torch.cos((math.pi / 2.0) - theta)
+    azim_spac = azim[1] - azim[0]
+    return (azim_spac / (2.0 * math.pi)) * term.sum(dim=-1)
+
+
+def topographic_openness(azim, hori):
+    """Positive topographic openness (Yokoyama et al. 2002): the mean over
+    the azimuths of ``pi/2 - hori``.
+
+    Mirrors ``horayzon_tpu.topo_param.topographic_openness``.  Returns
+    (H, W) float32 [radian].
+    """
+    azim = _as_f32(azim, "azim")
+    hori = _as_f32(hori, "hori")
+    if azim.shape[0] != hori.shape[2]:
+        raise ValueError("Inconsistent/incorrect shapes of input arrays")
+    return ((math.pi / 2.0) - hori).mean(dim=-1)
 
 
 def slope_angle_aspect(vec_tilt):

@@ -31,6 +31,13 @@ sign-exact) against a CPU one (the exact plain metric): codes equal and
 ``sw_dir_cor`` within 1e-5 plus 1e-6 relative on every cell but those whose
 sun dot products lie within 1e-6 of a threshold (the card's arccos, tan and
 power may differ from the CPU's by an ulp).
+A curved ``Terrain`` on the card against the same on the CPU: codes equal
+outside the sun-dot thresholds, ``sw_dir_cor`` as above; its soft gradient
+bit-equal across two runs (the read-back's backward sums in a fixed order)
+and within 1e-5 of max|g| of the CPU's.  ``horizon_locations`` on the card
+against the CPU path: ``hori`` within 1e-6 rad, ``hori_dist`` within 1e-6
+relative (the same float32 operations; arctan and cos rounded from
+float64 on each device).
 K5: every mode and source bit-equal to its plain version.  Multires: the
 card's angles within 1e-5 rad of the CPU path's (the raw ratios are
 bit-equal, the arctan may differ by an ulp), masked cells aside bit-equal
@@ -49,7 +56,8 @@ from horayzon_tpu_torch.ops import read_floor
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 
 from reference_impl import gaussian_bumps_terrain
-from torch_scenes import (SHADOW_SKIP_SCENES, SKIP_SCENES,
+from torch_scenes import (SHADOW_SKIP_SCENES, SKIP_SCENES, bumps,
+                          curved_setup, curved_terrain_inputs,
                           shadow_skip_scene, skip_scene)
 
 pytestmark = pytest.mark.cuda
@@ -1050,3 +1058,87 @@ def test_sign_exact_argmax_raises(cuda):
     with pytest.raises(ValueError, match="exact_metric=True"):
         ss._metric_cuda(*args, grid_origin=(0.0, 0.0), emit_argmax=True,
                         exact_metric=False)
+
+
+# ---------------------------------------------------------------------------
+# Curved Terrain and horizon_locations
+# ---------------------------------------------------------------------------
+
+def _curved_terrains(dev):
+    """The same curved Terrain (tests/test_torch_curved_shadow.py's south
+    scene, refraction on) on ``dev`` and on the CPU, and its suns."""
+    s = curved_setup(bumps(9, count=10, amp=(200.0, 900.0)), n=160,
+                     lat0=-54.35, lon0=-36.3)
+    inp = curved_terrain_inputs(s, (60, 12), (40, 64))
+    out = []
+    for d in (dev, "cpu"):
+        t = shadow.Terrain()
+        t.initialise(inp["vert_grid"], 160, 160, 60, 12, inp["vec_tilt"],
+                     inp["vec_norm"], inp["surf_enl_fac"], inp["elevation"],
+                     inp["mask"], refrac_cor=True, device=d)
+        out.append(t)
+    suns = np.array([[1.0e7, 0.0, 1.5e6], [-4.0e6, 8.0e6, 1.0e6],
+                     [2.0e6, -1.0e7, 3.0e6], [0.0, 1.0e7, -1.0e5]],
+                    dtype=np.float32)
+    return out, suns
+
+
+def test_curved_terrain_on_card_matches_cpu(cuda):
+    (tg, tc), suns = _curved_terrains(cuda)
+    assert tg.comp_shape == tc.comp_shape and tg._back[2].is_cuda
+    _, dot_ts = shadow.sun_dots(tc._fields, suns, True)
+    dot_min = float(np.float32(np.cos(np.radians(tg.ang_max))))
+    tie = ((dot_ts.abs() <= 1.0e-6) | ((dot_ts - dot_min).abs() <= 1.0e-6))
+    n0 = ss.KERNEL_LAUNCHES
+    codes = tg.shadow_batch(suns)
+    sw = tg.sw_dir_cor_batch(suns)
+    assert ss.KERNEL_LAUNCHES == n0 + 2
+    assert codes.is_cuda and sw.is_cuda
+    assert tuple(codes.shape) == (4, 40, 64)
+    codes, sw = codes.cpu(), sw.cpu()
+    assert torch.equal(codes[~tie], tc.shadow_batch(suns)[~tie])
+    assert torch.allclose(sw[~tie], tc.sw_dir_cor_batch(suns)[~tie],
+                          rtol=1e-6, atol=1e-5)
+    assert tie.float().mean().item() < 0.01
+    assert (codes == 2).any() and (codes == 0).any()
+
+
+def test_curved_soft_gradient_on_card(cuda):
+    (tg, tc), suns = _curved_terrains(cuda)
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 40, 64)).astype(np.float32))
+
+    def grad(t):
+        z = t._z_outer.clone().requires_grad_(True)
+        out = t.sw_dir_cor_soft(suns, elevation=z, soft_tau=8.0)
+        torch.sum(out * w.to(z.device)).backward()
+        return out.detach(), z.grad
+
+    n0 = ss.ARGMAX_KERNEL_LAUNCHES
+    (out, g1), (_, g2) = grad(tg), grad(tg)
+    assert ss.ARGMAX_KERNEL_LAUNCHES == n0 + 2
+    assert torch.equal(g1, g2)
+    assert torch.equal(out, tg.sw_dir_cor_batch(suns))
+    _, gc = grad(tc)
+    scale = gc.abs().max().item()
+    assert scale > 0.0
+    assert (g1.cpu() - gc).abs().max().item() <= 1e-5 * scale
+
+
+def test_horizon_locations_on_card_matches_cpu(cuda):
+    """Curved mesh, 300 locations drawn in its interior, 72 azimuths."""
+    s = curved_setup(bumps(4), n=160)
+    rng = np.random.default_rng(0)
+    ii, jj = rng.integers(40, 120, 300), rng.integers(40, 120, 300)
+    coords = np.stack([s["x"][ii, jj], s["y"][ii, jj], s["z"][ii, jj]],
+                      axis=-1).astype(np.float32)
+    args = (auxiliary.rearrange_pad_buffer(s["x"], s["y"], s["z"]), 160,
+            160, coords, s["vec_norm"][ii, jj], s["vec_north"][ii, jj])
+    kw = dict(dist_search=6.0, azim_num=72, hori_dist_out=True)
+    hg, dg, ag = horizon.horizon_locations(*args, device=cuda, **kw)
+    hc, dc, ac = horizon.horizon_locations(*args, device="cpu", **kw)
+    assert hg.is_cuda and dg.is_cuda and ag.is_cuda
+    assert tuple(hg.shape) == (300, 72)
+    assert (hg.cpu() - hc).abs().max().item() <= 1e-6
+    assert torch.allclose(dg.cpu(), dc, rtol=1e-6, atol=0.0)
+    assert torch.equal(ag.cpu(), ac)

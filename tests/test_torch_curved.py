@@ -42,6 +42,7 @@ from horayzon_tpu_torch.ops import fused_sweep, replay
 from reference_impl import gaussian_bumps_terrain
 from test_torch_masked import _ORACLE as _MASK_ORACLE
 from test_torch_masked import GRAD_RTOL, TOL, run_oracle
+from torch_scenes import bumps, curved_setup, wall
 
 # the pipeline call of the oracle: JAX CurvedPipeline on the kernel path
 _ORACLE = _MASK_ORACLE.replace('''    else:
@@ -101,40 +102,9 @@ def _kernel_cases():
     }
 
 
-def _curved_setup(elev_fn, n=160, dlat=0.002, lat0=45.0, lon0=7.0):
-    """tests/test_curved.py:8-28 on the port's copies (the same NumPy code
-    as the reference's, held equal in tests/test_torch_schedule.py)."""
-    from horayzon_tpu_torch import direction, transform
-    lat = lat0 + (np.arange(n)[::-1] - n / 2) * dlat
-    lon = lon0 + (np.arange(n) - n / 2) * dlat
-    lon2, lat2 = np.meshgrid(lon, lat)
-    elevation = elev_fn(lon2, lat2).astype(np.float32)
-    trans = transform.TransformerEcef2enu(lon0, lat0, "sphere")
-    xe, ye, ze = transform.lonlat2ecef(lon2, lat2, elevation, "sphere")
-    x, y, z = transform.ecef2enu(xe, ye, ze, trans)
-    vn_ecef = direction.surf_norm(lon2, lat2)
-    vnorth_ecef = direction.north_dir(xe, ye, ze, vn_ecef, "sphere")
-    return dict(x=x, y=y, z=z, vec_norm=transform.ecef2enu_vector(
-        vn_ecef, trans), vec_north=transform.ecef2enu_vector(vnorth_ecef,
-                                                             trans))
-
-
-def _wall(lon, lat):
-    e = np.zeros_like(lon)
-    e[np.abs(lat - (45.0 + 0.12)) < 0.002] = 400.0
-    return e
-
-
-def _bumps(lon, lat):
-    rng = np.random.default_rng(4)
-    e = np.zeros_like(lon)
-    for _ in range(8):
-        clon = rng.uniform(lon.min(), lon.max())
-        clat = rng.uniform(lat.min(), lat.max())
-        sig = rng.uniform(0.004, 0.02)
-        e += rng.uniform(100, 500) * np.exp(
-            -(((lon - clon) ** 2 + (lat - clat) ** 2) / (2 * sig ** 2)))
-    return e
+_curved_setup = curved_setup
+_wall = wall(45.0 + 0.12, 400.0)
+_bumps = bumps(4)
 
 
 def _scene(name):

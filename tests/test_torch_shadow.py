@@ -599,14 +599,17 @@ def test_branches_not_ported_raise():
     for engine in ("sweep", "scan"):
         with pytest.raises(NotImplementedError, match="item 10"):
             _port_terrain(base, engine=engine)
-    # an irregular (curved) mesh: x varies along rows
+    # an irregular (curved) mesh, x varying along rows, now initialises:
+    # planarised, its box swept (tests/test_torch_curved_shadow.py)
     h, w = base["dem_dim"]
     xyz = base["vert_grid"][:h * w * 3].reshape(h, w, 3).copy()
     xyz[..., 0] += np.arange(h, dtype=np.float32)[:, None] * 3.0
     curved = dict(base, vert_grid=auxiliary.rearrange_pad_buffer(
         xyz[..., 0], xyz[..., 1], xyz[..., 2]))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _port_terrain(curved)
+    tc = _port_terrain(curved)
+    assert tc._curved and tc._back is not None
+    assert tuple(tc.shadow(np.array([1e7, 0.0, 1e6], np.float32)).shape) \
+        == base["mask"].shape
     t = _port_terrain(base, engine="pallas")
     # sw_dir_cor_soft is ported (tests/test_torch_shadow_grad.py); it takes
     # the heights to differentiate as a tensor of the outer shape

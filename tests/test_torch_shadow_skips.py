@@ -253,8 +253,8 @@ def test_terrain_codes_from_the_sign_exact_metric():
     table, near_vert = ss.shadow_sun_table(suns, terrain._center,
                                            terrain.grid.dx, terrain.grid.dy)
     f = terrain._fields
-    args = ss.metric_args(terrain._z_outer, f["z_org"], f["z_inner"], table,
-                          offset=terrain.offset,
+    args = ss.metric_args(terrain._z_outer, f["z_org_r"], f["z_inner_r"],
+                          table, offset=terrain.offset,
                           inner_shape=terrain.comp_shape, dx=terrain.grid.dx,
                           dy=terrain.grid.dy, hori_acc=terrain.acc,
                           pyramid=terrain._levels, pooled=terrain._pooled)

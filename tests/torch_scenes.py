@@ -1,6 +1,7 @@
 """Scenes of the sweep's skips, shared by the CPU tests
 (tests/test_torch_sweep_skips.py for K1, tests/test_torch_shadow_skips.py
-for K2) and the card's (tests/test_torch_cuda.py).  Imports no JAX."""
+for K2) and the card's (tests/test_torch_cuda.py), and the curved meshes of
+the curved shadow and locations tests.  Imports no JAX."""
 
 import numpy as np
 
@@ -101,3 +102,72 @@ def shadow_skip_scene(name):
 
 SHADOW_SKIP_SCENES = ["random", "flat_pit", "spike", "ridge_low_sun",
                       "overhead"]
+
+
+def curved_setup(elev_fn, n=160, dlat=0.002, lat0=45.0, lon0=7.0):
+    """tests/test_curved.py:8-28 on the port's NumPy copies: an ``n``^2
+    lon/lat grid of ``dlat`` degree around (lon0, lat0) on the sphere,
+    north up, heights ``elev_fn(lon, lat)``, as an ENU mesh with its unit
+    normals and north vectors."""
+    from horayzon_tpu_torch import direction, transform
+    lat = lat0 + (np.arange(n)[::-1] - n / 2) * dlat
+    lon = lon0 + (np.arange(n) - n / 2) * dlat
+    lon2, lat2 = np.meshgrid(lon, lat)
+    elevation = elev_fn(lon2, lat2).astype(np.float32)
+    trans = transform.TransformerEcef2enu(lon0, lat0, "sphere")
+    xe, ye, ze = transform.lonlat2ecef(lon2, lat2, elevation, "sphere")
+    x, y, z = transform.ecef2enu(xe, ye, ze, trans)
+    vn_ecef = direction.surf_norm(lon2, lat2)
+    vnorth_ecef = direction.north_dir(xe, ye, ze, vn_ecef, "sphere")
+    return dict(x=x, y=y, z=z, elevation=elevation, lon2=lon2, lat2=lat2,
+                vec_norm=transform.ecef2enu_vector(vn_ecef, trans),
+                vec_north=transform.ecef2enu_vector(vnorth_ecef, trans))
+
+
+def bumps(seed, count=8, sig=(0.004, 0.02), amp=(100.0, 500.0)):
+    """``elev_fn`` of :func:`curved_setup`: ``count`` gaussian bumps drawn
+    with ``seed`` (tests/test_curved.py:240-252 with seed 4)."""
+    def elev_fn(lon, lat):
+        rng = np.random.default_rng(seed)
+        e = np.zeros_like(lon)
+        for _ in range(count):
+            clon = rng.uniform(lon.min(), lon.max())
+            clat = rng.uniform(lat.min(), lat.max())
+            sg = rng.uniform(*sig)
+            e += rng.uniform(*amp) * np.exp(
+                -(((lon - clon) ** 2 + (lat - clat) ** 2) / (2 * sg ** 2)))
+        return e
+    return elev_fn
+
+
+def wall(lat_wall, wall_h):
+    """``elev_fn`` of :func:`curved_setup`: a wall ``wall_h`` metres high
+    along the latitude ``lat_wall`` (0.004 degree wide)."""
+    def elev_fn(lon, lat):
+        e = np.zeros_like(lon)
+        e[np.abs(lat - lat_wall) < 0.002] = wall_h
+        return e
+    return elev_fn
+
+
+def curved_terrain_inputs(s, offset, inner, mask=None):
+    """``Terrain.initialise`` inputs of the curved mesh ``s``
+    (:func:`curved_setup`) as the curved shadow examples build them
+    (examples/shadow/gridded_curved_dem_srtm.py): ``slope_vector_meth``
+    on the inner block and a one-cell ring, the surface enlargement
+    factor, the lon/lat grid's elevation; ``mask`` defaults to all ones."""
+    from horayzon_tpu_torch import auxiliary, topo_param
+    (o0, o1), (in0, in1) = offset, inner
+    sl = (slice(o0, o0 + in0), slice(o1, o1 + in1))
+    sl1 = (slice(o0 - 1, o0 + in0 + 1), slice(o1 - 1, o1 + in1 + 1))
+    vec_norm = np.ascontiguousarray(s["vec_norm"][sl], dtype=np.float32)
+    vec_tilt = np.ascontiguousarray(topo_param.slope_vector_meth(
+        s["x"][sl1], s["y"][sl1], s["z"][sl1]).numpy()[1:-1, 1:-1])
+    return dict(
+        vert_grid=auxiliary.rearrange_pad_buffer(s["x"], s["y"], s["z"]),
+        vec_tilt=vec_tilt, vec_norm=vec_norm,
+        surf_enl_fac=topo_param.surface_enlargement_factor(
+            vec_norm, vec_tilt).numpy(),
+        elevation=np.ascontiguousarray(s["elevation"][sl]),
+        mask=np.ones(inner, np.uint8) if mask is None else mask,
+        dem_dim=s["z"].shape, offset=offset)

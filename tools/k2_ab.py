@@ -103,7 +103,7 @@ def cell_args(cell, dev, rows=None):
         table, _ = shadow_sweep.shadow_sun_table(
             suns, terrain._center, terrain.grid.dx, terrain.grid.dy)
         zt, f = terrain._z_outer, terrain._fields
-        z_org, z_in = f["z_org"], f["z_inner"]
+        z_org, z_in = f["z_org_r"], f["z_inner_r"]
         kw = dict(dx=terrain.grid.dx, dy=terrain.grid.dy,
                   inner_shape=terrain.comp_shape)
         off, origin = terrain.offset, terrain._grid_origin
