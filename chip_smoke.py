@@ -119,7 +119,23 @@ M. per-location horizons: ``horizon_locations`` at the defaults of
    azimuths, ``hori_dist_out``), then at 10,000 locations drawn (seed 0)
    from the inner 0.3 degree: wall split into planarisation and sweep,
    chunks, peak memory, 64 of them against the CPU path;
-9. one JSON line of all nine kernels (launches on its main path, error
+N. the reference's XLA engines, plain torch on the card by design:
+   ``horizon_gridded`` with non-default vectors (``vec_norm`` from the
+   terrain's own slope, ``vec_north`` orthogonal to it: the general
+   per-cell basis) at the bench cell, wall, azimuth chunk and peak memory,
+   and the same call on a 64^2 block on the card and the CPU; the planar
+   ``engine="sweep"`` at the same cell beside the fused route and the
+   largest angle between the two estimators; ``Terrain(engine="sweep")``
+   and ``Terrain(engine="scan")`` on the bench's shadow row (16 suns) with
+   the wall per sun and the share of codes equal to the fused engine's,
+   both engines on a 512^2 crop on the card and the CPU; the XLA
+   ``horizon_sweep_multires`` at phase K's 2 m scene beside
+   ``horizon_sweep_multires_fused``; then K2-mask
+   (``shadow_metric_fused(mask=...)``) on phase H's island and disc over
+   the 16 suns, both arms: live blocks bit-equal to the dense K2, the rest
+   -3e38, bit-equal to its plain version on the island, its time against
+   the dense K2 (CUDA events, mean of 10) and its skip shares and bound;
+9. one JSON line of all ten kernels (launches on its main path, error
    against its plain version, its time and the plain version's, its bound
    and ``library_ms`` null), then the result line
    ``{"ok": true, "device": {...}}``.  K5 is on no user path of the
@@ -168,6 +184,7 @@ BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:1705"
 SHADOW_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2885"
 SHADOW_BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2470"
 MASK_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:196"
+SHADOW_MASK_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2765"
 TILT_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:219"
 READ_FLOOR_SOURCE = "horayzon_tpu_torch/csrc/read_floor.cu"
 READ_FLOOR_REPLACES = "tools/read_floor.py:53"
@@ -1806,6 +1823,265 @@ def phase_m(dev, card):
                   f"max |hori - cpu| {err:.2e} rad, hori_dist {derr:.2e} "
                   f"relative, within 1e-6")
 
+def bench_vectors(z, x, y, halo, inner):
+    """``vec_norm`` of the bench's inner block from the terrain's own
+    slope (``topo_param.slope_plane_meth`` on the block and a one-cell
+    ring) and ``vec_north`` (0, 1, 0) made orthogonal to it, both unit,
+    (inner, inner, 3) float32; and the slope's tilt vectors."""
+    sl1 = slice(halo - 1, halo + inner + 1)
+    xx, yy = np.meshgrid(x[sl1], y[sl1])
+    tilt = topo_param.slope_plane_meth(xx, yy, z[sl1, sl1]).numpy()[1:-1,
+                                                                   1:-1]
+    norm = tilt.astype(np.float64)
+    north = np.zeros_like(norm)
+    north[..., 1] = 1.0
+    north -= np.sum(north * norm, axis=-1, keepdims=True) * norm
+    north /= np.linalg.norm(north, axis=-1, keepdims=True)
+    return (np.ascontiguousarray(norm, np.float32),
+            np.ascontiguousarray(north, np.float32),
+            np.ascontiguousarray(tilt, np.float32))
+
+
+def engine_terrain(z, x, y, off, inner, engine, dev):
+    """A planar ``Terrain`` on the heights ``z`` with the vertices at ``x``,
+    ``y`` (north up), the inner block ``inner`` at ``off`` with unit
+    normals, the slope's tilt and no mask, on ``engine`` and ``dev``."""
+    sl1 = (slice(off[0] - 1, off[0] + inner[0] + 1),
+           slice(off[1] - 1, off[1] + inner[1] + 1))
+    xx, yy = np.meshgrid(x, y)
+    vec_tilt = np.ascontiguousarray(topo_param.slope_plane_meth(
+        xx[sl1], yy[sl1], z[sl1]).numpy()[1:-1, 1:-1])
+    vec_norm = np.zeros(inner + (3,), np.float32)
+    vec_norm[..., 2] = 1.0
+    t = shadow.Terrain()
+    t.initialise(auxiliary.rearrange_pad_buffer(xx, yy, z), z.shape[0],
+                 z.shape[1], off[0], off[1], vec_tilt, vec_norm,
+                 topo_param.surface_enlargement_factor(vec_norm,
+                                                       vec_tilt).numpy(),
+                 np.ascontiguousarray(z[off[0]:off[0] + inner[0],
+                                        off[1]:off[1] + inner[1]]),
+                 np.ones(inner, np.uint8), engine=engine, device=dev)
+    return t
+
+
+def bench_track(n_sun=16):
+    """bench.py:420-446's sun track, relative to the domain centre."""
+    tt = np.linspace(0.15, 2.9, n_sun)
+    return list(zip(3.0e5 * np.cos(tt), 3.0e5 * np.sin(tt),
+                    2.0e4 + 1.0e4 * np.sin(2 * tt)))
+
+
+def phase_n(dev, card, z, x, y, halo, azim_num, dist_km, k1_ms):
+    """Phase N: the reference's XLA engines in plain torch at full width,
+    and K2-mask.  Returns the K2-mask row's numbers (launches, error, ms,
+    plain ms, bound)."""
+    print("== N. the XLA engines (plain torch) and K2-mask")
+    n, inner = z.shape[0], z.shape[0] - 2 * halo
+    xx, yy = np.meshgrid(x, y)
+    vert_grid = auxiliary.rearrange_pad_buffer(xx, yy, z)
+    del xx, yy
+    vec_norm, vec_north, _ = bench_vectors(z, x, y, halo, inner)
+    vn0 = np.zeros_like(vec_norm)
+    vn0[..., 2] = 1.0
+    vno0 = np.zeros_like(vec_norm)
+    vno0[..., 1] = 1.0
+    hz_kw = dict(dist_search=dist_km, azim_num=azim_num, hori_acc=0.25,
+                 verbose=False)
+    chunk = sweep.azimuth_chunk(azim_num, (inner, inner))
+
+    # the general geometry at the bench cell (non-default vectors take the
+    # XLA engine's per-cell basis whatever the engine)
+    def general():
+        return horizon.horizon_gridded(vert_grid, n, n, vec_norm, vec_north,
+                                       halo, halo, device=dev, **hz_kw)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g_wall, g_min, g_max, hg = wall_runs(general, 2)
+    peak = torch.cuda.max_memory_allocated()
+    tilt = np.degrees(np.arccos(np.clip(vec_norm[..., 2], -1.0, 1.0)))
+    print(f"  general basis (vec_norm from the slope: tilt up to "
+          f"{tilt.max():.1f} deg, mean {tilt.mean():.1f}), {inner}^2 x "
+          f"{azim_num} azimuths at {dist_km:g} km: median {g_wall:.3f} s "
+          f"wall of 2 (min {g_min:.3f}, max {g_max:.3f}), {chunk} azimuths "
+          f"per chunk, peak {peak / 2**20:.1f} MiB allocated "
+          f"({base / 2**20:.1f} MiB before)  [{card}]")
+    check(tuple(hg.shape) == (inner, inner, azim_num) and hg.is_cuda
+          and bool(torch.isfinite(hg).all()), "general: shape, device, "
+          "finite")
+    # the same call on a 64^2 block (and its 20 km halo) on the card and
+    # on the CPU, within the CPU tests' tolerance
+    c0, cn = halo + inner // 2 - 32, 64
+    cr = int(round(dist_km * 1000.0 / float(x[1] - x[0])))
+    sl = slice(c0 - cr, c0 + cn + cr)
+    cxx, cyy = np.meshgrid(x[sl], y[sl])
+    cvg = auxiliary.rearrange_pad_buffer(cxx, cyy, z[sl, sl])
+    cnorm = vec_norm[c0 - halo:c0 - halo + cn, c0 - halo:c0 - halo + cn]
+    cnorth = vec_north[c0 - halo:c0 - halo + cn, c0 - halo:c0 - halo + cn]
+    m = cn + 2 * cr
+    t0 = time.perf_counter()
+    crop = [horizon.horizon_gridded(cvg, m, m, np.ascontiguousarray(cnorm),
+                                    np.ascontiguousarray(cnorth), cr, cr,
+                                    device=d, **hz_kw)[0].cpu()
+            for d in (dev, "cpu")]
+    err = (crop[0] - crop[1]).abs().max().item()
+    print(f"  the general basis on a {cn}^2 block: card against the CPU "
+          f"path max |d hori| {err:.3e} rad ({time.perf_counter() - t0:.1f}"
+          f" s for both)")
+    check(err <= 2.4e-7, "general basis on the card within 2.4e-7 rad of "
+          "the CPU path")
+    del hg, crop
+
+    # the planar sweep engine on default vectors beside K1
+    def planar(engine):
+        return horizon.horizon_gridded(vert_grid, n, n, vn0, vno0, halo,
+                                       halo, engine=engine, device=dev,
+                                       **hz_kw)[0]
+
+    p_wall, p_min, p_max, hs = wall_runs(lambda: planar("sweep"), 2)
+    f_wall, _, _, hf = wall_runs(lambda: planar("auto"), 2)
+    d = (hs - hf).abs()
+    print(f"  planar engine='sweep': median {p_wall:.3f} s wall of 2 (min "
+          f"{p_min:.3f}, max {p_max:.3f}); the fused route {f_wall:.4f} s "
+          f"(K1 alone {k1_ms:.3f} ms), {p_wall / f_wall:.1f}x; the two "
+          f"estimators differ by up to {np.degrees(d.max().item()):.4f} deg "
+          f"(mean {np.degrees(d.mean().item()):.5f})  [{card}]")
+    check(bool(torch.isfinite(hs).all()), "planar sweep engine finite")
+    del hs, hf, d
+
+    # Terrain's XLA engines on the bench's shadow row: 2048^2 / 1024^2,
+    # its 16 suns
+    cx = 0.5 * (float(x[0]) + float(x[-1]))
+    cy = 0.5 * (float(y[0]) + float(y[-1]))
+    suns = np.array([[cx + a, cy + b, c] for a, b, c in bench_track()],
+                    np.float32)
+    codes = {}
+    for engine in ("pallas", "sweep", "scan"):
+        t0 = time.perf_counter()
+        ter = engine_terrain(z, x, y, (halo, halo), (inner, inner), engine,
+                             dev)
+        init_s = time.perf_counter() - t0
+        wall, w_min, _, codes[engine] = wall_runs(
+            lambda: ter.shadow_batch(suns), 1)
+        sw = ter.sw_dir_cor_batch(suns)
+        check(codes[engine].is_cuda and bool(torch.isfinite(sw).all()),
+              f"Terrain(engine={engine!r}): codes on the card, sw_dir_cor "
+              f"finite")
+        print(f"  Terrain(engine={engine!r}): initialise {init_s:.2f} s, "
+              f"shadow_batch of 16 suns {wall:.3f} s wall, {wall / 16:.4f} s "
+              f"per sun; {codes[engine].eq(2).float().mean().item():.4f} "
+              f"terrain-shaded  [{card}]")
+        del ter, sw
+    for engine in ("sweep", "scan"):
+        same = codes[engine].eq(codes["pallas"]).float().mean().item()
+        print(f"  {engine}: {same:.5f} of the codes equal to the fused "
+              f"engine's")
+        check(same > 0.95, f"{engine}: codes agree with the fused engine on "
+              f"most cells")
+    del codes
+    # both engines on a 512^2 crop (64^2 inner) on the card and the CPU
+    c0 = n // 2 - 256
+    zc_ = np.ascontiguousarray(z[c0:c0 + 512, c0:c0 + 512])
+    csuns = np.array([[0.5 * (float(x[c0]) + float(x[c0 + 511])) + a,
+                       0.5 * (float(y[c0]) + float(y[c0 + 511])) + b, c]
+                      for a, b, c in bench_track()[::8]], np.float32)
+    for engine in ("sweep", "scan"):
+        out = []
+        for d_ in (dev, "cpu"):
+            ter = engine_terrain(zc_, x[c0:c0 + 512], y[c0:c0 + 512],
+                                 (224, 224), (64, 64), engine, d_)
+            f = ter._fields
+            met, _ = ter._xla_metric(csuns, f["z_org_r"], f["z_inner_r"],
+                                     ter._levels, scan=engine == "scan")
+            out.append((met.cpu(), ter.shadow_batch(csuns).cpu()))
+        check(torch.equal(out[0][0], out[1][0])
+              and torch.equal(out[0][1], out[1][1]),
+              f"Terrain(engine={engine!r}) on a 64^2 block: the card's "
+              f"metric and codes equal to the CPU's")
+
+    # the XLA multires engine at the 2 m example's defaults
+    zf_np, zc_np, mkw = multires_2m_scene()
+    zf = torch.from_numpy(zf_np).to(dev)
+    zc = torch.from_numpy(zc_np).to(dev)
+    a_num = mkw.pop("azim_num")
+    fused_wall, _, _, _ = wall_runs(
+        lambda: multires.horizon_sweep_multires_fused(zf, zc, azim_num=a_num,
+                                                      **mkw), 1)
+    torch.cuda.reset_peak_memory_stats()
+    x_wall, _, _, hx = wall_runs(
+        lambda: multires.horizon_sweep_multires(
+            zf, zc, azim=horizon.azimuth_angles(a_num), **mkw), 1)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(hx).all()) and hx.max().item() > 0.0,
+          "XLA multires finite and above the plane")
+    print(f"  horizon_sweep_multires (XLA engine), {mkw['inner_shape']} x "
+          f"{a_num} azimuths: {x_wall:.3f} s wall, peak "
+          f"{peak / 2**20:.1f} MiB; horizon_sweep_multires_fused "
+          f"{fused_wall:.4f} s ({x_wall / fused_wall:.1f}x)  [{card}]")
+    del zf, zc, hx
+
+    # K2-mask on the island and disc masks, 16 suns, both arms
+    zt = torch.from_numpy(z).to(dev)
+    z_org, z_in, table, kw = shadow_inputs(zt, (halo, halo), (inner, inner),
+                                           float(x[1] - x[0]),
+                                           -float(x[1] - x[0]), (0.0, 0.0),
+                                           bench_track())
+    sargs = shadow_sweep.metric_args(
+        zt, z_org, z_in, table,
+        **{k: kw[k] for k in ("offset", "inner_shape", "dx", "dy")})
+    masks = {k: torch.from_numpy(v).to(dev)
+             for k, v in bench_mask_set(inner).items()
+             if k in ("island", "disc")}
+    shadow_sweep.MASK_KERNEL_LAUNCHES = 0
+    got = {(k, e): shadow_sweep.shadow_metric_fused(
+        zt, z_org, z_in, table, mask=mk, exact_metric=e, **kw)
+        for k, mk in masks.items() for e in (True, False)}
+    torch.cuda.synchronize()
+    launches = shadow_sweep.MASK_KERNEL_LAUNCHES
+    check(launches == 4, f"K2-mask launched once per call ({launches} in "
+          f"4 calls)")
+    n_blk = (-(-inner // fused_sweep.BLOCK_ROWS)
+             * -(-inner // fused_sweep.BLOCK_COLS))
+    times = {}
+    for exact in (True, False):
+        dense = shadow_sweep._metric_cuda(*sargs, grid_origin=(0.0, 0.0),
+                                          exact_metric=exact)
+        dense_ms = cuda_ms(lambda: shadow_sweep._metric_cuda(
+            *sargs, grid_origin=(0.0, 0.0), exact_metric=exact), 10)
+        for k, mk in masks.items():
+            live = shadow_sweep.live_cells(mk)
+            res = got[(k, exact)]
+            check(torch.equal(res[:, live], dense[:, live])
+                  and bool((res[:, ~live] == np.float32(-3.0e38)).all()),
+                  f"K2-mask ({k}, exact_metric={exact}): live blocks "
+                  f"bit-equal to the dense K2, the rest -3e38")
+            ms = cuda_ms(lambda: shadow_sweep._metric_cuda(
+                *sargs, grid_origin=(0.0, 0.0), exact_metric=exact,
+                mask=mk), 10)
+            times[(k, exact)] = ms
+            n_live = fused_sweep.live_blocks(mk).shape[0]
+            share = mk.float().mean().item()
+            print(f"  K2-mask {k} (exact_metric={exact}): {share:.4f} "
+                  f"considered, {n_live / n_blk:.4f} of the "
+                  f"blocks live; {ms:.3f} ms against the dense K2's "
+                  f"{dense_ms:.3f} ms (mean of 10), {dense_ms / ms:.2f}x "
+                  f"faster  [{card}]")
+        del dense
+    island = masks["island"]
+    plain_ms, plain = event_ms(lambda: shadow_sweep._metric_plain(
+        *sargs, grid_origin=(0.0, 0.0), mask=island))
+    err = (got[("island", True)] - plain).abs().max().item()
+    check(torch.equal(got[("island", True)], plain), "K2-mask bit-equal to "
+          "its plain version on the island, full output")
+    del plain, got
+    live_u8 = shadow_sweep.live_cells(island).to(torch.uint8)
+    bnd = skip_report("K2-mask (island)", sargs + (None, live_u8), False,
+                      times[("island", True)], card,
+                      k2_counted(sargs, (0.0, 0.0), mask=island))
+    return launches, err, times[("island", True)], plain_ms, bnd
+
+
 def main():
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2512,11 +2788,15 @@ def main():
     sa_err, sb_err = max(sa_err, c_sa_err), max(sb_err, c_sb_err)
     t_m = time.perf_counter()
     phase_m(dev, card)
+    t_n = time.perf_counter()
+    k2m_row = phase_n(dev, card, zt.cpu().numpy(), x, y, halo, azim_num,
+                      dist_km, k1_ms)
     print(f"  phase J {t_k - t_j:.1f} s, phase K {t_l - t_k:.1f} s, phase L "
-          f"{t_m - t_l:.1f} s, phase M {time.perf_counter() - t_m:.1f} s")
+          f"{t_m - t_l:.1f} s, phase M {t_n - t_m:.1f} s, phase N "
+          f"{time.perf_counter() - t_n:.1f} s")
 
     print("== 9. result")
-    print(f"  phases 1-M in {time.perf_counter() - t_run:.1f} s")
+    print(f"  phases 1-N in {time.perf_counter() - t_run:.1f} s")
     rows = [
         ("horizon_sweep (K1)", KERNEL_SOURCE, REPLACES, launches, max_err,
          k1_ms, plain_ms, k1_bound),
@@ -2536,6 +2816,8 @@ def main():
         ("horizon_sweep tilt (K1-tilt)", KERNEL_SOURCE, TILT_REPLACES,
          tilt_launches, max(var_err, tilt_err), tilt_ms, tilt_plain_ms,
          tilt_bound),
+        ("shadow_sweep mask (K2-mask)", KERNEL_SOURCE,
+         SHADOW_MASK_REPLACES) + k2m_row,
         # K5 is on no user path of the library; its launches are those of
         # its own entry, read_floor.time_modes, in phase J
         ("read_floor (K5)", READ_FLOOR_SOURCE, READ_FLOOR_REPLACES) + k5_row]

@@ -12,8 +12,10 @@ variant) and on curved grids (its tilt-ramp variant,
 argmax variant and K3), shadow maps and ``sw_dir_cor``
 (:class:`horayzon_tpu_torch.shadow.Terrain`, kernel K2, the shadow mode of
 the same source) on planar and curved meshes, per-location horizons
-(:func:`horizon_locations`) and the topographic parameters.  ROADMAP.md
-lists what is still to port.
+(:func:`horizon_locations`), the topographic parameters, and the
+reference's XLA engines in plain torch (``engine="sweep"``, non-default
+vectors, ``Terrain(engine="sweep"/"scan")``).  ROADMAP.md lists what is
+still to port.
 """
 
 from horayzon_tpu_torch import (auxiliary, direction, horizon, regrid,

@@ -52,7 +52,11 @@
 //     warp runs one, only votes in the skips.  Blocks that are not launched
 //     hold the same values, written by the wrapper before the launch.
 //     Unmasked cells compute exactly what the unmasked kernel computes: the
-//     skips are value-exact.
+//     skips are value-exact.  K2-mask (shadow_metric_pallas(mask=...),
+//     :2730-2791) passes the block list with a null mask: shadow mode has
+//     no mask-aware init, so every cell of a launched block sweeps as in
+//     the dense launch, its warp taking the same skips, and the wrapper
+//     fills the blocks it does not launch with -3e38.
 //
 // Four entry points, one template <ARGMAX, SHADOW>: horizon_sweep_launch
 // (K1), horizon_sweep_argmax_launch (the forward of the gradient path, the

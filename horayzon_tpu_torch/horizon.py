@@ -3,22 +3,28 @@
 """Public horizon API: the counterpart of :mod:`horayzon_tpu.horizon`.
 
 ``horizon_gridded`` keeps the reference's signature (plus ``device``) and
-its validation, and runs three branches through
-:func:`horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`: a regular
-planar grid with default vectors, masked or not; the same with a simplified
-outer TIN (``vert_simp``), which :func:`_tin_gridded` rasterises to a coarse
-far field and sweeps over a combined fine + coarse pyramid
-(:mod:`horayzon_tpu_torch.ops.multires`); and a curved (irregular)
+its validation and routing.  With default vectors the fused sweep
+(:func:`horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`) runs
+three branches: a regular planar grid, masked or not; the same with a
+simplified outer TIN (``vert_simp``), which :func:`_tin_gridded`
+rasterises to a coarse far field and sweeps over a combined fine + coarse
+pyramid (:mod:`horayzon_tpu_torch.ops.multires`); and a curved (irregular)
 grid, which :func:`_curved_gridded` planarises, sweeps with the tilt ramp
-and reads back.  The other branches are not ported yet and raise
-``NotImplementedError`` naming their item in ROADMAP.md's Queue 1.  One
-thread owns one (cell, azimuth) in the kernel, so the inner domain (or the
-curved run's lattice box) is swept as it is, with no padding to tile
-multiples, and a mask needs no tile chooser: the kernel skips the 32 x 8
-blocks that hold no unmasked cell.  ``horizon_locations`` runs the
-per-location sweep (:mod:`horayzon_tpu_torch.ops.locations`, plain torch,
-as the reference runs it in XLA), on a curved mesh over its planarised
-lattice.
+and reads back.  One thread owns one (cell, azimuth) in the kernel, so the
+inner domain (or the curved run's lattice box) is swept as it is, with no
+padding to tile multiples, and a mask needs no tile chooser: the kernel
+skips the 32 x 8 blocks that hold no unmasked cell.
+
+``engine="sweep"`` and non-default ``vec_norm`` / ``vec_north`` take the
+reference's XLA engine (:func:`horayzon_tpu_torch.ops.sweep.
+horizon_sweep`, plain torch on ``device``), as the reference does off a
+TPU: non-default vectors always go to its general per-cell basis
+(``engine="pallas"`` refuses them), a masked regular grid is swept over
+the bounding box of its unmasked cells, a curved grid over its lattice box
+with the general basis, and a TIN with the XLA multires engine.
+``horizon_locations`` runs the per-location sweep
+(:mod:`horayzon_tpu_torch.ops.locations`, plain torch, as the reference
+runs it in XLA), on a curved mesh over its planarised lattice.
 """
 
 import math
@@ -44,10 +50,15 @@ def azimuth_angles(azim_num):
     return ((2.0 * np.pi) / azim_num * np.arange(azim_num)).astype(np.float32)
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"horizon_gridded: {what} is not ported to horayzon_tpu_torch yet "
-        f"(ROADMAP.md Queue 1, item {item})")
+def _mask_bbox(mask):
+    """Bounding box (r0, r1, c0, c1) of unmasked (== 1) cells; the whole
+    domain if every cell is unmasked, a 1x1 box if none is (callers fill
+    masked cells afterwards, so the value computed there is discarded)."""
+    rows = np.flatnonzero(np.asarray(mask).any(axis=1))
+    cols = np.flatnonzero(np.asarray(mask).any(axis=0))
+    if rows.size == 0:
+        return 0, 1, 0, 1
+    return rows[0], rows[-1] + 1, cols[0], cols[-1] + 1
 
 
 def horizon_gridded(
@@ -73,10 +84,11 @@ def horizon_gridded(
     Signature and validation mirror ``horayzon_tpu.horizon.horizon_gridded``
     (``dist_search`` in kilometres).  ``device``: where the sweep runs, the
     card unless the caller asks for the CPU; a CUDA device runs kernel K1,
-    the CPU the plain torch sweep.  ``engine``
-    "auto" and "pallas" both select the fused sweep; the XLA-style "sweep"
-    engine is not ported.  ``hori_fill`` applies to masked cells (mask
-    values other than 1), which the kernel does not sweep.
+    the CPU the plain torch sweep.  ``engine``: "auto" and "pallas" select
+    the fused sweep for default vectors; "sweep" the reference's XLA
+    engine, plain torch on ``device``, which non-default vectors take
+    whatever the engine ("pallas" refuses them with ``ValueError``).
+    ``hori_fill`` applies to masked cells (mask values other than 1).
 
     Returns
     -------
@@ -130,12 +142,13 @@ def horizon_gridded(
         raise ValueError("the simplified outer TIN (vert_simp) is only "
                          "supported on planar regular grids (reference "
                          "usage: gridded_planar_DEM_2m)")
-    if engine == "sweep":
-        raise _not_ported("engine='sweep'", 10)
     masked = mask.min() == 0
-    if (grid is not None and vert_simp is None
-            and not _terrain.is_default_planar_vectors(vec_norm, vec_north)):
-        raise _not_ported("non-default vec_norm/vec_north", 10)
+    general = (grid is not None and vert_simp is None
+               and not _terrain.is_default_planar_vectors(vec_norm,
+                                                          vec_north))
+    if general and engine == "pallas":
+        raise ValueError("engine='pallas' requires a planar regular grid "
+                         "(default vec_norm and vec_north)")
 
     t0 = time.perf_counter()
     sweep_kw = dict(azim_num=azim_num, dist_search=dist_search * 1000.0,
@@ -146,11 +159,16 @@ def horizon_gridded(
                             num_tri_simp, offset=(offset_0, offset_1),
                             inner_shape=inner_shape,
                             mask=mask if masked else None, device=device,
-                            **sweep_kw)
+                            engine=engine, **sweep_kw)
     elif grid is None:
-        hori = _curved_gridded(x, y, z, vec_norm, offset_0, offset_1,
-                               mask=mask if masked else None, device=device,
-                               **sweep_kw)
+        hori = _curved_gridded(x, y, z, vec_norm, vec_north, offset_0,
+                               offset_1, mask=mask if masked else None,
+                               device=device, engine=engine, **sweep_kw)
+    elif general or engine == "sweep":
+        hori = _xla_gridded(z, grid, vec_norm, vec_north, general,
+                            offset=(offset_0, offset_1),
+                            inner_shape=inner_shape, mask=mask,
+                            hori_fill=hori_fill, device=device, **sweep_kw)
     else:
         z_dev = torch.from_numpy(np.ascontiguousarray(z)).to(device)
         hori = _fused.horizon_sweep_fused(
@@ -177,6 +195,38 @@ def horizon_gridded(
     return hori, torch.from_numpy(azim).to(device)
 
 
+def _xla_gridded(z, grid, vec_norm, vec_north, general, *, offset,
+                 inner_shape, mask, hori_fill, azim_num, dist_search,
+                 hori_acc, elev_ang_low_lim, ray_org_elev, device="cuda"):
+    """A regular grid on the XLA engine (``horayzon_tpu/horizon.py:
+    544-567``): the sweep cropped to the bounding box of the unmasked
+    cells, ``hori_fill`` outside it; with ``general`` the per-cell basis of
+    ``vec_norm`` / ``vec_north`` and its domain-mean marching directions.
+    Returns (in0, in1, azim_num) float32 on ``device``."""
+    azim = azimuth_angles(azim_num)
+    geom = u_xy = None
+    if general:
+        geom = _terrain.basis_fields(vec_norm, vec_north)
+        u_xy = _terrain.mean_marching_directions(azim, vec_norm, vec_north)
+    r0, r1, c0, c1 = (int(v) for v in _mask_bbox(mask))
+    full = (r0, r1, c0, c1) == (0, inner_shape[0], 0, inner_shape[1])
+    if geom is not None and not full:
+        geom = {k: v[r0:r1, c0:c1] for k, v in geom.items()}
+    hori_c, _ = _sweep.horizon_sweep(
+        torch.from_numpy(np.ascontiguousarray(z)).to(device), dx=grid.dx,
+        dy=grid.dy, offset=(offset[0] + r0, offset[1] + c0),
+        inner_shape=(r1 - r0, c1 - c0), azim=azim, dist_search=dist_search,
+        hori_acc=hori_acc, elev_ang_low_lim=elev_ang_low_lim,
+        ray_org_elev=ray_org_elev, geom=geom, u_xy=u_xy)
+    if full:
+        return hori_c
+    hori = torch.full(tuple(inner_shape) + (azim_num,),
+                      float(np.float32(hori_fill)), dtype=torch.float32,
+                      device=hori_c.device)
+    hori[r0:r1, c0:c1] = hori_c
+    return hori
+
+
 def tin_ratio_log2(grid, fine_shape, vert_simp, num_vert_simp, tri_ind_simp,
                    num_tri_simp, *, offset, inner_shape, dist_search,
                    hori_acc):
@@ -187,10 +237,11 @@ def tin_ratio_log2(grid, fine_shape, vert_simp, num_vert_simp, tri_ind_simp,
     a fine-derived level; raises the halo ``ValueError`` if even ratio 1
     does not fit.  ``dist_search`` in metres.
 
-    The halo is that of the inner block as it is: the reference's kernel
-    route validates against the block padded to tile multiples
-    (``horizon.py:621-649``), which can shrink the halo and with it the
-    ratio."""
+    The halo is that of the inner block as it is, as the reference checks
+    it off a TPU.  On a TPU the reference's kernel route validates against
+    the block padded to tile multiples (``horizon.py:621-649``), which can
+    shrink the halo and with it the ratio: its ratio depends on the
+    device, and the port's is the one it picks off a TPU."""
     tris = np.asarray(tri_ind_simp, dtype=np.int32).reshape(-1)
     n_tri = int(min(num_tri_simp, len(tris) // 3))
     vxy = np.asarray(vert_simp, dtype=np.float32).reshape(-1, 3)[
@@ -217,15 +268,17 @@ def tin_ratio_log2(grid, fine_shape, vert_simp, num_vert_simp, tri_ind_simp,
 def _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
                  num_tri_simp, *, offset, inner_shape, azim_num, dist_search,
                  hori_acc, elev_ang_low_lim, ray_org_elev, mask=None,
-                 device="cuda"):
+                 device="cuda", engine="auto"):
     """Gridded horizon with a simplified outer TIN as the far field
-    (``horayzon_tpu/horizon.py:585-681``, the fused-kernel route): the TIN
-    is rasterised on the host onto a coarse lattice aligned with the fine
-    grid (:func:`~horayzon_tpu_torch.ops.multires.coarse_grid_from_tin`) at
-    the ratio of :func:`tin_ratio_log2`, and the sweep runs on ``device``
-    over the combined fine + coarse pyramid.  Masked cells read values
-    that the caller overwrites with its fill.  Returns (in0, in1,
-    azim_num) float32 on ``device``."""
+    (``horayzon_tpu/horizon.py:585-681``): the TIN is rasterised on the
+    host onto a coarse lattice aligned with the fine grid
+    (:func:`~horayzon_tpu_torch.ops.multires.coarse_grid_from_tin`) at the
+    ratio of :func:`tin_ratio_log2`, and the sweep runs on ``device`` over
+    the combined fine + coarse pyramid: the fused sweep, or with
+    ``engine="sweep"`` the XLA multires engine
+    (:func:`~horayzon_tpu_torch.ops.multires.horizon_sweep_multires`), which
+    takes no mask.  Masked cells read values that the caller overwrites
+    with its fill.  Returns (in0, in1, azim_num) float32 on ``device``."""
     tris = np.asarray(tri_ind_simp, dtype=np.int32).reshape(-1)
     tris = tris[:3 * int(min(num_tri_simp, len(tris) // 3))]
     verts = np.asarray(vert_simp, dtype=np.float32)
@@ -236,14 +289,19 @@ def _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
     z_coarse, coarse_offset = _multires.coarse_grid_from_tin(
         verts, tris, grid=grid, fine_shape=z.shape, z_fine=z,
         ratio_log2=ratio_log2, dist_search=dist_search)
+    kw = dict(ratio_log2=ratio_log2, coarse_offset=coarse_offset,
+              dx=grid.dx, dy=grid.dy, offset=offset, inner_shape=inner_shape,
+              dist_search=dist_search, hori_acc=hori_acc,
+              elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev)
+    z_f = torch.from_numpy(np.ascontiguousarray(z)).to(device)
+    z_c = torch.from_numpy(z_coarse).to(device)
+    if engine == "sweep":
+        return _multires.horizon_sweep_multires(
+            z_f, z_c, azim=azimuth_angles(azim_num), **kw)
     return _multires.horizon_sweep_multires_fused(
-        torch.from_numpy(np.ascontiguousarray(z)).to(device),
-        torch.from_numpy(z_coarse).to(device), ratio_log2=ratio_log2,
-        coarse_offset=coarse_offset, dx=grid.dx, dy=grid.dy, offset=offset,
-        inner_shape=inner_shape, azim_num=azim_num, dist_search=dist_search,
-        hori_acc=hori_acc, elev_ang_low_lim=elev_ang_low_lim,
-        ray_org_elev=ray_org_elev,
-        mask=None if mask is None else torch.from_numpy(mask).to(device))
+        z_f, z_c, azim_num=azim_num,
+        mask=None if mask is None else torch.from_numpy(mask).to(device),
+        **kw)
 
 
 def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,
@@ -330,29 +388,65 @@ def read_back(hori_r, fi, fj):
     return (((terms[0] + terms[1]) + terms[2]) + terms[3]).float()
 
 
-def _curved_gridded(x, y, z, vec_norm, offset_0, offset_1, *, azim_num,
-                    dist_search, hori_acc, elev_ang_low_lim, ray_org_elev,
-                    mask=None, device="cuda"):
-    """Curved-mesh gridded horizon (``horayzon_tpu/horizon.py:684-851``,
-    the fused-kernel path): :func:`curved_lattice` on the host, the sweep
-    with the tilt ramp (and the lattice mask) over the box on ``device``,
-    then :func:`read_back` at the inner cells' positions.  Masked cells
-    read values that the caller overwrites with its fill.  Returns
-    (in0, in1, azim_num) float32 on ``device``."""
+def _curved_gridded(x, y, z, vec_norm, vec_north, offset_0, offset_1, *,
+                    azim_num, dist_search, hori_acc, elev_ang_low_lim,
+                    ray_org_elev, mask=None, device="cuda", engine="auto"):
+    """Curved-mesh gridded horizon (``horayzon_tpu/horizon.py:684-851``):
+    :func:`curved_lattice` on the host, the sweep over the box on
+    ``device``, then :func:`read_back` at the inner cells' positions.  The
+    fused route sweeps with the tilt ramp (and the lattice mask); with
+    ``engine="sweep"`` the XLA engine sweeps the box with the general
+    basis of the normals and norths interpolated onto it (``:834-842``).
+    Masked cells read values that the caller overwrites with its fill.
+    Returns (in0, in1, azim_num) float32 on ``device``."""
     lat = curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask)
     pg, (i_lo, i_hi, j_lo, j_hi) = lat["pg"], lat["box"]
     rin0, rin1 = i_hi - i_lo, j_hi - j_lo
-    lat_mask = lat["lat_mask"]
-    hori_r = _fused.horizon_sweep_fused(
-        torch.from_numpy(pg.z).to(device), dx=pg.grid.dx, dy=pg.grid.dy,
-        offset=(i_lo, j_lo), inner_shape=(rin0, rin1), azim_num=azim_num,
-        dist_search=dist_search, hori_acc=hori_acc,
-        elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev,
-        tilt_ramp=tuple(torch.from_numpy(r).to(device) for r in lat["ramp"]),
-        mask=None if lat_mask is None else torch.from_numpy(lat_mask).to(
-            device))
+    z_dev = torch.from_numpy(pg.z).to(device)
+    if engine == "sweep":
+        geom, u_xy = _box_basis(lat, vec_norm, vec_north, offset_0, offset_1,
+                                azimuth_angles(azim_num))
+        hori_r, _ = _sweep.horizon_sweep(
+            z_dev, dx=pg.grid.dx, dy=pg.grid.dy, offset=(i_lo, j_lo),
+            inner_shape=(rin0, rin1), azim=azimuth_angles(azim_num),
+            dist_search=dist_search, hori_acc=hori_acc,
+            elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev,
+            geom=geom, u_xy=u_xy)
+    else:
+        lat_mask = lat["lat_mask"]
+        hori_r = _fused.horizon_sweep_fused(
+            z_dev, dx=pg.grid.dx, dy=pg.grid.dy, offset=(i_lo, j_lo),
+            inner_shape=(rin0, rin1), azim_num=azim_num,
+            dist_search=dist_search, hori_acc=hori_acc,
+            elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev,
+            tilt_ramp=tuple(torch.from_numpy(r).to(device)
+                            for r in lat["ramp"]),
+            mask=None if lat_mask is None else torch.from_numpy(
+                lat_mask).to(device))
     return read_back(hori_r, np.clip(lat["fi"] - i_lo, 0.0, rin0 - 1.0),
                      np.clip(lat["fj"] - j_lo, 0.0, rin1 - 1.0))
+
+
+def _box_basis(lat, vec_norm, vec_north, offset_0, offset_1, azim):
+    """The general basis on a curved run's lattice box
+    (``horayzon_tpu/horizon.py:752-763``): the inner cells' normals and
+    norths interpolated onto the box (float64), the norths made
+    orthogonal to the normals, both unit and cast to float32; returns
+    ``(basis_fields, mean_marching_directions)``."""
+    i_lo, i_hi, j_lo, j_hi = lat["box"]
+    in0, in1 = vec_norm.shape[:2]
+    pg = lat["pg"]
+    fi_src = np.clip(pg.fi[i_lo:i_hi, j_lo:j_hi] - offset_0, 0.0, in0 - 1.0)
+    fj_src = np.clip(pg.fj[i_lo:i_hi, j_lo:j_hi] - offset_1, 0.0, in1 - 1.0)
+    norm_r = lat["norm_r"]
+    north_r = _regrid._bilinear(np.asarray(vec_north, np.float64), fi_src,
+                                fj_src)
+    north_r -= np.sum(north_r * norm_r, axis=-1, keepdims=True) * norm_r
+    north_r /= np.linalg.norm(north_r, axis=-1, keepdims=True)
+    norm_r = norm_r.astype(np.float32)
+    north_r = north_r.astype(np.float32)
+    return (_terrain.basis_fields(norm_r, north_r),
+            _terrain.mean_marching_directions(azim, norm_r, north_r))
 
 
 def horizon_locations(

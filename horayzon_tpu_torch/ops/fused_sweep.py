@@ -844,19 +844,23 @@ def launch(lib, entry, prm, dev):
         raise RuntimeError(f"horizon_sweep kernel launch failed: {msg}")
 
 
-def live_blocks(mask):
-    """(n, 2) int32 (block row, block column) of the kernel's 32 x 8 blocks
-    that hold a nonzero cell of ``mask`` (in0, in1), row-major, on
-    ``mask``'s device: the counterpart of ``pallas_sweep.tile_schedule``
-    at the kernel's block."""
+def live_grid(mask):
+    """(block rows, block columns) bool: the kernel's 32 x 8 blocks that
+    hold a nonzero cell of ``mask`` (in0, in1), on ``mask``'s device."""
     in0, in1 = mask.shape
     nb0 = -(-in0 // BLOCK_ROWS)
     nb1 = -(-in1 // BLOCK_COLS)
     full = torch.zeros((nb0 * BLOCK_ROWS, nb1 * BLOCK_COLS), dtype=torch.bool,
                        device=mask.device)
     full[:in0, :in1] = mask != 0
-    live = full.view(nb0, BLOCK_ROWS, nb1, BLOCK_COLS).any(dim=3).any(dim=1)
-    return torch.nonzero(live).to(torch.int32).contiguous()
+    return full.view(nb0, BLOCK_ROWS, nb1, BLOCK_COLS).any(dim=3).any(dim=1)
+
+
+def live_blocks(mask):
+    """(n, 2) int32 (block row, block column) of the blocks of
+    :func:`live_grid`, row-major: the counterpart of
+    ``pallas_sweep.tile_schedule`` at the kernel's block."""
+    return torch.nonzero(live_grid(mask)).to(torch.int32).contiguous()
 
 
 def _check_inner(t, what, dtype, plan, dev):

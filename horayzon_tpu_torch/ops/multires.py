@@ -12,6 +12,12 @@ fine grid, read only by the dense and near-mip phases, which
 ``ratio_log2`` on are max-mips of the coarse grid, which covers the whole
 search distance.
 
+The reference's XLA multires engine, ``horizon_sweep_multires``
+(``horayzon_tpu/ops/multires.py:454-515``), is :func:`horizon_sweep_multires`
+here: the plain torch XLA engine (:func:`horayzon_tpu_torch.ops.sweep.
+horizon_core`) on the same combined pyramid, planar or general, as the
+reference runs it in XLA.
+
 Replaces on the TPU side: ``combined_pyramid``,
 ``horizon_sweep_multires_pallas`` and its custom VJP ``_mr_hz`` /
 ``_mr_fwd`` / ``_mr_bwd`` (``horayzon_tpu/ops/multires.py``), which run the
@@ -312,3 +318,55 @@ def horizon_sweep_multires_fused(z_fine, z_coarse, *, ratio_log2,
         z_fine, azim_num=azim_num, elev_ang_low_lim=elev_ang_low_lim,
         elev_ang_up_lim=elev_ang_up_lim, ray_org_elev=ray_org_elev,
         pyramid=levels, mask=mask, **geo)
+
+
+def horizon_sweep_multires(z_fine, z_coarse, *, ratio_log2, coarse_offset,
+                           dx, dy, offset, inner_shape, azim, dist_search,
+                           hori_acc=0.25, elev_ang_low_lim=-15.0,
+                           elev_ang_up_lim=89.98, ray_org_elev=0.01,
+                           geom=None, u_xy=None, rel_err=None,
+                           max_level=10):
+    """Gridded horizon with a coarse far field on the XLA engine
+    (``horayzon_tpu.ops.multires.horizon_sweep_multires``).
+
+    The contract of :func:`horayzon_tpu_torch.ops.sweep.horizon_sweep`
+    with the outer heightfield split into ``z_fine`` (inner block + halo
+    at full resolution) and ``z_coarse`` (the far field at ``2**ratio_log2``
+    times the spacing, fine cell (0, 0) at ``coarse_offset`` fine cells).
+    The schedule is the unsplit one (every dense phase carries in-domain
+    masks against the fine grid, as the reference's); the fine halo must
+    cover every phase below ``ratio_log2`` (:func:`validate_fine_halo`).
+    ``z_fine`` decides the device.  Returns (in0, in1, A) float32
+    [radian]."""
+    z_fine = torch.as_tensor(z_fine).to(torch.float32)
+    z_coarse = torch.as_tensor(z_coarse).to(device=z_fine.device,
+                                            dtype=torch.float32)
+    step = min(abs(dx), abs(dy))
+    if rel_err is None:
+        rel_err = _sweep.default_rel_err(hori_acc)
+    schedule = _sweep.build_schedule(step, dist_search, rel_err,
+                                     max_level=max_level)
+    (in0, in1), (off0, off1) = inner_shape, offset
+    hf, wf = z_fine.shape
+    validate_fine_halo(schedule, ratio_log2, step, offset, inner_shape,
+                       (hf, wf))
+    pyramid = combined_pyramid(z_fine, z_coarse, int(ratio_log2),
+                               (int(coarse_offset[0]),
+                                int(coarse_offset[1])), schedule)
+    azim = np.asarray(azim, dtype=np.float64)
+    tables = _sweep.horizon_shift_tables(schedule, azim, dx, dy, offset,
+                                         u_xy=u_xy)
+    z_inner = z_fine[off0:off0 + in0, off1:off1 + in1]
+    planar = geom is None
+    geom_t = None if planar else _sweep.geom_fields(geom, z_fine.device)
+    if planar:
+        z_org = z_inner + _sweep._f(ray_org_elev)
+    else:
+        z_org = z_inner + _sweep._f(ray_org_elev) * geom_t["mz"]
+    hori, _ = _sweep.horizon_core(
+        pyramid, z_org, z_inner, geom_t, tables,
+        _sweep.sweep_trig(azim, u_xy), sched_meta=schedule.meta(),
+        pads=schedule.pads, inner_shape=tuple(inner_shape), planar=planar,
+        track_dist=False, outer_shape=(hf, wf))
+    return torch.clamp(hori, math.radians(elev_ang_low_lim),
+                       math.radians(elev_ang_up_lim))

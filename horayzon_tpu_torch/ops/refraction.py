@@ -6,7 +6,11 @@ Counterpart of :mod:`horayzon_tpu.ops.refraction`: the reference's
 refraction path (shadow_comp.cpp:135-159 ``atmos_refrac``, :109-132
 ``vec_rot`` Rodrigues rotation, and the reference atmosphere constants of
 CppTerrain::initialise, shadow_comp.cpp:348-354).  Elementwise float32 on
-the device of the input tensors, in the reference's operation order.
+the device of the input tensors, in the reference's operation order.  Every
+division is a tensor over a tensor (:func:`_div`): torch forms
+``scalar / tensor`` as ``tensor.reciprocal() * scalar`` and, on CUDA,
+``tensor / scalar`` as a product with the scalar's reciprocal, each of
+which rounds twice where the reference's division rounds once.
 """
 
 import math
@@ -23,6 +27,16 @@ BAROMETRIC_EXP = _G / (_R_D * LAPSE_RATE)
 
 _DEG2RAD = math.pi / 180.0
 _RAD2DEG = 180.0 / math.pi
+
+
+def _div(num, den):
+    """``num / den`` rounded once: a Python number on either side becomes
+    a 0-dim float32 tensor on the other side's device."""
+    if not isinstance(num, torch.Tensor):
+        num = torch.tensor(num, dtype=torch.float32, device=den.device)
+    if not isinstance(den, torch.Tensor):
+        den = torch.tensor(den, dtype=torch.float32, device=num.device)
+    return num / den
 
 
 def dot3(a, b):
@@ -46,10 +60,23 @@ def atmos_refrac(elev_ang_true_deg, temp_degc, pressure_kpa):
     Tensors or numbers; float32 tensors stay float32."""
     e = torch.clamp(torch.as_tensor(elev_ang_true_deg, dtype=torch.float32),
                     -1.0, 90.0)
-    refrac = 1.02 / torch.tan((e + 10.3 / (e + 5.11)) * _DEG2RAD)
+    temp_degc, pressure_kpa = (
+        torch.as_tensor(v, dtype=torch.float32, device=e.device)
+        for v in (temp_degc, pressure_kpa))
+    refrac = _div(1.02, torch.tan((e + _div(10.3, e + 5.11)) * _DEG2RAD))
     refrac = refrac + 0.0019279   # R = 0 at h = 90 degrees
-    refrac = refrac * (pressure_kpa / 101.0) * (283.0 / (273.0 + temp_degc))
-    return refrac / 60.0
+    refrac = refrac * _div(pressure_kpa, 101.0) \
+        * _div(283.0, 273.0 + temp_degc)
+    return _div(refrac, 60.0)
+
+
+def reference_atmosphere(elevation):
+    """Temperature [K] and pressure [kPa] of the reference atmosphere at
+    ``elevation`` [metre] (shadow_comp.cpp:348-354)."""
+    temperature = TEMPERATURE_REF - LAPSE_RATE * elevation
+    pressure = PRESSURE_REF * _div(temperature, TEMPERATURE_REF) \
+        ** BAROMETRIC_EXP
+    return temperature, pressure
 
 
 def rodrigues_rotate(k, theta, v):
@@ -79,9 +106,7 @@ def refract_sun_vector(sun_vec, vec_norm, elevation):
     dot_ns = dot3(vec_norm, sun_vec)
     elev_true = 90.0 - torch.arccos(torch.clamp(dot_ns, -1.0, 1.0)) \
         * _RAD2DEG
-    temperature = TEMPERATURE_REF - LAPSE_RATE * elevation
-    pressure = PRESSURE_REF * (temperature / TEMPERATURE_REF) \
-        ** BAROMETRIC_EXP
+    temperature, pressure = reference_atmosphere(elevation)
     refrac_deg = atmos_refrac(elev_true, temperature - 273.15, pressure)
     axis = _cross(sun_vec, vec_norm)
     norm = torch.sqrt(dot3(axis, axis).double()).float()[..., None]

@@ -32,6 +32,17 @@ sign and never exceeds it.  The plain version takes no skips and returns
 the exact metric; :func:`metric_model` runs it with the skips the kernel
 takes, for the tests and the smoke run.
 
+The mask variant, K2-mask (``shadow_metric_pallas(mask=...)``, which
+drops whole tiles through ``tile_schedule(..., mask)``,
+``pallas_sweep.py:2730-2791``): the same launch over the compacted list of
+the kernel's 32 x 8 blocks that hold a nonzero mask cell
+(``fused_sweep.live_blocks``, K1-mask's nullable ``blocks``), with no
+per-cell mask: shadow mode has no mask-aware init, so every cell of a
+launched block computes what the dense launch computes, its warps taking
+the same skips, and the wrapper pre-fills the blocks it does not launch
+with the reference's ``-3e38``.  The plain version sweeps every cell and
+writes the same fill there.
+
 The gradient path (:class:`_ShadowSweepFn`, taken when ``z_outer`` or
 ``z_org_r`` requires grad) runs the argmax variant, K2-argmax on the card
 (winner ids and the vertex denominator D = s0 + t*, with the value-exact
@@ -55,10 +66,16 @@ from horayzon_tpu_torch.ops.replay import lattice_xy, sqrt_rn
 KERNEL_LAUNCHES = 0
 #: Launches of K2's argmax variant (the forward of the gradient path).
 ARGMAX_KERNEL_LAUNCHES = 0
+#: Launches of K2 over the live blocks of a mask (K2-mask), counted
+#: besides :data:`KERNEL_LAUNCHES`.
+MASK_KERNEL_LAUNCHES = 0
 
 _F32 = np.float32
 #: float32(-1e-12): the concavity threshold of the vertex candidate
 _NEG_TINY = float(_F32(-1.0e-12))
+#: What a cell of a block that K2-mask does not launch holds (the
+#: reference's all-masked result, ``pallas_sweep.py:39, 2766-2767``)
+_NEG_INIT = float(_F32(-3.0e38))
 
 
 def shadow_sun_table(sun_positions, center, dx, dy):
@@ -153,15 +170,29 @@ def _shadow_rows(z_org, table, plan, grid_origin):
     return row
 
 
+def live_cells(mask):
+    """(in0, in1) bool: the cells of the kernel's 32 x 8 blocks that hold a
+    nonzero cell of ``mask`` (the cells K2-mask computes)."""
+    in0, in1 = mask.shape
+    return _fused.live_grid(mask).repeat_interleave(
+        _fused.BLOCK_ROWS, 0).repeat_interleave(_fused.BLOCK_COLS,
+                                                1)[:in0, :in1]
+
+
 def _metric_plain(z_org, z_inner, levels, table, plan, outer_shape,
-                  grid_origin, emit_argmax=False):
+                  grid_origin, emit_argmax=False, mask=None):
     """The exact metric (T, in0, in1) in plain torch (K2's plain version);
     with ``emit_argmax`` ``(metric, ids, aux)`` as K2-argmax returns them
-    (ids in the horizon layout, aux the D of a parabola winner)."""
-    return _fused.sweep_plain(z_inner, levels, plan, outer_shape,
-                              table.shape[0],
-                              _shadow_rows(z_org, table, plan, grid_origin),
-                              emit_argmax)
+    (ids in the horizon layout, aux the D of a parabola winner).  ``mask``
+    (K2-mask's plain version): cells outside the live blocks of
+    :func:`live_cells` hold ``-3e38``."""
+    res = _fused.sweep_plain(z_inner, levels, plan, outer_shape,
+                             table.shape[0],
+                             _shadow_rows(z_org, table, plan, grid_origin),
+                             emit_argmax)
+    if mask is None:
+        return res
+    return torch.where(live_cells(mask), res, _NEG_INIT)
 
 
 def _check_pooled(pooled, levels):
@@ -181,7 +212,7 @@ def _check_pooled(pooled, levels):
 
 def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
                  grid_origin, emit_argmax=False, exact_metric=True,
-                 pooled=None, counters=None):
+                 pooled=None, counters=None, mask=None):
     """The metric (T, in0, in1) from kernel K2 on ``z_org``'s card;
     ``emit_argmax``: ``(metric, ids, aux)`` from K2-argmax, as
     :func:`_metric_plain` returns them.  The kernel takes the value-exact
@@ -189,14 +220,22 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
     ``pooled``: ``fused_sweep.skip_inputs`` of ``levels`` (built here
     when None).  ``counters``: a (4,) int64 tensor on the card to which the launch adds
     the (cell, sun) samples it took and skipped in the d1 pairs and the mip
-    phases (``fused_sweep.COUNTER_FIELDS``)."""
-    global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
+    phases (``fused_sweep.COUNTER_FIELDS``).  ``mask`` (in0, in1) uint8
+    (K2-mask, no argmax): the output is first filled with ``-3e38`` and
+    only the live blocks (``fused_sweep.live_blocks``) are launched; with
+    no live block nothing is."""
+    global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES, MASK_KERNEL_LAUNCHES
     if emit_argmax and not exact_metric:
         raise ValueError("emit_argmax requires exact_metric=True")
+    if emit_argmax and mask is not None:
+        raise ValueError("the argmax variant takes no mask")
     dev = z_org.device
     in0, in1 = plan["inner_shape"]
     shape = (table.shape[0], in0, in1)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    if mask is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    else:
+        out = torch.full(shape, _NEG_INIT, dtype=torch.float32, device=dev)
     prm = _fused.kernel_params(z_org, z_inner, levels, plan, outer_shape,
                                table.shape[0], out)
     if pooled is None:
@@ -217,6 +256,15 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
         ids = torch.empty(shape, dtype=torch.int32, device=dev)
         aux = torch.empty(shape, dtype=torch.float32, device=dev)
         prm.ids, prm.aux = ids.data_ptr(), aux.data_ptr()
+    if mask is not None:
+        # the block list only: prm.mask stays null, so a launched block
+        # sweeps every cell as the dense launch does
+        _fused._check_inner(mask, "mask", torch.uint8, plan, dev)
+        blocks = _fused.live_blocks(mask)
+        if blocks.shape[0] == 0:
+            return out
+        prm.keep.append(blocks)
+        prm.blocks, prm.n_blocks = blocks.data_ptr(), blocks.shape[0]
     lib = _fused.kernel_lib()
     _fused.launch(lib, lib.shadow_sweep_argmax_launch if emit_argmax
                   else lib.shadow_sweep_launch, prm, dev)
@@ -224,6 +272,7 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
         ARGMAX_KERNEL_LAUNCHES += 1
         return out, ids, aux
     KERNEL_LAUNCHES += 1
+    MASK_KERNEL_LAUNCHES += mask is not None
     return out
 
 
@@ -290,7 +339,8 @@ def metric_args(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
     """The inputs ``(z_org, z_inner, levels, table, plan, outer_shape)`` of
     :func:`_metric_cuda` / :func:`_metric_plain` from the arguments of
     :func:`shadow_metric_fused`, validated as it validates them (``pooled``
-    only with the ``pyramid`` it was built from)."""
+    only with the ``pyramid`` it was built from; a mask by
+    :func:`mask_arg`)."""
     z = torch.as_tensor(z_outer)
     if z.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no shadow sweep for device {z.device}")
@@ -321,6 +371,19 @@ def metric_args(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
     if pooled is not None:
         _check_pooled(pooled, levels)
     return (fields[0], fields[1], levels, table, plan, tuple(z.shape))
+
+
+def mask_arg(mask, inner_shape, device):
+    """A K2-mask ``mask``: (in0, in1) uint8 or bool, as a contiguous uint8
+    tensor on ``device``."""
+    dtype = getattr(mask, "dtype", None)
+    if dtype not in (torch.uint8, torch.bool, np.uint8, np.bool_):
+        raise TypeError(f"mask must be uint8 or bool, got {dtype}")
+    mask = torch.as_tensor(mask).to(device=device, dtype=torch.uint8)
+    if tuple(mask.shape) != tuple(inner_shape):
+        raise ValueError(f"mask has shape {tuple(mask.shape)}, expected the "
+                         f"inner shape {tuple(inner_shape)}")
+    return mask.contiguous()
 
 
 class _ShadowSweepFn(torch.autograd.Function):
@@ -363,11 +426,11 @@ class _ShadowSweepFn(torch.autograd.Function):
 def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
                         inner_shape, dx, dy, grid_origin, hori_acc=0.25,
                         rel_err=None, pyramid=None, pooled=None,
-                        exact_metric=True):
+                        exact_metric=True, mask=None):
     """Batched shadow occlusion metric via the fused sweep.
 
-    The contract of ``horayzon_tpu.ops.pallas_sweep.shadow_metric_pallas``
-    with no mask: ``z_outer`` the (H, W) outer heightfield, ``z_org_r`` /
+    The contract of ``horayzon_tpu.ops.pallas_sweep.shadow_metric_pallas``:
+    ``z_outer`` the (H, W) outer heightfield, ``z_org_r`` /
     ``z_inner_r`` the (in0, in1) ray-origin and terrain heights of the
     inner block at ``offset``, ``sun_table`` the (T, 8) table of
     :func:`shadow_sun_table`, ``grid_origin`` the (x, y) of outer cell
@@ -391,9 +454,17 @@ def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
     (K2-argmax and K4 on the card, their plain versions on the CPU); the
     gradients are those ``jax.grad`` takes through
     ``shadow_metric_pallas_diff``.  That path needs ``exact_metric=True``
-    (the sign-exact arm may drop the winner): otherwise it raises
-    ``ValueError``.  When ``z_outer`` requires grad the pyramid is built
-    from it, and no ``pyramid`` may be passed.
+    (the sign-exact arm may drop the winner) and takes no mask, as the
+    reference's: otherwise it raises ``ValueError``.  When ``z_outer``
+    requires grad the pyramid is built from it, and no ``pyramid`` may be
+    passed.
+
+    ``mask``: optional (in0, in1) uint8 or bool, nonzero where a cell is
+    wanted (K2-mask): the 32 x 8 blocks of the kernel that hold no such
+    cell are not swept and hold ``-3e38``, as the reference's dropped
+    tiles do at its tile; every other cell, masked or not, holds the
+    value of the unmasked call.  A mask with no nonzero cell returns only
+    the fill.
 
     Returns (T, in0, in1) float32 on ``z_outer``'s device; > 0 means the
     cell is terrain-occluded."""
@@ -405,6 +476,8 @@ def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
     if any(diff) and torch.is_grad_enabled():
         if not exact_metric:
             raise ValueError("emit_argmax requires exact_metric=True")
+        if mask is not None:
+            raise ValueError("the gradient path takes no mask")
         if diff[0] and pyramid is not None:
             raise NotImplementedError("the gradient path builds its pyramid "
                                       "from z_outer; pass no pyramid")
@@ -414,18 +487,24 @@ def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
         return _ShadowSweepFn.apply(z, z_org, z_inner_r,
                                     dict(metric=kw, grid_origin=grid_origin))
     args = metric_args(z_outer, z_org_r, z_inner_r, **kw)
+    if mask is not None:
+        mask = mask_arg(mask, args[4]["inner_shape"], args[0].device)
     if args[0].is_cuda:
         return _metric_cuda(*args, grid_origin=grid_origin,
-                            exact_metric=exact_metric, pooled=pooled)
-    return _metric_plain(*args, grid_origin=grid_origin)
+                            exact_metric=exact_metric, pooled=pooled,
+                            mask=mask)
+    return _metric_plain(*args, grid_origin=grid_origin, mask=mask)
 
 
 def shadow_metric_plain(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
                         inner_shape, dx, dy, grid_origin, hori_acc=0.25,
-                        rel_err=None, pyramid=None):
+                        rel_err=None, pyramid=None, mask=None):
     """:func:`shadow_metric_fused` in plain torch on any device: the CPU
-    path, and the reference kernel K2 is held against on the card."""
+    path, and the reference kernel K2 (and with ``mask`` K2-mask) is held
+    against on the card."""
     args = metric_args(z_outer, z_org_r, z_inner_r, sun_table,
                        offset=offset, inner_shape=inner_shape, dx=dx, dy=dy,
                        hori_acc=hori_acc, rel_err=rel_err, pyramid=pyramid)
-    return _metric_plain(*args, grid_origin=grid_origin)
+    if mask is not None:
+        mask = mask_arg(mask, args[4]["inner_shape"], args[0].device)
+    return _metric_plain(*args, grid_origin=grid_origin, mask=mask)

@@ -23,8 +23,16 @@ its result is read back at each cell's nearest lattice cell, while the
 per-cell classification (:func:`_classify`, elementwise torch on the same
 device) stays at the original cells.  ``sw_dir_cor_soft`` runs the
 metric's gradient path (K2-argmax and the winner-replay backward K4 on the
-card).  The XLA engines are not ported yet and raise
-``NotImplementedError`` naming their item in ROADMAP.md's Queue 1.
+card).
+
+``engine="sweep"`` and ``engine="scan"`` are the reference's XLA engines,
+plain torch on the terrain's device, by design as the reference runs them
+in XLA: the marching sweep (:func:`horayzon_tpu_torch.ops.sweep.
+shadow_metric_core`, per-cell ray slopes) and the log-doubling scan
+(:mod:`horayzon_tpu_torch.ops.shadow_scan`, the domain-mean slope), one
+sun at a time as ``jax.lax.map`` runs them (:func:`_sun_step`), and
+``sw_dir_cor_soft`` through the marching sweep by autograd
+(:func:`_soft_sun_step`'s metric) on both.
 """
 
 import math
@@ -39,16 +47,15 @@ from horayzon_tpu_torch import terrain as _terrain
 from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import mip as _mip
 from horayzon_tpu_torch.ops import refraction as _refraction
+from horayzon_tpu_torch.ops import shadow_scan as _scan
 from horayzon_tpu_torch.ops import shadow_sweep as _ss
+from horayzon_tpu_torch.ops import sweep as _sweep
 
 _RAY_ORG_ELEV = 0.05  # hard-coded lift of the ray origin [m]
                       # (shadow_comp.cpp:388,497)
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"shadow.Terrain: {what} is not ported to horayzon_tpu_torch yet "
-        f"(ROADMAP.md Queue 1, item {item})")
+_F32 = np.float32
 
 
 def _numpy(a):
@@ -103,10 +110,15 @@ def _classify(fields, sun_positions, occluded, *, mode, refrac_cor,
                            torch.where(occluded, u8(2), u8(0)), u8(1))
         return torch.where(mask, code, u8(3))
     dot_min = float(np.float32(math.cos(math.radians(ang_max))))
-    val = (dot_ts / torch.clamp_min(dot_ns, dot_min)) \
+    # torch.maximum, not clamp_min: at an exact tie both halve the
+    # gradient, as jnp.maximum does (clamp_min passes all of it)
+    val = (dot_ts / torch.maximum(dot_ns, dot_ns.new_tensor(dot_min))) \
         * fields["surf_enl_fac"]
     if metric is not None and soft_tau is not None:
-        occ_soft = torch.sigmoid(metric / float(np.float32(soft_tau)))
+        # a tensor divisor: a CUDA tensor over a Python scalar is a
+        # product with the scalar's reciprocal, which rounds twice
+        tau = torch.tensor(np.float32(soft_tau), device=metric.device)
+        occ_soft = torch.sigmoid(metric / tau)
         if straight_through:
             occ_eff = occ_soft + (torch.where(occluded, 1.0, 0.0)
                                   - occ_soft).detach()
@@ -117,6 +129,35 @@ def _classify(fields, sun_positions, occluded, *, mode, refrac_cor,
         val = torch.where(occluded, 0.0, val)
     out = torch.where(dot_ts > dot_min, val, 0.0)
     return torch.where(mask, out, fields["sw_dir_cor_fill"])
+
+
+def sun_direction(sun, center, dxdy):
+    """The host part of the XLA engines' per-sun set-up
+    (``horayzon_tpu/shadow.py:69-78``), in float32 as XLA forms it: the
+    unit horizontal direction ``(kx_u, ky_u)`` toward ``sun`` (3,) from
+    the lattice centre, the marching direction ``u_cells`` (ui, uj) in
+    cells per metre, the near-vertical flag and ``|k|``."""
+    sun = np.asarray(sun, dtype=_F32)
+    kx, ky = sun[0] - center[0], sun[1] - center[1]
+    k_norm = np.sqrt(kx * kx + ky * ky)
+    near_vertical = bool(k_norm < _F32(1.0e-6))
+    den = np.maximum(k_norm, _F32(1.0e-6))
+    kx_u = _F32(1.0) if near_vertical else kx / den
+    ky_u = _F32(0.0) if near_vertical else ky / den
+    u_cells = np.array([ky_u / dxdy[1], kx_u / dxdy[0]], dtype=_F32)
+    return kx_u, ky_u, u_cells, near_vertical, k_norm
+
+
+def ray_slope(sun, xr, yr, z_org_r, kx_u, ky_u):
+    """The per-cell sun-ray slope ``m`` (c0, c1) of the XLA engines
+    (``horayzon_tpu/shadow.py:64-83``): ``(sz / |s|) / max(s . k / |s|,
+    1e-4)`` from each lattice cell's ray origin toward ``sun``."""
+    sxr = float(sun[0]) - xr
+    syr = float(sun[1]) - yr
+    szr = float(sun[2]) - z_org_r
+    mag = _ss.sqrt_rn(sxr * sxr + syr * syr + szr * szr)
+    adv = (sxr * float(kx_u) + syr * float(ky_u)) / mag
+    return (szr / mag) / torch.maximum(adv, adv.new_tensor(_F32(1.0e-4)))
 
 
 def back_map(bi, bj, box_shape):
@@ -190,9 +231,11 @@ class Terrain:
         the card unless the caller asks for the CPU; a CUDA device runs
         kernel K2, the CPU its plain torch version.
         ``engine``: "auto" and "pallas" both run the fused sweep; "sweep"
-        and "scan" are not ported yet.  The inner block is swept as it is
-        (one kernel thread per (cell, sun)), so it needs no room to pad to
-        tile multiples.
+        and "scan" the reference's XLA engines in plain torch on
+        ``device`` (the marching sweep with per-cell ray slopes, the
+        log-doubling scan with the domain-mean slope).  The inner block is
+        swept as it is (one kernel thread per (cell, sun)), so it needs no
+        room to pad to tile multiples.
 
         A curved (irregular) mesh is planarised on the host (NumPy
         float64; its seconds are kept in ``planarize_s``) and the sweep
@@ -237,8 +280,7 @@ class Terrain:
             raise TypeError("data type of mask must be 'uint8'")
         if (ang_max < 85.0) or (ang_max > 89.99):
             raise TypeError("'ang_max' must be in the range [85.0, 89.99]")
-        if engine in ("sweep", "scan"):
-            raise _not_ported(f"engine={engine!r}", 10)
+        self.engine = "pallas" if engine == "auto" else engine
 
         x, y, z = _terrain.decompose_vert_grid(_numpy(vert_grid), dem_dim_0,
                                                dem_dim_1)
@@ -291,6 +333,14 @@ class Terrain:
                          self.comp_shape[1] - 1)
             back = back_map(bi, bj, self.comp_shape)
         self.grid = grid
+        comp_h, comp_w = z_comp.shape
+        if self._curved:
+            xr1 = grid.x0 + np.arange(j_lo, j_hi) * grid.dx
+            yr1 = grid.y0 + np.arange(i_lo, i_hi) * grid.dy
+            xr = np.broadcast_to(xr1[None, :], self.comp_shape)
+            yr = np.broadcast_to(yr1[:, None], self.comp_shape)
+        else:
+            xr, yr = x_in, y_in
 
         # Sun directions are taken from the lattice's centre
         # (horayzon_tpu/shadow.py:372-375)
@@ -311,7 +361,19 @@ class Terrain:
         self._levels = _mip.padded_levels(self._z_outer, self.plan["pads"])
         # and the pooled companions behind K2's skips (the reference keeps
         # them as _pallas_pooled)
-        self._pooled = _fused.skip_inputs(self._levels, self.plan)
+        self._pooled = (_fused.skip_inputs(self._levels, self.plan)
+                        if self.engine == "pallas" else None)
+        # the XLA engines' schedule (not split at the safe halo), scan
+        # parameters and lattice centre (horayzon_tpu/shadow.py:359-375)
+        diag = math.hypot(comp_w * abs(grid.dx), comp_h * abs(grid.dy))
+        step = min(abs(grid.dx), abs(grid.dy))
+        self.schedule = _sweep.build_schedule(step, diag,
+                                              _sweep.default_rel_err(acc))
+        self._s_phases = _sweep.shadow_s_phases(self.schedule)
+        self.scan_meta = _scan.scan_meta(diag, step)
+        self._center32 = np.array(
+            [*self._center, float(np.mean(np.asarray(z_org_r, _F32)))],
+            dtype=_F32)
 
         def on_dev(a, dtype=torch.float32):
             return torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -327,6 +389,7 @@ class Terrain:
             "sw_dir_cor_fill": float(np.float32(sw_dir_cor_fill)),
             "z_org_r": on_dev(z_org_r), "z_inner_r": on_dev(z_inner_r),
             "norm_r_z": on_dev(norm_r_z),
+            "xr": on_dev(xr), "yr": on_dev(yr),
         }
         self._back = (None if back is None else
                       tuple(on_dev(a, torch.int64) for a in back))
@@ -357,7 +420,13 @@ class Terrain:
         sign-exact arm (``exact_metric=False``, as
         ``horayzon_tpu/shadow.py:494-505`` asks): the sign is exact, the
         value is not.  ``plain``: the plain torch sweep (the exact metric)
-        on the terrain's device in place of kernel K2."""
+        on the terrain's device in place of kernel K2.  The XLA engines
+        run :meth:`_xla_metric`."""
+        if self.engine != "pallas":
+            f = self._fields
+            return self._xla_metric(sun_positions, f["z_org_r"],
+                                    f["z_inner_r"], self._levels,
+                                    scan=self.engine == "scan")
         table, near_vert = _ss.shadow_sun_table(
             sun_positions, self._center, self.grid.dx, self.grid.dy)
         f = self._fields
@@ -373,6 +442,40 @@ class Terrain:
                 self._z_outer, f["z_org_r"], f["z_inner_r"], table,
                 pooled=self._pooled, exact_metric=False, **kw)
         return metric, near_vert
+
+    def _xla_metric(self, sun_positions, z_org_r, z_inner_r, levels,
+                    scan=False):
+        """The metric (T, c0, c1) of the XLA engines and the (T,)
+        near-vertical flags, one sun after another (``_sun_step``,
+        ``horayzon_tpu/shadow.py:48-104``): the marching sweep
+        (:func:`horayzon_tpu_torch.ops.sweep.shadow_metric_core`) over the
+        padded ``levels`` with per-cell ray slopes from ``z_org_r``, or
+        with ``scan`` the log-doubling scan with the domain-mean slope.
+        Differentiable by autograd through ``levels`` and ``z_org_r``."""
+        c = self._center32
+        dxdy = np.array([self.grid.dx, self.grid.dy], dtype=_F32)
+        f = self._fields
+        metrics, near_vert = [], []
+        for sun in np.asarray(sun_positions, dtype=_F32):
+            kx_u, ky_u, u_cells, nv, k_norm = sun_direction(sun, c, dxdy)
+            if scan:
+                num_doublings, pad, step = self.scan_meta
+                m_mean = (sun[2] - c[2]) / np.maximum(k_norm, _F32(1e-6))
+                metric = _scan.shadow_scan_core(
+                    self._z_outer, z_org_r, m_mean, u_cells, step,
+                    num_doublings=num_doublings, pad=pad, offset=self.offset,
+                    inner_shape=self.comp_shape)
+            else:
+                m_slope = ray_slope(sun, f["xr"], f["yr"], z_org_r, kx_u,
+                                    ky_u)
+                metric = _sweep.shadow_metric_core(
+                    levels, z_org_r, z_inner_r, m_slope, u_cells,
+                    self._s_phases, sched_meta=self.schedule.meta(),
+                    offset=self.offset, inner_shape=self.comp_shape,
+                    outer_shape=tuple(self._z_outer.shape))
+            metrics.append(metric)
+            near_vert.append(nv)
+        return torch.stack(metrics), np.array(near_vert, dtype=bool)
 
     def at_cells(self, box):
         """A (T, c0, c1) field of the swept block at the original cells,
@@ -429,7 +532,10 @@ class Terrain:
                         straight_through=True):
         """Differentiable shortwave correction factor (soft occlusion) of
         ``horayzon_tpu.shadow.Terrain.sw_dir_cor_soft`` on the fused sweep
-        (``_soft_pallas``, ``horayzon_tpu/shadow.py:588-627``).
+        (``_soft_pallas``, ``horayzon_tpu/shadow.py:588-627``), or on the
+        ``"sweep"`` and ``"scan"`` engines through the marching sweep, one
+        sun at a time, with torch autograd (``_soft_sun_step``,
+        ``:171-220``).
 
         The hard occlusion step becomes ``sigmoid(clearance / soft_tau)``
         (``soft_tau`` in metres of signed clearance).  With
@@ -467,15 +573,23 @@ class Terrain:
         (o0, o1), (c0, c1) = self.offset, self.comp_shape
         z_inner_r = z[o0:o0 + c0, o1:o1 + c1]
         z_org_r = z_inner_r + _RAY_ORG_ELEV * self._fields["norm_r_z"]
-        table, near_vert = _ss.shadow_sun_table(
-            sp, self._center, self.grid.dx, self.grid.dy)
         own = z is self._z_outer and not z.requires_grad
-        metric = _ss.shadow_metric_fused(
-            z, z_org_r, z_inner_r, table, offset=self.offset,
-            inner_shape=self.comp_shape, dx=self.grid.dx, dy=self.grid.dy,
-            grid_origin=self._grid_origin, hori_acc=self.acc,
-            pyramid=self._levels if own else None,
-            pooled=self._pooled if own else None)
+        if self.engine != "pallas":
+            # both XLA engines take the marching sweep here, as the
+            # reference's _soft_sun_step does
+            levels = (self._levels if own
+                      else _mip.padded_levels(z, self.schedule.pads))
+            metric, near_vert = self._xla_metric(sp, z_org_r, z_inner_r,
+                                                 levels)
+        else:
+            table, near_vert = _ss.shadow_sun_table(
+                sp, self._center, self.grid.dx, self.grid.dy)
+            metric = _ss.shadow_metric_fused(
+                z, z_org_r, z_inner_r, table, offset=self.offset,
+                inner_shape=self.comp_shape, dx=self.grid.dx,
+                dy=self.grid.dy, grid_origin=self._grid_origin,
+                hori_acc=self.acc, pyramid=self._levels if own else None,
+                pooled=self._pooled if own else None)
         nv = torch.from_numpy(near_vert).to(metric.device)[:, None, None]
         occluded = self.at_cells((metric > 0.0) & ~nv)
         metric = self.at_cells(torch.where(nv, -1.0e30, metric))

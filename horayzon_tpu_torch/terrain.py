@@ -2,8 +2,9 @@
 # MIT License
 """Terrain grid utilities (copy of part of :mod:`horayzon_tpu.terrain`).
 
-Vertex-buffer decomposition, regular-grid detection and the planar-vector
-test, copied because importing ``horayzon_tpu`` loads JAX.
+Vertex-buffer decomposition, regular-grid detection, the planar-vector
+test and the general sweep geometry's basis fields and marching
+directions, copied because importing ``horayzon_tpu`` loads JAX.
 ``tests/test_torch_schedule.py`` holds the copies equal to the originals.
 """
 
@@ -94,3 +95,40 @@ def is_default_planar_vectors(vec_norm, vec_north, atol=1.0e-6):
     expect_north = np.array([0.0, 1.0, 0.0], dtype=vec_north.dtype)
     return (np.abs(vec_norm - expect_norm).max() <= atol
             and np.abs(vec_north - expect_north).max() <= atol)
+
+
+def basis_fields(vec_norm, vec_north):
+    """Per-cell orthonormal basis fields for the general sweep geometry.
+
+    east = north x norm (the reference's rot_inv columns,
+    horizon_comp.cpp:772-779).  Returns a dict of (in0, in1) float32 arrays.
+    """
+    vec_norm = np.asarray(vec_norm, dtype=np.float32)
+    vec_north = np.asarray(vec_north, dtype=np.float32)
+    east = np.cross(vec_north, vec_norm)
+    return {
+        "ex": east[..., 0], "ey": east[..., 1], "ez": east[..., 2],
+        "nx2": vec_north[..., 0], "ny2": vec_north[..., 1],
+        "nz2": vec_north[..., 2],
+        "mx": vec_norm[..., 0], "my": vec_norm[..., 1],
+        "mz": vec_norm[..., 2],
+    }
+
+
+def mean_marching_directions(azim, vec_norm, vec_north):
+    """Domain-mean horizontal marching direction per azimuth: (A, 2).
+
+    u3 = sin(a) * mean_east + cos(a) * mean_north, projected to the
+    horizontal plane and normalised.
+    """
+    vec_norm = np.asarray(vec_norm, dtype=np.float64)
+    vec_north = np.asarray(vec_north, dtype=np.float64)
+    east = np.cross(vec_north, vec_norm)
+    e_mean = east.reshape(-1, 3).mean(axis=0)
+    n_mean = vec_north.reshape(-1, 3).mean(axis=0)
+    azim = np.asarray(azim, dtype=np.float64)
+    u3 = (np.sin(azim)[:, None] * e_mean[None, :]
+          + np.cos(azim)[:, None] * n_mean[None, :])
+    u_xy = u3[:, :2]
+    norm = np.linalg.norm(u_xy, axis=1, keepdims=True)
+    return u_xy / np.maximum(norm, 1.0e-12)

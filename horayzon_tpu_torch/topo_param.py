@@ -170,6 +170,15 @@ def _sky_inputs(azim, hori, vec_tilt):
     return azim, vec_tilt, torch.maximum(hori, hori_plane)
 
 
+def _azim_weight(azim):
+    """``(azim[1] - azim[0]) / (2 pi)``, divided by a tensor on the
+    device: a CUDA tensor over a Python scalar is a product with the
+    scalar's reciprocal, which rounds twice."""
+    two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32,
+                          device=azim.device)
+    return (azim[1] - azim[0]) / two_pi
+
+
 def sky_view_factor(azim, hori, vec_tilt):
     """Sky view factor: fraction of isotropic sky radiation received.
 
@@ -184,8 +193,7 @@ def sky_view_factor(azim, hori, vec_tilt):
     term = ((tx * torch.sin(azim) + ty * torch.cos(azim))
             * ((math.pi / 2.0) - theta - torch.sin(2.0 * theta) / 2.0)
             + tz * torch.cos(theta) ** 2)
-    azim_spac = azim[1] - azim[0]
-    return (azim_spac / (2.0 * math.pi)) * term.sum(dim=-1)
+    return _azim_weight(azim) * term.sum(dim=-1)
 
 
 def visible_sky_fraction(azim, hori, vec_tilt):
@@ -196,8 +204,7 @@ def visible_sky_fraction(azim, hori, vec_tilt):
     """
     azim, _, theta = _sky_inputs(azim, hori, vec_tilt)
     term = 1.0 - torch.cos((math.pi / 2.0) - theta)
-    azim_spac = azim[1] - azim[0]
-    return (azim_spac / (2.0 * math.pi)) * term.sum(dim=-1)
+    return _azim_weight(azim) * term.sum(dim=-1)
 
 
 def topographic_openness(azim, hori):

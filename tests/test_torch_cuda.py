@@ -49,14 +49,16 @@ import numpy as np
 import pytest
 import torch
 
-from horayzon_tpu_torch import auxiliary, horizon, shadow, topo_param
+from horayzon_tpu_torch import (auxiliary, horizon, shadow, terrain,
+                                topo_param)
 from horayzon_tpu_torch.models import CurvedPipeline
 from horayzon_tpu_torch.ops import _build, fused_sweep, multires, replay
-from horayzon_tpu_torch.ops import read_floor
+from horayzon_tpu_torch.ops import read_floor, refraction, sweep
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 
 from reference_impl import gaussian_bumps_terrain
 from torch_scenes import (SHADOW_SKIP_SCENES, SKIP_SCENES, bumps,
+                          refraction_numpy,
                           curved_setup, curved_terrain_inputs,
                           shadow_skip_scene, skip_scene)
 
@@ -1142,3 +1144,185 @@ def test_horizon_locations_on_card_matches_cpu(cuda):
     assert (hg.cpu() - hc).abs().max().item() <= 1e-6
     assert torch.allclose(dg.cpu(), dc, rtol=1e-6, atol=0.0)
     assert torch.equal(ag.cpu(), ac)
+
+
+def _mask_scene(dev):
+    """(shadow_metric_fused arguments, mask) of the K2-mask tests: a
+    100 x 200 block (partial edge blocks) at (60, 60) of 256 x 320 bumps,
+    three suns, an island and two scattered cells, leaving whole 32 x 8
+    blocks unlaunched."""
+    z = gaussian_bumps_terrain(256, 320, seed=4, amp=500.0)
+    off, inner = (60, 60), (100, 200)
+    cx, cy = 0.5 * 319 * 25.0, -0.5 * 255 * 25.0
+    suns = np.array([[cx + 2.0e5, cy + 1.0e5, 2.0e4],
+                     [cx - 1.5e5, cy - 0.5e5, 1.2e4],
+                     [cx + 0.3e5, cy - 2.0e5, 3.0e4]], np.float32)
+    table, _ = ss.shadow_sun_table(suns, (cx, cy), 25.0, -25.0)
+    zt = torch.from_numpy(z).to(dev)
+    z_in = zt[60:160, 60:260].contiguous()
+    mask = np.zeros(inner, np.uint8)
+    mask[10:40, 20:90] = 1
+    mask[71, 150] = 1
+    mask[99, 199] = 1
+    kw = dict(offset=off, inner_shape=inner, dx=25.0, dy=-25.0,
+              grid_origin=(0.0, 0.0))
+    return (zt, z_in + float(np.float32(0.05)), z_in, table), kw, \
+        torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_k2_mask_bit_equal_to_dense_and_plain(cuda, exact):
+    """K2-mask launches only the live blocks: on their cells it is
+    bit-equal to the dense K2 in the same mode (the warps take the same
+    skips), the exact arm also to its plain version on every cell; the
+    blocks it does not launch hold -3e38; an all-masked mask launches
+    nothing."""
+    args, kw, mask = _mask_scene(cuda)
+    dense = ss.shadow_metric_fused(*args, exact_metric=exact, **kw)
+    n0, m0 = ss.KERNEL_LAUNCHES, ss.MASK_KERNEL_LAUNCHES
+    got = ss.shadow_metric_fused(*args, exact_metric=exact, mask=mask, **kw)
+    assert (ss.KERNEL_LAUNCHES - n0, ss.MASK_KERNEL_LAUNCHES - m0) == (1, 1)
+    live = ss.live_cells(mask)
+    assert 0 < int(live.sum()) < live.numel()
+    assert torch.equal(got[:, live], dense[:, live])
+    assert bool(torch.all(got[:, ~live] == np.float32(-3.0e38)))
+    if exact:
+        plain = ss.shadow_metric_plain(*args, mask=mask, **kw)
+        assert torch.equal(got, plain)
+    assert (got[:, mask != 0] > 0).any() and (got[:, mask != 0] <= 0).any()
+    none = ss.shadow_metric_fused(*args, exact_metric=exact,
+                                  mask=torch.zeros_like(mask), **kw)
+    assert ss.MASK_KERNEL_LAUNCHES - m0 == 1
+    assert bool(torch.all(none == np.float32(-3.0e38)))
+
+
+def test_refraction_divides_once_on_card(cuda):
+    """The refraction's divisions on the card bit-equal to NumPy's
+    float32 division on the same 200,000 inputs (the card's own tan and
+    power on both sides): tensor over tensor, never a product with a
+    reciprocal."""
+    rng = np.random.default_rng(20)
+    n = 200_000
+    elev = rng.uniform(-2.0, 91.0, n).astype(np.float32)
+    temp = rng.uniform(-30.0, 30.0, n).astype(np.float32)
+    pres = rng.uniform(50.0, 105.0, n).astype(np.float32)
+    height = rng.uniform(-100.0, 4800.0, n).astype(np.float32)
+
+    def fn(name, x):
+        t = torch.from_numpy(x).to(cuda)
+        out = torch.tan(t) if name == "tan" else t ** refraction.BAROMETRIC_EXP
+        return out.cpu().numpy()
+
+    want = refraction_numpy(elev, temp, pres, height, fn)
+    got = refraction.atmos_refrac(*(torch.from_numpy(a).to(cuda)
+                                    for a in (elev, temp, pres)))
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), want[0])
+    t, p = refraction.reference_atmosphere(torch.from_numpy(height).to(cuda))
+    np.testing.assert_array_equal(t.cpu().numpy(), want[1])
+    np.testing.assert_array_equal(p.cpu().numpy(), want[2])
+
+
+def test_card_glue_divides_like_the_cpu(cuda):
+    """The glue around the kernels divides on the card as on the CPU
+    (``metric / soft_tau``, the refraction, ``azim_spac / (2 pi)``): with
+    ``soft_tau = 0.3`` and refraction, the card's ``sw_dir_cor`` within
+    1e-5 plus 1e-6 relative of the CPU's outside the sun-dot thresholds,
+    its soft gradient within 1e-5 of max|g|, and SVF and VSF at 7
+    azimuths within 1e-6.  Left to differ: the card's float32 tan,
+    arccos, sin, cos, power and sigmoid against the CPU's (an ulp each),
+    and the order of the sums over azimuths."""
+    z = gaussian_bumps_terrain(96, 160, seed=11, amp=600.0)
+    args = _terrain_inputs(z, (16, 16), (64, 128))
+    suns = np.array([[1.0e7, 0.0, 1.5e6], [-4.0e6, 8.0e6, 1.5e6],
+                     [2.0e6, -1.0e7, 3.0e6]], dtype=np.float32)
+    res = []
+    for dev in (cuda, "cpu"):
+        t = shadow.Terrain()
+        t.initialise(*args, sw_dir_cor_fill=-7.0, refrac_cor=True,
+                     device=dev)
+        zg = t._z_outer.clone().requires_grad_(True)
+        soft = t.sw_dir_cor_soft(suns, elevation=zg, soft_tau=0.3)
+        soft.mean().backward()
+        res.append((t, t.sw_dir_cor_batch(suns).cpu(), zg.grad.cpu()))
+    (tg, sw_g, g_g), (tc, sw_c, g_c) = res
+    _, dot_ts = shadow.sun_dots(tc._fields, suns, True)
+    dot_min = float(np.float32(np.cos(np.radians(tg.ang_max))))
+    tie = ((dot_ts.abs() <= 1.0e-6) | ((dot_ts - dot_min).abs() <= 1.0e-6))
+    assert tie.float().mean().item() < 0.01
+    assert torch.allclose(sw_g[~tie], sw_c[~tie], rtol=1e-6, atol=1e-5)
+    assert torch.equal(torch.isnan(g_g), torch.isnan(g_c))
+    ok = ~torch.isnan(g_c)
+    scale = g_c[ok].abs().max().item()
+    assert scale > 0.0
+    assert (g_g[ok] - g_c[ok]).abs().max().item() <= 1e-5 * scale
+    azim = horizon.azimuth_angles(7)
+    hori = np.random.default_rng(3).uniform(-0.2, 0.6, (40, 52, 7)) \
+        .astype(np.float32)
+    vt = np.ascontiguousarray(args[5][:40, :52])
+    for fn in (topo_param.sky_view_factor, topo_param.visible_sky_fraction):
+        on_card = fn(torch.from_numpy(azim).to(cuda),
+                     torch.from_numpy(hori).to(cuda),
+                     torch.from_numpy(vt).to(cuda))
+        assert on_card.is_cuda
+        assert (on_card.cpu() - fn(azim, hori, vt)).abs().max().item() \
+            <= 1e-6
+
+
+def test_xla_engines_on_card_match_cpu(cuda):
+    """The XLA engines in plain torch on the card: the general-basis
+    sweep's raw ratios and distances bit-equal to the CPU's (the same
+    float32 operations, a correctly rounded divide and square root; the
+    arctan may differ by an ulp), the multires engine's angles within 2
+    ulp, and ``Terrain(engine="sweep"/"scan")``'s metric bit-equal, codes
+    equal and ``sw_dir_cor`` equal."""
+    z = gaussian_bumps_terrain(128, 128, seed=11, amp=400.0)
+    r = 6.371e6 / 30.0
+    xs = (np.arange(128) - 64) * 25.0
+    xx, yy = np.meshgrid(xs, -xs)
+    norm = np.stack([-xx / r, -yy / r, np.ones_like(xx)], axis=-1)
+    norm /= np.linalg.norm(norm, axis=-1, keepdims=True)
+    north = np.stack([np.zeros_like(xx), np.ones_like(xx), yy / r], axis=-1)
+    north -= np.sum(north * norm, axis=-1, keepdims=True) * norm
+    north /= np.linalg.norm(north, axis=-1, keepdims=True)
+    sl = (slice(32, 96), slice(32, 96))
+    n32, e32 = norm[sl].astype(np.float32), north[sl].astype(np.float32)
+    azim = horizon.azimuth_angles(7)
+    kw = dict(dx=25.0, dy=-25.0, offset=(32, 32), inner_shape=(64, 64),
+              azim=azim, dist_search=3000.0, hori_acc=2.0,
+              geom=terrain.basis_fields(n32, e32),
+              u_xy=terrain.mean_marching_directions(azim, n32, e32),
+              track_dist=True)
+    (hg, dg), (hc, dc) = (sweep.horizon_sweep(torch.from_numpy(z).to(d),
+                                              **kw) for d in (cuda, "cpu"))
+    assert hg.is_cuda and (hg.cpu() - hc).abs().max().item() <= 2.4e-7
+    assert torch.equal(dg.cpu(), dc)
+    full = gaussian_bumps_terrain(384, 384, seed=9, amp=500.0)
+    zc = full.reshape(96, 4, 96, 4).max(axis=(1, 3))
+    mkw = dict(ratio_log2=2, coarse_offset=(80, 80), dx=25.0, dy=-25.0,
+               offset=(96, 96), inner_shape=(32, 32), azim=azim,
+               dist_search=4000.0, hori_acc=2.0)
+    mg, mc = (multires.horizon_sweep_multires(
+        torch.from_numpy(full[80:304, 80:304].copy()).to(d),
+        torch.from_numpy(zc).to(d), **mkw) for d in (cuda, "cpu"))
+    assert (mg.cpu() - mc).abs().max().item() <= 2.4e-7
+    args = _terrain_inputs(gaussian_bumps_terrain(96, 160, seed=11,
+                                                  amp=600.0),
+                           (16, 16), (64, 128))
+    suns = np.array([[1.0e7, 0.0, 1.5e6], [-4.0e6, 8.0e6, 1.5e6],
+                     [2.0e6, -1.0e7, 3.0e6]], dtype=np.float32)
+    for engine in ("sweep", "scan"):
+        out = []
+        for dev in (cuda, "cpu"):
+            t = shadow.Terrain()
+            t.initialise(*args, engine=engine, device=dev)
+            f = t._fields
+            met, _ = t._xla_metric(suns, f["z_org_r"], f["z_inner_r"],
+                                   t._levels, scan=engine == "scan")
+            out.append((met.cpu(), t.shadow_batch(suns).cpu(),
+                        t.sw_dir_cor_batch(suns).cpu()))
+        (mg, cg, sg), (mc, cc, sc) = out
+        assert torch.equal(mg, mc), engine
+        assert torch.equal(cg, cc), engine
+        assert torch.allclose(sg, sc, rtol=1e-6, atol=1e-5, equal_nan=True)
+        assert (cg == 2).any()

@@ -55,6 +55,17 @@ def _gridded(p, **kw):
         p["halo"], device="cpu", **args)
 
 
+def _gridded_ref(p, **kw):
+    """The JAX package's ``horizon_gridded`` on :func:`_gridded`'s
+    arguments."""
+    args = dict(dist_search=1.1, azim_num=6, hori_acc=0.25, verbose=False)
+    args.update(kw)
+    n = p["z"].shape[0]
+    return horizon_ref.horizon_gridded(
+        p["vert_grid"], n, n, p["vec_norm"], p["vec_north"], p["halo"],
+        p["halo"], **args)
+
+
 def test_horizon_gridded_matches_interpret_pallas(tmp_path):
     p = _planar_inputs()
     hori, azim = _gridded(p)
@@ -94,19 +105,28 @@ def test_horizon_gridded_validation_matches_reference():
 
 
 def test_unported_branches_raise():
-    """The branches still to port raise; masks with zeros, curved grids
-    and the simplified outer TIN are ported (tests/test_torch_masked.py,
-    tests/test_torch_curved.py, tests/test_torch_multires.py)."""
+    """Every branch is ported now: masks with zeros, curved grids, the
+    simplified outer TIN (tests/test_torch_masked.py,
+    tests/test_torch_curved.py, tests/test_torch_multires.py) and the XLA
+    engine's routes (tests/test_torch_sweep_engine.py).  What still
+    raises is what the reference refuses: the XLA multires engine on a
+    fine halo too small for even ratio 1, and ``engine="pallas"`` with
+    non-default vectors."""
     p = _planar_inputs()
-    with pytest.raises(NotImplementedError, match="engine='sweep'"):
-        _gridded(p, engine="sweep", vert_simp=np.zeros(9, np.float32),
-                 tri_ind_simp=np.zeros(3, np.int32))
-    with pytest.raises(NotImplementedError, match="engine='sweep'"):
-        _gridded(p, engine="sweep")
+    for fn in (_gridded, _gridded_ref):
+        with pytest.raises(ValueError, match="fine-grid halo"):
+            fn(p, engine="sweep", vert_simp=np.zeros(9, np.float32),
+               tri_ind_simp=np.zeros(3, np.int32))
+    hori, _ = _gridded(p, engine="sweep")
+    assert hori.shape == (p["inner"], p["inner"], 6)
     tilted = p["vec_norm"].copy()
     tilted[..., 0] = 0.1
-    with pytest.raises(NotImplementedError, match="vec_norm"):
-        _gridded(dict(p, vec_norm=tilted))
+    tilted /= np.linalg.norm(tilted, axis=-1, keepdims=True)
+    hori, _ = _gridded(dict(p, vec_norm=tilted))
+    assert torch.isfinite(hori).all()
+    for fn in (_gridded, _gridded_ref):
+        with pytest.raises(ValueError, match="engine='pallas'"):
+            fn(dict(p, vec_norm=tilted), engine="pallas")
     mask = np.ones((p["inner"],) * 2, dtype=np.uint8)
     mask[:4] = 0
     hori, _ = _gridded(p, mask=mask, hori_fill=-2.0)

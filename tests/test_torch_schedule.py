@@ -315,3 +315,63 @@ def test_validate_fine_halo_matches_reference(ratio_log2, offset, ok):
     with pytest.raises(ValueError, match="halo") as e_got:
         multires.validate_fine_halo(sched, *args)
     assert str(e_got.value) == str(e_ref.value)
+
+
+@pytest.mark.parametrize("dist,acc,halo,unroll,dxdy,tilted", [
+    (2500.0, 0.25, 32, 8, (25.0, -25.0), False),
+    (3000.0, 2.0, 24, 8, (25.0, -30.0), True),
+    (825.0, 0.25, 12, 1, (24.7, -24.7), False),
+])
+def test_shift_tables_match_reference(dist, acc, halo, unroll, dxdy,
+                                      tilted):
+    """The XLA engine's per-(azimuth, sample) shift tables, padded and
+    folded by ``unroll``, with the d1 pairing flags."""
+    dx, dy = dxdy
+    step = min(abs(dx), abs(dy))
+    rel_err = sweep.default_rel_err(acc)
+    sched = sweep.mark_safe_phases(sweep.build_schedule(step, dist, rel_err),
+                                   halo)
+    sched_ref = sweep_ref.mark_safe_phases(
+        sweep_ref.build_schedule(step, dist, rel_err), halo)
+    azim = ((2.0 * np.pi) / 7 * np.arange(7)).astype(np.float32)
+    u_xy = None
+    if tilted:
+        u_xy = np.stack([np.sin(azim + 0.05), np.cos(azim) * 0.99], -1)
+        u_xy /= np.linalg.norm(u_xy, axis=-1, keepdims=True)
+    got = sweep.horizon_shift_tables(sched, azim, dx, dy, (halo, halo + 3),
+                                     u_xy=u_xy, unroll=unroll)
+    ref = sweep_ref.horizon_shift_tables(sched_ref, azim, dx, dy,
+                                         (halo, halo + 3), u_xy=u_xy,
+                                         unroll=unroll)
+    assert len(got) == len(ref) == len(sched.phases)
+    for g, r in zip(got, ref):
+        assert sorted(g) == sorted(r)
+        for k in r:
+            assert g[k].dtype == r[k].dtype, k
+            np.testing.assert_array_equal(g[k], r[k])
+    for s_g, s_r in zip(sweep.shadow_s_phases(sched, unroll),
+                        sched_ref.s_values):
+        np.testing.assert_array_equal(
+            s_g, sweep_ref._pad_unroll(s_r[None, :], unroll)[0].ravel())
+
+
+def test_basis_fields_and_marching_directions_match_reference():
+    rng = np.random.default_rng(3)
+    norm = rng.normal(size=(9, 11, 3)) * 0.05
+    norm[..., 2] = 1.0
+    norm /= np.linalg.norm(norm, axis=-1, keepdims=True)
+    north = np.zeros_like(norm)
+    north[..., 1] = 1.0
+    north -= np.sum(north * norm, axis=-1, keepdims=True) * norm
+    north /= np.linalg.norm(north, axis=-1, keepdims=True)
+    n32, e32 = norm.astype(np.float32), north.astype(np.float32)
+    got = terrain.basis_fields(n32, e32)
+    ref = terrain_ref.basis_fields(n32, e32)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype == np.float32
+        np.testing.assert_array_equal(got[k], ref[k])
+    azim = np.linspace(0.0, 2.0 * np.pi, 13)[:-1]
+    np.testing.assert_array_equal(
+        terrain.mean_marching_directions(azim, n32, e32),
+        terrain_ref.mean_marching_directions(azim, n32, e32))

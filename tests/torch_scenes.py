@@ -1,7 +1,10 @@
 """Scenes of the sweep's skips, shared by the CPU tests
 (tests/test_torch_sweep_skips.py for K1, tests/test_torch_shadow_skips.py
 for K2) and the card's (tests/test_torch_cuda.py), and the curved meshes of
-the curved shadow and locations tests.  Imports no JAX."""
+the curved shadow and locations tests, and a NumPy transcription of the
+refraction's float32 arithmetic.  Imports no JAX."""
+
+import math
 
 import numpy as np
 
@@ -171,3 +174,21 @@ def curved_terrain_inputs(s, offset, inner, mask=None):
         elevation=np.ascontiguousarray(s["elevation"][sl]),
         mask=np.ones(inner, np.uint8) if mask is None else mask,
         dem_dim=s["z"].shape, offset=offset)
+
+
+def refraction_numpy(elev, temp, pres, height, fn):
+    """``ops.refraction.atmos_refrac(elev, temp, pres)`` and
+    ``reference_atmosphere(height)`` transcribed in NumPy float32, whose
+    division rounds once; ``fn(name, x)`` evaluates the torch function
+    ``name`` ("tan", "pow") on a float32 array on the device under test
+    (the transcendental functions are not what is compared).  Returns
+    ``(refrac_deg, temperature, pressure)``."""
+    f = np.float32
+    e = np.clip(elev, f(-1.0), f(90.0))
+    arg = (e + f(10.3) / (e + f(5.11))) * f(math.pi / 180.0)
+    refrac = f(1.02) / fn("tan", arg)
+    refrac = refrac + f(0.0019279)
+    refrac = (refrac * (pres / f(101.0))) * (f(283.0) / (f(273.0) + temp))
+    temperature = f(283.15) - f(0.0065) * height
+    pressure = f(101.0) * fn("pow", temperature / f(283.15))
+    return refrac / f(60.0), temperature, pressure
