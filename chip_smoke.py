@@ -135,9 +135,27 @@ N. the reference's XLA engines, plain torch on the card by design:
    the 16 suns, both arms: live blocks bit-equal to the dense K2, the rest
    -3e38, bit-equal to its plain version on the island, its time against
    the dense K2 (CUDA events, mean of 10) and its skip shares and bound;
-9. one JSON line of all ten kernels (launches on its main path, error
-   against its plain version, its time and the plain version's, its bound
-   and ``library_ms`` null), then the result line
+O. sharded (``horayzon_tpu_torch.parallel``), the shards of a mesh of
+   ``cuda:0`` slots run in turn on the card: the main path, with the shard
+   counts, is ``horizon_sweep_fused_sharded`` at the bench cell and its
+   gradient row on a (4, 2) mesh, ``shadow_metric_fused_sharded`` at row
+   B and its gradient on (8, 1), ``horizon_sweep_multires_fused_sharded``
+   at phase K's 2 m cell on (4, 2); each bit-equal to its single-device
+   call (angles, metric, gradients), K3's and K4's shard variants
+   bit-equal to the single K3 / K4 on the same record; the summed shards'
+   times beside the single launch's (CUDA events), the fine bytes a
+   multires tile holds beside the replicated levels; the two sharded XLA
+   engines on a 256^2 crop equal to their single-device calls; then two
+   processes (``--pair-worker``, gloo, a (2, 2) mesh on ``cuda:0``),
+   each holding one tile's slots, the assembled angles and gradient
+   bit-equal to the single launch (NCCL needs a card per process and is
+   not exercised);
+9. one JSON line of all fourteen kernels (launches on its main path,
+   error against its plain version, its time and the plain version's,
+   its bound and ``library_ms`` null; the four shard rows ``*-shard``:
+   launches on phase O's path, error against the single launch, the
+   summed shards' time, the single launch's as ``single_ms``, its plain
+   version and bound), then the result line
    ``{"ok": true, "device": {...}}``.  K5 is on no user path of the
    library: its launches are those of its own entry, the timing run of
    phase J.
@@ -155,6 +173,8 @@ reduced precision.  Imports nothing of JAX.
 """
 
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -162,13 +182,15 @@ import time
 import numpy as np
 import torch
 
-from horayzon_tpu_torch import (auxiliary, direction, horizon, regrid,
-                                shadow, sun_position, topo_param, transform)
+from horayzon_tpu_torch import (auxiliary, direction, horizon, parallel,
+                                regrid, shadow, sun_position, topo_param,
+                                transform)
 from horayzon_tpu_torch.models import (CurvedPipeline, PlanarPipeline,
                                        terrain_fit)
 from horayzon_tpu_torch.ops import _build, fused_sweep, locations, mip
 from horayzon_tpu_torch.ops import multires, read_floor, replay
 from horayzon_tpu_torch.ops import shadow_sweep, sweep
+from horayzon_tpu_torch.parallel import shard
 
 #: Horizon-angle tolerance [rad] of K1 against the plain version.
 TOL = 1.0e-5
@@ -186,6 +208,13 @@ SHADOW_BWD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2470"
 MASK_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:196"
 SHADOW_MASK_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2765"
 TILT_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:219"
+#: The shard_off variants: pallas_forward_fn, shadow_forward_fn,
+#: backward_replay_fn and shadow_backward_replay_fn with a shard's offsets
+#: (launched per shard by horayzon_tpu/parallel/shard.py).
+SHARD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:1396"
+SHADOW_SHARD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2794"
+BWD_SHARD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2238"
+SHADOW_BWD_SHARD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2399"
 READ_FLOOR_SOURCE = "horayzon_tpu_torch/csrc/read_floor.cu"
 READ_FLOOR_REPLACES = "tools/read_floor.py:53"
 KERNELS = ("horizon_sweep", "horizon_replay_bwd", "read_floor")
@@ -2082,6 +2111,345 @@ def phase_n(dev, card, z, x, y, halo, azim_num, dist_km, k1_ms):
     return launches, err, times[("island", True)], plain_ms, bnd
 
 
+def shard_k1_ms(fwd, emit_argmax, reps=3):
+    """Milliseconds of each slot's launch of K1 (``emit_argmax``:
+    K1-argmax) in the sharded run ``fwd`` (``shard._HzForward``), by CUDA
+    events, on the inputs ``fwd.run`` cuts for it."""
+    out = []
+    for t, a, dev in fwd.mesh.local_slots():
+        r0, az0 = t * fwd.rows, a * fwd.az_loc
+        levels, pooled = fwd.slot_levels(t, dev)
+        args = (fwd.z_org[r0:r0 + fwd.rows].contiguous(),
+                fwd.z_inner[r0:r0 + fwd.rows].contiguous(), levels,
+                fwd.trig[az0:az0 + fwd.az_loc], fwd.slot_plan(t),
+                fwd.outer_shape)
+
+        def launch(args=args, pooled=pooled):
+            return fused_sweep._ratio_cuda(*args, emit_argmax=emit_argmax,
+                                           pooled=pooled)
+
+        launch()
+        out.append(cuda_ms(launch, reps))
+    return out
+
+
+def shard_k2_ms(mesh, sargs, origin, emit_argmax, reps=3):
+    """Milliseconds of each tile's launch of K2 (K2-argmax) in a sharded
+    metric over ``sargs`` (``shadow_sweep.metric_args``), by CUDA events."""
+    z_org, z_inner, levels, table, plan, shape = sargs
+    rows = plan["inner_shape"][0] // mesh.shape[parallel.AXIS_TILE]
+    pooled = fused_sweep.skip_inputs(levels, plan)
+    out = []
+    for t, a, _ in mesh.local_slots():
+        if a:
+            continue
+        args = (z_org[t * rows:(t + 1) * rows].contiguous(),
+                z_inner[t * rows:(t + 1) * rows].contiguous(), levels, table,
+                fused_sweep.shard_plan(plan, t * rows, rows), shape, origin)
+
+        def launch(args=args):
+            return shadow_sweep._metric_cuda(*args, emit_argmax=emit_argmax,
+                                             pooled=pooled)
+
+        launch()
+        out.append(cuda_ms(launch, reps))
+    return out
+
+
+#: Keywords of the two-process run of phase O: a 512^2 grid, 256^2 inner.
+PAIR_KW = dict(dx=25.0, dy=-25.0, offset=(128, 128), inner_shape=(256, 256),
+               azim_num=8, dist_search=3000.0, hori_acc=0.25)
+
+
+def pair_worker(rank, port):
+    """One process of phase O's pair: a gloo group of two on one card,
+    each process two slots of a (2, 2) mesh on cuda:0; the assembled angles
+    and the gradient against the single launch.  Returns the exit code."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    mesh = parallel.init_distributed(
+        n_azim=2, coordinator_address=f"127.0.0.1:{port}", num_processes=2,
+        process_id=rank, devices=[dev] * 2, backend="gloo")
+    z = torch.from_numpy(make_terrain(512, 512, seed=3)).to(dev)
+    zg = z.clone().requires_grad_(True)
+    got = shard.horizon_sweep_fused_sharded(mesh, zg, **PAIR_KW)
+    torch.mean(got ** 2).backward()
+    zs = z.clone().requires_grad_(True)
+    want = fused_sweep.horizon_sweep_fused(zs, **PAIR_KW)
+    torch.mean(want ** 2).backward()
+    ok = (torch.equal(got, want) and torch.equal(zg.grad, zs.grad)
+          and [t for t, _, _ in mesh.local_slots()] == [rank, rank])
+    print(json.dumps({"rank": rank, "world": mesh.world,
+                      "angles_equal": torch.equal(got, want),
+                      "grad_equal": torch.equal(zg.grad, zs.grad)}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def run_pair():
+    """Phase O's two processes on the one card; fails the run if either
+    fails.  Returns the wall [s]."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("HZT_COORDINATOR", "HZT_NUM_PROCESSES",
+                        "HZT_PROCESS_ID")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pair-worker",
+         str(rank), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-3:]:
+            print(f"  process {rank}: {line}")
+        check(p.returncode == 0, f"process {rank} of the pair exited "
+              f"{p.returncode}")
+    return wall
+
+
+def phase_o(dev, card, zt, halo, inner, azim_num, dist_km, dx, track,
+            single):
+    """The sharded entries (horayzon_tpu_torch.parallel) with the shards of
+    a mesh in turn on this card.  ``single``: the single launches' times,
+    plain times and bounds from the earlier phases.  Returns the four
+    ``*-shard`` rows of the kernels line."""
+    print("== O. sharded: the shards of a mesh in turn on one card")
+    t_o = time.perf_counter()
+    mesh42 = parallel.make_mesh(4, 2, devices=[dev] * 8)
+    mesh81 = parallel.make_mesh(8, 1, devices=[dev] * 8)
+    sweep_kw = dict(dx=dx, dy=-dx, offset=(halo, halo),
+                    inner_shape=(inner, inner), azim_num=azim_num,
+                    dist_search=dist_km * 1000.0, hori_acc=0.25)
+    z_org_b, z_in_b, table_b, kw_b = shadow_inputs(
+        zt, (halo, halo), (inner, inner), dx, -dx, (0.0, 0.0), track)
+    zf_np, zc_np, mkw = multires_2m_scene()
+    zf, zc = torch.from_numpy(zf_np).to(dev), torch.from_numpy(zc_np).to(dev)
+    del zf_np, zc_np
+
+    def hz_grad():
+        zg = zt.clone().requires_grad_(True)
+        h = shard.horizon_sweep_fused_sharded(mesh42, zg, **sweep_kw)
+        torch.mean(h ** 2).backward()
+        return zg.grad
+
+    def sh_grad():
+        zg = zt.clone().requires_grad_(True)
+        z_i = zg[halo:halo + inner, halo:halo + inner]
+        met = shard.shadow_metric_fused_sharded(mesh81, zg, z_i + 0.05, z_i,
+                                                table_b, **kw_b)
+        torch.mean(torch.sigmoid(met / 2.0)).backward()
+        return zg.grad
+
+    # warm-up of every sharded path, then the main path with the counts
+    shard.horizon_sweep_fused_sharded(mesh42, zt, **sweep_kw)
+    hz_grad()
+    shard.shadow_metric_fused_sharded(mesh81, zt, z_org_b, z_in_b, table_b,
+                                      **kw_b)
+    sh_grad()
+    shard.horizon_sweep_multires_fused_sharded(mesh42, zf, zc, **mkw)
+    torch.cuda.synchronize()
+    fused_sweep.SHARD_KERNEL_LAUNCHES = 0
+    shadow_sweep.SHARD_KERNEL_LAUNCHES = 0
+    replay.SHARD_KERNEL_LAUNCHES = 0
+    replay.SHADOW_SHARD_KERNEL_LAUNCHES = 0
+    ms = {}
+    ms["hz"], hz = event_ms(lambda: shard.horizon_sweep_fused_sharded(
+        mesh42, zt, **sweep_kw))
+    ms["hz_grad"], gz = event_ms(hz_grad)
+    ms["sh"], met = event_ms(lambda: shard.shadow_metric_fused_sharded(
+        mesh81, zt, z_org_b, z_in_b, table_b, **kw_b))
+    ms["sh_grad"], gs = event_ms(sh_grad)
+    ms["mr"], mr = event_ms(lambda: shard.horizon_sweep_multires_fused_sharded(
+        mesh42, zf, zc, **mkw))
+    launches = (fused_sweep.SHARD_KERNEL_LAUNCHES,
+                shadow_sweep.SHARD_KERNEL_LAUNCHES,
+                replay.SHARD_KERNEL_LAUNCHES,
+                replay.SHADOW_SHARD_KERNEL_LAUNCHES)
+    print(f"  main path (CUDA events): horizon {ms['hz']:.2f} ms, its "
+          f"gradient step {ms['hz_grad']:.2f} ms on (4, 2); shadow row B "
+          f"{ms['sh']:.2f} ms, its gradient step {ms['sh_grad']:.2f} ms on "
+          f"(8, 1); multires 2 m cell {ms['mr']:.2f} ms on (4, 2)  [{card}]")
+    print(f"  shard launches: K1 {launches[0]}, K2 {launches[1]}, K3 "
+          f"{launches[2]}, K4 {launches[3]}")
+    check(launches == (24, 16, 25, 25), "the main path launched every shard "
+          "variant: K1 8 + K1-argmax 8 + multires 8, K2 8 + K2-argmax 8, "
+          "K3 and K4 3 passes x 8 shards + 1 conversion")
+
+    # 1. the horizon at the bench cell against the single launch
+    want = fused_sweep.horizon_sweep_fused(zt, **sweep_kw)
+    hz_err = (hz - want).abs().max().item()
+    check(torch.equal(hz, want), f"sharded horizon (4, 2) bit-equal to the "
+          f"single K1 launch ({hz_err:.1e} rad)")
+    args = fused_sweep.sweep_args(zt, **sweep_kw)
+    fwd = shard._HzForward(mesh42, args)
+    k1_single = cuda_ms(lambda: fused_sweep._ratio_cuda(*args), 3)
+    k1_parts = shard_k1_ms(fwd, False)
+    k1_single2 = cuda_ms(lambda: fused_sweep._ratio_cuda(*args), 3)
+    k1_sum = float(sum(k1_parts))
+    parts = ", ".join(f"{v:.2f}" for v in k1_parts)
+    print(f"  K1: 8 shards {k1_sum:.3f} ms summed ({parts}); "
+          f"the single launch {k1_single:.3f} / {k1_single2:.3f} ms: "
+          f"sharding costs {k1_sum / k1_single - 1.0:+.1%} on one card  "
+          f"[{card}]")
+
+    # 2. the gradient row against the single-device gradient
+    zs = zt.clone().requires_grad_(True)
+    torch.mean(fused_sweep.horizon_sweep_fused(zs, **sweep_kw) ** 2) \
+        .backward()
+    g_err = (gz - zs.grad).abs().max().item()
+    check(torch.equal(gz, zs.grad), f"sharded gradient bit-equal to the "
+          f"single-device gradient (max |g| {zs.grad.abs().max().item():.3e})")
+    check(torch.equal(hz_grad(), gz), "sharded gradient bit-equal across runs")
+    del zs
+    am_parts = shard_k1_ms(fwd, True)
+    raw, records = fwd.run(emit_argmax=True)
+    lims = (-15.0, 89.98)
+    h = fused_sweep._angles(raw.clone(), *lims)
+    graw = fused_sweep.raw_cotangent(raw, 2.0 * h / h.numel(), lims)
+    del h
+    shifts = replay.horizon_shifts(fwd.trig, fwd.plan)
+    k3_ms, (cots, zcot) = event_ms(lambda: shard._sharded_replay(
+        mesh42, tuple(zt.shape), fwd.plan, graw, records, shifts, fwd.rows,
+        fwd.az_loc))
+    s_raw, s_ids, s_aux = fused_sweep._ratio_cuda(*args, emit_argmax=True)
+    check(torch.equal(raw, s_raw), "K1-argmax shards' raw ratios bit-equal "
+          "to the single launch's")
+    bargs = (tuple(zt.shape), graw, s_ids, s_aux, fwd.plan, shifts)
+    k3_single, (w_cots, w_zcot) = event_ms(lambda: replay._bwd_cuda(*bargs))
+    check(all(torch.equal(a, b) for a, b in zip(cots + [zcot],
+                                                w_cots + [w_zcot])),
+          "K3's shard variant: level and z_org cotangents bit-equal to the "
+          "single K3 launch")
+    print(f"  K1-argmax: 8 shards {sum(am_parts):.3f} ms summed; K3's shard "
+          f"variant (8 shards' passes, the words' sum, one conversion) "
+          f"{k3_ms:.3f} ms against the single K3 {k3_single:.3f} ms  "
+          f"[{card}]")
+    del raw, records, graw, cots, zcot, w_cots, w_zcot, s_raw, s_ids, s_aux
+
+    # 3. shadow row B and its gradient
+    sargs = shadow_sweep.metric_args(
+        zt, z_org_b, z_in_b, table_b,
+        **{k: kw_b[k] for k in ("offset", "inner_shape", "dx", "dy")})
+    want = shadow_sweep._metric_cuda(*sargs, grid_origin=(0.0, 0.0))
+    sh_err = (met - want).abs().max().item()
+    check(torch.equal(met, want), "sharded shadow metric (8, 1) bit-equal "
+          "to the single K2 launch")
+    zs = zt.clone().requires_grad_(True)
+    z_i = zs[halo:halo + inner, halo:halo + inner]
+    torch.mean(torch.sigmoid(shadow_sweep.shadow_metric_fused(
+        zs, z_i + 0.05, z_i, table_b, **kw_b) / 2.0)).backward()
+    gs_err = (gs - zs.grad).abs().max().item()
+    check(torch.equal(gs, zs.grad), "sharded shadow gradient bit-equal to "
+          "the single-device gradient")
+    del zs, z_i
+    k2_single = cuda_ms(lambda: shadow_sweep._metric_cuda(
+        *sargs, grid_origin=(0.0, 0.0)), 3)
+    k2_parts = shard_k2_ms(mesh81, sargs, (0.0, 0.0), False)
+    met_a, records = shard._shadow_run(mesh81, sargs, (0.0, 0.0), True)
+    sig = torch.sigmoid(met_a / 2.0)
+    gmet = sig * (1.0 - sig) * (0.5 / met_a.numel())
+    del sig
+    k4_ms, (cots, dzo) = event_ms(lambda: shard._sharded_replay(
+        mesh81, tuple(zt.shape), sargs[4], gmet, records, table_b,
+        inner // 8, len(table_b), shadow=(sargs[0], (0.0, 0.0))))
+    _, s_ids, s_aux = shadow_sweep._metric_cuda(*sargs, grid_origin=(0.0, 0.0),
+                                                emit_argmax=True)
+    bargs = (tuple(zt.shape), gmet, s_ids, s_aux, sargs[4])
+    sh_b = (table_b, sargs[0], (0.0, 0.0))
+    k4_single, (w_cots, w_dzo) = event_ms(
+        lambda: replay._bwd_cuda(*bargs, shadow=sh_b))
+    check(all(torch.equal(a, b) for a, b in zip(cots + [dzo],
+                                                w_cots + [w_dzo])),
+          "K4's shard variant: level and z_org cotangents bit-equal to the "
+          "single K4 launch")
+    print(f"  K2: 8 shards {sum(k2_parts):.3f} ms summed against the single "
+          f"launch {k2_single:.3f} ms; K4's shard variant {k4_ms:.3f} ms "
+          f"against the single K4 {k4_single:.3f} ms  [{card}]")
+    del met_a, records, gmet, cots, dzo, w_cots, w_dzo, s_ids, s_aux
+
+    # 4. multires at the 2 m cell: fine windows per tile
+    want = multires.horizon_sweep_multires_fused(zf, zc, **mkw)
+    mr_err = (mr - want).abs().max().item()
+    check(torch.equal(mr, want), "sharded multires (4, 2) bit-equal to "
+          "horizon_sweep_multires_fused")
+    margs = multires_args(zf, zc, mkw)
+    mfwd = shard._HzForward(mesh42, margs, n_fine=mkw["ratio_log2"])
+    fine = [sum((e - o) * lv.shape[1] * 4 for (o, e), lv in
+                zip(mfwd.windows[t][:mkw["ratio_log2"]], margs[2]))
+            for t in range(4)]
+    full = sum(t.numel() * 4 for t in margs[2][:mkw["ratio_log2"]])
+    coarse = sum(t.numel() * 4 for t in margs[2][mkw["ratio_log2"]:])
+    per_tile = ", ".join(f"{b / 1e6:.1f}" for b in fine)
+    print(f"  multires fine levels per tile [{per_tile}] MB against "
+          f"{full / 1e6:.1f} MB replicated (the outer grid "
+          f"{tuple(zf.shape)} {zf.numel() * 4 / 1e6:.1f} MB); coarse "
+          f"levels {coarse / 1e6:.1f} MB replicated")
+    mr_parts = shard_k1_ms(mfwd, False)
+    mr_single = cuda_ms(lambda: fused_sweep._ratio_cuda(*margs), 3)
+    print(f"  K1 at the 2 m cell: 8 shards {sum(mr_parts):.3f} ms summed "
+          f"against the single launch {mr_single:.3f} ms  [{card}]")
+    del margs, mfwd, mr, want, zf, zc
+
+    # 5. the XLA engines on a 256^2 crop
+    c0 = halo + inner // 2 - 256
+    zcrop = zt[c0:c0 + 512, c0:c0 + 512].contiguous()
+    xkw = dict(dx=dx, dy=-dx, offset=(128, 128), inner_shape=(256, 256),
+               dist_search=3000.0, hori_acc=0.25)
+    azim = (2 * np.pi / 32) * np.arange(32)
+    t0 = time.perf_counter()
+    xs = shard.horizon_sweep_sharded(mesh42, zcrop, azim=azim, **xkw)
+    torch.cuda.synchronize()
+    x_wall = time.perf_counter() - t0
+    xw, _ = sweep.horizon_sweep(zcrop, azim=azim, **xkw)
+    check(torch.equal(xs, xw), "sharded XLA horizon (4, 2) on a 256^2 crop "
+          "equal to the single-device call")
+    sched = sweep.build_schedule(dx, float(np.hypot(512 * dx, 512 * dx)),
+                                 sweep.default_rel_err(0.25))
+    zi = zcrop[128:384, 128:384]
+    m = torch.full((256, 256), 0.2, device=dev)
+    u = np.array([0.6 / dx, 0.8 / dx], dtype=np.float32)
+    xs = shard.shadow_metric_sharded(mesh81, zcrop, zi + 0.05, zi, m, u,
+                                     sched, (128, 128), (256, 256))
+    xw = sweep.shadow_metric(zcrop, zi + 0.05, zi, m, u, sched, (128, 128),
+                             (256, 256))
+    check(torch.equal(xs, xw), "sharded XLA shadow metric (8, 1) equal to "
+          "the single-device call")
+    print(f"  XLA engines on the crop: horizon {x_wall:.3f} s wall on (4, 2)")
+
+    # 6. two processes on the one card (gloo)
+    pair_s = run_pair()
+    print(f"  two processes, gloo, (2, 2) mesh on cuda:0: {pair_s:.1f} s wall "
+          f"(start-up included); NCCL needs one card per process and is not "
+          f"exercised on one card")
+    print(f"  phase O {time.perf_counter() - t_o:.1f} s")
+    return [
+        ("horizon_sweep shard (K1-shard)", KERNEL_SOURCE, SHARD_REPLACES,
+         launches[0], max(hz_err, mr_err), k1_sum, single["k1"][1],
+         single["k1"][2], k1_single),
+        ("shadow_sweep shard (K2-shard)", KERNEL_SOURCE,
+         SHADOW_SHARD_REPLACES, launches[1], sh_err, float(sum(k2_parts)),
+         single["k2"][1], single["k2"][2], k2_single),
+        ("horizon_replay_bwd shard (K3-shard)", BWD_SOURCE,
+         BWD_SHARD_REPLACES, launches[2], g_err, k3_ms, single["k3"][1],
+         single["k3"][2], k3_single),
+        ("shadow_replay_bwd shard (K4-shard)", BWD_SOURCE,
+         SHADOW_BWD_SHARD_REPLACES, launches[3], gs_err, k4_ms,
+         single["k4"][1], single["k4"][2], k4_single)]
+
+
 def main():
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2791,12 +3159,18 @@ def main():
     t_n = time.perf_counter()
     k2m_row = phase_n(dev, card, zt.cpu().numpy(), x, y, halo, azim_num,
                       dist_km, k1_ms)
+    t_o = time.perf_counter()
+    shard_rows = phase_o(
+        dev, card, zt, halo, inner, azim_num, dist_km, dx, track,
+        dict(k1=(k1_ms, plain_ms, k1_bound), k2=(k2_ms, k2_plain_ms, k2_bound),
+             k3=(k3_ms, k3_plain_ms, k3_bound),
+             k4=(k4_ms, k4_plain_ms, k4_bound)))
     print(f"  phase J {t_k - t_j:.1f} s, phase K {t_l - t_k:.1f} s, phase L "
           f"{t_m - t_l:.1f} s, phase M {t_n - t_m:.1f} s, phase N "
-          f"{time.perf_counter() - t_n:.1f} s")
+          f"{t_o - t_n:.1f} s, phase O {time.perf_counter() - t_o:.1f} s")
 
     print("== 9. result")
-    print(f"  phases 1-N in {time.perf_counter() - t_run:.1f} s")
+    print(f"  phases 1-O in {time.perf_counter() - t_run:.1f} s")
     rows = [
         ("horizon_sweep (K1)", KERNEL_SOURCE, REPLACES, launches, max_err,
          k1_ms, plain_ms, k1_bound),
@@ -2822,12 +3196,23 @@ def main():
         # its own entry, read_floor.time_modes, in phase J
         ("read_floor (K5)", READ_FLOOR_SOURCE, READ_FLOOR_REPLACES) + k5_row]
     # no single PyTorch call computes a sweep, a winner replay or the
-    # shifted bilinear running max, so library_ms is null for every kernel
-    print(json.dumps({"kernels": [
+    # shifted bilinear running max, so library_ms is null for every kernel.
+    # A shard row: launches on phase O's path, its error against the single
+    # launch, the summed shards' time (ms) and the single launch's
+    # (single_ms), the single launch's bound and plain version (the same
+    # function on the same inputs: the shards' outputs are bit-equal to it)
+    kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
          "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
-        for name, src, rep, n, err, ms, p_ms, bnd in rows]}))
+        for name, src, rep, n, err, ms, p_ms, bnd in rows]
+    for name, src, rep, n, err, ms, p_ms, bnd, one_ms in shard_rows:
+        kernels.append(
+            {"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+             "single_ms": one_ms})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -2835,4 +3220,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--pair-worker":
+        sys.exit(pair_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

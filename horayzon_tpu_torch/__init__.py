@@ -14,7 +14,9 @@ argmax variant and K3), shadow maps and ``sw_dir_cor``
 the same source) on planar and curved meshes, per-location horizons
 (:func:`horizon_locations`), the topographic parameters, and the
 reference's XLA engines in plain torch (``engine="sweep"``, non-default
-vectors, ``Terrain(engine="sweep"/"scan")``).  ROADMAP.md lists what is
+vectors, ``Terrain(engine="sweep"/"scan")``), and the sharded entries over
+a mesh of devices on ``torch.distributed`` (:mod:`horayzon_tpu_torch.
+parallel`, the shard variants of the kernels).  ROADMAP.md lists what is
 still to port.
 """
 

@@ -112,6 +112,10 @@ struct BwdParams {
   int n_cells;  // cells of all boxes
   float dx, dy, step, dist, half_step, inv_l0, inv_l1;
   float x0, y0;  // grid origin (K4)
+  // Appended for the shard variants: the z_org pass adds the winners' terms
+  // to what zcot holds (the running sum of the azimuths before this shard's)
+  // instead of starting from 0.
+  int zcot_continue;
 };
 
 namespace {
@@ -454,7 +458,7 @@ replay_zorg_kernel(const BwdParams p) {
     yr = (float)(p.off0 + (int)(cell / p.in1)) * p.dy + p.y0;
     zo = p.z_org[cell];
   }
-  float acc = 0.0f;
+  float acc = p.zcot_continue ? p.zcot[cell] : 0.0f;
   for (int az = 0; az < p.a_num; ++az) {
     const long long o = az * plane + cell;
     const int id = p.ids[o];
@@ -500,27 +504,37 @@ replay_zorg_kernel(const BwdParams p) {
   p.zcot[cell] = acc;
 }
 
+// The passes of launch(), as bits of its `passes` argument.
+enum { kPassMax = 1, kPassScatter = 2, kPassConvert = 4, kPassZorg = 8,
+       kPassAll = 15 };
+
 template <bool S>
-int launch(const BwdParams* params, int n_levels, int device, void* stream) {
+int launch(const BwdParams* params, int n_levels, int passes, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   const BwdParams& p = *params;
   const long long rows = (long long)p.a_num * p.in0 * p.in1;
-  if (rows > 0) {
-    const unsigned blocks = (unsigned)((rows + 255) / 256);
+  const unsigned blocks = (unsigned)((rows + 255) / 256);
+  if (rows > 0 && (passes & kPassMax)) {
     replay_max_kernel<S><<<blocks, 256, 0, st>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (rows > 0 && (passes & kPassScatter)) {
     replay_scatter_kernel<S><<<blocks, 256, 0, st>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if (p.n_cells > 0) {
+  if (p.n_cells > 0 && (passes & kPassConvert)) {
     replay_convert_kernel<<<(unsigned)((p.n_cells + 255) / 256), 256, 0,
                             st>>>(p, n_levels);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const long long cells = (long long)p.in0 * p.in1;
-  replay_zorg_kernel<S><<<(unsigned)((cells + 255) / 256), 256, 0, st>>>(p);
+  if (cells > 0 && (passes & kPassZorg)) {
+    replay_zorg_kernel<S>
+        <<<(unsigned)((cells + 255) / 256), 256, 0, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -533,13 +547,33 @@ int launch(const BwdParams* params, int n_levels, int device, void* stream) {
 // Returns the first cudaError_t (0 on success).  Does not synchronise.
 extern "C" int horizon_replay_bwd_launch(const BwdParams* params, int n_levels,
                                          int device, void* stream) {
-  return launch<false>(params, n_levels, device, stream);
+  return launch<false>(params, n_levels, kPassAll, device, stream);
 }
 
 // K4, the shadow mode: also reads params->sun, z_org, x0 and y0.
 extern "C" int shadow_replay_bwd_launch(const BwdParams* params, int n_levels,
                                         int device, void* stream) {
-  return launch<true>(params, n_levels, device, stream);
+  return launch<true>(params, n_levels, kPassAll, device, stream);
+}
+
+// The shard variants of K3 (shadow = 0) and K4 (shadow = 1): the passes
+// named by the bits of `passes` (1 the level maxima, 2 the scatter, 4 the
+// conversion of the boxes, 8 the z_org sum), so that the shards of a
+// sharded run agree one fixed-point grid before any of them scatters.  A
+// shard's record is its own rows and azimuths; its offsets enter as off0 /
+// off1 (the global outer row and column of its first cell) and as its rows
+// of the shift and sun tables (params->shift points at its first azimuth's
+// row), so decode() and the z_org pass form global coordinates unchanged.
+// A replay reads no level, so a shard has no level origins of its own:
+// its target boxes, in the global padded coordinates of each level, are
+// those of its rows and azimuths, and the host adds its words into the
+// whole run's boxes (integer addition: exact in any order) before the one
+// conversion.
+extern "C" int replay_bwd_passes_launch(const BwdParams* params, int n_levels,
+                                        int shadow, int passes, int device,
+                                        void* stream) {
+  return shadow ? launch<true>(params, n_levels, passes, device, stream)
+                : launch<false>(params, n_levels, passes, device, stream);
 }
 
 extern "C" const char* horizon_replay_bwd_error_string(int code) {

@@ -58,6 +58,24 @@
 //     the dense launch, its warp taking the same skips, and the wrapper
 //     fills the blocks it does not launch with -3e38.
 //
+// The shard variants (pallas_forward_fn's and shadow_forward_fn's
+// shard_off, pallas_sweep.py:171-180, launched per shard by
+// horayzon_tpu/parallel/shard.py) are the same entries with a shard's
+// parameters: a shard sweeps its own rows (and, in K1, its own azimuths) of
+// the whole run, value for value.  Its global offsets enter as off0 / off1,
+// the global outer row and column of its first cell (the meshes shard rows
+// only, so off1 is the run's), so
+// every cell coordinate (reads, in-domain tests, K2's lattice position) is
+// global; its first azimuth enters as the trig pointer, which points at
+// that azimuth's row of the whole run's table; the dense-step split (ns2,
+// nx, ns1, n_dense) is the whole run's (fused_sweep.shard_plan), so n_safe
+// holds for every shard.  A level may be a window of the full padded level
+// (memory-scalable multires): lvl_row0[l] is the padded row at which its
+// buffer starts, every row index into level l and its pooled companion is
+// taken relative to it, and the pooled companion is the window's rows of
+// the full level's (lvl_row0 a multiple of 8), so the skips decide as in
+// the single launch.
+//
 // Four entry points, one template <ARGMAX, SHADOW>: horizon_sweep_launch
 // (K1), horizon_sweep_argmax_launch (the forward of the gradient path, the
 // reference's emit_argmax=True), shadow_sweep_launch (K2) and
@@ -197,6 +215,10 @@ struct HzParams {
   unsigned long long* counters;     // 4 sample counters, or null
   int n_steps;
   int sign_exact;                   // K2: the sign-exact arm of the skips
+  // Appended for the shard variants: the padded row of the full level at
+  // which each level's buffer starts (0 for a whole level; a multiple of 8,
+  // so that the pooled companion's rows start at lvl_row0 / 8).
+  int lvl_row0[HZ_MAX_LEVELS];
 };
 
 namespace {
@@ -513,7 +535,7 @@ __device__ __forceinline__ bool d1_skip(const HzParams& p, const Cell& c,
     const int di = (int)floorf(s * c.sh_i);
     const int dj = (int)floorf(s * c.sh_j);
     const int pad = p.lvl_pad[0];
-    const int r = c.a + di + pad;
+    const int r = c.a + di + pad - p.lvl_row0[0];
     d = pooled_max(p.pool[0], p.pool_w[0], r, r + 1, wp.b0 + dj + pad,
                    wp.b1 + dj + 1 + pad, p.pool_min0, &lo);
   }
@@ -533,7 +555,8 @@ __device__ __forceinline__ bool d1_skip(const HzParams& p, const Cell& c,
 }
 
 // Skip test of the mip samples at table entries [t, t + n) of level lvl
-// (sentinel margin pad; pooled level P of row stride pw):
+// (sentinel margin pad, less the buffer's first row for the rows: rpad;
+// pooled level P of row stride pw):
 // lane l forms the cells of samples t + l, t + l + 32, ...: one level row
 // and the run of columns of the warp's 32 cells.  A mip candidate is
 // (h - z_org) * (1/s) with h <= D, which rounding keeps at or below
@@ -545,15 +568,15 @@ __device__ __forceinline__ bool d1_skip(const HzParams& p, const Cell& c,
 template <bool A>
 __device__ __forceinline__ bool mip_skip(const Cell& c, const Warp& wp,
                                          const Carry<A>& k, const float* P,
-                                         int pw, int lvl, int pad, int t,
-                                         int n) {
+                                         int pw, int lvl, int pad, int rpad,
+                                         int t, int n) {
   float d = kNegInit;
   float b_k = kNegInit;
   for (int l = wp.lane; l < n; l += 32) {
     const float2 e = wp.tab[t + l];
     const int ri = __float2int_rn(e.x * c.sh_i);
     const int rj = __float2int_rn(e.x * c.sh_j);
-    const int r = ((c.a + ri) >> lvl) + pad;
+    const int r = ((c.a + ri) >> lvl) + rpad;
     const float d_k = pooled_max(P, pw, r, r, ((wp.b0 + rj) >> lvl) + pad,
                                  ((wp.b1 + rj) >> lvl) + pad);
     d = fmaxf(d, d_k);
@@ -612,7 +635,7 @@ __device__ __forceinline__ bool d1_skip_shadow(const HzParams& p,
     const int di = (int)floorf(s * c.sh_i);
     const int dj = (int)floorf(s * c.sh_j);
     const int pad = p.lvl_pad[0];
-    const int r = c.a + di + pad;
+    const int r = c.a + di + pad - p.lvl_row0[0];
     d = pooled_max(p.pool[0], p.pool_w[0], r, r + 1, wp.b0 + dj + pad,
                    wp.b1 + dj + 1 + pad, p.pool_min0, &lo);
   }
@@ -649,8 +672,8 @@ __device__ __forceinline__ bool mip_skip_shadow(const Cell& c,
                                                 const Warp& wp,
                                                 const Carry<A>& k,
                                                 const float* P, int pw,
-                                                int lvl, int pad, int t,
-                                                int n, bool sign) {
+                                                int lvl, int pad, int rpad,
+                                                int t, int n, bool sign) {
   if (sign && __all_sync(kFull, wp.dead || k.acc.v > 0.0f)) return true;
   float d = kNegInit;
   float b_k = kNegInit;
@@ -658,7 +681,7 @@ __device__ __forceinline__ bool mip_skip_shadow(const Cell& c,
     const float s = wp.tab[t + l].x;
     const int ri = __float2int_rn(s * c.sh_i);
     const int rj = __float2int_rn(s * c.sh_j);
-    const int r = ((c.a + ri) >> lvl) + pad;
+    const int r = ((c.a + ri) >> lvl) + rpad;
     const float d_k = pooled_max(P, pw, r, r, ((wp.b0 + rj) >> lvl) + pad,
                                  ((wp.b1 + rj) >> lvl) + pad);
     d = fmaxf(d, d_k);
@@ -722,7 +745,8 @@ horizon_sweep_kernel(const HzParams p) {
   c.h = p.h;
   c.w = p.w;
   c.w0 = p.lvl_w[0];
-  c.l0 = p.lvl[0] + ((c.a + p.lvl_pad[0]) * c.w0 + (c.b + p.lvl_pad[0]));
+  c.l0 = p.lvl[0] + ((c.a + p.lvl_pad[0] - p.lvl_row0[0]) * c.w0 +
+                     (c.b + p.lvl_pad[0]));
   c.z_org = p.z_org[cell];
   wp.z_min = warp_min(c.z_org);
   const float zi = p.z_inner[cell];
@@ -834,14 +858,17 @@ horizon_sweep_kernel(const HzParams p) {
     const int lvl = p.ph_lvl[ph];
     const int wl = p.lvl_w[lvl];
     const int pad = p.lvl_pad[lvl];
-    const float* L = p.lvl[lvl] + (pad * wl + pad);
+    // row of the buffer = padded row - its first row (never a pointer
+    // moved before the buffer)
+    const int rpad = pad - p.lvl_row0[lvl];
+    const float* L = p.lvl[lvl] + pad;
     const int n_m = p.ph_n[ph];
     const int id0 = 2 * p.n_dense + (t - p.n_dense);
     if (skips &&
         (S ? mip_skip_shadow<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl,
-                                pad, t, n_m, sign)
-           : mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl, pad, t,
-                         n_m))) {
+                                pad, rpad, t, n_m, sign)
+           : mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl, pad,
+                         rpad, t, n_m))) {
       cnt[kMipSkipped] += n_m;
       t += n_m;
       continue;
@@ -850,15 +877,15 @@ horizon_sweep_kernel(const HzParams p) {
       const int n = min(kMipChunk, n_m - m0);
       if (skips && n < n_m &&
           (S ? mip_skip_shadow<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl,
-                                  pad, t + m0, n, sign)
+                                  pad, rpad, t + m0, n, sign)
              : mip_skip<A>(c, wp, k, p.pool[lvl], p.pool_w[lvl], lvl, pad,
-                           t + m0, n))) {
+                           rpad, t + m0, n))) {
         cnt[kMipSkipped] += n;
         continue;
       }
       for (int m = m0; m < m0 + n; ++m) {
         const float2 e = tab[t + m];
-        const int r = (c.a + __float2int_rn(e.x * c.sh_i)) >> lvl;
+        const int r = ((c.a + __float2int_rn(e.x * c.sh_i)) >> lvl) + rpad;
         const int q = (c.b + __float2int_rn(e.x * c.sh_j)) >> lvl;
         const float hs = __ldg(L + (r * wl + q));
         point_update<A, S>(c, k.acc, hs, e, id0 + m);

@@ -89,6 +89,9 @@ ARGMAX_KERNEL_LAUNCHES = 0
 #: whose variant it runs.
 MASK_KERNEL_LAUNCHES = 0
 TILT_KERNEL_LAUNCHES = 0
+#: Launches of K1 or K1-argmax by a shard of a sharded sweep (a plan of
+#: :func:`shard_plan`), counted besides the entry's own count.
+SHARD_KERNEL_LAUNCHES = 0
 #: The counters a launch of K1 (or K2) adds to when :func:`_ratio_cuda`
 #: (``shadow_sweep._metric_cuda``) is given ``counters`` (the kernel's
 #: slots, in order): (cell, row) samples of swept cells, the d1 slots over
@@ -149,6 +152,69 @@ def plan_sweep(outer_shape, *, inner_shape, offset, dist_search, dx, dy,
                 rel_err=float(rel_err), max_level=int(max_level))
     plan["consts"] = _constants(plan)
     return plan
+
+
+def shard_plan(plan, row0, rows, lvl_row0=None):
+    """The plan of one shard of a sharded sweep: the inner rows ``[row0,
+    row0 + rows)`` of the whole run's ``plan``.  The shard's global offsets
+    are its ``offset``: the outer row and column of its first cell, so
+    every coordinate the sweep forms is the whole run's.
+    Everything else is the whole run's, the dense-step split too (its
+    ``n_safe`` comes from the whole domain's halo, which holds for every
+    shard; the shard's own halo would move the safe split,
+    ``horayzon_tpu/parallel/shard.py:116-127``).  ``lvl_row0``: per level,
+    the padded row at which the shard's buffer of that level starts (a
+    window of the full padded level; 0 for a whole level), each a multiple
+    of 8.  ``plan["shard"]`` is ``row0``."""
+    in0, in1 = plan["inner_shape"]
+    if not (0 <= row0 and rows >= 1 and row0 + rows <= in0):
+        raise ValueError(f"shard rows [{row0}, {row0 + rows}) do not lie in "
+                         f"the inner rows [0, {in0})")
+    n_levels = len(plan["pads"])
+    lvl_row0 = tuple(int(o) for o in (lvl_row0 or (0,) * n_levels))
+    if len(lvl_row0) != n_levels or any(o < 0 or o % 8 for o in lvl_row0):
+        raise ValueError(f"lvl_row0 {lvl_row0}: one non-negative multiple "
+                         f"of 8 per level ({n_levels})")
+    off0, off1 = plan["offset"]
+    return dict(plan, offset=(off0 + row0, off1),
+                inner_shape=(int(rows), in1), shard=int(row0),
+                lvl_row0=lvl_row0)
+
+
+def level_reach(plan, trig):
+    """Per padded level, the rows ``[lo, hi)`` that a sweep of ``plan``
+    over the azimuths of ``trig`` (an (A, 2) float32 table of
+    :func:`trig_table`'s layout) reads or bounds, at a distance of the
+    step table or a d2 midpoint: each level-0 read's 2 x 2 stencil
+    ``floor(s * sh_i)`` rows down, each mip read at ``round(s * sh_i)``,
+    formed in float32 as K1 forms them; ``(0, 0)`` for a level no phase
+    reads.  The window a shard must hold of each level."""
+    f32 = np.float32
+    in0, _ = plan["inner_shape"]
+    off0 = plan["offset"][0]
+    k = plan["consts"]
+    tab = step_table(plan)[:, 0]
+    sh_i = (np.asarray(trig, dtype=f32)[:, 1] / f32(plan["dy"]))[:, None]
+    n_dense = plan["n_dense"]
+    dense = np.concatenate([tab[:n_dense], tab[:plan["nx"]] - k["half_step"],
+                            [k["s_m1_safe"], k["s_m1_masked"]]]).astype(f32)
+    reach = [(0, 0)] * len(plan["pads"])
+    if n_dense:
+        di = np.floor(dense[None, :] * sh_i).astype(np.int64)
+        pad = plan["pads"][0]
+        reach[0] = (off0 + pad + int(di.min()),
+                    off0 + in0 - 1 + pad + int(di.max()) + 2)
+    first = n_dense
+    for lvl, n_m, _, _ in plan["phases_meta"][1:]:
+        ri = np.rint(tab[None, first:first + n_m] * sh_i).astype(np.int64)
+        first += n_m
+        pad = plan["pads"][lvl]
+        lo = ((off0 + int(ri.min())) >> lvl) + pad
+        hi = ((off0 + in0 - 1 + int(ri.max())) >> lvl) + pad + 1
+        if reach[lvl][1] > reach[lvl][0]:
+            lo, hi = min(lo, reach[lvl][0]), max(hi, reach[lvl][1])
+        reach[lvl] = (lo, hi)
+    return reach
 
 
 def trig_table(azim_num):
@@ -274,6 +340,8 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
     rows = torch.arange(off0, off0 + in0, device=dev)
     cols = torch.arange(off1, off1 + in1, device=dev)
     lvl0, pad0 = levels[0], pads[0]
+    # the padded row at which each level's buffer starts (a shard's window)
+    lvl_row0 = plan.get("lvl_row0") or (0,) * len(pads)
     step, two_step = k["step"], k["two_step"]
     out = torch.empty((n_rows, in0, in1), dtype=torch.float32, device=dev)
     if emit_argmax:
@@ -322,7 +390,7 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
             dj = np.floor(djf)
             fi = dif - di
             fj = djf - dj
-            r = off0 + int(di) + pad0
+            r = off0 + int(di) + pad0 - lvl_row0[0]
             c = off1 + int(dj) + pad0
             _check_rows("a level-0 row", r, r + in0 + 1, lvl0.shape[0])
             _check_rows("a level-0 column", c, c + in1 + 1, lvl0.shape[1])
@@ -470,7 +538,7 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
         for lvl, n_m, s_first, step_l in plan["phases_meta"][1:]:
             kp = 2 ** lvl
             bias = kp * 16384
-            lvl_t, pad = levels[lvl], pads[lvl]
+            lvl_t, pad = levels[lvl], pads[lvl] - lvl_row0[lvl]
 
             def samples(acc, m0, m1, lvl=lvl, kp=kp, bias=bias, lvl_t=lvl_t,
                         pad=pad, s_first=s_first, step_l=step_l,
@@ -484,14 +552,15 @@ def sweep_plain(z_inner, levels, plan, outer_shape, n_rows, row_mode,
                                 (off0 + ri + bias) // kp - bias // kp + pad,
                                 (off0 + in0 - 1 + ri + bias) // kp
                                 - bias // kp + pad + 1, lvl_t.shape[0])
+                    cpad = pad + lvl_row0[lvl]
                     _check_rows(f"a level-{lvl} column",
-                                (off1 + rj + bias) // kp - bias // kp + pad,
+                                (off1 + rj + bias) // kp - bias // kp + cpad,
                                 (off1 + in1 - 1 + rj + bias) // kp
-                                - bias // kp + pad + 1, lvl_t.shape[1])
+                                - bias // kp + cpad + 1, lvl_t.shape[1])
                     r = (torch.div(rows + (ri + bias), kp,
                                    rounding_mode="trunc") - bias // kp + pad)
                     c = (torch.div(cols + (rj + bias), kp,
-                                   rounding_mode="trunc") - bias // kp + pad)
+                                   rounding_mode="trunc") - bias // kp + cpad)
                     hs = lvl_t.index_select(0, r).index_select(1, c)
                     acc = point_update(acc, hs, s, id_off + m)
                 return acc
@@ -757,7 +826,9 @@ class _HzParams(ctypes.Structure):
            ("pool_min0", ctypes.c_void_p), ("counters", ctypes.c_void_p),
            ("n_steps", ctypes.c_int),
            # K2's sign-exact arm of the skips
-           ("sign_exact", ctypes.c_int)])
+           ("sign_exact", ctypes.c_int),
+           # the shard variants: each level buffer's first padded row
+           ("lvl_row0", ctypes.c_int * _MAX_LEVELS)])
 
 
 def kernel_lib():
@@ -815,10 +886,12 @@ def kernel_params(z_org, z_inner, levels, plan, outer_shape, n_rows, out):
     prm.steps, prm.n_steps = prm.keep[0].data_ptr(), steps.shape[0]
     prm.z_org, prm.z_inner = z_org.data_ptr(), z_inner.data_ptr()
     prm.out = out.data_ptr()
+    lvl_row0 = plan.get("lvl_row0") or (0,) * len(levels)
     for lvl, t in enumerate(levels):
         prm.lvl[lvl] = t.data_ptr()
         prm.lvl_w[lvl] = t.shape[1]
         prm.lvl_pad[lvl] = plan["pads"][lvl]
+        prm.lvl_row0[lvl] = lvl_row0[lvl]
     for p, (lvl, n_m, s_first, step_l) in enumerate(phases):
         prm.ph_lvl[p], prm.ph_n[p] = lvl, n_m
         prm.ph_s_first[p], prm.ph_step[p] = s_first, step_l
@@ -892,7 +965,8 @@ def skip_inputs(levels, plan):
 
 
 def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
-                tilt_ramp=None, mask=None, emit_argmax=False, counters=None):
+                tilt_ramp=None, mask=None, emit_argmax=False, counters=None,
+                pooled=None):
     """Raw ratios (A, in0, in1) from kernel K1 on ``z_org``'s card;
     ``emit_argmax``: ``(raw, ids, aux)`` from K1's argmax variant, as
     :func:`_ratio_plain` returns them.  With ``mask`` the outputs are first
@@ -900,8 +974,11 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
     only the live blocks are launched; with no live block nothing is.
     ``counters``: a (4,) int64 tensor on the card to which the launch adds
     the (cell, azimuth) samples of swept cells it took and skipped in the
-    safe d1 pairs and in the mip phases (:data:`COUNTER_FIELDS`)."""
-    global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES
+    safe d1 pairs and in the mip phases (:data:`COUNTER_FIELDS`).
+    ``pooled``: :func:`skip_inputs` of the levels (built here when None);
+    a shard whose levels are windows (``plan["lvl_row0"]``) passes the
+    window's rows of the full levels' companions."""
+    global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES, SHARD_KERNEL_LAUNCHES
     global MASK_KERNEL_LAUNCHES, TILT_KERNEL_LAUNCHES
     dev = z_org.device
     in0, in1 = plan["inner_shape"]
@@ -915,7 +992,12 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
     out = output(_POS_INIT, torch.float32)
     prm = kernel_params(z_org, z_inner, levels, plan, outer_shape,
                         trig.shape[0], out)
-    pooled, pool_min0 = skip_inputs(levels, plan)
+    if pooled is None:
+        if any(plan.get("lvl_row0") or ()):
+            raise ValueError("levels cut as windows need the pooled "
+                             "companions of the full levels")
+        pooled = skip_inputs(levels, plan)
+    pooled, pool_min0 = pooled
     trig_t = _replay._table_to(trig, dev)
     prm.keep += [trig_t, pool_min0, *pooled]
     prm.trig, prm.pool_min0 = trig_t.data_ptr(), pool_min0.data_ptr()
@@ -947,6 +1029,7 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
         ARGMAX_KERNEL_LAUNCHES += 1
     else:
         KERNEL_LAUNCHES += 1
+    SHARD_KERNEL_LAUNCHES += "shard" in plan
     MASK_KERNEL_LAUNCHES += mask is not None
     TILT_KERNEL_LAUNCHES += tilt_ramp is not None
     return result

@@ -69,6 +69,15 @@ _MAX_LEVELS = 32
 KERNEL_LAUNCHES = 0
 #: Launches of kernel K4 (the shadow mode) made by this process.
 SHADOW_KERNEL_LAUNCHES = 0
+#: Launches of K3's shard variant (one per pass of a shard of a sharded
+#: replay, :class:`ShardReplay`, and one per sharded replay for the
+#: conversion of the summed words, :func:`convert`), and of K4's.
+SHARD_KERNEL_LAUNCHES = 0
+SHADOW_SHARD_KERNEL_LAUNCHES = 0
+#: Bits of the ``passes`` of ``replay_bwd_passes_launch``
+#: (csrc/horizon_replay_bwd.cu): the level maxima, the scatter, the
+#: conversion of the boxes, the z_org sum.
+PASS_MAX, PASS_SCATTER, PASS_CONVERT, PASS_ZORG = 1, 2, 4, 8
 #: A level whose bound C on the terms per target is at most 2**18 takes one
 #: int64 word: its rounding error per target, C * 2**-e / 2, is then at most
 #: 2**-26 of its largest coefficient (a quarter of a float32 ulp).  Levels
@@ -391,15 +400,19 @@ def add_at(acc, index, val):
         acc.index_put_(index, val, accumulate=True)
 
 
-def _zorg_plain(graw, ids, aux, plan, dmdz):
+def _zorg_plain(graw, ids, aux, plan, dmdz, zcot=None):
     """The z_org cotangent: each cell's winner's term at S (a point's s, a
     parabola's D, a mip sample's s), horizon ``-(g * (1 / S))``, shadow
     ``g * (-1 - S * dmdz)``, summed over the rows in order
-    (``pallas_sweep.py:1871-1877, 1901-1915, 1974, 2087``)."""
+    (``pallas_sweep.py:1871-1877, 1901-1915, 1974, 2087``), onto ``zcot``
+    (a copy of it) when given."""
     k = plan["consts"]
     nx, n_dense = plan["nx"], plan["n_dense"]
-    zcot = torch.zeros(tuple(graw.shape[1:]), dtype=torch.float32,
-                       device=graw.device)
+    if zcot is None:
+        zcot = torch.zeros(tuple(graw.shape[1:]), dtype=torch.float32,
+                           device=graw.device)
+    else:
+        zcot = zcot.clone()
     tables = [(id_off, n_m, torch.from_numpy(np.asarray(_mip_s(
         s_first, step_l, np.arange(n_m), k["dist"]), dtype=np.float32)).to(
             graw.device)) for _, n_m, s_first, step_l, id_off in
@@ -427,6 +440,74 @@ def _zorg_plain(graw, ids, aux, plan, dmdz):
     return zcot
 
 
+def box_layout(boxes, fixed):
+    """``(cell_off, acc_off)``: the first cell of each level's box among
+    all boxes and the first int64 word of its accumulator, one entry more
+    than levels (the totals last), in the layout the kernels and
+    :func:`replay_words` share: every box row-major, ``words`` int64 per
+    cell."""
+    cells = [(r1 - r0) * (c1 - c0) for r0, r1, c0, c1 in boxes]
+    words = [n * w for n, (_, w) in zip(cells, fixed)]
+    return (np.cumsum([0] + cells).tolist(),
+            np.cumsum([0] + words).tolist())
+
+
+def replay_maxima(graw, ids, aux, plan, shifts=None, shadow=None):
+    """(levels,) float32: each level's largest |coefficient| over the
+    record (the first pass of the replay)."""
+    shifts = _row_shifts(shifts, shadow)
+    maxima = torch.zeros(len(plan["pads"]), dtype=torch.float32,
+                         device=graw.device)
+    for lvl, _, coef in replay_coefficients(graw, ids, aux, plan, shifts,
+                                            shadow is not None):
+        maxima[lvl] = torch.maximum(maxima[lvl], coef.abs().amax())
+    return maxima
+
+
+def replay_words(z_shape, graw, ids, aux, plan, fixed, maxima, boxes,
+                 shifts=None, shadow=None):
+    """The record's terms rounded to the fixed-point grid of ``fixed`` and
+    ``maxima`` (:func:`level_scales`) and summed as int64 over ``boxes``:
+    a flat int64 tensor in :func:`box_layout`'s layout (the second pass).
+    ``boxes`` must hold every target of the record."""
+    shifts = _row_shifts(shifts, shadow)
+    shapes = padded_level_shapes(z_shape, plan["pads"])
+    scales = level_scales(maxima.tolist(), fixed)
+    dev = graw.device
+    accs = [[torch.zeros(shape, dtype=torch.int64, device=dev)
+             for _ in range(words)]
+            for shape, (_, words) in zip(shapes, fixed)]
+    for lvl, place, coef in replay_coefficients(graw, ids, aux, plan, shifts,
+                                                shadow is not None):
+        for index, term in spread(plan, lvl, place, coef):
+            for acc, q in zip(accs[lvl], quantize(term, *scales[lvl])):
+                add_at(acc, index, q)
+    out = [torch.stack([a[r0:r1, c0:c1] for a in acc], dim=-1).reshape(-1)
+           for acc, (r0, r1, c0, c1) in zip(accs, boxes)]
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.int64)
+
+
+def convert_words(z_shape, plan, words, boxes, fixed, maxima):
+    """The level cotangents from the accumulated ``words`` of ``boxes``
+    (:func:`box_layout`), each cell rounded once to float32; a level with a
+    non-finite coefficient is NaN over its box (the third pass).  Cells
+    outside the boxes are 0."""
+    shapes = padded_level_shapes(z_shape, plan["pads"])
+    scales = level_scales(maxima.tolist(), fixed)
+    _, acc_off = box_layout(boxes, fixed)
+    cots = []
+    for lvl, (shape, (r0, r1, c0, c1), (_, n_w)) in enumerate(
+            zip(shapes, boxes, fixed)):
+        cot = torch.zeros(shape, dtype=torch.float32, device=words.device)
+        box = words[acc_off[lvl]:acc_off[lvl + 1]].view(r1 - r0, c1 - c0,
+                                                        n_w)
+        cot[r0:r1, c0:c1] = dequantize(box.unbind(-1), *scales[lvl])
+        if not math.isfinite(float(maxima[lvl])):
+            cot[r0:r1, c0:c1] = math.nan
+        cots.append(cot)
+    return cots
+
+
 def backward_replay_plain(z_shape, graw, ids, aux, plan, shifts=None,
                           shadow=None):
     """Winner replay in plain torch: per row and sample, the winners'
@@ -435,7 +516,9 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, shifts=None,
     added as int64 into shifted slices of level 0 (bilinear corners) or,
     on mip levels, with ``index_put_(accumulate=True)``; a first pass over
     the same fields finds each level's largest |coefficient|, which fixes
-    the grid (:func:`level_scales`).
+    the grid (:func:`level_scales`).  The passes are :func:`replay_maxima`,
+    :func:`replay_words`, :func:`convert_words` and the z_org sum, the
+    kernels' four.
 
     ``graw``/``aux`` (A, in0, in1) float32, ``ids`` (A, in0, in1) int32 on
     one device; ``plan`` from :func:`fused_sweep.plan_sweep` (its
@@ -447,34 +530,23 @@ def backward_replay_plain(z_shape, graw, ids, aux, plan, shifts=None,
     coefficient is NaN over its target box.  Returns ``(level_cots,
     zcot)``."""
     global LAST_LEVELS
-    shifts = _row_shifts(shifts, shadow)
-    shapes = padded_level_shapes(z_shape, plan["pads"])
-    fixed = fixed_point_levels(plan, shifts.shape[0], len(shapes))
-    dev = graw.device
-
-    def fields():
-        return replay_coefficients(graw, ids, aux, plan, shifts,
-                                   shadow is not None)
-
-    maxima = torch.zeros(len(shapes), dtype=torch.float32, device=dev)
-    for lvl, _, coef in fields():
-        maxima[lvl] = torch.maximum(maxima[lvl], coef.abs().amax())
-    scales = level_scales(maxima.tolist(), fixed)
-    accs = [[torch.zeros(shape, dtype=torch.int64, device=dev)
-             for _ in range(words)] for shape, (_, words) in zip(shapes, fixed)]
-    for lvl, place, coef in fields():
-        for index, term in spread(plan, lvl, place, coef):
-            for acc, q in zip(accs[lvl], quantize(term, *scales[lvl])):
-                add_at(acc, index, q)
-    cots = [dequantize(acc, *scale) for acc, scale in zip(accs, scales)]
-    for cot, m, (r0, r1, c0, c1) in zip(cots, maxima.tolist(),
-                                        _target_boxes(z_shape, plan, shifts)):
-        if not math.isfinite(m):
-            cot[r0:r1, c0:c1] = math.nan
+    rows = _row_shifts(shifts, shadow)
+    fixed = fixed_point_levels(plan, rows.shape[0], len(plan["pads"]))
+    boxes = _target_boxes(z_shape, plan, rows)
+    maxima = replay_maxima(graw, ids, aux, plan, shifts, shadow)
+    words = replay_words(z_shape, graw, ids, aux, plan, fixed, maxima, boxes,
+                         shifts, shadow)
+    cots = convert_words(z_shape, plan, words, boxes, fixed, maxima)
     LAST_LEVELS = (fixed, maxima)
+    return cots, zorg_plain(graw, ids, aux, plan, shadow)
+
+
+def zorg_plain(graw, ids, aux, plan, shadow=None, zcot=None):
+    """The z_org cotangent in plain torch (the fourth pass); ``zcot``: the
+    running sum to continue (the rows before this record's), else 0."""
     dmdz = None if shadow is None else shadow_dmdz(shadow[1], shadow[0],
                                                    plan, shadow[2])
-    return cots, _zorg_plain(graw, ids, aux, plan, dmdz)
+    return _zorg_plain(graw, ids, aux, plan, dmdz, zcot)
 
 
 # ---------------------------------------------------------------------------
@@ -501,7 +573,8 @@ class _BwdParams(ctypes.Structure):
                      "n_dense", "n_cells")]
         + [(n, ctypes.c_float)
            for n in ("dx", "dy", "step", "dist", "half_step", "inv_l0",
-                     "inv_l1", "x0", "y0")])
+                     "inv_l1", "x0", "y0")]
+        + [("zcot_continue", ctypes.c_int)])
 
 
 def _kernel_lib():
@@ -511,6 +584,10 @@ def _kernel_lib():
         fn.argtypes = [ctypes.POINTER(_BwdParams), ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.replay_bwd_passes_launch.argtypes = [
+        ctypes.POINTER(_BwdParams), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.replay_bwd_passes_launch.restype = ctypes.c_int
     lib.horizon_replay_bwd_error_string.argtypes = [ctypes.c_int]
     lib.horizon_replay_bwd_error_string.restype = ctypes.c_char_p
     lib.horizon_replay_bwd_params_size.argtypes = []
@@ -581,21 +658,16 @@ def _table_to(table, dev):
         .pin_memory().to(dev, non_blocking=True)
 
 
-def _bwd_cuda(z_shape, graw, ids, aux, plan, shifts=None, shadow=None):
-    """``(level_cots, zcot)`` from kernel K3 on ``graw``'s card (the mode
-    given by ``shifts``); with ``shadow = (sun_table, z_org, grid_origin)``
-    from kernel K4, which also reads the (T, 8) table and the (in0, in1)
-    ray origins."""
-    global KERNEL_LAUNCHES, SHADOW_KERNEL_LAUNCHES, LAST_LEVELS
+def _check_record(graw, ids, aux, a_num, plan, shadow):
+    """The record and (shadow) the sun table and z_org as the kernels take
+    them."""
     dev = graw.device
     in0, in1 = plan["inner_shape"]
-    shifts = _row_shifts(shifts, shadow)
-    a_num = shifts.shape[0]
     checks = [(graw, torch.float32, (a_num, in0, in1)),
               (ids, torch.int32, (a_num, in0, in1)),
               (aux, torch.float32, (a_num, in0, in1))]
     if shadow is not None:
-        table, z_org, grid_origin = shadow
+        table, z_org, _ = shadow
         checks.append((z_org, torch.float32, (in0, in1)))
         if table.shape != (a_num, 8):
             raise ValueError(f"K4 takes a ({a_num}, 8) sun table, got "
@@ -606,67 +678,244 @@ def _bwd_cuda(z_shape, graw, ids, aux, plan, shifts=None, shadow=None):
             raise ValueError("the replay kernels take contiguous (A, in0, "
                              "in1) float32 graw/aux, int32 ids and an (in0, "
                              "in1) float32 z_org on one CUDA device")
-    phases = plan["phases_meta"]
+
+
+def _bwd_params(z_shape, plan, fixed, boxes, dev, record=None, rows=None,
+                shadow=None):
+    """``BwdParams`` of a launch: the levels' layout, ``boxes`` and the
+    fixed-point words of ``fixed`` in :func:`box_layout`, and, with
+    ``record = (graw, ids, aux)``, the record, its rows of the shift table
+    ``rows`` and (K4) the ``shadow`` inputs.  The outputs (``acc``,
+    ``lvl_max``, ``cot``, ``zcot``) are left for the caller; the structure
+    keeps the tables it stages alive (``prm.keep``)."""
     shapes = padded_level_shapes(z_shape, plan["pads"])
+    phases = plan["phases_meta"]
     if len(shapes) > _MAX_LEVELS or len(phases) > _MAX_LEVELS:
         raise ValueError(f"at most {_MAX_LEVELS} pyramid levels")
-    fixed = fixed_point_levels(plan, a_num, len(shapes))
-    boxes = _target_boxes(z_shape, plan, shifts)
-    cells = [(r1 - r0) * (c1 - c0) for r0, r1, c0, c1 in boxes]
-    words = [n * w for n, (_, w) in zip(cells, fixed)]
-    cots = [torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes]
-    zcot = torch.empty((in0, in1), dtype=torch.float32, device=dev)
-    # the fixed-point accumulators of every level's box, one after another,
-    # and the bits of each level's largest |coefficient|
-    acc = torch.zeros(max(sum(words), 1), dtype=torch.int64, device=dev)
-    lvl_max = torch.zeros(_MAX_LEVELS, dtype=torch.int32, device=dev)
-    shift_t = _table_to(shifts, dev)
     prm = _BwdParams()
-    prm.ids, prm.g, prm.aux = ids.data_ptr(), graw.data_ptr(), aux.data_ptr()
-    prm.shift, prm.zcot = shift_t.data_ptr(), zcot.data_ptr()
-    prm.acc, prm.lvl_max = acc.data_ptr(), lvl_max.data_ptr()
-    if shadow is not None:
-        sun_t = _table_to(table, dev)
-        prm.sun, prm.z_org = sun_t.data_ptr(), z_org.data_ptr()
-        prm.x0, prm.y0 = np.float32(grid_origin[0]), np.float32(
-            grid_origin[1])
-    cell_off = np.cumsum([0] + cells)
-    acc_off = np.cumsum([0] + words)
-    for lvl, (t, box, (c_bits, n_words)) in enumerate(zip(cots, boxes,
-                                                          fixed)):
-        prm.cot[lvl] = t.data_ptr()
-        prm.lvl_w[lvl] = t.shape[1]
+    prm.keep = []
+    if record is not None:
+        graw, ids, aux = record
+        prm.ids, prm.g = ids.data_ptr(), graw.data_ptr()
+        prm.aux = aux.data_ptr()
+        prm.keep.append(_table_to(rows, dev))
+        prm.shift = prm.keep[-1].data_ptr()
+        prm.a_num = rows.shape[0]
+        prm.in0, prm.in1 = plan["inner_shape"]
+        if shadow is not None:
+            table, z_org, grid_origin = shadow
+            prm.keep.append(_table_to(table, dev))
+            prm.sun, prm.z_org = prm.keep[-1].data_ptr(), z_org.data_ptr()
+            prm.x0, prm.y0 = np.float32(grid_origin[0]), np.float32(
+                grid_origin[1])
+    cell_off, acc_off = box_layout(boxes, fixed)
+    for lvl, (shape, box, (c_bits, n_words)) in enumerate(zip(shapes, boxes,
+                                                             fixed)):
+        prm.lvl_w[lvl] = shape[1]
         prm.lvl_pad[lvl] = plan["pads"][lvl]
         (prm.box_r0[lvl], prm.box_r1[lvl], prm.box_c0[lvl],
          prm.box_c1[lvl]) = box
-        prm.cell_off[lvl] = int(cell_off[lvl])
-        prm.acc_off[lvl] = int(acc_off[lvl])
+        prm.cell_off[lvl] = cell_off[lvl]
+        prm.acc_off[lvl] = acc_off[lvl]
         prm.lvl_cbits[lvl], prm.lvl_words[lvl] = c_bits, n_words
-    prm.n_cells = int(cell_off[-1])
+    prm.n_cells = cell_off[-1]
+    prm.n_words = acc_off[-1]
     for p, (lvl, n_m, s_first, step_l) in enumerate(phases):
         prm.ph_lvl[p], prm.ph_n[p] = lvl, n_m
         prm.ph_s_first[p], prm.ph_step[p] = s_first, step_l
     prm.n_phases = len(phases)
-    prm.in0, prm.in1, prm.a_num = in0, in1, a_num
     prm.off0, prm.off1 = plan["offset"]
     prm.nx, prm.n_dense = plan["nx"], plan["n_dense"]
     prm.dx, prm.dy = np.float32(plan["dx"]), np.float32(plan["dy"])
     for n in ("step", "dist", "half_step", "inv_l0", "inv_l1"):
         setattr(prm, n, plan["consts"][n])
+    return prm
+
+
+def _set_cots(prm, cots):
+    for lvl, t in enumerate(cots):
+        prm.cot[lvl] = t.data_ptr()
+
+
+def _launch(prm, n_levels, shadow, dev, passes=None):
+    """Launch the replay's ``passes`` (all four when None) on the current
+    stream of ``dev``; raise if the launch fails."""
     lib = _kernel_lib()
-    entry = (lib.horizon_replay_bwd_launch if shadow is None
-             else lib.shadow_replay_bwd_launch)
-    err = entry(ctypes.byref(prm), len(shapes), dev.index,
-                torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if passes is None:
+        entry = (lib.shadow_replay_bwd_launch if shadow
+                 else lib.horizon_replay_bwd_launch)
+        err = entry(ctypes.byref(prm), n_levels, dev.index, stream)
+    else:
+        err = lib.replay_bwd_passes_launch(ctypes.byref(prm), n_levels,
+                                           int(shadow), passes, dev.index,
+                                           stream)
     if err != 0:
         msg = lib.horizon_replay_bwd_error_string(err).decode()
         raise RuntimeError(f"horizon_replay_bwd kernel launch failed: {msg}")
+
+
+def _bwd_cuda(z_shape, graw, ids, aux, plan, shifts=None, shadow=None):
+    """``(level_cots, zcot)`` from kernel K3 on ``graw``'s card (the mode
+    given by ``shifts``); with ``shadow = (sun_table, z_org, grid_origin)``
+    from kernel K4, which also reads the (T, 8) table and the (in0, in1)
+    ray origins."""
+    global KERNEL_LAUNCHES, SHADOW_KERNEL_LAUNCHES, LAST_LEVELS
+    dev = graw.device
+    in0, in1 = plan["inner_shape"]
+    rows = _row_shifts(shifts, shadow)
+    _check_record(graw, ids, aux, rows.shape[0], plan, shadow)
+    shapes = padded_level_shapes(z_shape, plan["pads"])
+    fixed = fixed_point_levels(plan, rows.shape[0], len(shapes))
+    boxes = _target_boxes(z_shape, plan, rows)
+    prm = _bwd_params(z_shape, plan, fixed, boxes, dev, (graw, ids, aux),
+                      rows, shadow)
+    cots = [torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes]
+    zcot = torch.empty((in0, in1), dtype=torch.float32, device=dev)
+    # the fixed-point accumulators of every level's box, one after another,
+    # and the bits of each level's largest |coefficient|
+    acc = torch.zeros(max(prm.n_words, 1), dtype=torch.int64, device=dev)
+    lvl_max = torch.zeros(_MAX_LEVELS, dtype=torch.int32, device=dev)
+    prm.acc, prm.lvl_max = acc.data_ptr(), lvl_max.data_ptr()
+    prm.zcot = zcot.data_ptr()
+    _set_cots(prm, cots)
+    _launch(prm, len(shapes), shadow is not None, dev)
     if shadow is None:
         KERNEL_LAUNCHES += 1
     else:
         SHADOW_KERNEL_LAUNCHES += 1
     LAST_LEVELS = (fixed, lvl_max[:len(shapes)].view(torch.float32))
     return cots, zcot
+
+
+# ---------------------------------------------------------------------------
+# Sharded replay (the shard variants of K3 and K4)
+# ---------------------------------------------------------------------------
+
+def _count_shard(shadow):
+    global SHARD_KERNEL_LAUNCHES, SHADOW_SHARD_KERNEL_LAUNCHES
+    if shadow:
+        SHADOW_SHARD_KERNEL_LAUNCHES += 1
+    else:
+        SHARD_KERNEL_LAUNCHES += 1
+
+
+class ShardReplay:
+    """One shard's part of a sharded winner replay (the reference's
+    ``backward_replay_fn`` / ``shadow_backward_replay_fn`` with a
+    ``shard_off``, ``pallas_sweep.py:2238-2364, 2399-2482``).
+
+    ``graw``, ``ids``, ``aux``: the shard's record (its azimuths or suns,
+    its rows); ``plan``: its plan (``fused_sweep.shard_plan``); ``shifts``
+    its rows of the shift table, or ``shadow = (sun_table, z_org,
+    grid_origin)`` with its rows of ``z_org``; ``fixed``: the whole run's
+    :func:`fixed_point_levels`.  The passes run one at a time, so that the
+    shards of a run agree the fixed-point grid before any of them scatters:
+    :meth:`maxima`, then :meth:`words` with the whole run's maxima (int64
+    words of the shard's own target boxes, :attr:`boxes`, in global padded
+    coordinates), and :meth:`zorg`.  On a CUDA record each pass is a launch
+    of K3 or K4's shard variant (``replay_bwd_passes_launch``, counted in
+    :data:`SHARD_KERNEL_LAUNCHES` / :data:`SHADOW_SHARD_KERNEL_LAUNCHES`),
+    on a CPU record its plain version."""
+
+    def __init__(self, z_shape, graw, ids, aux, plan, fixed, shifts=None,
+                 shadow=None):
+        self.z_shape, self.plan, self.fixed = tuple(z_shape), plan, fixed
+        self.record = (graw, ids, aux)
+        self.shifts, self.shadow = shifts, shadow
+        rows = _row_shifts(shifts, shadow)
+        self.boxes = _target_boxes(z_shape, plan, rows)
+        self.n_levels = len(plan["pads"])
+        self.dev = graw.device
+        if graw.is_cuda:
+            _check_record(graw, ids, aux, rows.shape[0], plan, shadow)
+            self.prm = _bwd_params(z_shape, plan, fixed, self.boxes, self.dev,
+                                   self.record, rows, shadow)
+            self.lvl_max = torch.zeros(_MAX_LEVELS, dtype=torch.int32,
+                                       device=self.dev)
+            self.prm.lvl_max = self.lvl_max.data_ptr()
+
+    def _run(self, passes):
+        _launch(self.prm, self.n_levels, self.shadow is not None, self.dev,
+                passes)
+        _count_shard(self.shadow is not None)
+
+    def maxima(self):
+        """(levels,) float32: each level's largest |coefficient| of this
+        shard's record."""
+        if self.dev.type != "cuda":
+            return replay_maxima(*self.record, self.plan, self.shifts,
+                                 self.shadow)
+        self.lvl_max.zero_()
+        self._run(PASS_MAX)
+        return self.lvl_max[:self.n_levels].view(torch.float32).clone()
+
+    def words(self, maxima):
+        """The shard's terms on the grid of the whole run's ``maxima``,
+        summed as int64 over :attr:`boxes` (:func:`box_layout`)."""
+        if self.dev.type != "cuda":
+            return replay_words(self.z_shape, *self.record, self.plan,
+                                self.fixed, maxima, self.boxes, self.shifts,
+                                self.shadow)
+        self.lvl_max[:self.n_levels] = maxima.to(self.dev).view(torch.int32)
+        acc = torch.zeros(max(self.prm.n_words, 1), dtype=torch.int64,
+                          device=self.dev)
+        self.prm.acc = acc.data_ptr()
+        self._run(PASS_SCATTER)
+        return acc[:self.prm.n_words]
+
+    def zorg(self, zcot=None):
+        """The z_org cotangent of the shard's rows, summed over its rows of
+        the record in order onto ``zcot`` (the sum of the rows before
+        them) when given."""
+        if self.dev.type != "cuda":
+            return zorg_plain(*self.record, self.plan, self.shadow,
+                              None if zcot is None else zcot.to(self.dev))
+        out = (torch.empty(self.plan["inner_shape"], dtype=torch.float32,
+                           device=self.dev) if zcot is None
+               else zcot.to(self.dev, copy=True).contiguous())
+        self.prm.zcot, self.prm.zcot_continue = out.data_ptr(), int(
+            zcot is not None)
+        self._run(PASS_ZORG)
+        return out
+
+
+def add_words(dst, dst_boxes, src, src_boxes, fixed):
+    """``dst += src`` of two accumulators of :func:`box_layout`, ``src``'s
+    boxes inside ``dst``'s: exact (integer addition)."""
+    _, d_off = box_layout(dst_boxes, fixed)
+    _, s_off = box_layout(src_boxes, fixed)
+    src = src.to(dst.device)
+    for lvl, (db, sb, (_, n_w)) in enumerate(zip(dst_boxes, src_boxes,
+                                                 fixed)):
+        if sb[1] <= sb[0] or sb[3] <= sb[2]:
+            continue
+        if sb[0] < db[0] or sb[1] > db[1] or sb[2] < db[2] or sb[3] > db[3]:
+            raise ValueError(f"level {lvl}: box {sb} is not inside {db}")
+        d = dst[d_off[lvl]:d_off[lvl + 1]].view(db[1] - db[0], db[3] - db[2],
+                                                n_w)
+        d[sb[0] - db[0]:sb[1] - db[0], sb[2] - db[2]:sb[3] - db[2]] += \
+            src[s_off[lvl]:s_off[lvl + 1]].view(sb[1] - sb[0], sb[3] - sb[2],
+                                               n_w)
+
+
+def convert(z_shape, plan, words, boxes, fixed, maxima, shadow=False):
+    """:func:`convert_words` of a sharded replay's summed words: on a CUDA
+    tensor the conversion pass of K3 (``shadow``: K4), once."""
+    if words.device.type != "cuda":
+        return convert_words(z_shape, plan, words, boxes, fixed, maxima)
+    dev = words.device
+    shapes = padded_level_shapes(z_shape, plan["pads"])
+    prm = _bwd_params(z_shape, plan, fixed, boxes, dev)
+    cots = [torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes]
+    lvl_max = torch.zeros(_MAX_LEVELS, dtype=torch.int32, device=dev)
+    lvl_max[:len(shapes)] = maxima.to(dev).view(torch.int32)
+    words = words.contiguous()
+    prm.acc, prm.lvl_max = words.data_ptr(), lvl_max.data_ptr()
+    _set_cots(prm, cots)
+    _launch(prm, len(shapes), shadow, dev, PASS_CONVERT)
+    _count_shard(shadow)
+    return cots
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,9 @@ ARGMAX_KERNEL_LAUNCHES = 0
 #: Launches of K2 over the live blocks of a mask (K2-mask), counted
 #: besides :data:`KERNEL_LAUNCHES`.
 MASK_KERNEL_LAUNCHES = 0
+#: Launches of K2 or K2-argmax by a shard of a sharded metric (a plan of
+#: ``fused_sweep.shard_plan``), counted besides the entry's own count.
+SHARD_KERNEL_LAUNCHES = 0
 
 _F32 = np.float32
 #: float32(-1e-12): the concavity threshold of the vertex candidate
@@ -225,6 +228,7 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
     only the live blocks (``fused_sweep.live_blocks``) are launched; with
     no live block nothing is."""
     global KERNEL_LAUNCHES, ARGMAX_KERNEL_LAUNCHES, MASK_KERNEL_LAUNCHES
+    global SHARD_KERNEL_LAUNCHES
     if emit_argmax and not exact_metric:
         raise ValueError("emit_argmax requires exact_metric=True")
     if emit_argmax and mask is not None:
@@ -268,6 +272,7 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
     lib = _fused.kernel_lib()
     _fused.launch(lib, lib.shadow_sweep_argmax_launch if emit_argmax
                   else lib.shadow_sweep_launch, prm, dev)
+    SHARD_KERNEL_LAUNCHES += "shard" in plan
     if emit_argmax:
         ARGMAX_KERNEL_LAUNCHES += 1
         return out, ids, aux

@@ -49,18 +49,19 @@ import numpy as np
 import pytest
 import torch
 
-from horayzon_tpu_torch import (auxiliary, horizon, shadow, terrain,
-                                topo_param)
+from horayzon_tpu_torch import (auxiliary, horizon, parallel, shadow,
+                                terrain, topo_param)
 from horayzon_tpu_torch.models import CurvedPipeline
 from horayzon_tpu_torch.ops import _build, fused_sweep, multires, replay
 from horayzon_tpu_torch.ops import read_floor, refraction, sweep
 from horayzon_tpu_torch.ops import shadow_sweep as ss
+from horayzon_tpu_torch.parallel import shard
 
 from reference_impl import gaussian_bumps_terrain
-from torch_scenes import (SHADOW_SKIP_SCENES, SKIP_SCENES, bumps,
-                          refraction_numpy,
+from torch_scenes import (SHADOW_SKIP_SCENES, SHARD_MESHES, SKIP_SCENES,
+                          bumps, refraction_numpy,
                           curved_setup, curved_terrain_inputs,
-                          shadow_skip_scene, skip_scene)
+                          shadow_skip_scene, sharded_scenes, skip_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -1326,3 +1327,269 @@ def test_xla_engines_on_card_match_cpu(cuda):
         assert torch.equal(cg, cc), engine
         assert torch.allclose(sg, sc, rtol=1e-6, atol=1e-5, equal_nan=True)
         assert (cg == 2).any()
+
+
+# ---------------------------------------------------------------------------
+# The shard variants (horayzon_tpu_torch.parallel): the shards of a mesh run
+# in turn on one card, on tests/test_torch_sharding.py's scenes
+# ---------------------------------------------------------------------------
+
+def _slot_mesh(dev, n_tile, n_azim):
+    return parallel.make_mesh(n_tile, n_azim,
+                              devices=[torch.device(dev)] * (n_tile * n_azim))
+
+
+def _records(fwd, records, like):
+    """The shards' (ids, aux) laid out by rows and azimuths."""
+    ids, aux = torch.empty_like(like[1]), torch.empty_like(like[2])
+    for t, a, i, d in records:
+        sl = (slice(a * fwd.az_loc, (a + 1) * fwd.az_loc),
+              slice(t * fwd.rows, (t + 1) * fwd.rows))
+        ids[sl], aux[sl] = i, d
+    return ids, aux
+
+
+@pytest.mark.parametrize("n_tile,n_azim", SHARD_MESHES)
+def test_k1_shard_variants_bit_equal(cuda, n_tile, n_azim):
+    """K1, K1-argmax and K1-tilt over the shards: the assembled raw ratios
+    (ids and D) bit-equal to the single launch on the card and to the
+    sharded plain version on the CPU; one launch per slot."""
+    s = sharded_scenes()
+    mesh = _slot_mesh(cuda, n_tile, n_azim)
+    cpu_mesh = _slot_mesh("cpu", n_tile, n_azim)
+    for tilt in (False, True):
+        for argmax in (False, True):
+            out = []
+            for dev, m in ((cuda, mesh), ("cpu", cpu_mesh)):
+                ramp = tuple(torch.from_numpy(r).to(dev)
+                             for r in s["ramp"]) if tilt else None
+                args = fused_sweep.sweep_args(
+                    torch.from_numpy(s["terrain"]).to(dev), tilt_ramp=ramp,
+                    hori_acc=0.25, **s["tilt_kw"])
+                n0 = fused_sweep.SHARD_KERNEL_LAUNCHES
+                fwd = shard._HzForward(m, args)
+                raw, rec = fwd.run(emit_argmax=argmax)
+                if dev == cuda:
+                    assert (fused_sweep.SHARD_KERNEL_LAUNCHES
+                            == n0 + n_tile * n_azim)
+                    single = fused_sweep._ratio_cuda(*args,
+                                                     emit_argmax=argmax)
+                    single = single if argmax else (single,)
+                got = (raw,) + (_records(fwd, rec, single) if argmax
+                                else ())
+                out.append(tuple(t.cpu() for t in got))
+            torch.cuda.synchronize()
+            for g, w, p in zip(out[0], single, out[1]):
+                assert torch.equal(g, w.cpu()) and torch.equal(g, p), (
+                    tilt, argmax)
+
+
+@pytest.mark.parametrize("n_tile,n_azim", [(8, 1), (2, 2)])
+def test_k2_shard_variants_bit_equal(cuda, n_tile, n_azim):
+    """K2 and K2-argmax over the tiles: metric, ids and D bit-equal to the
+    single launch and to the sharded plain version."""
+    s = sharded_scenes()
+    for argmax in (False, True):
+        out = []
+        for dev in (cuda, "cpu"):
+            args = ss.metric_args(
+                torch.from_numpy(s["terrain"]).to(dev), s["z_org"],
+                s["z_in"], s["table3"],
+                **{k: v for k, v in s["shadow_kw"].items()
+                   if k != "grid_origin"})
+            n0 = ss.SHARD_KERNEL_LAUNCHES
+            met, rec = shard._shadow_run(_slot_mesh(dev, n_tile, n_azim),
+                                         args, (0.0, 0.0), argmax)
+            if dev == cuda:
+                assert ss.SHARD_KERNEL_LAUNCHES == n0 + n_tile
+                single = ss._metric_cuda(*args, grid_origin=(0.0, 0.0),
+                                         emit_argmax=argmax)
+                single = single if argmax else (single,)
+            got = [met]
+            if argmax:
+                ids, aux = torch.empty_like(met, dtype=torch.int32), \
+                    torch.empty_like(met)
+                rows = 32 // n_tile
+                for t, _, i, d in rec:
+                    ids[:, t * rows:(t + 1) * rows] = i
+                    aux[:, t * rows:(t + 1) * rows] = d
+                got += [ids, aux]
+            out.append([t.cpu() for t in got])
+        torch.cuda.synchronize()
+        for g, w, p in zip(out[0], single, out[1]):
+            assert torch.equal(g, w.cpu()) and torch.equal(g, p), argmax
+
+
+def test_k3_k4_shard_variants_bit_equal(cuda):
+    """K3 and K4's shard variants: the sharded gradients on the card
+    bit-equal to the single-device gradients on the card (and across two
+    runs), and the sharded replay's level and z_org cotangents bit-equal to
+    its plain version's on the same record and cotangent."""
+    s = sharded_scenes()
+    mesh = _slot_mesh(cuda, 4, 2)
+
+    def hz_step(fn, dev):
+        zz = torch.from_numpy(s["terrain"]).to(dev).requires_grad_(True)
+        rr = tuple(torch.from_numpy(r).to(dev).requires_grad_(True)
+                   for r in s["ramp"])
+        torch.mean(fn(zz, rr) ** 2).backward()
+        return zz.grad, rr[0].grad, rr[1].grad
+
+    n3 = replay.SHARD_KERNEL_LAUNCHES
+    runs = [hz_step(lambda zz, rr: shard.horizon_sweep_fused_sharded(
+        mesh, zz, tilt_ramp=rr, **s["tilt_kw"]), cuda) for _ in range(2)]
+    assert replay.SHARD_KERNEL_LAUNCHES == n3 + 2 * (3 * 8 + 1)
+    want = hz_step(lambda zz, rr: fused_sweep.horizon_sweep_fused(
+        zz, tilt_ramp=rr, **s["tilt_kw"]), cuda)
+    for a, b, c in zip(*runs, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert want[0].abs().max().item() > 0.0
+
+    def sh_step(fn, dev):
+        zz = torch.from_numpy(s["terrain"]).to(dev).requires_grad_(True)
+        zo = (torch.from_numpy(s["z_org"]).to(dev)).requires_grad_(True)
+        met = fn(zz, zo, zz[16:48, 16:48])
+        torch.mean(torch.sigmoid(met / 5.0)).backward()
+        return zz.grad, zo.grad
+
+    n4 = replay.SHADOW_SHARD_KERNEL_LAUNCHES
+    got = sh_step(lambda zz, zo, zi: shard.shadow_metric_fused_sharded(
+        mesh, zz, zo, zi, s["table3"], **s["shadow_kw"]), cuda)
+    assert replay.SHADOW_SHARD_KERNEL_LAUNCHES == n4 + 3 * 4 + 1
+    want = sh_step(lambda zz, zo, zi: ss.shadow_metric_fused(
+        zz, zo, zi, s["table3"], **s["shadow_kw"]), cuda)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # the replay alone, card against CPU, on one record and cotangent
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(8, 32, 32)).astype(np.float32))
+    res = []
+    for dev in (cuda, "cpu"):
+        args = fused_sweep.sweep_args(torch.from_numpy(s["terrain"]).to(dev),
+                                      hori_acc=0.25, **s["tilt_kw"])
+        m = _slot_mesh(dev, 4, 2)
+        fwd = shard._HzForward(m, args)
+        _, rec = fwd.run(emit_argmax=True)
+        cots, zcot = shard._sharded_replay(
+            m, (64, 64), fwd.plan, g.to(dev), rec,
+            replay.horizon_shifts(fwd.trig, fwd.plan), fwd.rows, fwd.az_loc)
+        res.append([c.cpu() for c in cots] + [zcot.cpu()])
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+def test_multires_shard_windows_guarded(cuda):
+    """Every tile's fine windows, each between guard rows of 1e6 m (a read
+    past a window would win the maximum: a NaN guard would not show, since
+    the kernel's max drops NaN): K1-argmax per slot bit-equal to the single
+    launch's rows and azimuths; the sharded call's angles and both
+    gradients bit-equal to the single-device call's on the card."""
+    s = sharded_scenes()
+    zf, zc = (torch.from_numpy(s[k]).to(cuda) for k in ("z_fine", "z_coarse"))
+    kw = s["mr_kw"]
+    geo = {k: kw[k] for k in ("dx", "dy", "offset", "inner_shape",
+                              "dist_search", "hori_acc")}
+    levels = multires.multires_levels(zf, zc, ratio_log2=2,
+                                      coarse_offset=kw["coarse_offset"],
+                                      **geo)
+    args = fused_sweep.sweep_args(zf, pyramid=levels, azim_num=8, **geo)
+    single = fused_sweep._ratio_cuda(*args, emit_argmax=True)
+    mesh = _slot_mesh(cuda, 4, 2)
+    fwd = shard._HzForward(mesh, args, n_fine=2)
+    guard = 8
+    for t, a, dev in mesh.local_slots():
+        windows, (pool, pmin) = fwd.slot_levels(t, dev)
+        guarded = []
+        for lvl, w in enumerate(windows):
+            if lvl >= 2:
+                guarded.append(w)
+                continue
+            buf = torch.full((w.shape[0] + 2 * guard, w.shape[1]), 1.0e6,
+                             device=dev)
+            buf[guard:guard + w.shape[0]] = w
+            guarded.append(buf[guard:guard + w.shape[0]])
+        r0, az0 = t * fwd.rows, a * fwd.az_loc
+        got = fused_sweep._ratio_cuda(
+            args[0][r0:r0 + 8].contiguous(), args[1][r0:r0 + 8].contiguous(),
+            guarded, fwd.trig[az0:az0 + 4], fwd.slot_plan(t), args[5],
+            emit_argmax=True, pooled=(pool, pmin))
+        for g, w in zip(got, single):
+            assert torch.equal(g, w[az0:az0 + 4, r0:r0 + 8]), (t, a)
+
+    def step(fn):
+        f = zf.clone().requires_grad_(True)
+        c = zc.clone().requires_grad_(True)
+        h = fn(f, c)
+        torch.mean(h ** 2).backward()
+        return h.detach(), f.grad, c.grad
+
+    got = step(lambda f, c: shard.horizon_sweep_multires_fused_sharded(
+        mesh, f, c, **kw))
+    want = step(lambda f, c: multires.horizon_sweep_multires_fused(
+        f, c, **kw))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_xla_engines_sharded_on_card(cuda):
+    """The sharded XLA engines on cuda:0 slots equal their single-device
+    calls on the card."""
+    s = sharded_scenes()
+    z = torch.from_numpy(s["terrain"]).to(cuda)
+    azim = (2 * np.pi / 8) * np.arange(8)
+    kw = dict(dx=25.0, dy=-25.0, offset=(16, 16), inner_shape=(32, 32),
+              dist_search=500.0)
+    ref, _ = sweep.horizon_sweep(z, azim=azim, **kw)
+    got = shard.horizon_sweep_sharded(_slot_mesh(cuda, 2, 4), z, azim=azim,
+                                      **kw)
+    assert got.is_cuda and torch.equal(got, ref)
+    sched = sweep.build_schedule(25.0, s["diag"], sweep.default_rel_err(0.25))
+    fields = [torch.from_numpy(f).to(cuda) for f in
+              (s["z_org"], s["z_in"], np.full((32, 32), 0.2, np.float32))]
+    u = np.array([0.0, 1.0 / 25.0], dtype=np.float32)
+    ref = sweep.shadow_metric(z, *fields, u, sched, (16, 16), (32, 32))
+    got = shard.shadow_metric_sharded(_slot_mesh(cuda, 8, 1), z, *fields, u,
+                                      sched, (16, 16), (32, 32))
+    assert torch.equal(got, ref)
+
+
+def test_mixed_device_mesh(cuda):
+    """Slots alternating between the card and the CPU (K1-K4's shard
+    variants on the card, their plain versions on the CPU): the angles,
+    the metric and every gradient bit-equal to the single-device call on
+    the card, through the cross-device paths (each slot's inputs, the
+    words' sum, a tile's z_org sum continued from one device on the
+    other)."""
+    s = sharded_scenes()
+    devs = [cuda, torch.device("cpu")] * 4
+
+    def hz_step(fn):
+        zz = torch.from_numpy(s["terrain"]).to(cuda).requires_grad_(True)
+        rr = tuple(torch.from_numpy(r).to(cuda).requires_grad_(True)
+                   for r in s["ramp"])
+        h = fn(zz, rr)
+        torch.mean(h ** 2).backward()
+        return h.detach(), zz.grad, rr[0].grad, rr[1].grad
+
+    mesh = parallel.make_mesh(4, 2, devices=devs)
+    got = hz_step(lambda zz, rr: shard.horizon_sweep_fused_sharded(
+        mesh, zz, tilt_ramp=rr, **s["tilt_kw"]))
+    want = hz_step(lambda zz, rr: fused_sweep.horizon_sweep_fused(
+        zz, tilt_ramp=rr, **s["tilt_kw"]))
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+
+    def sh_step(fn):
+        zz = torch.from_numpy(s["terrain"]).to(cuda).requires_grad_(True)
+        zo = torch.from_numpy(s["z_org"]).to(cuda).requires_grad_(True)
+        met = fn(zz, zo, zz[16:48, 16:48])
+        torch.mean(torch.sigmoid(met / 5.0)).backward()
+        return met.detach(), zz.grad, zo.grad
+
+    mesh = parallel.make_mesh(8, 1, devices=devs)
+    got = sh_step(lambda zz, zo, zi: shard.shadow_metric_fused_sharded(
+        mesh, zz, zo, zi, s["table3"], **s["shadow_kw"]))
+    want = sh_step(lambda zz, zo, zi: ss.shadow_metric_fused(
+        zz, zo, zi, s["table3"], **s["shadow_kw"]))
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)

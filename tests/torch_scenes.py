@@ -1,8 +1,9 @@
 """Scenes of the sweep's skips, shared by the CPU tests
 (tests/test_torch_sweep_skips.py for K1, tests/test_torch_shadow_skips.py
-for K2) and the card's (tests/test_torch_cuda.py), and the curved meshes of
-the curved shadow and locations tests, and a NumPy transcription of the
-refraction's float32 arithmetic.  Imports no JAX."""
+for K2) and the card's (tests/test_torch_cuda.py), the curved meshes of
+the curved shadow and locations tests, a NumPy transcription of the
+refraction's float32 arithmetic, and the sharded scenes of
+tests/test_torch_sharding.py and the card's.  Imports no JAX."""
 
 import math
 
@@ -192,3 +193,58 @@ def refraction_numpy(elev, temp, pres, height, fn):
     temperature = f(283.15) - f(0.0065) * height
     pressure = f(101.0) * fn("pow", temperature / f(283.15))
     return refrac / f(60.0), temperature, pressure
+
+
+#: Meshes of the sharded tests: the reference's (tests/test_sharding.py:38)
+#: and (4, 2).
+SHARD_MESHES = [(8, 1), (2, 4), (1, 8), (2, 2), (4, 2)]
+
+
+def sharded_scenes():
+    """The inputs of the reference's sharded cases (tests/test_sharding.py:
+    97-398), with its seeds: the 64^2 bumps (seed 7) with its 32^2 block at
+    (16, 16) and their tilt ramps (``ramp``: seed 3, 32^2; ``gramp``: seed
+    5, 8 x 32), the shadow cases' sun tables (``table2``: two suns,
+    ``table3``: three), and the multires case (4 km at accuracy 2, ratio
+    4, a 96-cell fine halo; seed 9)."""
+    from horayzon_tpu_torch.ops import shadow_sweep
+    f32 = np.float32
+    terrain = gaussian_bumps_terrain(64, 64, seed=7, amp=400.0)
+    rng = np.random.default_rng(3)
+    ramp = tuple(rng.normal(0.0, 1e-4, (32, 32)).astype(f32)
+                 for _ in range(2))
+    rng = np.random.default_rng(5)
+    gramp = tuple(rng.normal(0.0, 1e-4, (8, 32)).astype(f32)
+                  for _ in range(2))
+    dx, n = 25.0, 64
+    cx, cy = 0.5 * (n - 1) * dx, -0.5 * (n - 1) * dx
+    suns = np.array([[cx + 2e5, cy + 1e5, 2e4], [cx - 1e5, cy - 2e5, 1.5e4],
+                     [cx + 5e4, cy - 2e5, 8e3]], dtype=f32)
+    table2, _ = shadow_sweep.shadow_sun_table(suns[:2], (cx, cy), dx, -dx)
+    table3, _ = shadow_sweep.shadow_sun_table(suns, (cx, cy), dx, -dx)
+    dist = 4000.0
+    halo_full = int(dist / dx) + 16
+    full = gaussian_bumps_terrain(32 + 2 * halo_full, 32 + 2 * halo_full,
+                                  seed=9, amp=500.0)
+    i0 = halo_full - 96
+    z_fine = np.ascontiguousarray(full[i0:i0 + 224, i0:i0 + 224])
+    h, w = full.shape
+    z_coarse = full[:h - h % 4, :w - w % 4].reshape(
+        h // 4, 4, w // 4, 4).max(axis=(1, 3))
+    return dict(
+        terrain=terrain, ramp=ramp, gramp=gramp, table2=table2,
+        table3=table3, z_in=terrain[16:48, 16:48],
+        z_org=terrain[16:48, 16:48] + f32(0.05),
+        diag=float(np.hypot(n * dx, n * dx)), z_fine=z_fine,
+        z_coarse=np.ascontiguousarray(z_coarse), i0=i0,
+        hz_kw=dict(dx=25.0, dy=-25.0, offset=(16, 16), inner_shape=(32, 32),
+                   dist_search=600.0, hori_acc=0.25, azim_num=16),
+        tilt_kw=dict(dx=25.0, dy=-25.0, offset=(16, 16),
+                     inner_shape=(32, 32), dist_search=500.0, azim_num=8),
+        grad_kw=dict(dx=25.0, dy=-25.0, offset=(16, 16), inner_shape=(8, 32),
+                     dist_search=150.0, azim_num=2),
+        shadow_kw=dict(offset=(16, 16), inner_shape=(32, 32), dx=25.0,
+                       dy=-25.0, grid_origin=(0.0, 0.0)),
+        mr_kw=dict(ratio_log2=2, coarse_offset=(i0, i0), dx=25.0, dy=-25.0,
+                   offset=(96, 96), inner_shape=(32, 32), dist_search=dist,
+                   hori_acc=2.0, azim_num=8))
