@@ -150,12 +150,27 @@ O. sharded (``horayzon_tpu_torch.parallel``), the shards of a mesh of
    each holding one tile's slots, the assembled angles and gradient
    bit-equal to the single launch (NCCL needs a card per process and is
    not exercised);
+P. streaming, profiling and the example workflows
+   (``horayzon_tpu_torch.utils``, ``examples/torch/``): the main path,
+   with K1's count, is ``TiledHorizonRunner.run`` at the bench cell in
+   four 512^2 tiles on the fused route, each tile bit-equal to
+   ``horizon_sweep_fused`` on the tile and the cube against the single
+   launch, then a kill in the second tile and a resume; with K2's count,
+   ``SunTrackRunner.run`` at phase C's 181 suns in chunks of 32,
+   bit-equal to one ``sw_dir_cor_batch`` call, then a kill and a resume;
+   ``profiling.time_sweep`` on K1 at the bench cell beside phase 4's CUDA
+   events, and one ``profiler_trace``; then the port's versions of four
+   workflows no other phase runs and ``examples/torch/verify_drive.py``,
+   each a subprocess at its defaults that must exit 0 with its printed
+   checks met.  Tiles, chunks, the trace and the outputs go to the
+   gitignored ``build/smoke_p/`` and are deleted;
 9. one JSON line of all fourteen kernels (launches on its main path,
    error against its plain version, its time and the plain version's,
    its bound and ``library_ms`` null; the four shard rows ``*-shard``:
    launches on phase O's path, error against the single launch, the
    summed shards' time, the single launch's as ``single_ms``, its plain
-   version and bound), then the result line
+   version and bound; K1 and K2 also ``launches_by_path``, with phase
+   P's runners), then the result line
    ``{"ok": true, "device": {...}}``.  K5 is on no user path of the
    library: its launches are those of its own entry, the timing run of
    phase J.
@@ -174,6 +189,7 @@ reduced precision.  Imports nothing of JAX.
 
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -191,6 +207,7 @@ from horayzon_tpu_torch.ops import _build, fused_sweep, locations, mip
 from horayzon_tpu_torch.ops import multires, read_floor, replay
 from horayzon_tpu_torch.ops import shadow_sweep, sweep
 from horayzon_tpu_torch.parallel import shard
+from horayzon_tpu_torch.utils import profiling, streaming
 
 #: Horizon-angle tolerance [rad] of K1 against the plain version.
 TOL = 1.0e-5
@@ -2450,6 +2467,238 @@ def phase_o(dev, card, zt, halo, inner, azim_num, dist_km, dx, track,
          single["k4"][1], single["k4"][2], k4_single)]
 
 
+#: Where phase P writes its tiles, chunks, trace and example outputs (under
+#: the gitignored build/; removed at the end of the phase).
+P_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "smoke_p")
+#: The example workflows phase P runs as subprocesses at their defaults,
+#: with the count of printed checks each must pass (the library paths of
+#: the other six run at their defaults as phases 8, C, I, K, L and M).
+P_SCRIPTS = (("horizon/gridded_planar_dem.py", 2),
+             ("horizon/gridded_curved_dem_masked.py", 4),
+             ("shadow/gridded_curved_dem_nasadem.py", 3),
+             ("shadow/gridded_curved_dem_rema.py", 2),
+             ("verify_drive.py", 8))
+
+
+class _Killed(Exception):
+    """Raised inside a runner's call to stand for a kill of the run."""
+
+
+def _kill_on_call(obj, attr, n_kill):
+    """Patch ``obj.attr`` (an instance attribute shadowing the method) to
+    raise :class:`_Killed` from its ``n_kill``-th call on."""
+    orig = getattr(obj, attr)
+    calls = [0]
+
+    def dying(*a, **kw):
+        calls[0] += 1
+        if calls[0] >= n_kill:
+            raise _Killed
+        return orig(*a, **kw)
+
+    setattr(obj, attr, dying)
+
+
+def phase_p(dev, card, z, halo, inner, azim_num, dist_km, dx, k1_args,
+            k1_ms, samples):
+    """Phase P: the streaming runners, profiling and the example workflows.
+    Returns (K1 launches of the tiled run, K2 launches of the sun-track
+    run)."""
+    import shutil
+
+    from horayzon_tpu_torch.utils import profiling, streaming
+
+    print("== P. streaming runners, profiling, example workflows")
+    t_p = time.perf_counter()
+    shutil.rmtree(P_DIR, ignore_errors=True)
+    os.makedirs(P_DIR)
+    # 1. TiledHorizonRunner at the bench cell: 1024^2 in four 512^2 tiles
+    zt = torch.from_numpy(z).to(dev)
+    kw = dict(dx=dx, dy=-dx, offset=(halo, halo), inner_shape=(inner, inner),
+              azim=horizon.azimuth_angles(azim_num),
+              dist_search=dist_km * 1000.0, hori_acc=0.25)
+    tile = (inner // 2, inner // 2)
+    runner = streaming.TiledHorizonRunner(
+        z, out_dir=os.path.join(P_DIR, "tiles"), tile=tile, device=dev, **kw)
+    check(runner.fused, "the tiled run takes the fused route (K1)")
+    tiles = list(runner.tiles())
+    torch.cuda.synchronize()
+    fused_sweep.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    runner.run(verbose=False)
+    torch.cuda.synchronize()
+    run_wall = time.perf_counter() - t0
+    tile_launches = fused_sweep.KERNEL_LAUNCHES
+    check(tile_launches == len(tiles), f"the tiled run launched K1 once a "
+          f"tile ({tile_launches} launches, {len(tiles)} tiles)")
+    cube = runner.assemble()
+    sweep_kw = dict(dx=dx, dy=-dx, azim_num=azim_num,
+                    dist_search=dist_km * 1000.0, hori_acc=0.25)
+    t0 = time.perf_counter()
+    single = fused_sweep.horizon_sweep_fused(
+        zt, offset=(halo, halo), inner_shape=(inner, inner), **sweep_kw)
+    single = single.cpu().numpy()
+    single_wall = time.perf_counter() - t0
+    whole_plan = fused_sweep.plan_sweep(
+        tuple(z.shape), inner_shape=(inner, inner), offset=(halo, halo),
+        dist_search=dist_km * 1000.0, dx=dx, dy=-dx)
+    walls = []
+    for i0, j0, n0, n1 in tiles:
+        t_kw = dict(sweep_kw, offset=(halo + i0, halo + j0),
+                    inner_shape=(n0, n1))
+        own = fused_sweep.horizon_sweep_fused(zt, **t_kw).cpu().numpy()
+        got = cube[i0:i0 + n0, j0:j0 + n1]
+        check(np.array_equal(got, own), f"tile ({i0}, {j0}) bit-equal to "
+              f"horizon_sweep_fused on the tile")
+        plan = fused_sweep.plan_sweep(
+            tuple(z.shape), inner_shape=(n0, n1), offset=t_kw["offset"],
+            dist_search=dist_km * 1000.0, dx=dx, dy=-dx)
+        diff = float(np.abs(got - single[i0:i0 + n0, j0:j0 + n1]).max())
+        same = plan["n_safe"] == whole_plan["n_safe"]
+        quirk = plan["n_safe"] == plan["n_dense"] - 1
+        print(f"  tile ({i0}, {j0}): n_safe {plan['n_safe']} (run "
+              f"{whole_plan['n_safe']}, n_dense {plan['n_dense']}), max "
+              f"|tile - single launch| {diff:.3e} rad")
+        check(diff == 0.0 if same else (quirk or diff <= 3e-8),
+              f"tile ({i0}, {j0}) against the single launch")
+        t0 = time.perf_counter()
+        runner.sweep_tile(i0, j0, n0, n1).cpu().numpy()
+        walls.append(time.perf_counter() - t0)
+    print(f"  TiledHorizonRunner.run, {len(tiles)} tiles of {tile}: "
+          f"{run_wall:.4f} s wall (pyramid, {len(tiles)} K1 launches, "
+          f"copies and .npy writes); per tile (sweep + copy to host) "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s; the single "
+          f"{inner}^2 launch + copy {single_wall:.4f} s  [{card}]")
+    # kill inside the second tile's call, then resume
+    killed = streaming.TiledHorizonRunner(
+        z, out_dir=os.path.join(P_DIR, "tiles_kill"), tile=tile, device=dev,
+        **kw)
+    _kill_on_call(killed, "sweep_tile", 2)
+    try:
+        killed.run(verbose=False)
+        check(False, "the killed tiled run raised")
+    except _Killed:
+        pass
+    del killed.sweep_tile
+    paths = [killed._tile_path(i0, j0) for i0, j0, _, _ in tiles]
+    on_disk = [os.path.exists(p) for p in paths]
+    check(on_disk == [True] + [False] * (len(tiles) - 1),
+          f"a kill in the second tile leaves the first on disk ({on_disk})")
+    mtime0 = os.path.getmtime(paths[0])
+    fused_sweep.KERNEL_LAUNCHES = 0
+    killed.run(verbose=False)
+    check(fused_sweep.KERNEL_LAUNCHES == len(tiles) - 1
+          and os.path.getmtime(paths[0]) == mtime0,
+          f"the resumed run computed the {len(tiles) - 1} missing tiles "
+          f"only, the first untouched")
+    check(np.array_equal(killed.assemble(), cube),
+          "the resumed cube bit-equal to the uninterrupted one")
+    shutil.rmtree(os.path.join(P_DIR, "tiles_kill"))
+    shutil.rmtree(os.path.join(P_DIR, "tiles"))
+    del cube, single, zt
+
+    # 2. SunTrackRunner at hemisphere_800_s181: chunks of 32
+    terrain = shadow.Terrain()
+    terrain.initialise(*hemisphere_terrain(), ang_max=89.99, device=dev)
+    suns = sun_position.sun_position_planar(np.linspace(0.0, 360.0, 181),
+                                            30.0, dist=1.0e7)
+    want = terrain.sw_dir_cor_batch(suns).cpu().numpy()
+    track = streaming.SunTrackRunner(
+        terrain, suns, out_dir=os.path.join(P_DIR, "track"), chunk=32)
+    n_chunks = len(list(track.chunks()))
+    torch.cuda.synchronize()
+    shadow_sweep.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    track.run(verbose=False)
+    track_wall = time.perf_counter() - t0
+    chunk_launches = shadow_sweep.KERNEL_LAUNCHES
+    check(chunk_launches == n_chunks, f"the sun-track run launched K2 once "
+          f"a chunk ({chunk_launches} launches, {n_chunks} chunks)")
+    check(np.array_equal(track.assemble(), want), "the sun track's chunks "
+          "bit-equal to one sw_dir_cor_batch call of 181 suns")
+    print(f"  SunTrackRunner.run, 181 suns x {terrain.comp_shape} in "
+          f"{n_chunks} chunks of 32: {track_wall:.4f} s wall (K2, "
+          f"classification, copies, {want.nbytes / 1e6:.0f} MB of .npy)  "
+          f"[{card}]")
+    shutil.rmtree(os.path.join(P_DIR, "track"))
+    resumed = streaming.SunTrackRunner(
+        terrain, suns, out_dir=os.path.join(P_DIR, "track_kill"), chunk=32)
+    orig = terrain.sw_dir_cor_batch
+    _kill_on_call(terrain, "sw_dir_cor_batch", 2)
+    try:
+        resumed.run(verbose=False)
+        check(False, "the killed sun-track run raised")
+    except _Killed:
+        pass
+    terrain.sw_dir_cor_batch = orig
+    first = resumed._chunk_path(0)
+    check(os.path.exists(first) and not os.path.exists(
+        resumed._chunk_path(32)), "a kill in the second chunk leaves the "
+          "first on disk")
+    mtime0 = os.path.getmtime(first)
+    t0 = time.perf_counter()
+    resumed.run(verbose=False)
+    resume_wall = time.perf_counter() - t0
+    check(os.path.getmtime(first) == mtime0
+          and np.array_equal(resumed.assemble(), want),
+          "the resumed track keeps the first chunk and is bit-equal")
+    print(f"  resumed after a kill in the second chunk: {resume_wall:.4f} s "
+          f"for the other {n_chunks - 1} chunks")
+    shutil.rmtree(os.path.join(P_DIR, "track_kill"))
+    del want, terrain
+
+    # 3. profiling at the bench cell's K1 route
+    stats = profiling.time_sweep(lambda: fused_sweep._ratio_cuda(*k1_args),
+                                 cells=inner * inner, azim_num=azim_num,
+                                 samples_per_cell_azim=samples, iters=5)
+    print(f"  profiling.time_sweep on K1 at the bench cell: best of 5 "
+          f"{1e3 * stats.wall_time_s:.3f} ms wall (phase 4's CUDA events: "
+          f"{k1_ms:.3f} ms); {stats.to_json()}  [{card}]")
+    check(stats.wall_time_s * 1e3 >= 0.9 * k1_ms,
+          "time_sweep waits for the card (its wall at least 0.9 x the "
+          "CUDA-event time)")
+    trace_dir = os.path.join(P_DIR, "trace")
+    with profiling.profiler_trace(trace_dir):
+        fused_sweep._ratio_cuda(*k1_args)
+        torch.cuda.synchronize()
+    files = os.listdir(trace_dir)
+    check(len(files) == 1, f"profiler_trace wrote one trace ({files})")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    k1_events = [e for e in events if e.get("cat") == "kernel"
+                 and "horizon" in str(e.get("name", ""))]
+    print(f"  profiler_trace: {len(events)} events, "
+          f"{len(k1_events)} K1 kernel event(s) on the card"
+          + (f", {k1_events[0]['dur'] / 1e3:.3f} ms" if k1_events else
+             " (no device time in the trace)"))
+
+    # 4. the example workflows no phase runs yet, at their defaults
+    ex_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "torch")
+    for script, n_checks in P_SCRIPTS:
+        cmd = [sys.executable, os.path.join(ex_dir, script)]
+        if script != "verify_drive.py":
+            cmd += ["--out", os.path.join(P_DIR, "examples")]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300)
+        wall = time.perf_counter() - t0
+        oks = res.stdout.count("check ok:")
+        tail = [ln for ln in res.stdout.splitlines()
+                if not ln.startswith("check ok:")][-2:]
+        print(f"  examples/torch/{script}: exit {res.returncode}, "
+              f"{oks} checks met, {wall:.1f} s wall; {' | '.join(tail)}")
+        check(res.returncode == 0 and oks == n_checks
+              and "CHECK FAILED" not in res.stdout,
+              f"{script} ran with its checks met"
+              + ("" if res.returncode == 0 else
+                 f": {res.stdout[-1500:]}{res.stderr[-1500:]}"))
+    shutil.rmtree(P_DIR)
+    print(f"  phase P {time.perf_counter() - t_p:.1f} s")
+    return tile_launches, chunk_launches
+
+
 def main():
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2574,6 +2823,7 @@ def main():
     plain_ms = cuda_ms(lambda: fused_sweep._ratio_plain(*args), 1)
     samples = plan["nx"] * 2 + (plan["n_dense"] - plan["nx"]) + sum(
         ph[1] for ph in plan["phases_meta"][1:])
+    k1_args, k1_samples = args, samples
     print(f"  K1 alone: {k1_ms:.3f} ms; plain torch sweep: {plain_ms:.1f} ms "
           f"({samples} samples per (cell, azimuth))  [{card}]")
     k1_bound = skip_report("K1", args, False, k1_ms, card)
@@ -3165,12 +3415,17 @@ def main():
         dict(k1=(k1_ms, plain_ms, k1_bound), k2=(k2_ms, k2_plain_ms, k2_bound),
              k3=(k3_ms, k3_plain_ms, k3_bound),
              k4=(k4_ms, k4_plain_ms, k4_bound)))
+    t_p = time.perf_counter()
+    tile_launches, chunk_launches = phase_p(
+        dev, card, zt.cpu().numpy(), halo, inner, azim_num, dist_km, dx,
+        k1_args, k1_ms, k1_samples)
     print(f"  phase J {t_k - t_j:.1f} s, phase K {t_l - t_k:.1f} s, phase L "
           f"{t_m - t_l:.1f} s, phase M {t_n - t_m:.1f} s, phase N "
-          f"{t_o - t_n:.1f} s, phase O {time.perf_counter() - t_o:.1f} s")
+          f"{t_o - t_n:.1f} s, phase O {t_p - t_o:.1f} s, phase P "
+          f"{time.perf_counter() - t_p:.1f} s")
 
     print("== 9. result")
-    print(f"  phases 1-O in {time.perf_counter() - t_run:.1f} s")
+    print(f"  phases 1-P in {time.perf_counter() - t_run:.1f} s")
     rows = [
         ("horizon_sweep (K1)", KERNEL_SOURCE, REPLACES, launches, max_err,
          k1_ms, plain_ms, k1_bound),
@@ -3206,6 +3461,14 @@ def main():
          "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
          "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
         for name, src, rep, n, err, ms, p_ms, bnd in rows]
+    # K1 and K2 also carry the launches of phase P's runners, each path's
+    # count set to 0 just before it and read just after
+    kernels[0]["launches_by_path"] = {
+        "PlanarPipeline.run": launches,
+        "TiledHorizonRunner.run": tile_launches}
+    kernels[3]["launches_by_path"] = {
+        "Terrain.sw_dir_cor_batch/shadow_batch": k2_launches,
+        "SunTrackRunner.run": chunk_launches}
     for name, src, rep, n, err, ms, p_ms, bnd, one_ms in shard_rows:
         kernels.append(
             {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -16,17 +16,26 @@ the same source) on planar and curved meshes, per-location horizons
 reference's XLA engines in plain torch (``engine="sweep"``, non-default
 vectors, ``Terrain(engine="sweep"/"scan")``), and the sharded entries over
 a mesh of devices on ``torch.distributed`` (:mod:`horayzon_tpu_torch.
-parallel`, the shard variants of the kernels).  ROADMAP.md lists what is
+parallel`, the shard variants of the kernels), the streaming runners
+(:mod:`horayzon_tpu_torch.utils.streaming`: a tiled horizon on K1, a
+resumable sun track on K2), profiling and output, and copies of the
+reference's host-side loaders (``domain``, ``load_dem``, ``geoid``,
+``ocean_masking``, ``download``, ``native``).  ROADMAP.md lists what is
 still to port.
 """
 
-from horayzon_tpu_torch import (auxiliary, direction, horizon, regrid,
-                                shadow, sun_position, terrain, topo_param,
-                                transform)
-from horayzon_tpu_torch import models, ops
+from horayzon_tpu_torch import (auxiliary, direction, domain, download,
+                                geoid, horizon, load_dem, ocean_masking,
+                                regrid, shadow, sun_position, terrain,
+                                topo_param, transform)
+from horayzon_tpu_torch import models, ops, utils
 from horayzon_tpu_torch.horizon import (azimuth_angles, horizon_gridded,
                                         horizon_locations)
 
-__all__ = ["auxiliary", "direction", "horizon", "regrid", "shadow",
+__version__ = "0.1.0"
+
+__all__ = ["auxiliary", "direction", "domain", "download", "geoid",
+           "horizon", "load_dem", "ocean_masking", "regrid", "shadow",
            "sun_position", "terrain", "topo_param", "transform", "models",
-           "ops", "azimuth_angles", "horizon_gridded", "horizon_locations"]
+           "ops", "utils", "azimuth_angles", "horizon_gridded",
+           "horizon_locations"]

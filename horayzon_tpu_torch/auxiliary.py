@@ -1,14 +1,34 @@
 # Copyright (c) 2026
 # MIT License
-"""Vertex-buffer construction (copy of :mod:`horayzon_tpu.auxiliary`).
+"""Auxiliary-data path and vertex-buffer construction (copy of
+:mod:`horayzon_tpu.auxiliary`).
 
 Copied rather than imported: importing anything from ``horayzon_tpu`` runs
 its package ``__init__``, which imports JAX, and this package never loads
 JAX.  ``tests/test_torch_schedule.py`` holds the copies equal to the
-originals.
+originals.  :func:`get_path_aux_data` resolves the same directory as the
+original, so both packages share downloaded grids.
 """
 
+import os
+
 import numpy as np
+
+
+def get_path_aux_data():
+    """Directory for downloaded auxiliary data (geoid grids, coastlines).
+
+    Unlike the reference (which interactively prompts and persists the path
+    next to the installed package, auxiliary.py:23-42), this resolves, in
+    order: the ``HORAYZON_TPU_AUX_DATA`` environment variable, then
+    ``~/.cache/horayzon_tpu/``; the directory is created if needed."""
+    path = os.environ.get("HORAYZON_TPU_AUX_DATA")
+    if path is None:
+        path = os.path.join(os.path.expanduser("~"), ".cache",
+                            "horayzon_tpu")
+    path = os.path.join(path, "")
+    os.makedirs(path, exist_ok=True)
+    return path
 
 
 def rearrange_pad_buffer(x, y, z):

@@ -42,8 +42,16 @@ K5: every mode and source bit-equal to its plain version.  Multires: the
 card's angles within 1e-5 rad of the CPU path's (the raw ratios are
 bit-equal, the arctan may differ by an ulp), masked cells aside bit-equal
 to the dense run on the card, both gradients within rtol 1e-5 of the CPU
-path.
+path.  The streaming runners: the tiled runner's tiles (K1, one launch a
+tile) bit-equal to ``horizon_sweep_fused`` on each tile, each tile's raw
+ratios bit-equal to K1's plain version on the CPU and its angles within
+1e-5 rad of the CPU runner's; the sun-track runner (K2, one launch a
+chunk) bit-equal to one ``sw_dir_cor_batch`` call; ``profiling.sync``
+returns only after the work queued before it has run.
 """
+
+import os
+import time
 
 import numpy as np
 import pytest
@@ -56,12 +64,14 @@ from horayzon_tpu_torch.ops import _build, fused_sweep, multires, replay
 from horayzon_tpu_torch.ops import read_floor, refraction, sweep
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 from horayzon_tpu_torch.parallel import shard
+from horayzon_tpu_torch.utils import profiling, streaming
 
 from reference_impl import gaussian_bumps_terrain
-from torch_scenes import (SHADOW_SKIP_SCENES, SHARD_MESHES, SKIP_SCENES,
-                          bumps, refraction_numpy,
+from torch_scenes import (RUNNER_SCENES, SHADOW_SKIP_SCENES, SHARD_MESHES,
+                          SKIP_SCENES, bumps, refraction_numpy,
                           curved_setup, curved_terrain_inputs,
-                          shadow_skip_scene, sharded_scenes, skip_scene)
+                          shadow_skip_scene, sharded_scenes, skip_scene,
+                          sun_track_terrain_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -1593,3 +1603,80 @@ def test_mixed_device_mesh(cuda):
         zz, zo, zi, s["table3"], **s["shadow_kw"]))
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g, w)
+
+
+# --- the streaming runners and profiling (horayzon_tpu_torch.utils) -------
+
+@pytest.mark.parametrize("name", sorted(RUNNER_SCENES))
+def test_tiled_runner_on_card(cuda, tmp_path, name):
+    z, scene, tile = RUNNER_SCENES[name]
+    kw = dict(dx=25.0, dy=-25.0, azim=horizon.azimuth_angles(4), tile=tile,
+              **scene)
+    runner = streaming.TiledHorizonRunner(z, out_dir=str(tmp_path / "card"),
+                                          device=cuda, **kw)
+    assert runner.fused
+    tiles = list(runner.tiles())
+    n0 = fused_sweep.KERNEL_LAUNCHES
+    runner.run(verbose=False)
+    assert fused_sweep.KERNEL_LAUNCHES == n0 + len(tiles)
+    got = runner.assemble()
+    cpu = streaming.TiledHorizonRunner(z, out_dir=str(tmp_path / "cpu"),
+                                       device="cpu", **kw)
+    cpu.run(verbose=False)
+    np.testing.assert_allclose(got, cpu.assemble(), rtol=0, atol=TOL)
+    zc, zt = torch.from_numpy(z).to(cuda), torch.from_numpy(z)
+    off = scene["offset"]
+    for i0, j0, m0, m1 in tiles:
+        tkw = dict(dx=25.0, dy=-25.0, offset=(off[0] + i0, off[1] + j0),
+                   inner_shape=(m0, m1), azim_num=4,
+                   dist_search=scene["dist_search"])
+        own = fused_sweep.horizon_sweep_fused(zc, **tkw)
+        np.testing.assert_array_equal(got[i0:i0 + m0, j0:j0 + m1],
+                                      own.cpu().numpy())
+        raw = fused_sweep._ratio_cuda(*fused_sweep.sweep_args(zc, **tkw))
+        assert torch.equal(raw.cpu(), fused_sweep._ratio_plain(
+            *fused_sweep.sweep_args(zt, **tkw)))
+
+
+def test_sun_track_runner_on_card(cuda, tmp_path):
+    args, suns = sun_track_terrain_inputs()
+    t = shadow.Terrain()
+    t.initialise(*args, device=cuda)
+    want = t.sw_dir_cor_batch(suns).cpu().numpy()
+    runner = streaming.SunTrackRunner(t, suns, out_dir=str(tmp_path),
+                                      chunk=3)
+    n0 = ss.KERNEL_LAUNCHES
+    runner.run(verbose=False)
+    assert ss.KERNEL_LAUNCHES == n0 + len(list(runner.chunks()))
+    np.testing.assert_array_equal(runner.assemble(), want)
+    # a resumed run launches nothing for the chunks on disk
+    os.unlink(runner._chunk_path(3))
+    n0 = ss.KERNEL_LAUNCHES
+    runner.run(verbose=False)
+    assert ss.KERNEL_LAUNCHES == n0 + 1
+    np.testing.assert_array_equal(runner.assemble(), want)
+
+
+def test_profiling_sync_waits_for_the_card(cuda):
+    start = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event(enable_timing=True)
+    x = torch.ones(4, device=cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    torch.cuda._sleep(200_000_000)       # about 0.1 s of spinning
+    y = x * 2.0
+    done.record()
+    assert not done.query()              # queued, not yet run
+    assert profiling.sync({"y": [y], "cpu": torch.ones(2)})["y"][0] is y
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    assert done.query()                  # sync returned after it ran
+    card_ms = start.elapsed_time(done)
+    assert card_ms > 20.0 and host_ms >= card_ms, (host_ms, card_ms)
+    def spin():
+        torch.cuda._sleep(20_000_000)
+        return x * 2.0
+
+    stats = profiling.time_sweep(spin, cells=1, azim_num=1,
+                                 samples_per_cell_azim=1, iters=2)
+    assert stats.wall_time_s > 1e-3

@@ -130,13 +130,16 @@ import pkgutil
 import sys
 
 import horayzon_tpu_torch
-import horayzon_tpu_torch.ops as ops
-import horayzon_tpu_torch.parallel
 
-for m in pkgutil.iter_modules(ops.__path__):
-    importlib.import_module("horayzon_tpu_torch.ops." + m.name)
+for m in pkgutil.walk_packages(horayzon_tpu_torch.__path__,
+                               "horayzon_tpu_torch."):
+    if not m.name.startswith("horayzon_tpu_torch.native._"):  # g++ builds
+        importlib.import_module(m.name)
+assert "horayzon_tpu_torch.utils.streaming" in sys.modules
+assert "horayzon_tpu_torch.native.bvhbase" in sys.modules
 loaded = sorted(k for k in sys.modules
-                if k.split(".")[0] in ("jax", "jaxlib", "horayzon_tpu"))
+                if k.split(".")[0] in ("jax", "jaxlib", "horayzon_tpu", "PIL",
+                                       "osgeo", "xarray", "shapely", "fiona"))
 assert not loaded, loaded
 print("IMPORTS-OK")
 """

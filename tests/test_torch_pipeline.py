@@ -231,7 +231,14 @@ def test_planar_pipeline_mask_with_zeros_not_ported():
 def test_import_loads_no_jax():
     code = ("import sys, horayzon_tpu_torch, horayzon_tpu_torch.ops.fused_sweep, "
             "horayzon_tpu_torch.ops.replay, horayzon_tpu_torch.models.terrain_fit,"
-            " horayzon_tpu_torch.regrid, horayzon_tpu_torch.direction;"
+            " horayzon_tpu_torch.regrid, horayzon_tpu_torch.direction, "
+            "horayzon_tpu_torch.utils.streaming, "
+            "horayzon_tpu_torch.utils.profiling, "
+            "horayzon_tpu_torch.utils.output, horayzon_tpu_torch.domain, "
+            "horayzon_tpu_torch.load_dem, horayzon_tpu_torch.geoid, "
+            "horayzon_tpu_torch.ocean_masking, horayzon_tpu_torch.download, "
+            "horayzon_tpu_torch.native.fastdem, "
+            "horayzon_tpu_torch.native.bvhbase;"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('horayzon_tpu.') or "
             "m == 'horayzon_tpu');"

@@ -2,13 +2,15 @@
 (tests/test_torch_sweep_skips.py for K1, tests/test_torch_shadow_skips.py
 for K2) and the card's (tests/test_torch_cuda.py), the curved meshes of
 the curved shadow and locations tests, a NumPy transcription of the
-refraction's float32 arithmetic, and the sharded scenes of
-tests/test_torch_sharding.py and the card's.  Imports no JAX."""
+refraction's float32 arithmetic, the sharded scenes of
+tests/test_torch_sharding.py and the card's, and the streaming runners'
+scenes of tests/test_torch_utils.py and the card's.  Imports no JAX."""
 
 import math
 
 import numpy as np
 
+from horayzon_tpu_torch import auxiliary
 from reference_impl import gaussian_bumps_terrain
 
 
@@ -248,3 +250,44 @@ def sharded_scenes():
         mr_kw=dict(ratio_log2=2, coarse_offset=(i0, i0), dx=25.0, dy=-25.0,
                    offset=(96, 96), inner_shape=(32, 32), dist_search=dist,
                    hori_acc=2.0, azim_num=8))
+
+
+#: The tiled runner's scenes: (z, keywords of the whole run, tile).
+#: "bumps96" is tests/test_utils.py's scene (96^2, inner 48^2 at 24,
+#: 500 m, 32^2 tiles, the last row and column 16 wide): every tile's halo
+#: is the whole run's, so every tile has its n_safe.  "nearfield84" has 34
+#: cells of halo above and left, 18 below and right: the whole run and
+#: three tiles get n_safe 16, tile (0, 0) n_safe 32 = n_dense - 1, the
+#: reference's near-field-h2 case (pallas_sweep.py:754-757).
+RUNNER_SCENES = {
+    "bumps96": (gaussian_bumps_terrain(96, 96, seed=13, amp=400.0),
+                dict(offset=(24, 24), inner_shape=(48, 48),
+                     dist_search=500.0), (32, 32)),
+    "nearfield84": (gaussian_bumps_terrain(84, 84, seed=7, amp=300.0),
+                    dict(offset=(34, 34), inner_shape=(32, 32),
+                         dist_search=825.0), (16, 16)),
+}
+
+
+def sun_track_terrain_inputs():
+    """tests/test_utils.py's sun-track scene: ``Terrain.initialise``'s
+    arguments (48^2 bumps at 25 m, inner 32^2 at 8, flat normals) and its
+    7 suns (T, 3) float32."""
+    z = gaussian_bumps_terrain(48, 48, seed=21, amp=400.0)
+    dx = 25.0
+    h, w = z.shape
+    off, in0, in1 = 8, 32, 32
+    x1 = np.arange(w, dtype=np.float32) * dx
+    y1 = -np.arange(h, dtype=np.float32) * dx
+    xx, yy = np.meshgrid(x1, y1)
+    vert_grid = auxiliary.rearrange_pad_buffer(xx, yy, z)
+    vec_norm = np.zeros((in0, in1, 3), dtype=np.float32)
+    vec_norm[..., 2] = 1.0
+    args = (vert_grid, h, w, off, off, vec_norm.copy(), vec_norm,
+            np.ones((in0, in1), dtype=np.float32),
+            z[off:off + in0, off:off + in1],
+            np.ones((in0, in1), dtype=np.uint8))
+    ang = np.linspace(0.2, 2.8, 7)
+    suns = np.stack([1e7 * np.cos(ang), 1e7 * np.sin(ang),
+                     2e6 + 1e6 * np.sin(ang)], axis=-1).astype(np.float32)
+    return args, suns
