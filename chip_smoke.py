@@ -164,13 +164,24 @@ P. streaming, profiling and the example workflows
    each a subprocess at its defaults that must exit 0 with its printed
    checks met.  Tiles, chunks, the trace and the outputs go to the
    gitignored ``build/smoke_p/`` and are deleted;
+Q. the recompute VJP, ``HZT_GRAD_RECOMPUTE=1``: the gradient row at full
+   width (a warm-up and one timed step of ``mean(h^2).backward()``: K1
+   once, no K1-argmax and no K3; the gradient finite and within norm ratio
+   1e-2 of phase 6's replay gradient, which differentiates another
+   estimator; wall, the backward's azimuth chunk and peak memory), the
+   card against the CPU within 1e-5 of max |g| on the spike scene of
+   ``tests/test_pallas.py:275-312`` and on a 128^2 block of the gradient
+   row at 8 azimuths, and the sharded
+   recompute on phase O's (4, 2) mesh on its 256^2 crop against the
+   single-device recompute (K1's shard variant once per slot, no K3);
 9. one JSON line of all fourteen kernels (launches on its main path,
    error against its plain version, its time and the plain version's,
    its bound and ``library_ms`` null; the four shard rows ``*-shard``:
    launches on phase O's path, error against the single launch, the
    summed shards' time, the single launch's as ``single_ms``, its plain
    version and bound; K1 and K2 also ``launches_by_path``, with phase
-   P's runners), then the result line
+   P's runners and, for K1, phase Q's recompute step), then the result
+   line
    ``{"ok": true, "device": {...}}``.  K5 is on no user path of the
    library: its launches are those of its own entry, the timing run of
    phase J.
@@ -209,6 +220,10 @@ from horayzon_tpu_torch.ops import shadow_sweep, sweep
 from horayzon_tpu_torch.parallel import shard
 from horayzon_tpu_torch.utils import profiling, streaming
 
+#: Phase Q: the recompute gradient's norm against the replay's, within this
+#: of 1 (the two differentiate two estimators; 0.997116 at the gradient
+#: row on an H100 80GB HBM3 at 700 W, PERF.md §6).
+RECOMPUTE_NORM_TOL = 1.0e-2
 #: Horizon-angle tolerance [rad] of K1 against the plain version.
 TOL = 1.0e-5
 #: Gradients on the card against the CPU path, relative to max |.| of each
@@ -2699,6 +2714,130 @@ def phase_p(dev, card, z, halo, inner, azim_num, dist_km, dx, k1_args,
     return tile_launches, chunk_launches
 
 
+def recompute_spike():
+    """tests/test_pallas.py:275-312's far field: 544^2 flat, spikes of
+    500 m and 400 m north of the 32^2 block, 6 km, 4 azimuths."""
+    halo, inner = int(6000.0 / 25) + 16, 32
+    z = np.zeros((inner + 2 * halo,) * 2, dtype=np.float32)
+    z[halo - 96, halo + 16] = 500.0
+    z[halo - 150, halo + 8] = 400.0
+    return z, dict(dx=25.0, dy=-25.0, offset=(halo, halo),
+                   inner_shape=(inner, inner), dist_search=6000.0,
+                   hori_acc=0.25, azim_num=4)
+
+
+def recompute_grad(z, kw, mesh=None):
+    """``z``'s gradient of ``mean(h^2)`` through the fused sweep (sharded
+    on ``mesh`` when given)."""
+    zg = z.clone().requires_grad_(True)
+    if mesh is None:
+        h = fused_sweep.horizon_sweep_fused(zg, **kw)
+    else:
+        h = shard.horizon_sweep_fused_sharded(mesh, zg, **kw)
+    torch.mean(h ** 2).backward()
+    return zg.grad
+
+
+def phase_q(dev, card, zt, grad_kw, g_replay):
+    """Phase Q: the recompute VJP, ``HZT_GRAD_RECOMPUTE=1`` (set for the
+    phase, then restored).  Returns K1's launches on the timed step."""
+    print("== Q. the recompute VJP (HZT_GRAD_RECOMPUTE=1)")
+    t_q = time.perf_counter()
+    before = os.environ.get("HZT_GRAD_RECOMPUTE")
+    os.environ["HZT_GRAD_RECOMPUTE"] = "1"
+    try:
+        # 1. the gradient row at full width: a warm-up and one timed step
+        t0 = time.perf_counter()
+        recompute_grad(zt, grad_kw)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        fused_sweep.KERNEL_LAUNCHES = 0
+        fused_sweep.ARGMAX_KERNEL_LAUNCHES = 0
+        replay.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        step_ms, g_rc = event_ms(lambda: recompute_grad(zt, grad_kw))
+        wall = time.perf_counter() - t0
+        launches = (fused_sweep.KERNEL_LAUNCHES,
+                    fused_sweep.ARGMAX_KERNEL_LAUNCHES, replay.KERNEL_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        a_num = grad_kw["azim_num"]
+        chunk = fused_sweep.LAST_RECOMPUTE_CHUNK
+        print(f"  gradient row, loss + backward(): {wall:.3f} s wall "
+              f"({step_ms:.1f} ms between CUDA events; warm-up "
+              f"{warm_s:.3f} s), azimuth chunk {chunk} of {a_num} "
+              f"({-(-a_num // chunk)} chunks), peak {peak / 2 ** 20:.1f} "
+              f"MiB above the {held / 2 ** 20:.1f} MiB held  [{card}]")
+        check(launches == (1, 0, 0), f"the recompute step launched K1 once, "
+              f"no K1-argmax and no K3 (K1 {launches[0]}, K1-argmax "
+              f"{launches[1]}, K3 {launches[2]})")
+        # the recompute differentiates the XLA sweep, another estimator
+        # than the kernel the replay differentiates: the norms differ by
+        # a few thousandths here (ROADMAP Queue 3)
+        ratio = (g_rc.norm() / g_replay.norm()).item()
+        diff = rel_err(g_rc, g_replay)
+        print(f"  against phase 6's replay gradient: norm ratio {ratio:.6f}, "
+              f"max |g_rc - g_replay| / max |g_replay| = {diff:.3e}")
+        check(bool(torch.isfinite(g_rc).all())
+              and g_rc.abs().max().item() > 0.0
+              and abs(ratio - 1.0) < RECOMPUTE_NORM_TOL,
+              f"recompute gradient finite, nonzero and within norm ratio "
+              f"{RECOMPUTE_NORM_TOL} of the replay's")
+        del g_rc
+
+        # 2. the card's recompute against the CPU's: the spike scene of
+        # tests/test_pallas.py, and a 128^2 block of the gradient row's
+        # terrain at its 20 km with 8 azimuths
+        halo, inner = grad_kw["offset"][0], grad_kw["inner_shape"][0]
+        c0 = halo + inner // 2 - 64
+        crop_kw = dict(grad_kw, offset=(c0, c0), inner_shape=(128, 128),
+                       azim_num=8)
+        for what, z_c, kw_c in (("spike scene",) + recompute_spike(),
+                                ("128^2 block of the gradient row",
+                                 zt.cpu().numpy(), crop_kw)):
+            z_c = torch.from_numpy(z_c)
+            t0 = time.perf_counter()
+            g_cpu = recompute_grad(z_c, kw_c)
+            cpu_s = time.perf_counter() - t0
+            g_card = recompute_grad(z_c.to(dev), kw_c).cpu()
+            err = rel_err(g_card, g_cpu)
+            print(f"  {what}: card against CPU {err:.3e} of max |g| "
+                  f"({g_cpu.abs().max().item():.3e}; the CPU's "
+                  f"{cpu_s:.1f} s)")
+            check(err <= BWD_RTOL, f"{what}: recompute gradient on the card "
+                  f"within {BWD_RTOL} of max |g| of the CPU's")
+
+        # 3. sharded on a (4, 2) mesh of card slots, phase O's crop
+        mesh42 = parallel.make_mesh(4, 2, devices=[dev] * 8)
+        c0 = halo + inner // 2 - 256
+        zcrop = zt[c0:c0 + 512, c0:c0 + 512].contiguous()
+        ckw = dict(grad_kw, offset=(128, 128), inner_shape=(256, 256),
+                   dist_search=3000.0)
+        n0 = (fused_sweep.SHARD_KERNEL_LAUNCHES, replay.SHARD_KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        g_sh = recompute_grad(zcrop, ckw, mesh42)
+        torch.cuda.synchronize()
+        sh_s = time.perf_counter() - t0
+        n1 = (fused_sweep.SHARD_KERNEL_LAUNCHES - n0[0],
+              replay.SHARD_KERNEL_LAUNCHES - n0[1])
+        g_one = recompute_grad(zcrop, ckw)
+        err = rel_err(g_sh, g_one)
+        print(f"  sharded (4, 2) on the 256^2 crop: {sh_s:.3f} s wall, K1 "
+              f"shards {n1[0]}, K3 shards {n1[1]}; against one device "
+              f"{err:.3e} of max |g|  [{card}]")
+        check(n1 == (8, 0) and err <= BWD_RTOL, "sharded recompute: K1's "
+              "shard variant once per slot, no K3, within 1e-5 of max |g| "
+              "of the single-device recompute")
+    finally:
+        if before is None:
+            os.environ.pop("HZT_GRAD_RECOMPUTE", None)
+        else:
+            os.environ["HZT_GRAD_RECOMPUTE"] = before
+    print(f"  phase Q {time.perf_counter() - t_q:.1f} s")
+    return launches[0]
+
+
 def main():
     t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2927,6 +3066,7 @@ def main():
     check(bool(torch.isfinite(gz).all()) and gz.abs().max().item() > 0.0,
           f"z.grad finite and nonzero (max |g| {gz.abs().max().item():.3e})")
     check(torch.equal(grads[-1], grads[-2]), "z.grad bit-equal across runs")
+    g_replay = gz                         # phase Q's reference
 
     sargs = fused_sweep.sweep_args(zt, **grad_kw)
     plan, trig = sargs[4], sargs[3]
@@ -3419,13 +3559,15 @@ def main():
     tile_launches, chunk_launches = phase_p(
         dev, card, zt.cpu().numpy(), halo, inner, azim_num, dist_km, dx,
         k1_args, k1_ms, k1_samples)
+    t_q = time.perf_counter()
+    rc_launches = phase_q(dev, card, zt, grad_kw, g_replay)
     print(f"  phase J {t_k - t_j:.1f} s, phase K {t_l - t_k:.1f} s, phase L "
           f"{t_m - t_l:.1f} s, phase M {t_n - t_m:.1f} s, phase N "
           f"{t_o - t_n:.1f} s, phase O {t_p - t_o:.1f} s, phase P "
-          f"{time.perf_counter() - t_p:.1f} s")
+          f"{t_q - t_p:.1f} s, phase Q {time.perf_counter() - t_q:.1f} s")
 
     print("== 9. result")
-    print(f"  phases 1-P in {time.perf_counter() - t_run:.1f} s")
+    print(f"  phases 1-Q in {time.perf_counter() - t_run:.1f} s")
     rows = [
         ("horizon_sweep (K1)", KERNEL_SOURCE, REPLACES, launches, max_err,
          k1_ms, plain_ms, k1_bound),
@@ -3461,11 +3603,13 @@ def main():
          "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
          "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
         for name, src, rep, n, err, ms, p_ms, bnd in rows]
-    # K1 and K2 also carry the launches of phase P's runners, each path's
-    # count set to 0 just before it and read just after
+    # K1 and K2 also carry the launches of phase P's runners (K1 also of
+    # phase Q's recompute step), each path's count set to 0 just before it
+    # and read just after
     kernels[0]["launches_by_path"] = {
         "PlanarPipeline.run": launches,
-        "TiledHorizonRunner.run": tile_launches}
+        "TiledHorizonRunner.run": tile_launches,
+        "recompute gradient": rc_launches}
     kernels[3]["launches_by_path"] = {
         "Terrain.sw_dir_cor_batch/shadow_batch": k2_launches,
         "SunTrackRunner.run": chunk_launches}

@@ -39,6 +39,12 @@ Unmasked cells get exactly the unmasked sweep's values.  The ramp adds
 ``(raw + sin(az) * A) + cos(az) * B`` to the raw ratio after the argmax
 record is taken.
 
+The gradient has the reference's two backwards (:class:`_HorizonSweepFn`):
+the winner replay of :mod:`horayzon_tpu_torch.ops.replay` (K3), and with
+``HZT_GRAD_RECOMPUTE=1`` the recompute VJP, autograd through the
+plain-torch XLA sweep :func:`hz_xla_equiv` in azimuth chunks
+(:func:`recompute_vjp`), after a forward of K1's plain variant.
+
 The loop skeleton (:func:`sweep_plain`), the kernel's parameter block
 (:func:`kernel_params`) and its library (:func:`kernel_lib`) also serve the
 shadow mode, kernel K2, of :mod:`horayzon_tpu_torch.ops.shadow_sweep`.
@@ -46,6 +52,7 @@ shadow mode, kernel K2, of :mod:`horayzon_tpu_torch.ops.shadow_sweep`.
 
 import ctypes
 import math
+import os
 import warnings
 
 import numpy as np
@@ -1165,23 +1172,250 @@ def ramp_cotangent(graw, trig):
             torch.einsum("aij,a->ij", graw, tab[:, 1]))
 
 
+# ---------------------------------------------------------------------------
+# The recompute VJP (HZT_GRAD_RECOMPUTE=1)
+# ---------------------------------------------------------------------------
+
+#: Bytes that autograd keeps per (window cell, azimuth) for one padded
+#: sample of :func:`horayzon_tpu_torch.ops.sweep.horizon_core`, by kind of
+#: phase: a d2 step (two bilinear reads, their in-domain masks, the
+#: parabola), a d1 step (one read, the parabola of every other step) and a
+#: mip step (one nearest read).  Upper bounds of what ``torch.autograd.graph.
+#: saved_tensors_hooks`` counts (``tests/test_torch_recompute.py``); the
+#: int64 gather indices are most of them.
+RECOMPUTE_STEP_BYTES = {"d2": 80, "d1": 48, "mip": 12}
+#: The share of the free device memory a recompute chunk's graph may take
+#: (the rest holds the backward's own temporaries: one level-sized
+#: cotangent per gather, the chunk's cotangents).
+RECOMPUTE_MEM_SHARE = 0.6
+#: The memory a recompute chunk's graph may take on the CPU.
+RECOMPUTE_CPU_BYTES = 4 * 2 ** 30
+#: Azimuths per chunk of the last recompute backward (None before one).
+LAST_RECOMPUTE_CHUNK = None
+
+
+def _grad_mode():
+    """The backward of the gradient entries, read when their forward runs:
+    ``"recompute"`` where ``HZT_GRAD_RECOMPUTE`` is ``"1"``, else
+    ``"replay"`` (``pallas_sweep.py:1645-1648``)."""
+    return ("recompute" if os.environ.get("HZT_GRAD_RECOMPUTE") == "1"
+            else "replay")
+
+
+def recompute_schedule(plan, outer_shape):
+    """The schedule of the recompute VJP: the plan's, its safe phases
+    marked on the whole domain's halo (``pallas_sweep.py:1604-1610``;
+    ``horayzon_tpu/parallel/shard.py:163-172`` for every shard)."""
+    schedule = _sweep.build_schedule(plan["step"], plan["dist"],
+                                     plan["rel_err"],
+                                     max_level=plan["max_level"])
+    (off0, off1), (in0, in1) = plan["offset"], plan["inner_shape"]
+    h_out, w_out = outer_shape
+    halo = min(off0, off1, h_out - off0 - in0, w_out - off1 - in1)
+    return _sweep.mark_safe_phases(schedule, halo)
+
+
+def equiv_azimuths(azim_num):
+    """(A,) float64 azimuths ``2 pi k / A`` rounded to float32, as K1's
+    table rounds them (``pallas_sweep.py:1615-1616``)."""
+    return ((2.0 * np.pi) / azim_num
+            * np.arange(azim_num)).astype(np.float32).astype(np.float64)
+
+
+def equiv_raw(levels, z_org, z_inner, tables, trig, schedule, outer_shape,
+              a_chunk=None):
+    """Raw ratios (rows, in1, C) of the XLA sweep that the recompute VJP
+    differentiates (``ops.sweep.horizon_core``, planar, no distances, no
+    arctan) over the padded ``levels`` of an ``outer_shape`` grid:
+    ``tables`` the shift tables (``ops.sweep.horizon_shift_tables``) of
+    the C azimuths of ``trig`` (a (C, 2) float32 :func:`trig_table`),
+    ``z_org`` / ``z_inner`` the (rows, in1) ray origins and heights."""
+    trig_d = {"sin": trig[:, 0], "cos": trig[:, 1], "ux": trig[:, 0],
+              "uy": trig[:, 1]}
+    raw, _ = _sweep.horizon_core(
+        tuple(levels), z_org, z_inner, None, tables, trig_d,
+        sched_meta=schedule.meta(), pads=schedule.pads,
+        inner_shape=tuple(z_org.shape), planar=True, track_dist=False,
+        outer_shape=tuple(outer_shape), apply_arctan=False, a_chunk=a_chunk)
+    return raw
+
+
+def equiv_angles(raw, trig, tilt_ramp, lims):
+    """``clip(arctan((raw + sin A) + cos B))`` of (rows, in1, C) raw
+    ratios, the ramp's terms added before the arctan and the clip
+    splitting ties as ``jnp.clip`` does (``pallas_sweep.py:1632-1637``).
+    ``lims``: the elevation limits [degree]."""
+    if tilt_ramp is not None:
+        tab = torch.from_numpy(trig).to(raw.device)
+        raw = ((raw + tab[:, 0] * tilt_ramp[0][..., None])
+               + tab[:, 1] * tilt_ramp[1][..., None])
+    lo, hi = (math.radians(v) for v in lims)
+    return _sweep.tie_clip(torch.atan(raw), lo, hi)
+
+
+def hz_xla_equiv(plan, trig, z, tilt_ramp=None, *, ray_org_elev=0.01,
+                 lims=(-15.0, 89.98)):
+    """The function whose VJP is the recompute gradient
+    (``_hz_xla_equiv``, ``pallas_sweep.py:1600-1637``): the XLA sweep of
+    ``z`` with K1's schedule knobs (:func:`recompute_schedule`), K1's
+    float32 azimuths and trig table ``trig``, ``z_org = z_inner +
+    float32(ray_org_elev)``, the ramp and the clip of
+    :func:`equiv_angles`.  Differentiable by autograd w.r.t. ``z`` and the
+    ramp; no mask (the reference's recompute takes none).  Returns
+    (in0, in1, A) float32 [radian]."""
+    schedule = recompute_schedule(plan, tuple(z.shape))
+    (off0, off1), (in0, in1) = plan["offset"], plan["inner_shape"]
+    tables = _sweep.horizon_shift_tables(
+        schedule, equiv_azimuths(trig.shape[0]), plan["dx"], plan["dy"],
+        plan["offset"])
+    z_inner = z[off0:off0 + in0, off1:off1 + in1]
+    z_org = z_inner + float(_f32(ray_org_elev))
+    raw = equiv_raw(_mip.padded_levels(z, plan["pads"]), z_org, z_inner,
+                    tables, trig, schedule, tuple(z.shape))
+    return equiv_angles(raw, trig, tilt_ramp, lims)
+
+
+def recompute_bytes(schedule, shape):
+    """Bytes of the recompute graph of one azimuth over a (rows, in1)
+    block: :data:`RECOMPUTE_STEP_BYTES` over the schedule's padded samples
+    and the (rows + 1, in1 + 1) windows."""
+    rows, in1 = shape
+    per_cell = sum(-(-num // _sweep.UNROLL) * _sweep.UNROLL
+                   * RECOMPUTE_STEP_BYTES[kind]
+                   for kind, _level, _pad, num, _safe in schedule.meta())
+    return per_cell * (rows + 1) * (in1 + 1)
+
+
+def recompute_chunk(schedule, shape, a_num, levels, device):
+    """Azimuths per chunk of the recompute backward over a (rows, in1)
+    block: as many as keep the graph of one chunk (:func:`recompute_bytes`
+    per azimuth) within :data:`RECOMPUTE_MEM_SHARE` of the memory free on
+    the card (cached blocks included) less two copies of the levels (their
+    cotangents), or :data:`RECOMPUTE_CPU_BYTES` on the CPU; balanced over
+    the chunks.  Raises ``MemoryError`` when one azimuth does not fit."""
+    rows, in1 = shape
+    per_az = recompute_bytes(schedule, shape)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        free += (torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
+        budget = RECOMPUTE_MEM_SHARE * free - 2 * sum(
+            lv.numel() * lv.element_size() for lv in levels)
+    else:
+        budget = RECOMPUTE_CPU_BYTES
+    per_chunk = int(budget // per_az)
+    if per_chunk < 1:
+        raise MemoryError(
+            f"the recompute backward needs {per_az / 2 ** 30:.1f} GiB for "
+            f"one azimuth of a {rows} x {in1} block and has "
+            f"{max(budget, 0) / 2 ** 30:.1f} GiB on {device}")
+    n_chunks = -(-a_num // per_chunk)
+    return -(-a_num // n_chunks)
+
+
+def equiv_vjp(levels, x, tilt_ramp, g, tables, trig, schedule, outer_shape,
+              *, ray_org_elev, lims, from_org, a_chunk):
+    """The VJP of one block's recompute angles (:func:`equiv_raw` then
+    :func:`equiv_angles`) applied to ``g`` (rows, in1, C), recomputed and
+    differentiated ``a_chunk`` azimuths at a time, the cotangents summed
+    over the chunks in order.  ``levels``: the padded levels on the
+    block's device; ``x``: the block's (rows, in1) heights, or with
+    ``from_org`` its ray origins (a shard's heights are ``z_org -
+    ray_org_elev``, ``horayzon_tpu/parallel/shard.py:211``); ``tables``,
+    ``trig``: the C azimuths'.  Returns ``(level_cots, x_cot, ramp_cots)``:
+    one cotangent per level (None for a level no chunk reads), that of
+    ``x``, and that of the ramp (None without one)."""
+    global LAST_RECOMPUTE_CHUNK
+    LAST_RECOMPUTE_CHUNK = a_chunk
+    elev = float(_f32(ray_org_elev))
+    lv = [t.detach().requires_grad_(True) for t in levels]
+    xl = x.detach().requires_grad_(True)
+    rl = () if tilt_ramp is None else tuple(
+        r.detach().requires_grad_(True) for r in tilt_ramp)
+    leaves = lv + [xl] + list(rl)
+    total = [None] * len(leaves)
+    a_num = trig.shape[0]
+    for a0 in range(0, a_num, a_chunk):
+        sl = slice(a0, min(a0 + a_chunk, a_num))
+        with torch.enable_grad():
+            z_org, z_inner = (xl, xl - elev) if from_org else (xl + elev, xl)
+            raw = equiv_raw(lv, z_org, z_inner,
+                            [{k: v[sl] for k, v in t.items()} for t in tables],
+                            trig[sl], schedule, outer_shape,
+                            a_chunk=sl.stop - sl.start)
+            out = equiv_angles(raw, trig[sl], rl or None, lims)
+            del raw
+            grads = torch.autograd.grad(out, leaves, g[..., sl],
+                                        allow_unused=True)
+        del out
+        for i, gr in enumerate(grads):
+            if gr is not None:
+                total[i] = gr if total[i] is None else total[i].add_(gr)
+    n = len(lv)
+    x_cot = total[n] if total[n] is not None else torch.zeros_like(x)
+    ramp_cots = None
+    if rl:
+        ramp_cots = tuple(c if c is not None else torch.zeros_like(r)
+                          for c, r in zip(total[n + 1:], rl))
+    return total[:n], x_cot, ramp_cots
+
+
+def recompute_vjp(z, tilt_ramp, g, plan, trig, *, ray_org_elev, lims):
+    """``(dz, ramp_cots)``: the VJP of :func:`hz_xla_equiv` at ``(z,
+    tilt_ramp)`` applied to ``g`` (in0, in1, A) (``_hz_bwd``'s recompute,
+    ``pallas_sweep.py:1677-1689``), azimuth chunks of
+    :func:`recompute_chunk` through :func:`equiv_vjp`; the level
+    cotangents reach ``z`` through the pyramid's VJP."""
+    schedule = recompute_schedule(plan, tuple(z.shape))
+    (off0, off1), (in0, in1) = plan["offset"], plan["inner_shape"]
+    zd = z.detach()
+    levels = _mip.padded_levels(zd, plan["pads"])
+    tables = _sweep.horizon_shift_tables(
+        schedule, equiv_azimuths(trig.shape[0]), plan["dx"], plan["dy"],
+        plan["offset"])
+    a_chunk = recompute_chunk(schedule, (in0, in1), trig.shape[0], levels,
+                              z.device)
+    level_cots, x_cot, ramp_cots = equiv_vjp(
+        levels, zd[off0:off0 + in0, off1:off1 + in1], tilt_ramp, g, tables,
+        trig, schedule, tuple(z.shape), ray_org_elev=ray_org_elev,
+        lims=lims, from_org=False, a_chunk=a_chunk)
+    level_cots = [c if c is not None else torch.zeros_like(lv)
+                  for c, lv in zip(level_cots, levels)]
+    return _replay.z_cotangent(zd, plan, level_cots, x_cot), ramp_cots
+
+
 class _HorizonSweepFn(torch.autograd.Function):
-    """The sweep with its winner-replay backward (``_pallas_hz`` with
-    ``_hz_fwd`` / ``_hz_bwd_replay``, ``pallas_sweep.py:1651-1692,
-    2659-2703``; with ``levels`` the multires ``_mr_hz``,
-    ``horayzon_tpu/ops/multires.py:334-395``).  Forward: K1's argmax
-    variant (CUDA) or the plain argmax sweep (CPU), with the tilt ramp and
-    the mask when given, saving raw, ids and aux.  Backward: the cotangent
-    chained through clip and arctan; K3 (CUDA) or the plain replay (CPU)
-    (masked cells hold ID_NONE and a clipped angle, so they add nothing);
-    for the ramp :func:`ramp_cotangent`.
+    """The sweep with its two backwards, chosen as the reference chooses
+    them when the forward runs (:func:`_grad_mode`, ``_pallas_hz``,
+    ``pallas_sweep.py:1598-1692``).
+
+    The winner replay (default; ``_hz_fwd`` / ``_hz_bwd_replay``,
+    ``pallas_sweep.py:1651-1692, 2659-2703``; with ``levels`` the multires
+    ``_mr_hz``, ``horayzon_tpu/ops/multires.py:334-395``).  Forward: K1's
+    argmax variant (CUDA) or the plain argmax sweep (CPU), with the tilt
+    ramp and the mask when given, saving raw, ids and aux.  Backward: the
+    cotangent chained through clip and arctan; K3 (CUDA) or the plain
+    replay (CPU) (masked cells hold ID_NONE and a clipped angle, so they
+    add nothing); for the ramp :func:`ramp_cotangent`.
+
+    The recompute (``HZT_GRAD_RECOMPUTE=1``, where the pyramid is ``z``'s
+    own; ``_hz_fwd`` / ``_hz_bwd``'s first branch).  Forward: K1 (CUDA) or
+    the plain sweep (CPU), with the ramp and the mask, saving ``z`` and
+    the ramp alone.  Backward: :func:`recompute_vjp`, the VJP of the XLA
+    sweep :func:`hz_xla_equiv`, in azimuth chunks; no K3.  As in the
+    reference it ignores the mask: a masked cell that receives a
+    cotangent passes on the unmasked sweep's gradient there.
+
+    An all-masked call gives the lower limit everywhere and zero
+    gradients in both modes, as the reference's constant result does.
 
     Without ``levels`` the pyramid is ``z``'s own and the replay's level
     cotangents go through its VJP to ``z``.  With ``levels`` (the padded
     pyramid as further inputs, e.g. a combined fine + coarse one) they are
     returned as the levels' own cotangents, for autograd to carry to
     whatever the caller built the levels from, and ``z`` gets the ray
-    origins' cotangent at the inner block alone."""
+    origins' cotangent at the inner block alone; the reference's
+    ``_mr_hz`` reads no variable, so this is always the replay."""
 
     @staticmethod
     def forward(ctx, z, ramp_a, ramp_b, kw, *levels):
@@ -1190,15 +1424,20 @@ class _HorizonSweepFn(torch.autograd.Function):
                           **kw["sweep"])
         ctx.lims, ctx.has_ramp = kw["lims"], ramp is not None
         ctx.own_pyramid = not levels
+        ctx.recompute = ctx.own_pyramid and _grad_mode() == "recompute"
         ctx.empty = _all_masked(args)
         if ctx.empty:
             ctx.save_for_backward(z)
             ctx.inner_shape = args[4]["inner_shape"]
             return _low_lim_fill(args, kw["lims"][0])
         ratio_fn = _ratio_cuda if z.is_cuda else _ratio_plain
+        ctx.plan, ctx.trig = args[4], args[3]
+        if ctx.recompute:
+            ctx.save_for_backward(z, *(args[6] or ()))
+            ctx.ray_org_elev = kw["sweep"]["ray_org_elev"]
+            return _angles(ratio_fn(*args), *kw["lims"])
         raw, ids, aux = ratio_fn(*args, emit_argmax=True)
         ctx.save_for_backward(z, raw, ids, aux)
-        ctx.plan, ctx.trig = args[4], args[3]
         return _angles(raw.clone(), *kw["lims"])
 
     @staticmethod
@@ -1211,6 +1450,14 @@ class _HorizonSweepFn(torch.autograd.Function):
             return (torch.zeros_like(z) if need_z else None,
                     zero if need_a else None, zero if need_b else None,
                     None) + (None,) * len(need_lv)
+        if ctx.recompute:
+            z, *ramp = ctx.saved_tensors
+            dz, dr = recompute_vjp(z, tuple(ramp) or None, g, ctx.plan,
+                                   ctx.trig, ray_org_elev=ctx.ray_org_elev,
+                                   lims=ctx.lims)
+            dra, drb = (None, None) if dr is None else dr
+            return (dz if need_z else None, dra if need_a else None,
+                    drb if need_b else None, None)
         z, raw, ids, aux = ctx.saved_tensors
         graw = raw_cotangent(raw, g, ctx.lims)
         dz = dra = drb = None
@@ -1269,7 +1516,11 @@ def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
     of :func:`horayzon_tpu_torch.ops.multires.combined_pyramid`), and
     ``z_outer`` receives only the ray origins' share.  Levels that do not
     require grad beside a ``z_outer`` that does therefore give an
-    incomplete gradient of ``z_outer``: the call warns.
+    incomplete gradient of ``z_outer``: the call warns.  With
+    ``HZT_GRAD_RECOMPUTE=1`` in the environment when the forward runs (and
+    no ``pyramid``), the backward is the reference's recompute VJP
+    instead: K1 forward, then autograd through the XLA sweep
+    (:func:`recompute_vjp`), with no K3.
 
     Returns (in0, in1, azim_num) float32 [radian] on ``z_outer``'s device.
     """

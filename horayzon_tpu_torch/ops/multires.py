@@ -368,5 +368,5 @@ def horizon_sweep_multires(z_fine, z_coarse, *, ratio_log2, coarse_offset,
         _sweep.sweep_trig(azim, u_xy), sched_meta=schedule.meta(),
         pads=schedule.pads, inner_shape=tuple(inner_shape), planar=planar,
         track_dist=False, outer_shape=(hf, wf))
-    return torch.clamp(hori, math.radians(elev_ang_low_lim),
-                       math.radians(elev_ang_up_lim))
+    return _sweep.tie_clip(hori, math.radians(elev_ang_low_lim),
+                           math.radians(elev_ang_up_lim))

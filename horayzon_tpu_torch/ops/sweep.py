@@ -348,6 +348,14 @@ def horizon_shift_tables(schedule, azim, dx, dy, offset, u_xy=None,
     return tables
 
 
+def tie_clip(x, lo, hi):
+    """``x`` clipped to ``[lo, hi]`` as ``jnp.clip`` clips it: the values
+    of ``torch.clamp``, but at an exact bound the gradient splits in half,
+    as ``jnp.maximum`` / ``jnp.minimum`` split it (``torch.clamp`` passes
+    all of it).  ``lo``, ``hi``: Python floats, rounded to ``x``'s dtype."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def _mip_slice_size(n, level):
     return (n + 2 ** level - 2) // (2 ** level) + 1
 
@@ -720,8 +728,8 @@ def horizon_sweep(z_outer, *, dx, dy, offset, inner_shape, azim,
         sched_meta=schedule.meta(), pads=schedule.pads,
         inner_shape=tuple(inner_shape), planar=planar,
         track_dist=track_dist)
-    hori = torch.clamp(hori, math.radians(elev_ang_low_lim),
-                       math.radians(elev_ang_up_lim))
+    hori = tie_clip(hori, math.radians(elev_ang_low_lim),
+                    math.radians(elev_ang_up_lim))
     return (hori, dist) if track_dist else (hori, None)
 
 

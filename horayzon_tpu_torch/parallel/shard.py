@@ -28,9 +28,16 @@ words are summed exactly into the whole run's boxes (and over processes,
 tile is summed over its azimuth shards in order, each continuing the
 previous one's running sum.
 
-The reference's sharded recompute VJP (``_psh_xla_equiv``, the
-``HZT_GRAD_RECOMPUTE=1`` debugging fallback) is not ported, as the port's
-single-device gradient has no recompute mode either.
+With ``HZT_GRAD_RECOMPUTE=1`` (read when the forward runs) the fused
+horizon sweep's gradient is the reference's sharded recompute VJP
+instead: K1's non-argmax ``shard_off`` variant per slot forward, nothing
+recorded, and backward the VJP of :func:`psh_xla_equiv` (the plain-torch
+XLA sweep per slot, ``_psh_xla_equiv``), recomputed in azimuth chunks per
+slot; the shards' cotangents sum in slot order.  It equals the
+single-device recompute gradient up to the order of float sums (a
+shard's heights are ``z_org - ray_org_elev``, rounded as the reference
+rounds them), not bit for bit.  The multires entry keeps the replay, as
+the reference's ``_mr_hz_sharded`` does.
 """
 
 import math
@@ -258,16 +265,139 @@ class _HzForward:
         return _assemble(self.mesh, pieces, row_dim=1, az_dim=0), records
 
 
+# ---------------------------------------------------------------------------
+# The sharded recompute VJP (HZT_GRAD_RECOMPUTE=1)
+# ---------------------------------------------------------------------------
+
+class _EquivSlots:
+    """The per-slot set-up of the sharded recompute (``_psh_xla_equiv``,
+    ``horayzon_tpu/parallel/shard.py:158-237``): the schedule marked on the
+    whole domain's halo, and per slot its shift tables and trig rows.  The
+    reference adds a shard's first row to the whole run's table entries
+    (``m_i0``/``e_i0``, ``i0``, and ``base_i``/``r_i`` re-split by
+    ``2**level``) and takes the shard's azimuth rows; a table built at the
+    shard's global offset for its azimuths holds the same integers, which
+    is what :meth:`tables` builds.  A shard's heights are ``z_org -
+    ray_org_elev`` (:211), not the inner block itself."""
+
+    def __init__(self, mesh, plan, trig, outer_shape):
+        self.plan, self.trig = plan, trig
+        self.rows, self.az_loc = _split(mesh, plan["inner_shape"],
+                                        trig.shape[0])
+        self.schedule = _fused.recompute_schedule(plan, outer_shape)
+        self.azim = _fused.equiv_azimuths(trig.shape[0])
+
+    def tables(self, t, a):
+        """``(tables, trig)`` of slot ``(t, a)``."""
+        sl = slice(a * self.az_loc, (a + 1) * self.az_loc)
+        off0, off1 = self.plan["offset"]
+        tables = _sweep.horizon_shift_tables(
+            self.schedule, self.azim[sl], self.plan["dx"], self.plan["dy"],
+            (off0 + t * self.rows, off1))
+        return tables, self.trig[sl]
+
+
+def psh_xla_equiv(mesh, plan, trig, z, tilt_ramp=None, *, ray_org_elev=0.01,
+                  lims=(-15.0, 89.98)):
+    """The function whose VJP is the sharded recompute gradient
+    (``_psh_xla_equiv``, ``horayzon_tpu/parallel/shard.py:158-237``): per
+    slot the XLA sweep of its rows and azimuths (:class:`_EquivSlots`),
+    its ramp rows' terms, then ``fused_sweep.equiv_angles``; assembled by
+    rows and azimuths.  Differentiable by autograd w.r.t. ``z`` (on the
+    mesh's first device) and the ramp; the shards' cotangents of the
+    replicated ``z`` sum in slot order.  Returns (in0, in1, A) float32
+    [radian]."""
+    slots = _EquivSlots(mesh, plan, trig, tuple(z.shape))
+    (off0, off1), (in0, in1) = plan["offset"], plan["inner_shape"]
+    rows = slots.rows
+    z_org = z[off0:off0 + in0, off1:off1 + in1] + float(
+        np.float32(ray_org_elev))
+    levels = _mip.padded_levels(z, plan["pads"])
+    cache = _OnDevice()
+    pieces = {}
+    for t, a, dev in mesh.local_slots():
+        tables, trig_s = slots.tables(t, a)
+        zo = z_org[t * rows:(t + 1) * rows].to(dev)
+        raw = _fused.equiv_raw(
+            cache.get(dev, lambda: [lv.to(dev) for lv in levels]), zo,
+            zo - float(np.float32(ray_org_elev)), tables, trig_s,
+            slots.schedule, tuple(z.shape))
+        ramp = None if tilt_ramp is None else tuple(
+            r[t * rows:(t + 1) * rows].to(dev) for r in tilt_ramp)
+        pieces[(t, a)] = _fused.equiv_angles(raw, trig_s, ramp, lims)
+    return _assemble(mesh, pieces, row_dim=0, az_dim=2)
+
+
+def _sharded_recompute(mesh, z, tilt_ramp, g, plan, trig, ray_org_elev,
+                       lims):
+    """``(dz, ramp_cots)``: the VJP of :func:`psh_xla_equiv` at ``(z,
+    tilt_ramp)`` applied to ``g`` (``_psh_bwd``'s recompute,
+    ``horayzon_tpu/parallel/shard.py:262-266``), per slot in azimuth chunks
+    (``fused_sweep.equiv_vjp``).  The level cotangents sum over the slots
+    in order (and over the processes), then reach ``z`` through the
+    pyramid's VJP; a tile's ray-origin and ramp cotangents sum over its
+    azimuth slots in order and assemble by rows."""
+    slots = _EquivSlots(mesh, plan, trig, tuple(z.shape))
+    (off0, off1), (in0, in1) = plan["offset"], plan["inner_shape"]
+    rows, dev0 = slots.rows, mesh.device
+    zd = z.detach()
+    z_org = zd[off0:off0 + in0, off1:off1 + in1] + float(
+        np.float32(ray_org_elev))
+    levels = _mip.padded_levels(zd, plan["pads"])
+    level_cots = [torch.zeros_like(lv) for lv in levels]
+    x_cots, ramp_cots = {}, {}
+    cache = _OnDevice()
+    for t, a, dev in mesh.local_slots():
+        r0, sl = t * rows, slice(a * slots.az_loc, (a + 1) * slots.az_loc)
+        lv = cache.get(dev, lambda: [x.to(dev) for x in levels])
+        tables, trig_s = slots.tables(t, a)
+        ramp = None if tilt_ramp is None else tuple(
+            _rows(r, r0, rows, dev) for r in tilt_ramp)
+        a_chunk = _fused.recompute_chunk(slots.schedule, (rows, in1),
+                                         slots.az_loc, lv, dev)
+        lc, xc, rc = _fused.equiv_vjp(
+            lv, _rows(z_org, r0, rows, dev), ramp,
+            g[r0:r0 + rows, :, sl].to(dev), tables, trig_s, slots.schedule,
+            tuple(z.shape), ray_org_elev=ray_org_elev, lims=lims,
+            from_org=True, a_chunk=a_chunk)
+        for acc, c in zip(level_cots, lc):
+            if c is not None:
+                acc.add_(c.to(dev0))
+        prev = x_cots.get((t, 0))
+        x_cots[(t, 0)] = xc if prev is None else prev + xc.to(prev.device)
+        if rc is not None:
+            prev = ramp_cots.get((t, 0))
+            ramp_cots[(t, 0)] = rc if prev is None else tuple(
+                p + c.to(p.device) for p, c in zip(prev, rc))
+    for acc in level_cots:
+        _dist.all_reduce(acc, mesh, "sum")
+    dz = _replay.z_cotangent(zd, plan, level_cots,
+                             _assemble(mesh, x_cots, row_dim=0))
+    dr = None
+    if tilt_ramp is not None:
+        dr = tuple(_assemble(mesh, {k: v[i] for k, v in ramp_cots.items()},
+                             row_dim=0) for i in range(2))
+    return dz, dr
+
+
 class _ShardedHorizonFn(torch.autograd.Function):
-    """The sharded sweep with its sharded winner-replay backward (the
-    reference's ``_pallas_hz_sharded``, ``_psh_fwd`` / ``_psh_bwd_replay``,
-    ``shard.py:239-338``, and for multires ``_mr_hz_sharded``, :444-537).
+    """The sharded sweep with its two backwards, chosen as the reference
+    chooses them when the forward runs (``fused_sweep._grad_mode``;
+    ``_pallas_hz_sharded``, ``horayzon_tpu/parallel/shard.py:239-269``).
+
+    The sharded winner replay (default; ``_psh_fwd`` / ``_psh_bwd_replay``,
+    ``shard.py:250-338``, and for multires ``_mr_hz_sharded``, :444-537).
     Forward: K1-argmax per slot; the assembled angles, with the raw ratios
     and the slots' records saved.  Backward: the cotangent chained through
     clip and arctan on the whole run's raw ratios, the ramp's cotangent as
     the single sweep forms it, and :func:`_sharded_replay`.  The level
     cotangents go to ``z`` through the pyramid's VJP, or (``levels`` given)
-    to the levels, as ``fused_sweep._HorizonSweepFn`` routes them."""
+    to the levels, as ``fused_sweep._HorizonSweepFn`` routes them.
+
+    The sharded recompute (``HZT_GRAD_RECOMPUTE=1``, where the pyramid is
+    ``z``'s own; ``_psh_fwd`` / ``_psh_bwd``'s first branch): K1 per slot
+    (its ``shard_off`` non-argmax variant), no record kept; backward
+    :func:`_sharded_recompute`, no K3."""
 
     @staticmethod
     def forward(ctx, z, ramp_a, ramp_b, kw, *levels):
@@ -275,18 +405,34 @@ class _ShardedHorizonFn(torch.autograd.Function):
         args = _fused.sweep_args(z, tilt_ramp=ramp, pyramid=levels or None,
                                  **kw["sweep"])
         fwd = _HzForward(kw["mesh"], args, kw["n_fine"])
+        ctx.lims, ctx.has_ramp = kw["lims"], ramp is not None
+        ctx.own_pyramid = not levels
+        ctx.recompute = (ctx.own_pyramid
+                         and _fused._grad_mode() == "recompute")
+        if ctx.recompute:
+            raw, _ = fwd.run(emit_argmax=False)
+            ctx.save_for_backward(z, *(args[6] or ()))
+            ctx.mesh, ctx.plan, ctx.trig = fwd.mesh, fwd.plan, fwd.trig
+            ctx.ray_org_elev = kw["sweep"]["ray_org_elev"]
+            return _fused._angles(raw, *kw["lims"])
         raw, records = fwd.run(emit_argmax=True)
         fwd.cache = fwd.pooled = None      # the replay reads no level
         ctx.save_for_backward(z, raw)
         ctx.fwd, ctx.records = fwd, records
-        ctx.lims, ctx.has_ramp = kw["lims"], ramp is not None
-        ctx.own_pyramid = not levels
         return _fused._angles(raw.clone(), *kw["lims"])
 
     @staticmethod
     def backward(ctx, g):
         need_z, need_a, need_b = ctx.needs_input_grad[:3]
         need_lv = ctx.needs_input_grad[4:]
+        if ctx.recompute:
+            z, *ramp = ctx.saved_tensors
+            dz, dr = _sharded_recompute(ctx.mesh, z, tuple(ramp) or None, g,
+                                        ctx.plan, ctx.trig,
+                                        ctx.ray_org_elev, ctx.lims)
+            dra, drb = (None, None) if dr is None else dr
+            return (dz if need_z else None, dra if need_a else None,
+                    drb if need_b else None, None)
         z, raw = ctx.saved_tensors
         fwd = ctx.fwd
         graw = _fused.raw_cotangent(raw, g, ctx.lims)
@@ -354,9 +500,11 @@ def horizon_sweep_fused_sharded(mesh, z_outer, *, dx, dy, offset,
     rows.  The result is bit-equal to ``horizon_sweep_fused`` on every
     mesh.  Differentiable w.r.t. ``z_outer`` and ``tilt_ramp``
     (K1-argmax and K3's shard variant, bit-equal to the single-device
-    gradient).  Requires ``inner_shape[0]`` divisible by the tile axis and
-    ``azim_num`` by the azim axis.  Returns (in0, in1, azim_num) float32
-    [radian] on the mesh's first device, on every process."""
+    gradient; with ``HZT_GRAD_RECOMPUTE=1`` the sharded recompute VJP,
+    :func:`_sharded_recompute`).  Requires ``inner_shape[0]`` divisible by
+    the tile axis and ``azim_num`` by the azim axis.  Returns (in0, in1,
+    azim_num) float32 [radian] on the mesh's first device, on every
+    process."""
     sweep_kw = dict(dx=dx, dy=dy, offset=offset, inner_shape=inner_shape,
                     azim_num=azim_num, dist_search=dist_search,
                     hori_acc=hori_acc, ray_org_elev=ray_org_elev,
@@ -559,8 +707,8 @@ def horizon_sweep_sharded(mesh, z_outer, *, dx, dy, offset, inner_shape,
                 inner_shape=(rows, in1), planar=planar, track_dist=False)
             pieces[(t, a)] = hori
     hori = _assemble(mesh, pieces, row_dim=0, az_dim=2)
-    return torch.clamp(hori, math.radians(elev_ang_low_lim),
-                       math.radians(elev_ang_up_lim))
+    return _sweep.tie_clip(hori, math.radians(elev_ang_low_lim),
+                           math.radians(elev_ang_up_lim))
 
 
 def shadow_metric_sharded(mesh, z_outer, z_org, z_inner, m_slope, u_cells,

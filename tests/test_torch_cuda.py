@@ -47,7 +47,12 @@ tile) bit-equal to ``horizon_sweep_fused`` on each tile, each tile's raw
 ratios bit-equal to K1's plain version on the CPU and its angles within
 1e-5 rad of the CPU runner's; the sun-track runner (K2, one launch a
 chunk) bit-equal to one ``sw_dir_cor_batch`` call; ``profiling.sync``
-returns only after the work queued before it has run.
+returns only after the work queued before it has run.  The recompute VJP
+(``HZT_GRAD_RECOMPUTE=1``, ``-k recompute``): K1 once and no K1-argmax
+or K3 per step, single-device and per slot; the gradients within 1e-5 of
+max |.| of the CPU's (``torch.take``'s backward may sum in another order
+on the card), the sharded ones of the single-device one's; the spike's
+within atol 5e-9 of the replay's; a chunk too large raises.
 """
 
 import os
@@ -70,6 +75,7 @@ from reference_impl import gaussian_bumps_terrain
 from torch_scenes import (RUNNER_SCENES, SHADOW_SKIP_SCENES, SHARD_MESHES,
                           SKIP_SCENES, bumps, refraction_numpy,
                           curved_setup, curved_terrain_inputs,
+                          recompute_scenes,
                           shadow_skip_scene, sharded_scenes, skip_scene,
                           sun_track_terrain_inputs)
 
@@ -1680,3 +1686,91 @@ def test_profiling_sync_waits_for_the_card(cuda):
     stats = profiling.time_sweep(spin, cells=1, azim_num=1,
                                  samples_per_cell_azim=1, iters=2)
     assert stats.wall_time_s > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The recompute VJP (HZT_GRAD_RECOMPUTE=1)
+# ---------------------------------------------------------------------------
+
+def _recompute_grads(name, dev, sweep_fn=None):
+    """``(dz, dA, dB)`` of ``recompute_scenes()[name]`` on ``dev``: loss
+    ``mean(h^2)``, or with the scene's cotangent ``sum(cot * h)``."""
+    z, kw, ramp, mask, cot = recompute_scenes()[name]
+    sweep_fn = sweep_fn or fused_sweep.horizon_sweep_fused
+    zz = torch.from_numpy(z).to(dev).requires_grad_(True)
+    rr = None if ramp is None else tuple(
+        torch.from_numpy(r).to(dev).requires_grad_(True) for r in ramp)
+    h = sweep_fn(zz, tilt_ramp=rr, mask=mask, **kw)
+    loss = (torch.mean(h ** 2) if cot is None
+            else torch.sum(torch.from_numpy(cot).to(dev) * h))
+    loss.backward()
+    return [zz.grad.cpu()] + ([] if rr is None else [r.grad.cpu()
+                                                     for r in rr])
+
+
+def _held(got, want, rtol=1e-5):
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        assert scale > 0.0 and bool(torch.isfinite(g).all())
+        assert (g - w).abs().max().item() <= rtol * scale
+
+
+@pytest.mark.parametrize("name", ["spike", "bumps", "masked"])
+def test_recompute_gradient_on_card(cuda, monkeypatch, name):
+    """``HZT_GRAD_RECOMPUTE=1`` on the card: K1 (with the scene's ramp and
+    mask) once, no K1-argmax and no K3; the gradients within 1e-5 of
+    max |.| of the CPU's (``torch.take``'s backward may sum in another
+    order on the card)."""
+    monkeypatch.setenv("HZT_GRAD_RECOMPUTE", "1")
+    n0 = (fused_sweep.KERNEL_LAUNCHES, fused_sweep.ARGMAX_KERNEL_LAUNCHES,
+          replay.KERNEL_LAUNCHES)
+    got = _recompute_grads(name, cuda)
+    torch.cuda.synchronize()
+    assert (fused_sweep.KERNEL_LAUNCHES, fused_sweep.ARGMAX_KERNEL_LAUNCHES,
+            replay.KERNEL_LAUNCHES) == (n0[0] + 1, n0[1], n0[2])
+    _held(got, _recompute_grads(name, "cpu"))
+
+
+def test_recompute_spike_matches_replay_on_card(cuda, monkeypatch):
+    """tests/test_pallas.py:303-312's check on the card: the recompute
+    within atol 5e-9 of the replay, norm ratio within 1e-3."""
+    monkeypatch.delenv("HZT_GRAD_RECOMPUTE", raising=False)
+    g_rep = _recompute_grads("spike", cuda)[0].numpy()
+    monkeypatch.setenv("HZT_GRAD_RECOMPUTE", "1")
+    g_rc = _recompute_grads("spike", cuda)[0].numpy()
+    np.testing.assert_allclose(g_rep, g_rc, atol=5e-9)
+    assert abs(np.linalg.norm(g_rep) / np.linalg.norm(g_rc) - 1.0) < 1e-3
+
+
+@pytest.mark.parametrize("n_tile,n_azim", [(8, 1), (2, 4), (1, 8)])
+def test_sharded_recompute_on_card(cuda, monkeypatch, n_tile, n_azim):
+    """The sharded recompute on a mesh of card slots: K1's shard variant
+    once per slot, no K1-argmax, no K3; the gradients within 1e-5 of
+    max |.| of the single-device recompute on the card."""
+    monkeypatch.setenv("HZT_GRAD_RECOMPUTE", "1")
+    mesh = _slot_mesh(cuda, n_tile, n_azim)
+
+    def sharded(z, tilt_ramp=None, mask=None, **kw):
+        return shard.horizon_sweep_fused_sharded(mesh, z, tilt_ramp=tilt_ramp,
+                                                 **kw)
+
+    n0 = (fused_sweep.SHARD_KERNEL_LAUNCHES,
+          fused_sweep.ARGMAX_KERNEL_LAUNCHES, replay.SHARD_KERNEL_LAUNCHES)
+    got = _recompute_grads("shard_wide", cuda, sharded)
+    torch.cuda.synchronize()
+    assert (fused_sweep.SHARD_KERNEL_LAUNCHES,
+            fused_sweep.ARGMAX_KERNEL_LAUNCHES,
+            replay.SHARD_KERNEL_LAUNCHES) == (n0[0] + n_tile * n_azim, n0[1],
+                                              n0[2])
+    _held(got, _recompute_grads("shard_wide", cuda))
+
+
+def test_recompute_chunk_raises_on_card(cuda, monkeypatch):
+    """A block whose single azimuth's graph does not fit the card's share
+    raises ``MemoryError`` (never falls back to the replay)."""
+    monkeypatch.setenv("HZT_GRAD_RECOMPUTE", "1")
+    monkeypatch.setattr(fused_sweep, "RECOMPUTE_MEM_SHARE", 1e-9)
+    n0 = replay.KERNEL_LAUNCHES
+    with pytest.raises(MemoryError, match="one azimuth"):
+        _recompute_grads("bumps", cuda)
+    assert replay.KERNEL_LAUNCHES == n0

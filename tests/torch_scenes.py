@@ -291,3 +291,57 @@ def sun_track_terrain_inputs():
     suns = np.stack([1e7 * np.cos(ang), 1e7 * np.sin(ang),
                      2e6 + 1e6 * np.sin(ang)], axis=-1).astype(np.float32)
     return args, suns
+
+
+def recompute_scenes():
+    """The recompute VJP's scenes (tests/test_torch_recompute.py and the
+    card's).  ``spike``: tests/test_pallas.py:275-312's far field (544^2
+    flat, spikes of 500 m and 400 m 2.4 and 3.75 km north of the 32^2
+    block, 6 km, 4 azimuths), whose gradient flows through mip winners.
+    ``bumps`` (seed 11, with a tilt ramp, seed 12) and ``masked`` (seed
+    13, about half the cells masked, seed 14, and a fixed cotangent on
+    every cell, seed 15) share its geometry, so one compile of the
+    reference serves all three.  ``shard``: the reference's sharded
+    gradient case (tests/test_sharding.py:236-279: the 64^2 bumps of
+    seed 7, an 8 x 32 block at (16, 16), 150 m, the ramp of seed 5) at 8
+    azimuths, so the (1, 8) mesh divides them; ``shard_wide``: a 16 x 32
+    block at 300 m with a ramp (seed 16), whose schedule has a masked d2
+    phase, for the port-against-port checks.  Each: ``(z, keywords,
+    ramp or None, mask or None, cotangent or None)``."""
+    f32 = np.float32
+    dist = 6000.0
+    halo, inner = int(dist / 25) + 16, 32
+    n = inner + 2 * halo
+    spike = np.zeros((n, n), dtype=f32)
+    spike[halo - 96, halo + 16] = 500.0
+    spike[halo - 150, halo + 8] = 400.0
+    kw = dict(dx=25.0, dy=-25.0, offset=(halo, halo),
+              inner_shape=(inner, inner), dist_search=dist, hori_acc=0.25,
+              azim_num=4)
+    rng = np.random.default_rng(12)
+    ramp = tuple(rng.normal(0.0, 0.05, (inner, inner)).astype(f32)
+                 for _ in range(2))
+    mask = (np.random.default_rng(14).random((inner, inner)) < 0.5) \
+        .astype(np.uint8)
+    cot = np.random.default_rng(15).normal(
+        0.0, 1e-3, (inner, inner, 4)).astype(f32)
+    terrain = gaussian_bumps_terrain(64, 64, seed=7, amp=400.0)
+    rng = np.random.default_rng(5)
+    gramp = tuple(rng.normal(0.0, 1e-4, (8, 32)).astype(f32)
+                  for _ in range(2))
+    rng = np.random.default_rng(16)
+    wramp = tuple(rng.normal(0.0, 1e-2, (16, 32)).astype(f32)
+                  for _ in range(2))
+    skw = dict(dx=25.0, dy=-25.0, offset=(16, 16), hori_acc=0.25,
+               azim_num=8)
+    return {
+        "spike": (spike, kw, None, None, None),
+        "bumps": (gaussian_bumps_terrain(n, n, seed=11, amp=600.0), kw,
+                  ramp, None, None),
+        "masked": (gaussian_bumps_terrain(n, n, seed=13, amp=600.0), kw,
+                   None, mask, cot),
+        "shard": (terrain, dict(skw, inner_shape=(8, 32), dist_search=150.0),
+                  gramp, None, None),
+        "shard_wide": (terrain, dict(skw, inner_shape=(16, 32),
+                                     dist_search=300.0), wramp, None, None),
+    }
