@@ -9,6 +9,7 @@ import torch
 
 from horayzon_tpu_torch import (auxiliary, direction, horizon, topo_param,
                                 transform)
+from horayzon_tpu_torch.utils.profiling import span
 
 
 class PlanarPipeline:
@@ -42,38 +43,45 @@ class PlanarPipeline:
     def run(self, mask=None):
         """Compute all terrain parameters; returns a dict of tensors on the
         pipeline's device."""
-        dem_dim_0, dem_dim_1 = self.elevation.shape
-        in0 = self.slice_in[0].stop - self.slice_in[0].start
-        in1 = self.slice_in[1].stop - self.slice_in[1].start
-        vec_norm = np.zeros((in0, in1, 3), dtype=np.float32)
-        vec_norm[:, :, 2] = 1.0
-        vec_north = np.zeros((in0, in1, 3), dtype=np.float32)
-        vec_north[:, :, 1] = 1.0
-        x_2d, y_2d = np.meshgrid(self.x, self.y)
-        vert_grid = auxiliary.rearrange_pad_buffer(
-            x_2d.astype(np.float32), y_2d.astype(np.float32), self.elevation)
-        hori, azim = horizon.horizon_gridded(
-            vert_grid, dem_dim_0, dem_dim_1, vec_norm, vec_north,
-            self.offset_0, self.offset_1, dist_search=self.dist_search,
-            azim_num=self.azim_num, hori_acc=self.hori_acc,
-            elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
-            device=self.device)
+        with span("hzt.pipeline.run"):
+            dem_dim_0, dem_dim_1 = self.elevation.shape
+            in0 = self.slice_in[0].stop - self.slice_in[0].start
+            in1 = self.slice_in[1].stop - self.slice_in[1].start
+            with span("hzt.pipeline.grid"):
+                vec_norm = np.zeros((in0, in1, 3), dtype=np.float32)
+                vec_norm[:, :, 2] = 1.0
+                vec_north = np.zeros((in0, in1, 3), dtype=np.float32)
+                vec_north[:, :, 1] = 1.0
+                x_2d, y_2d = np.meshgrid(self.x, self.y)
+                vert_grid = auxiliary.rearrange_pad_buffer(
+                    x_2d.astype(np.float32), y_2d.astype(np.float32),
+                    self.elevation)
+            hori, azim = horizon.horizon_gridded(
+                vert_grid, dem_dim_0, dem_dim_1, vec_norm, vec_north,
+                self.offset_0, self.offset_1, dist_search=self.dist_search,
+                azim_num=self.azim_num, hori_acc=self.hori_acc,
+                elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
+                device=self.device)
 
-        def on_device(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            def on_device(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(
+                    self.device)
 
-        sl = (slice(self.slice_in[0].start - 1, self.slice_in[0].stop + 1),
-              slice(self.slice_in[1].start - 1, self.slice_in[1].stop + 1))
-        vec_tilt = topo_param.slope_plane_meth(
-            on_device(x_2d[sl]), on_device(y_2d[sl]),
-            on_device(self.elevation[sl]))[1:-1, 1:-1]
-        svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
-        slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
-        return {"hori": hori, "azim": azim, "svf": svf, "slope": slope,
-                "aspect": aspect, "vec_tilt": vec_tilt,
-                "elevation": on_device(self.elevation[self.slice_in]),
-                "x": on_device(self.x[self.slice_in[1]]),
-                "y": on_device(self.y[self.slice_in[0]])}
+            with span("hzt.pipeline.topo"):
+                s0, s1 = self.slice_in
+                sl = (slice(s0.start - 1, s0.stop + 1),
+                      slice(s1.start - 1, s1.stop + 1))
+                vec_tilt = topo_param.slope_plane_meth(
+                    on_device(x_2d[sl]), on_device(y_2d[sl]),
+                    on_device(self.elevation[sl]))[1:-1, 1:-1]
+                svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
+                slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
+            with span("hzt.pipeline.outputs"):
+                return {"hori": hori, "azim": azim, "svf": svf,
+                        "slope": slope, "aspect": aspect, "vec_tilt": vec_tilt,
+                        "elevation": on_device(self.elevation[self.slice_in]),
+                        "x": on_device(self.x[self.slice_in[1]]),
+                        "y": on_device(self.y[self.slice_in[0]])}
 
 
 class CurvedPipeline:

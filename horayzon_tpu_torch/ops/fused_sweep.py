@@ -62,6 +62,7 @@ from horayzon_tpu_torch.ops import _build
 from horayzon_tpu_torch.ops import mip as _mip
 from horayzon_tpu_torch.ops import replay as _replay
 from horayzon_tpu_torch.ops import sweep as _sweep
+from horayzon_tpu_torch.utils import profiling as _profiling
 
 _NEG_INIT = -3.0e38
 #: The running value of a masked cell (the reference's mask-aware init).
@@ -100,10 +101,9 @@ TILT_KERNEL_LAUNCHES = 0
 #: :func:`shard_plan`), counted besides the entry's own count.
 SHARD_KERNEL_LAUNCHES = 0
 #: The counters a launch of K1 (or K2) adds to when :func:`_ratio_cuda`
-#: (``shadow_sweep._metric_cuda``) is given ``counters`` (the kernel's
-#: slots, in order): (cell, row) samples of swept cells, the d1 slots over
-#: the safe pairs (K2: the masked pairs too).
-COUNTER_FIELDS = ("d1_taken", "d1_skipped", "mip_taken", "mip_skipped")
+#: (``shadow_sweep._metric_cuda``) is given ``counters``, or while the
+#: profiler records: the kernel's slots (``utils.profiling.COUNTER_FIELDS``).
+COUNTER_FIELDS = _profiling.COUNTER_FIELDS
 
 
 def plan_sweep(outer_shape, *, inner_shape, offset, dist_search, dx, dy,
@@ -981,7 +981,8 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
     only the live blocks are launched; with no live block nothing is.
     ``counters``: a (4,) int64 tensor on the card to which the launch adds
     the (cell, azimuth) samples of swept cells it took and skipped in the
-    safe d1 pairs and in the mip phases (:data:`COUNTER_FIELDS`).
+    safe d1 pairs and in the mip phases (:data:`COUNTER_FIELDS`); when None
+    and the profiler records, ``utils.profiling``'s counters of "k1".
     ``pooled``: :func:`skip_inputs` of the levels (built here when None);
     a shard whose levels are windows (``plan["lvl_row0"]``) passes the
     window's rows of the full levels' companions."""
@@ -1010,6 +1011,8 @@ def _ratio_cuda(z_org, z_inner, levels, trig, plan, outer_shape,
     prm.trig, prm.pool_min0 = trig_t.data_ptr(), pool_min0.data_ptr()
     for lvl, t in enumerate(pooled):
         prm.pool[lvl], prm.pool_w[lvl] = t.data_ptr(), t.shape[1]
+    if counters is None:
+        counters = _profiling.launch_counters("k1", dev)
     if counters is not None:
         check_counters(counters, dev)
         prm.counters = counters.data_ptr()
@@ -1560,11 +1563,17 @@ def horizon_sweep_fused(z_outer, *, dx, dy, offset, inner_shape, azim_num,
 
 
 def _run(ratio_fn, z_outer, lims, sweep_kw):
-    z = torch.as_tensor(z_outer).detach().to(torch.float32).contiguous()
-    args = sweep_args(z, **sweep_kw)
-    if _all_masked(args):
-        return _low_lim_fill(args, lims[0])
-    return _angles(ratio_fn(*args), *lims)
+    with _profiling.span("hzt.sweep.prepare"):
+        z = torch.as_tensor(z_outer).detach().to(torch.float32).contiguous()
+        args = sweep_args(z, **sweep_kw)
+        empty = _all_masked(args)
+    if empty:
+        with _profiling.span("hzt.sweep.angles"):
+            return _low_lim_fill(args, lims[0])
+    with _profiling.span("hzt.sweep.k1"):
+        ratio = ratio_fn(*args)
+    with _profiling.span("hzt.sweep.angles"):
+        return _angles(ratio, *lims)
 
 
 def horizon_sweep_plain(z_outer, *, dx, dy, offset, inner_shape, azim_num,

@@ -60,6 +60,7 @@ from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import mip as _mip
 from horayzon_tpu_torch.ops import replay as _replay
 from horayzon_tpu_torch.ops.replay import lattice_xy, sqrt_rn
+from horayzon_tpu_torch.utils import profiling as _profiling
 
 #: Launches of kernel K2 made by this process (incremented only where the
 #: wrapper launches it).
@@ -223,7 +224,8 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
     ``pooled``: ``fused_sweep.skip_inputs`` of ``levels`` (built here
     when None).  ``counters``: a (4,) int64 tensor on the card to which the launch adds
     the (cell, sun) samples it took and skipped in the d1 pairs and the mip
-    phases (``fused_sweep.COUNTER_FIELDS``).  ``mask`` (in0, in1) uint8
+    phases (``fused_sweep.COUNTER_FIELDS``); when None and the profiler
+    records, ``utils.profiling``'s counters of "k2".  ``mask`` (in0, in1) uint8
     (K2-mask, no argmax): the output is first filled with ``-3e38`` and
     only the live blocks (``fused_sweep.live_blocks``) are launched; with
     no live block nothing is."""
@@ -253,6 +255,8 @@ def _metric_cuda(z_org, z_inner, levels, table, plan, outer_shape,
         prm.pool[lvl], prm.pool_w[lvl] = t.data_ptr(), t.shape[1]
     prm.sign_exact = 0 if exact_metric else 1
     prm.x0, prm.y0 = _F32(grid_origin[0]), _F32(grid_origin[1])
+    if counters is None:
+        counters = _profiling.launch_counters("k2", dev)
     if counters is not None:
         _fused.check_counters(counters, dev)
         prm.counters = counters.data_ptr()
@@ -491,14 +495,16 @@ def shadow_metric_fused(z_outer, z_org_r, z_inner_r, sun_table, *, offset,
                                             dtype=torch.float32).contiguous()
         return _ShadowSweepFn.apply(z, z_org, z_inner_r,
                                     dict(metric=kw, grid_origin=grid_origin))
-    args = metric_args(z_outer, z_org_r, z_inner_r, **kw)
-    if mask is not None:
-        mask = mask_arg(mask, args[4]["inner_shape"], args[0].device)
-    if args[0].is_cuda:
-        return _metric_cuda(*args, grid_origin=grid_origin,
-                            exact_metric=exact_metric, pooled=pooled,
-                            mask=mask)
-    return _metric_plain(*args, grid_origin=grid_origin, mask=mask)
+    with _profiling.span("hzt.shadow.args"):
+        args = metric_args(z_outer, z_org_r, z_inner_r, **kw)
+        if mask is not None:
+            mask = mask_arg(mask, args[4]["inner_shape"], args[0].device)
+    with _profiling.span("hzt.shadow.k2"):
+        if args[0].is_cuda:
+            return _metric_cuda(*args, grid_origin=grid_origin,
+                                exact_metric=exact_metric, pooled=pooled,
+                                mask=mask)
+        return _metric_plain(*args, grid_origin=grid_origin, mask=mask)
 
 
 def shadow_metric_plain(z_outer, z_org_r, z_inner_r, sun_table, *, offset,

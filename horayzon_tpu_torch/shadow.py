@@ -50,6 +50,7 @@ from horayzon_tpu_torch.ops import refraction as _refraction
 from horayzon_tpu_torch.ops import shadow_scan as _scan
 from horayzon_tpu_torch.ops import shadow_sweep as _ss
 from horayzon_tpu_torch.ops import sweep as _sweep
+from horayzon_tpu_torch.utils.profiling import span
 
 _RAY_ORG_ELEV = 0.05  # hard-coded lift of the ray origin [m]
                       # (shadow_comp.cpp:388,497)
@@ -101,34 +102,35 @@ def _classify(fields, sun_positions, occluded, *, mode, refrac_cor,
     gradient is zero almost everywhere); with ``straight_through`` the
     value stays the hard one bit for bit and only the gradient is the
     sigmoid's (``horayzon_tpu/shadow.py:152-161``)."""
-    dot_ns, dot_ts = sun_dots(fields, sun_positions, refrac_cor)
-    mask = fields["mask"]
-    if mode == "shadow":
-        def u8(v):
-            return torch.tensor(v, dtype=torch.uint8, device=mask.device)
-        code = torch.where(dot_ts > 0.0,
-                           torch.where(occluded, u8(2), u8(0)), u8(1))
-        return torch.where(mask, code, u8(3))
-    dot_min = float(np.float32(math.cos(math.radians(ang_max))))
-    # torch.maximum, not clamp_min: at an exact tie both halve the
-    # gradient, as jnp.maximum does (clamp_min passes all of it)
-    val = (dot_ts / torch.maximum(dot_ns, dot_ns.new_tensor(dot_min))) \
-        * fields["surf_enl_fac"]
-    if metric is not None and soft_tau is not None:
-        # a tensor divisor: a CUDA tensor over a Python scalar is a
-        # product with the scalar's reciprocal, which rounds twice
-        tau = torch.tensor(np.float32(soft_tau), device=metric.device)
-        occ_soft = torch.sigmoid(metric / tau)
-        if straight_through:
-            occ_eff = occ_soft + (torch.where(occluded, 1.0, 0.0)
-                                  - occ_soft).detach()
+    with span("hzt.terrain.classify"):
+        dot_ns, dot_ts = sun_dots(fields, sun_positions, refrac_cor)
+        mask = fields["mask"]
+        if mode == "shadow":
+            def u8(v):
+                return torch.tensor(v, dtype=torch.uint8, device=mask.device)
+            code = torch.where(dot_ts > 0.0,
+                               torch.where(occluded, u8(2), u8(0)), u8(1))
+            return torch.where(mask, code, u8(3))
+        dot_min = float(np.float32(math.cos(math.radians(ang_max))))
+        # torch.maximum, not clamp_min: at an exact tie both halve the
+        # gradient, as jnp.maximum does (clamp_min passes all of it)
+        val = (dot_ts / torch.maximum(dot_ns, dot_ns.new_tensor(dot_min))) \
+            * fields["surf_enl_fac"]
+        if metric is not None and soft_tau is not None:
+            # a tensor divisor: a CUDA tensor over a Python scalar is a
+            # product with the scalar's reciprocal, which rounds twice
+            tau = torch.tensor(np.float32(soft_tau), device=metric.device)
+            occ_soft = torch.sigmoid(metric / tau)
+            if straight_through:
+                occ_eff = occ_soft + (torch.where(occluded, 1.0, 0.0)
+                                      - occ_soft).detach()
+            else:
+                occ_eff = occ_soft
+            val = val * (1.0 - occ_eff)
         else:
-            occ_eff = occ_soft
-        val = val * (1.0 - occ_eff)
-    else:
-        val = torch.where(occluded, 0.0, val)
-    out = torch.where(dot_ts > dot_min, val, 0.0)
-    return torch.where(mask, out, fields["sw_dir_cor_fill"])
+            val = torch.where(occluded, 0.0, val)
+        out = torch.where(dot_ts > dot_min, val, 0.0)
+        return torch.where(mask, out, fields["sw_dir_cor_fill"])
 
 
 def sun_direction(sun, center, dxdy):
@@ -427,8 +429,9 @@ class Terrain:
             return self._xla_metric(sun_positions, f["z_org_r"],
                                     f["z_inner_r"], self._levels,
                                     scan=self.engine == "scan")
-        table, near_vert = _ss.shadow_sun_table(
-            sun_positions, self._center, self.grid.dx, self.grid.dy)
+        with span("hzt.terrain.sun_table"):
+            table, near_vert = _ss.shadow_sun_table(
+                sun_positions, self._center, self.grid.dx, self.grid.dy)
         f = self._fields
         kw = dict(offset=self.offset, inner_shape=self.comp_shape,
                   dx=self.grid.dx, dy=self.grid.dy,
@@ -489,12 +492,14 @@ class Terrain:
     def _run(self, sun_position, mode, plain=False):
         """Batched occlusion through the fused sweep, then classification
         (``horayzon_tpu.shadow.Terrain._run_pallas``)."""
-        sun_position = self._check(sun_position)
-        single = sun_position.ndim == 1
-        sp = np.atleast_2d(sun_position)
+        with span("hzt.terrain.sun_table"):
+            sun_position = self._check(sun_position)
+            single = sun_position.ndim == 1
+            sp = np.atleast_2d(sun_position)
         metric, near_vert = self._metric(sp, plain)
-        lit = ~torch.from_numpy(near_vert).to(metric.device)
-        occluded = self.at_cells((metric > 0.0) & lit[:, None, None])
+        with span("hzt.terrain.occluded"):
+            lit = ~torch.from_numpy(near_vert).to(metric.device)
+            occluded = self.at_cells((metric > 0.0) & lit[:, None, None])
         out = _classify(self._fields, sp, occluded, mode=mode,
                         refrac_cor=self.refrac_cor, ang_max=self.ang_max)
         return out[0] if single else out
@@ -504,29 +509,35 @@ class Terrain:
         """Shadow mask for one sun position (shadow.pyx:149-170): uint8,
         0 illuminated, 1 self-shaded, 2 terrain-shaded, 3 masked.  A NumPy
         ``shadow_buffer`` is filled with it."""
-        out = self._run(sun_position, "shadow")
-        if shadow_buffer is not None:
-            shadow_buffer[:] = out.cpu().numpy()
-        return out
+        with span("hzt.terrain.query"):
+            out = self._run(sun_position, "shadow")
+            if shadow_buffer is not None:
+                with span("hzt.terrain.readback"):
+                    shadow_buffer[:] = out.cpu().numpy()
+            return out
 
     def sw_dir_cor(self, sun_position, sw_dir_cor_buffer=None):
         """Shortwave correction factor for one sun position
         (shadow.pyx:172-199; Mueller & Scherer 2005).  A NumPy
         ``sw_dir_cor_buffer`` is filled with it."""
-        out = self._run(sun_position, "sw_dir_cor")
-        if sw_dir_cor_buffer is not None:
-            sw_dir_cor_buffer[:] = out.cpu().numpy()
-        return out
+        with span("hzt.terrain.query"):
+            out = self._run(sun_position, "sw_dir_cor")
+            if sw_dir_cor_buffer is not None:
+                with span("hzt.terrain.readback"):
+                    sw_dir_cor_buffer[:] = out.cpu().numpy()
+            return out
 
     def shadow_batch(self, sun_positions):
         """Shadow masks (T, in0, in1) for a (T, 3) sun track in one
         sweep."""
-        return self._run(sun_positions, "shadow")
+        with span("hzt.terrain.query"):
+            return self._run(sun_positions, "shadow")
 
     def sw_dir_cor_batch(self, sun_positions):
         """Correction factors (T, in0, in1) for a (T, 3) sun track in one
         sweep."""
-        return self._run(sun_positions, "sw_dir_cor")
+        with span("hzt.terrain.query"):
+            return self._run(sun_positions, "sw_dir_cor")
 
     def sw_dir_cor_soft(self, sun_position, elevation=None, soft_tau=1.0,
                         straight_through=True):

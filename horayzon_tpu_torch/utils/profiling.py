@@ -1,7 +1,8 @@
 # Copyright (c) 2026
 # MIT License
 """Structured timing and throughput instrumentation (counterpart of
-:mod:`horayzon_tpu.utils.profiling`).
+:mod:`horayzon_tpu.utils.profiling`), and the port's own spans and sample
+counters.
 
 The reference instruments itself with wall-clock printfs (BVH build time
 horizon_comp.cpp:225-227, ray-tracing time :802-805, rays shot and mean
@@ -11,6 +12,18 @@ structured records plus a ``torch.profiler`` trace hook.
 CUDA calls return before the card finishes, so :func:`sync` waits for
 every CUDA device the given tensors live on; a wall time around work ends
 in it.
+
+Spans and counters record only while ``torch.profiler`` records
+(:func:`tracing`).  A span (:func:`span`, names ``hzt.*``) is a user
+annotation of the profiler: it lives in the profiler's memory, is written
+out with its trace (:func:`profiler_trace`, or whoever runs the profiler)
+and shares that trace's clock with the card's operations.  Calls run one
+after another on one thread, so a span's parent is the span that contains
+it.  While tracing, every launch of the sweep kernels K1 and K2 that its
+caller gives no counters adds its sample counts to this module's counters
+(:func:`counters`, :func:`reset_counters`).  With the profiler off a span
+is a shared no-op context and a launch counts nothing.  This module
+imports nothing of the port, so every module of it may import this one.
 """
 
 import contextlib
@@ -20,6 +33,7 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _tensors(x):
@@ -74,18 +88,6 @@ class SweepStats:
         })
 
 
-@contextlib.contextmanager
-def timed(label="", result_holder=None):
-    """Context manager timing a device computation (callers must sync)."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if result_holder is not None:
-        result_holder.append(dt)
-    if label:
-        print(f"{label}: {dt:.3f} s")
-
-
 def time_sweep(fn, cells, azim_num, samples_per_cell_azim, iters=3):
     """Time ``fn`` (returning tensors) and build a SweepStats: the best
     wall time of ``iters`` synchronised calls after one warm-up call."""
@@ -103,10 +105,12 @@ def time_sweep(fn, cells, azim_num, samples_per_cell_azim, iters=3):
 def profiler_trace(log_dir):
     """``torch.profiler`` trace around a block, written as one Chrome trace
     file (``trace_<pid>_<ns>.json``) into ``log_dir`` when the block ends.
-    It records the CPU, and the card too when this process uses CUDA.  A
-    failure of the profiler raises."""
+    It records the CPU, and the card too whenever CUDA is available (a
+    first CUDA call inside the block is traced as well), with the ``hzt.*``
+    spans beside the card's operations.  A failure of the profiler
+    raises."""
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir,
@@ -118,3 +122,61 @@ def profiler_trace(log_dir):
     finally:
         prof.stop()
         prof.export_chrome_trace(path)
+
+
+#: What a launch of K1 or K2 counts (the kernel's counter slots, in order):
+#: (cell, azimuth or sun) samples of swept cells taken and skipped in the
+#: d1 pairs (K1: the safe pairs; K2: the masked pairs too) and in the mip
+#: phases.
+COUNTER_FIELDS = ("d1_taken", "d1_skipped", "mip_taken", "mip_skipped")
+#: The kernels :func:`counters` reports: K1 (every launch through
+#: ``fused_sweep._ratio_cuda``) and K2 (``shadow_sweep._metric_cuda``).
+COUNTED_KERNELS = ("k1", "k2")
+_NO_SPAN = contextlib.nullcontext()
+#: (kernel, device) -> the (4,) int64 counts of the launches made while
+#: tracing.
+_counts = {}
+
+
+def tracing():
+    """Whether ``torch.profiler`` records in this process: the one test
+    every span and counted launch makes."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name):
+    """A context that marks ``name`` in the profiler's trace
+    (``torch.profiler.record_function``) while :func:`tracing` holds, and
+    a shared no-op context otherwise."""
+    return torch.profiler.record_function(name) if tracing() else _NO_SPAN
+
+
+def launch_counters(kernel, device):
+    """The (4,) int64 tensor on ``device`` to which a launch of ``kernel``
+    (one of :data:`COUNTED_KERNELS`) adds its counts while :func:`tracing`
+    holds; None otherwise."""
+    if not tracing():
+        return None
+    key = (kernel, torch.device(device))
+    t = _counts.get(key)
+    if t is None:
+        t = _counts[key] = torch.zeros(len(COUNTER_FIELDS),
+                                       dtype=torch.int64, device=device)
+    return t
+
+
+def counters():
+    """``{kernel: {field: samples}}`` of the launches made while tracing
+    since the last :func:`reset_counters`, summed over devices, fields in
+    :data:`COUNTER_FIELDS` order.  Reads the counts back from the card, so
+    it waits for the launches: call it after the work."""
+    out = {k: dict.fromkeys(COUNTER_FIELDS, 0) for k in COUNTED_KERNELS}
+    for (kernel, _), t in _counts.items():
+        for field, v in zip(COUNTER_FIELDS, t.tolist()):
+            out[kernel][field] += v
+    return out
+
+
+def reset_counters():
+    """Zero the counters of :func:`counters`."""
+    _counts.clear()

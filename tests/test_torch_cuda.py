@@ -47,7 +47,9 @@ tile) bit-equal to ``horizon_sweep_fused`` on each tile, each tile's raw
 ratios bit-equal to K1's plain version on the CPU and its angles within
 1e-5 rad of the CPU runner's; the sun-track runner (K2, one launch a
 chunk) bit-equal to one ``sw_dir_cor_batch`` call; ``profiling.sync``
-returns only after the work queued before it has run.  The recompute VJP
+returns only after the work queued before it has run; a K1 or K2 launch
+made while the profiler records adds to ``profiling.counters()`` exactly
+the counts of an explicit ``counters=``.  The recompute VJP
 (``HZT_GRAD_RECOMPUTE=1``, ``-k recompute``): K1 once and no K1-argmax
 or K3 per step, single-device and per slot; the gradients within 1e-5 of
 max |.| of the CPU's (``torch.take``'s backward may sum in another order
@@ -1071,6 +1073,42 @@ def test_sign_exact_k2_matches_its_model(cuda, name):
     assert torch.equal(got > 0.0, exact > 0.0)
     assert bool((got <= exact).all())
 
+
+
+@pytest.mark.parametrize("scene", ["random", "spike_inside"])
+def test_traced_launches_count_as_explicit_counters(cuda, scene):
+    """While the profiler records, a K1 or K2 launch given no counters adds
+    to ``profiling.counters()`` exactly what a launch given ``counters=``
+    counts on the same input; a caller's own counters still win, and with
+    the profiler off nothing is counted."""
+    args = _skip_args(cuda, scene, "plain")
+    sargs = _shadow_skip_args(cuda, "spike")
+    k1 = torch.zeros(4, dtype=torch.int64, device=cuda)
+    k2 = torch.zeros(4, dtype=torch.int64, device=cuda)
+    fused_sweep._ratio_cuda(*args, counters=k1)
+    ss._metric_cuda(*sargs, grid_origin=(0.0, 0.0), exact_metric=False,
+                    counters=k2)
+    own = torch.zeros(4, dtype=torch.int64, device=cuda)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    profiling.reset_counters()
+    try:
+        with torch.profiler.profile(activities=acts):
+            fused_sweep._ratio_cuda(*args)
+            ss._metric_cuda(*sargs, grid_origin=(0.0, 0.0),
+                            exact_metric=False)
+            fused_sweep._ratio_cuda(*args, counters=own)
+        traced = profiling.counters()
+        fused_sweep._ratio_cuda(*args)
+        ss._metric_cuda(*sargs, grid_origin=(0.0, 0.0), exact_metric=False)
+        after = profiling.counters()
+    finally:
+        profiling.reset_counters()
+    fields = fused_sweep.COUNTER_FIELDS
+    assert [traced["k1"][f] for f in fields] == k1.tolist()
+    assert [traced["k2"][f] for f in fields] == k2.tolist()
+    assert own.tolist() == k1.tolist() and sum(k1.tolist()) > 0
+    assert after == traced
 
 def test_sign_exact_argmax_raises(cuda):
     args = _shadow_skip_args(cuda, "flat_pit")

@@ -320,10 +320,6 @@ def test_time_sweep_sync_and_profiler_trace_on_cpu(tmp_path):
                                  azim_num=1, samples_per_cell_azim=1,
                                  iters=2)
     assert stats.wall_time_s > 0
-    held = []
-    with profiling.timed(result_holder=held):
-        torch.ones(4).sum()
-    assert len(held) == 1 and held[0] > 0
     log_dir = tmp_path / "trace"
     with profiling.profiler_trace(str(log_dir)):
         torch.mm(torch.ones(32, 32), torch.ones(32, 32))
