@@ -103,16 +103,6 @@ def horizon_gridded(
         # --- Validation (mirrors horizon.pyx:109-156) ---------------------
         vec_norm = np.asarray(vec_norm, dtype=np.float32)
         vec_north = np.asarray(vec_north, dtype=np.float32)
-        if ((offset_0 + vec_norm.shape[0] > dem_dim_0)
-                or (offset_1 + vec_norm.shape[1] > dem_dim_1)):
-            raise ValueError("inconsistency between input arguments "
-                             "dem_dim_0, dem_dim_1, offset_0, offset_1 and "
-                             "vec_norm")
-        if vec_norm.size == 0:
-            raise ValueError(
-                "inner domain is empty (vec_norm has zero size) — the outer "
-                "DEM is not larger than twice the search distance; widen the "
-                "domain or reduce dist_search")
         if ((vec_norm.ndim != 3) or (vec_north.ndim != 3)
                 or (vec_norm.shape != vec_north.shape)):
             raise ValueError("dimension (lengths) of vec_norm and/or "
@@ -121,25 +111,14 @@ def horizon_gridded(
             raise ValueError("invalid input argument for ray_algorithm")
         if geom_type not in _VALID_GEOM:
             raise ValueError("invalid input argument for geom_type")
-        if hori_acc > 10.0:
-            raise ValueError("limit of hori_acc (10 degree) is exceeded")
-        if mask is None:
-            mask = np.ones((vec_norm.shape[0], vec_norm.shape[1]),
-                           dtype=np.uint8)
-        mask = np.asarray(mask)
-        if mask.shape != vec_norm.shape[:2]:
-            raise ValueError("shape of mask is inconsistent with other input")
-        if mask.dtype != np.uint8:
-            raise TypeError("data type of mask must be 'uint8'")
-        if ray_org_elev < 0.005:
-            raise TypeError("minimal allowed value for 'ray_org_elev' is "
-                            "0.005 m")
+        inner_shape = (vec_norm.shape[0], vec_norm.shape[1])
+        mask, masked = _check_planar(
+            (dem_dim_0, dem_dim_1), (offset_0, offset_1), inner_shape,
+            hori_acc=hori_acc, mask=mask, ray_org_elev=ray_org_elev)
 
         x, y, z = _terrain.decompose_vert_grid(vert_grid, dem_dim_0,
                                                dem_dim_1)
         grid = _terrain.detect_regular_grid(x, y)
-        inner_shape = (vec_norm.shape[0], vec_norm.shape[1])
-        azim = azimuth_angles(azim_num)
 
         if (vert_simp is None) != (tri_ind_simp is None):
             raise ValueError("vert_simp and tri_ind_simp must be provided "
@@ -148,7 +127,6 @@ def horizon_gridded(
             raise ValueError("the simplified outer TIN (vert_simp) is only "
                              "supported on planar regular grids (reference "
                              "usage: gridded_planar_DEM_2m)")
-        masked = mask.min() == 0
         general = (grid is not None and vert_simp is None
                    and not _terrain.is_default_planar_vectors(vec_norm,
                                                               vec_north))
@@ -156,10 +134,12 @@ def horizon_gridded(
             raise ValueError("engine='pallas' requires a planar regular grid "
                              "(default vec_norm and vec_north)")
 
-    t0 = time.perf_counter()
     sweep_kw = dict(azim_num=azim_num, dist_search=dist_search * 1000.0,
                     hori_acc=hori_acc, elev_ang_low_lim=elev_ang_low_lim,
                     ray_org_elev=ray_org_elev)
+    fin_kw = dict(mask=mask, masked=masked, hori_fill=hori_fill,
+                  verbose=verbose, device=device)
+    t0 = time.perf_counter()
     if vert_simp is not None:
         hori = _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
                             num_tri_simp, offset=(offset_0, offset_1),
@@ -176,12 +156,70 @@ def horizon_gridded(
                             inner_shape=inner_shape, mask=mask,
                             hori_fill=hori_fill, device=device, **sweep_kw)
     else:
-        with span("hzt.horizon.upload"):
-            z_dev = torch.from_numpy(np.ascontiguousarray(z)).to(device)
-            mask_dev = torch.from_numpy(mask).to(device) if masked else None
-        hori = _fused.horizon_sweep_fused(
-            z_dev, dx=grid.dx, dy=grid.dy, offset=(offset_0, offset_1),
-            inner_shape=inner_shape, mask=mask_dev, **sweep_kw)
+        return _fused_planar(z, grid, offset=(offset_0, offset_1),
+                             inner_shape=inner_shape, **fin_kw,
+                             **sweep_kw)[:2]
+    return _finish(hori, t0, azim_num=azim_num, **fin_kw)
+
+
+def _check_planar(dem_shape, offset, inner_shape, *, hori_acc, mask,
+                  ray_org_elev):
+    """The checks of ``horizon_gridded`` that a planar run needs beside a
+    regular grid (horizon.pyx:109-156), with its messages and exception
+    types: the inner block inside the DEM and not empty, ``hori_acc``,
+    the mask, ``ray_org_elev``.  Returns ``(mask, masked)``: the uint8
+    mask (all ones for None) and whether it masks any cell."""
+    if ((offset[0] + inner_shape[0] > dem_shape[0])
+            or (offset[1] + inner_shape[1] > dem_shape[1])):
+        raise ValueError("inconsistency between input arguments "
+                         "dem_dim_0, dem_dim_1, offset_0, offset_1 and "
+                         "vec_norm")
+    if min(inner_shape) <= 0:
+        raise ValueError(
+            "inner domain is empty (vec_norm has zero size) — the outer "
+            "DEM is not larger than twice the search distance; widen the "
+            "domain or reduce dist_search")
+    if hori_acc > 10.0:
+        raise ValueError("limit of hori_acc (10 degree) is exceeded")
+    if mask is None:
+        mask = np.ones(inner_shape, dtype=np.uint8)
+    mask = np.asarray(mask)
+    if mask.shape != tuple(inner_shape):
+        raise ValueError("shape of mask is inconsistent with other input")
+    if mask.dtype != np.uint8:
+        raise TypeError("data type of mask must be 'uint8'")
+    if ray_org_elev < 0.005:
+        raise TypeError("minimal allowed value for 'ray_org_elev' is "
+                        "0.005 m")
+    return mask, bool(mask.min() == 0)
+
+
+def _fused_planar(z, grid, *, offset, inner_shape, mask, masked, hori_fill,
+                  verbose, device, **sweep_kw):
+    """The fused sweep of a regular planar grid with default vectors, on
+    arguments :func:`_check_planar` passed: ``z`` the (H, W) float32 outer
+    heights to the device (as they are when C-contiguous and writable),
+    K1 (or the plain sweep on the CPU), then :func:`_finish`.  ``sweep_kw``:
+    :func:`~horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`'s
+    settings.  Returns ``(hori, azim, z_dev)``, ``z_dev`` the heights on
+    ``device``."""
+    t0 = time.perf_counter()
+    with span("hzt.horizon.upload"):
+        z_dev = torch.from_numpy(np.require(z, np.float32, ("C", "W"))).to(
+            device)
+        mask_dev = torch.from_numpy(mask).to(device) if masked else None
+    hori = _fused.horizon_sweep_fused(
+        z_dev, dx=grid.dx, dy=grid.dy, offset=offset,
+        inner_shape=inner_shape, mask=mask_dev, **sweep_kw)
+    return _finish(hori, t0, mask=mask, masked=masked, hori_fill=hori_fill,
+                   verbose=verbose, device=device,
+                   azim_num=sweep_kw["azim_num"]) + (z_dev,)
+
+
+def _finish(hori, t0, *, mask, masked, hori_fill, verbose, device,
+            azim_num):
+    """``hori_fill`` into the masked cells and the ``verbose`` report (its
+    time since ``t0``); returns ``(hori, azim)``."""
     if masked:
         with span("hzt.horizon.fill"):
             # the fill on the device (horayzon_tpu/horizon.py:568-570)
@@ -192,7 +230,7 @@ def horizon_gridded(
             if hori.is_cuda:
                 torch.cuda.synchronize(hori.device)
             dt = time.perf_counter() - t0
-            print(f"Horizon sweep: {inner_shape[0]}x{inner_shape[1]} cells, "
+            print(f"Horizon sweep: {mask.shape[0]}x{mask.shape[1]} cells, "
                   f"{azim_num} azimuths, {dt:.3f} s "
                   f"(incl. kernel build on first call)")
             # considered-fraction printout mirrors horizon_comp.cpp:685-695
@@ -200,7 +238,7 @@ def horizon_gridded(
             print(f"Number of grid cells for which horizon is computed: "
                   f"{n_cells} ({100.0 * n_cells / mask.size:.2f} % of the "
                   f"domain)")
-    return hori, torch.from_numpy(azim).to(device)
+    return hori, torch.from_numpy(azimuth_angles(azim_num)).to(device)
 
 
 def _xla_gridded(z, grid, vec_norm, vec_north, general, *, offset,

@@ -7,8 +7,9 @@
 import numpy as np
 import torch
 
-from horayzon_tpu_torch import (auxiliary, direction, horizon, topo_param,
-                                transform)
+from horayzon_tpu_torch import (auxiliary, direction, horizon, terrain,
+                                topo_param, transform)
+from horayzon_tpu_torch.utils import profiling
 from horayzon_tpu_torch.utils.profiling import span
 
 
@@ -42,46 +43,82 @@ class PlanarPipeline:
 
     def run(self, mask=None):
         """Compute all terrain parameters; returns a dict of tensors on the
-        pipeline's device."""
+        pipeline's device.
+
+        Uniform 1-D axes (:func:`terrain.axes_grid`) go to the fused sweep
+        straight, with the heights as they are; other axes go through the
+        vertex buffer and ``horizon_gridded``, as the reference does.  The
+        outputs are the same."""
         with span("hzt.pipeline.run"):
-            dem_dim_0, dem_dim_1 = self.elevation.shape
-            in0 = self.slice_in[0].stop - self.slice_in[0].start
-            in1 = self.slice_in[1].stop - self.slice_in[1].start
+            s0, s1 = self.slice_in
+            inner_shape = (s0.stop - s0.start, s1.stop - s1.start)
             with span("hzt.pipeline.grid"):
-                vec_norm = np.zeros((in0, in1, 3), dtype=np.float32)
-                vec_norm[:, :, 2] = 1.0
-                vec_north = np.zeros((in0, in1, 3), dtype=np.float32)
-                vec_north[:, :, 1] = 1.0
-                x_2d, y_2d = np.meshgrid(self.x, self.y)
-                vert_grid = auxiliary.rearrange_pad_buffer(
-                    x_2d.astype(np.float32), y_2d.astype(np.float32),
-                    self.elevation)
-            hori, azim = horizon.horizon_gridded(
-                vert_grid, dem_dim_0, dem_dim_1, vec_norm, vec_north,
-                self.offset_0, self.offset_1, dist_search=self.dist_search,
-                azim_num=self.azim_num, hori_acc=self.hori_acc,
-                elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
-                device=self.device)
-
-            def on_device(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(
-                    self.device)
-
+                grid = terrain.axes_grid(self.x, self.y)
+                profiling.count_route("planar_buffer" if grid is None
+                                      else "planar_axes")
+                if grid is None:
+                    vec_norm = np.zeros(inner_shape + (3,), dtype=np.float32)
+                    vec_norm[:, :, 2] = 1.0
+                    vec_north = np.zeros(inner_shape + (3,),
+                                         dtype=np.float32)
+                    vec_north[:, :, 1] = 1.0
+                    x_2d, y_2d = np.meshgrid(self.x, self.y)
+                    vert_grid = auxiliary.rearrange_pad_buffer(
+                        x_2d.astype(np.float32), y_2d.astype(np.float32),
+                        self.elevation)
+                    planes = (x_2d, y_2d, self.elevation)
+                else:
+                    # the meshgrid's planes, broadcast on the device
+                    x_dev = self._on_device(self.x)
+                    y_dev = self._on_device(self.y)
+                    planes = (x_dev[None, :].expand(len(y_dev), -1),
+                              y_dev[:, None].expand(-1, len(x_dev)))
+            if grid is None:
+                hori, azim = horizon.horizon_gridded(
+                    vert_grid, *self.elevation.shape, vec_norm, vec_north,
+                    self.offset_0, self.offset_1,
+                    dist_search=self.dist_search, azim_num=self.azim_num,
+                    hori_acc=self.hori_acc,
+                    elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
+                    device=self.device)
+            else:
+                with span("hzt.horizon.check"):
+                    mask, masked = horizon._check_planar(
+                        self.elevation.shape, (self.offset_0, self.offset_1),
+                        inner_shape, hori_acc=self.hori_acc, mask=mask,
+                        ray_org_elev=0.01)
+                hori, azim, z_dev = horizon._fused_planar(
+                    self.elevation, grid,
+                    offset=(self.offset_0, self.offset_1),
+                    inner_shape=inner_shape, mask=mask, masked=masked,
+                    hori_fill=0.0, verbose=True, device=self.device,
+                    azim_num=self.azim_num,
+                    dist_search=self.dist_search * 1000.0,
+                    hori_acc=self.hori_acc,
+                    elev_ang_low_lim=self.elev_ang_low_lim,
+                    ray_org_elev=0.01)
+                planes += (z_dev,)
             with span("hzt.pipeline.topo"):
-                s0, s1 = self.slice_in
                 sl = (slice(s0.start - 1, s0.stop + 1),
                       slice(s1.start - 1, s1.stop + 1))
                 vec_tilt = topo_param.slope_plane_meth(
-                    on_device(x_2d[sl]), on_device(y_2d[sl]),
-                    on_device(self.elevation[sl]))[1:-1, 1:-1]
+                    *(self._on_device(a[sl]) for a in planes))[1:-1, 1:-1]
                 svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
                 slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
             with span("hzt.pipeline.outputs"):
                 return {"hori": hori, "azim": azim, "svf": svf,
                         "slope": slope, "aspect": aspect, "vec_tilt": vec_tilt,
-                        "elevation": on_device(self.elevation[self.slice_in]),
-                        "x": on_device(self.x[self.slice_in[1]]),
-                        "y": on_device(self.y[self.slice_in[0]])}
+                        "elevation": self._on_device(
+                            planes[2][self.slice_in]).contiguous(),
+                        "x": self._on_device(self.x[s1]),
+                        "y": self._on_device(self.y[s0])}
+
+    def _on_device(self, a):
+        """A copy of host array ``a`` on the pipeline's device; a tensor
+        (there already) as it is."""
+        if isinstance(a, torch.Tensor):
+            return a
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
 
 class CurvedPipeline:

@@ -63,26 +63,39 @@ def detect_regular_grid(x, y, rtol=1.0e-3):
     y = np.asarray(y)
     if x.ndim != 2 or x.shape != y.shape:
         return None
-    h, w = x.shape
-    if w < 2 or h < 2:
-        return None
     x_row = x[0]
     y_col = y[:, 0]
-    dx = float(x_row[1] - x_row[0])
-    dy = float(y_col[1] - y_col[0])
+    grid = axes_grid(x_row, y_col, rtol)
+    if grid is None:
+        return None
+    if np.abs(x - x_row[None, :]).max() > abs(grid.dx) * rtol:
+        return None
+    if np.abs(y - y_col[:, None]).max() > abs(grid.dy) * rtol:
+        return None
+    return grid
+
+
+def axes_grid(x_axis, y_axis, rtol=1.0e-3):
+    """The :class:`GridSpec` of the grid ``np.meshgrid(x_axis, y_axis)``,
+    or None: both axes 1-D with at least two points and a nonzero spacing
+    uniform within ``rtol`` of it (:func:`detect_regular_grid`'s test of
+    a grid's first row and column, which it applies here)."""
+    x_axis = np.asarray(x_axis)
+    y_axis = np.asarray(y_axis)
+    if x_axis.ndim != 1 or y_axis.ndim != 1:
+        return None
+    w, h = len(x_axis), len(y_axis)
+    if w < 2 or h < 2:
+        return None
+    dx = float(x_axis[1] - x_axis[0])
+    dy = float(y_axis[1] - y_axis[0])
     if dx == 0.0 or dy == 0.0:
         return None
-    tol_x = abs(dx) * rtol
-    tol_y = abs(dy) * rtol
-    if np.abs(np.diff(x_row) - dx).max() > tol_x:
+    if np.abs(np.diff(x_axis) - dx).max() > abs(dx) * rtol:
         return None
-    if np.abs(np.diff(y_col) - dy).max() > tol_y:
+    if np.abs(np.diff(y_axis) - dy).max() > abs(dy) * rtol:
         return None
-    if np.abs(x - x_row[None, :]).max() > tol_x:
-        return None
-    if np.abs(y - y_col[:, None]).max() > tol_y:
-        return None
-    return GridSpec(x0=float(x_row[0]), y0=float(y_col[0]),
+    return GridSpec(x0=float(x_axis[0]), y0=float(y_axis[0]),
                     dx=dx, dy=dy, shape=(h, w))
 
 

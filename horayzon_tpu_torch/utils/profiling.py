@@ -21,8 +21,10 @@ and shares that trace's clock with the card's operations.  Calls run one
 after another on one thread, so a span's parent is the span that contains
 it.  While tracing, every launch of the sweep kernels K1 and K2 that its
 caller gives no counters adds its sample counts to this module's counters
-(:func:`counters`, :func:`reset_counters`).  With the profiler off a span
-is a shared no-op context and a launch counts nothing.  This module
+(:func:`counters`, :func:`reset_counters`), and every
+``PlanarPipeline.run`` counts the route it took (:func:`count_route`,
+:func:`routes`).  With the profiler off a span is a shared no-op context
+and a launch or a run counts nothing.  This module
 imports nothing of the port, so every module of it may import this one.
 """
 
@@ -133,9 +135,15 @@ COUNTER_FIELDS = ("d1_taken", "d1_skipped", "mip_taken", "mip_skipped")
 #: ``fused_sweep._ratio_cuda``) and K2 (``shadow_sweep._metric_cuda``).
 COUNTED_KERNELS = ("k1", "k2")
 _NO_SPAN = contextlib.nullcontext()
+#: The routes :func:`routes` reports: ``PlanarPipeline.run`` on its 1-D
+#: axes and heights straight to the fused sweep, or through the vertex
+#: buffer and ``horizon_gridded``.
+ROUTES = ("planar_axes", "planar_buffer")
 #: (kernel, device) -> the (4,) int64 counts of the launches made while
 #: tracing.
 _counts = {}
+#: route -> the runs that took it while tracing.
+_route_counts = dict.fromkeys(ROUTES, 0)
 
 
 def tracing():
@@ -177,6 +185,20 @@ def counters():
     return out
 
 
+def count_route(route):
+    """Count one run that took ``route`` (one of :data:`ROUTES`) while
+    :func:`tracing` holds."""
+    if tracing():
+        _route_counts[route] += 1
+
+
+def routes():
+    """``{route: runs}`` of the runs made while tracing since the last
+    :func:`reset_counters`, routes in :data:`ROUTES` order."""
+    return dict(_route_counts)
+
+
 def reset_counters():
-    """Zero the counters of :func:`counters`."""
+    """Zero the counters of :func:`counters` and :func:`routes`."""
     _counts.clear()
+    _route_counts.update(dict.fromkeys(ROUTES, 0))

@@ -4,7 +4,7 @@ variant), K3 and K4 (csrc/horizon_replay_bwd.cu, horizon and shadow
 modes) and K5 (csrc/read_floor.cu) on the card, against their plain torch
 versions on the same card, and the gradient paths, the masked and curved
 ``horizon_gridded``, the ``CurvedPipeline``, the shadow ``Terrain`` and
-the multires sweep they make.
+the multires sweep they make; ``PlanarPipeline``'s two routes.
 
 Marked ``cuda`` and skipped without a CUDA device.  This file imports no
 JAX, so on a machine with the card it runs without the JAX package:
@@ -77,6 +77,7 @@ from reference_impl import gaussian_bumps_terrain
 from torch_scenes import (RUNNER_SCENES, SHADOW_SKIP_SCENES, SHARD_MESHES,
                           SKIP_SCENES, bumps, refraction_numpy,
                           curved_setup, curved_terrain_inputs,
+                          planar_buffer_route, planar_pipeline_scene,
                           recompute_scenes,
                           shadow_skip_scene, sharded_scenes, skip_scene,
                           sun_track_terrain_inputs)
@@ -642,6 +643,25 @@ def _curved_pipeline_inputs():
     domain = {"lon_min": 6.97, "lon_max": 7.03,
               "lat_min": 44.97, "lat_max": 45.03}
     return lon, lat, elevation, domain
+
+
+def test_planar_pipeline_routes_bit_equal_on_card(cuda, capsys):
+    """``PlanarPipeline.run`` on its axes route (the heights to the card
+    as they are, the topo planes broadcast there) against the
+    vertex-buffer route through ``horizon_gridded`` on the card, at a
+    masked 512^2 DEM (352^2 inner cells, glacier-style patches, 32
+    azimuths, 2 km): every output bit-equal, one K1-mask launch each."""
+    pipe, m = planar_pipeline_scene(n=512, pad=2000.0, seed=5,
+                                    mask="patches", device=cuda,
+                                    dist_search=2.0, azim_num=32)
+    assert 0 < m.mean() < 1
+    n0 = fused_sweep.MASK_KERNEL_LAUNCHES
+    got = pipe.run(mask=m)
+    want = planar_buffer_route(pipe, m)
+    assert fused_sweep.MASK_KERNEL_LAUNCHES == n0 + 2
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].is_cuda and torch.equal(got[key], want[key]), key
 
 
 def test_curved_pipeline_on_card(cuda):

@@ -24,9 +24,12 @@ from horayzon_tpu import topo_param as topo_ref
 from horayzon_tpu.models import PlanarPipeline as PlanarPipelineRef
 from horayzon_tpu_torch import auxiliary, horizon, topo_param
 from horayzon_tpu_torch.models import PlanarPipeline
+from horayzon_tpu_torch.utils import profiling
 
 from reference_impl import gaussian_bumps_terrain
 from test_torch_fused_sweep import interpret_reference
+from torch_scenes import (PIPELINE_MASKS, planar_buffer_route,
+                          planar_pipeline_scene)
 
 TOL = 1.0e-5
 
@@ -226,6 +229,98 @@ def test_planar_pipeline_mask_with_zeros_not_ported():
     assert out["hori"].abs().max().item() < 1e-3
     assert (masked["hori"][:5] == 0.0).all()
     assert torch.equal(masked["hori"][5:], out["hori"][5:])
+
+
+def _traced_routes(call):
+    """``call()``'s result under the profiler, and the routes
+    ``PlanarPipeline.run`` counted in it."""
+    profiling.reset_counters()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = call()
+        return out, profiling.routes()
+    finally:
+        profiling.reset_counters()
+
+
+@pytest.mark.parametrize("mask", PIPELINE_MASKS)
+def test_axes_route_bit_equal_to_buffer_route(mask, capsys):
+    """Uniform 1-D axes take the fused sweep straight from the axes and
+    the heights: every output ``torch.equal`` to the vertex-buffer route
+    through ``horizon_gridded`` (unmasked, glacier-style patches, every
+    cell masked)."""
+    pipe, m = planar_pipeline_scene(mask=mask)
+    got, routes = _traced_routes(lambda: pipe.run(mask=m))
+    assert routes == {"planar_axes": 1, "planar_buffer": 0}
+    want = planar_buffer_route(pipe, m)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert got["elevation"].is_contiguous()
+
+
+@pytest.mark.parametrize("jitter", ["x", "y"])
+def test_uneven_axes_take_the_buffer_route(jitter, capsys):
+    """One spacing of an axis off by a tenth of a step: ``run`` falls back
+    to the vertex buffer (``horizon_gridded``'s curved branch), with the
+    same outputs as that route."""
+    pipe, m = planar_pipeline_scene(jitter=jitter, mask="patches")
+    got, routes = _traced_routes(lambda: pipe.run(mask=m))
+    assert routes == {"planar_axes": 0, "planar_buffer": 1}
+    want = planar_buffer_route(pipe, m)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+def _bad_mask_shape():
+    pipe, m = planar_pipeline_scene(mask="patches")
+    return pipe, m[:-1]
+
+
+def _bad_mask_dtype():
+    pipe, m = planar_pipeline_scene(mask="patches")
+    return pipe, m.astype(np.float32)
+
+
+def _bad_hori_acc():
+    return planar_pipeline_scene(hori_acc=11.0)
+
+
+def _empty_domain():
+    """y_min above y_max by one step: an inner block of no rows."""
+    pipe, _ = planar_pipeline_scene()
+    x, y = pipe.x, pipe.y
+    pipe = PlanarPipeline(x, y, pipe.elevation,
+                          {"x_min": float(x[20]), "x_max": float(x[60]),
+                           "y_min": float(y[39]), "y_max": float(y[40])},
+                          dist_search=0.3, azim_num=8, device="cpu")
+    assert pipe.slice_in[0] == slice(40, 40)
+    return pipe, None
+
+
+BAD_INPUTS = {"mask_shape": _bad_mask_shape, "mask_dtype": _bad_mask_dtype,
+              "hori_acc": _bad_hori_acc, "empty_domain": _empty_domain}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_INPUTS))
+def test_axes_route_refuses_as_horizon_gridded(bad, capsys):
+    """``run`` on the axes route raises what ``horizon_gridded`` raises
+    on the same input: the exception's type and message."""
+    pipe, m = BAD_INPUTS[bad]()
+    profiling.reset_counters()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            with pytest.raises(Exception) as got:
+                pipe.run(mask=m)
+        assert profiling.routes()["planar_axes"] == 1
+    finally:
+        profiling.reset_counters()
+    with pytest.raises(Exception) as want:
+        planar_buffer_route(pipe, m)
+    assert type(got.value) is type(want.value)
+    assert str(got.value) == str(want.value)
 
 
 def test_import_loads_no_jax():

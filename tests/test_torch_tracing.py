@@ -4,8 +4,9 @@ profiling``): under ``torch.profiler`` a ``PlanarPipeline.run`` and a
 nested as listed below (``hzt.terrain.sun_table`` twice: the sun's checks,
 then its table); no span but the two roots encloses an entry the
 benchmark wraps in spans of its own (``hzbench/harness.py::SPANS``), so
-the benchmark's idle-time labels fall to the program's spans; with the
-profiler off no ``record_function`` is entered and nothing is counted.
+the benchmark's idle-time labels fall to the program's spans; a traced
+``PlanarPipeline.run`` counts its route once; with the profiler off no
+``record_function`` is entered and nothing is counted.
 On the CPU, where the plain sweeps stand in for the kernels."""
 
 import functools
@@ -21,7 +22,7 @@ from horayzon_tpu_torch import shadow
 from horayzon_tpu_torch.models import PlanarPipeline
 from horayzon_tpu_torch.utils import profiling
 
-from torch_scenes import sun_track_terrain_inputs
+from torch_scenes import planar_pipeline_scene, sun_track_terrain_inputs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -168,6 +169,33 @@ def test_profiler_off_enters_no_record_function(which, monkeypatch, capsys):
     call()
     zero = dict.fromkeys(profiling.COUNTER_FIELDS, 0)
     assert profiling.counters() == {"k1": zero, "k2": zero}
+    assert profiling.routes() == dict.fromkeys(profiling.ROUTES, 0)
+
+
+#: The spans of each route that the benchmark's readers take.
+ROUTE_SPANS = {"planar_axes": {"hzt.pipeline.grid", "hzt.horizon.check",
+                               "hzt.horizon.upload"},
+               "planar_buffer": {"hzt.pipeline.grid", "hzt.horizon.check"}}
+
+
+@pytest.mark.parametrize("route", profiling.ROUTES)
+def test_pipeline_counts_its_route(route, tmp_path, capsys):
+    """Uniform axes take the axes route, an axis with one uneven spacing
+    the buffer route: each traced run counts its route once and emits the
+    spans the benchmark reads; an untraced run counts nothing."""
+    pipe, mask = planar_pipeline_scene(
+        jitter=None if route == "planar_axes" else "x", mask="patches")
+    profiling.reset_counters()
+    try:
+        pipe.run(mask=mask)
+        assert profiling.routes() == dict.fromkeys(profiling.ROUTES, 0)
+        spans = {a[0] for a in _traced(
+            lambda: [pipe.run(mask=mask) for _ in range(2)], tmp_path)}
+        assert profiling.routes() == {r: 2 * (r == route)
+                                      for r in profiling.ROUTES}
+    finally:
+        profiling.reset_counters()
+    assert ROUTE_SPANS[route] <= spans
 
 
 def test_span_and_counters_follow_the_profiler(tmp_path):

@@ -3,14 +3,18 @@
 for K2) and the card's (tests/test_torch_cuda.py), the curved meshes of
 the curved shadow and locations tests, a NumPy transcription of the
 refraction's float32 arithmetic, the sharded scenes of
-tests/test_torch_sharding.py and the card's, and the streaming runners'
-scenes of tests/test_torch_utils.py and the card's.  Imports no JAX."""
+tests/test_torch_sharding.py and the card's, the streaming runners'
+scenes of tests/test_torch_utils.py and the card's, and the planar
+pipeline's scenes and vertex-buffer route of tests/test_torch_pipeline.py
+and the card's.  Imports no JAX."""
 
 import math
 
 import numpy as np
+import torch
 
-from horayzon_tpu_torch import auxiliary
+from horayzon_tpu_torch import auxiliary, horizon, topo_param
+from horayzon_tpu_torch.models import PlanarPipeline
 from reference_impl import gaussian_bumps_terrain
 
 
@@ -345,3 +349,73 @@ def recompute_scenes():
         "shard_wide": (terrain, dict(skw, inner_shape=(16, 32),
                                      dist_search=300.0), wramp, None, None),
     }
+
+
+#: The planar pipeline's masks: none, glacier-style patches, every cell.
+PIPELINE_MASKS = ("none", "patches", "all_masked")
+
+
+def planar_pipeline_scene(n=96, pad=400.0, seed=4, jitter=None,
+                          mask="none", device="cpu", **kw):
+    """``(PlanarPipeline, mask)`` on ``n``^2 bumps at 25 m, north-up, the
+    inner domain ``pad`` metres inside the outer one, 8 azimuths and 0.3
+    km unless ``kw`` says otherwise; ``jitter`` "x" or "y" moves one
+    point of that axis by a tenth of a step (the axes are then not
+    uniform); ``mask`` one of :data:`PIPELINE_MASKS`."""
+    dx = 25.0
+    z = gaussian_bumps_terrain(n, n, seed=seed, amp=400.0)
+    x = np.arange(n, dtype=np.float32) * dx
+    y = (n - 1 - np.arange(n, dtype=np.float32)) * dx
+    domain = {"x_min": float(x[0]) + pad, "x_max": float(x[-1]) - pad,
+              "y_min": float(y[-1]) + pad, "y_max": float(y[0]) - pad}
+    if jitter is not None:
+        {"x": x, "y": y}[jitter][n // 3] += np.float32(0.1 * dx)
+    args = dict(dist_search=0.3, azim_num=8)
+    args.update(kw)
+    pipe = PlanarPipeline(x, y, z, domain, device=device, **args)
+    in0, in1 = (s.stop - s.start for s in pipe.slice_in)
+    m = None
+    if mask == "patches":
+        yy, xx = np.mgrid[0:in0, 0:in1]
+        rng = np.random.default_rng(seed)
+        m = np.zeros((in0, in1), np.uint8)
+        for cy, cx, r in zip(rng.uniform(0, in0, 5), rng.uniform(0, in1, 5),
+                             rng.uniform(2.0, 0.2 * min(in0, in1), 5)):
+            m[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1
+    elif mask == "all_masked":
+        m = np.zeros((in0, in1), np.uint8)
+    return pipe, m
+
+
+def planar_buffer_route(pipe, mask=None):
+    """``PlanarPipeline.run``'s outputs through the vertex buffer: the
+    meshgrid of its axes, ``auxiliary.rearrange_pad_buffer``,
+    ``horizon_gridded`` with default vectors, and the topo parameters from
+    the meshgrid's host planes."""
+    in0, in1 = (s.stop - s.start for s in pipe.slice_in)
+    vec_norm = np.zeros((in0, in1, 3), dtype=np.float32)
+    vec_norm[..., 2] = 1.0
+    vec_north = np.zeros((in0, in1, 3), dtype=np.float32)
+    vec_north[..., 1] = 1.0
+    x_2d, y_2d = np.meshgrid(pipe.x, pipe.y)
+    vert_grid = auxiliary.rearrange_pad_buffer(x_2d, y_2d, pipe.elevation)
+    hori, azim = horizon.horizon_gridded(
+        vert_grid, *pipe.elevation.shape, vec_norm, vec_north,
+        pipe.offset_0, pipe.offset_1, dist_search=pipe.dist_search,
+        azim_num=pipe.azim_num, hori_acc=pipe.hori_acc,
+        elev_ang_low_lim=pipe.elev_ang_low_lim, mask=mask,
+        device=pipe.device)
+
+    def on_device(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(pipe.device)
+
+    s0, s1 = pipe.slice_in
+    sl = (slice(s0.start - 1, s0.stop + 1), slice(s1.start - 1, s1.stop + 1))
+    vec_tilt = topo_param.slope_plane_meth(
+        *(on_device(a[sl]) for a in (x_2d, y_2d, pipe.elevation)))[1:-1, 1:-1]
+    svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
+    slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
+    return {"hori": hori, "azim": azim, "svf": svf, "slope": slope,
+            "aspect": aspect, "vec_tilt": vec_tilt,
+            "elevation": on_device(pipe.elevation[pipe.slice_in]),
+            "x": on_device(pipe.x[s1]), "y": on_device(pipe.y[s0])}

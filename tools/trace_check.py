@@ -4,9 +4,11 @@
 """One traced run (``--trace 1``) of a benchmark cell, with what its
 result line leaves out: the cell's end-to-end metrics beside the
 per-layer ones, how much of each root span of the program its child
-spans cover, the milliseconds per call of every ``hzt.*`` span, and the
+spans cover, the milliseconds per call of every ``hzt.*`` span, the
 share of the card's idle time that falls under the benchmark's own
-wrapper spans (``hzbench/harness.py::SPANS``).
+wrapper spans (``hzbench/harness.py::SPANS``), and the routes the traced
+``PlanarPipeline.run`` calls took (``utils/profiling.routes``; null for
+a checkout that does not count them).
 
     python tools/trace_check.py --workload dhm25_hz --seed 5 \\
         [--seconds 51] [--out build/trace_check] [--no-wrappers] \\
@@ -83,6 +85,16 @@ def dump(parsed, n):
     return out
 
 
+def routes():
+    """``PlanarPipeline.run``'s route counts over the traced calls, or
+    None where the checkout does not count them."""
+    try:
+        from horayzon_tpu_torch.utils import profiling
+        return profiling.routes()
+    except (ImportError, AttributeError):
+        return None
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -132,7 +144,8 @@ def main():
         "workload": args.workload, "seed": args.seed,
         "device": res["device"], "correct": res["correct"],
         "metrics": {n: m["value"] for n, m in res["metrics"].items()},
-        "calls_traced": parsed["calls"], "roots": cover(ann),
+        "calls_traced": parsed["calls"], "routes": routes(),
+        "roots": cover(ann),
         "idle_s": idle,
         "idle_under_wrappers_pct": 100.0 * sum(
             s for n, s in gaps if n in wrappers) / idle if idle else 0.0,
