@@ -9,6 +9,13 @@ readings); then the control, the reference computed in bfloat16 (the
 precision below the configuration's float32) put in the program's place
 and judged by the same comparison.  One JSON line per seed.  The
 benchmark's runs never run this.
+
+A built-in traffic kind takes its calls from :data:`DEFAULT_CALLS` and its
+control from :func:`control_readings`; a kind of its own file,
+``hzbench/driver/<kind>.py`` (:meth:`hzbench.harness.Manifest.driver`),
+gives both there: the integer ``CONTROL_CALLS`` and
+``control_readings(drv)``, which returns the numbers of its driver's
+``check()`` under the same names.
 """
 
 import json
@@ -54,16 +61,21 @@ def control_readings(drv):
 def readings(workload, seed, calls=None, *, device="cuda", root=harness.ROOT,
              config_overrides=None, traffic_overrides=None):
     """(program's numbers, control's numbers) of one seed."""
-    _, _, _, traffic, _, drv = harness.set_up(
+    man, _, _, traffic, _, drv = harness.set_up(
         workload, seed, root=root, device=device,
         config_overrides=config_overrides,
         traffic_overrides=traffic_overrides)
-    n = DEFAULT_CALLS[traffic["kind"]] if calls is None else calls
+    mod = man.driver_file(traffic["kind"])
+    if mod is None:
+        default, judge = DEFAULT_CALLS[traffic["kind"]], control_readings
+    else:
+        default, judge = mod.CONTROL_CALLS, mod.control_readings
+    n = default if calls is None else calls
     for k in range(n):
         drv.call(k, drv.prepare(k))
     drv.release()
     prog = drv.check()
-    return prog, control_readings(drv)
+    return prog, judge(drv)
 
 
 def main():

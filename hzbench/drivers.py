@@ -1,6 +1,9 @@
 """How a traffic mix calls the program, and how its answers are checked.
 
-A driver is chosen by the traffic file's ``kind``:
+A driver is chosen by the traffic file's ``kind``, among
+:data:`DRIVERS` or else as ``Driver`` of the file
+``hzbench/driver/<kind>.py`` (:meth:`hzbench.harness.Manifest.driver`; a
+kind in both places is an error).  The built-in kinds:
 
 * ``horizon_calls``: ``models.PlanarPipeline(...)`` built and run
   (``mask=...``) on a DEM of its own per call, back to back, each call's
@@ -16,6 +19,14 @@ kernel blocks); after the window :meth:`check` holds those of a sample of
 the calls against the plain reference (:mod:`hzbench.reference`), and
 the last call's whole output against the invariants every answer keeps.  The program's own
 standard output is discarded.
+
+A driver, built in or of its own file, is built as
+``Driver(hray, scene, traffic, cfg, seed, device)`` and has ``warm()``,
+``prepare(k)`` (call ``k``'s input, made outside the timed call),
+``call(k, inp)`` (the timed call; returns its work), ``release()`` (frees
+the program's state after the window) and ``check()`` (the numbers
+compared, by name, each with its limit in the configuration's
+``limits``).
 """
 
 import contextlib

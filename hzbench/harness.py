@@ -2,13 +2,22 @@
 names.
 
 The cell's configuration is ``hzbench/configs/<config>.json`` (its
-``scene`` names the generator of :mod:`hzbench.scenes`, ``check_blocks``
-the sample the reference checks, ``limits`` the limit of each number
-compared); its traffic mix is ``hzbench/traffic/<traffic>.json`` (its
-``kind`` names the driver of :mod:`hzbench.drivers`); each metric is read
-by ``hzbench/metrics/<name>.py`` (or the file of the name's part before
-its first dot), whose ``read(ctx)`` returns the value or None.  A later
-cell, mix or metric is a new file and a new entry.
+``scene`` names the scene generator, ``check_blocks`` the sample the
+reference checks, ``limits`` the limit of each number compared); its
+traffic mix is ``hzbench/traffic/<traffic>.json`` (its ``kind`` names the
+driver); each metric is read by ``hzbench/metrics/<name>.py`` (or the
+file of the name's part before its first dot), whose ``read(ctx)``
+returns the value or None.
+
+A scene name is found in :data:`hzbench.scenes.SCENES` or else as the
+file ``hzbench/scene/<name>.py``, whose ``make(cfg, seed, device, dem=0)``
+returns the scene; a traffic kind in :data:`hzbench.drivers.DRIVERS` or
+else as the file ``hzbench/driver/<kind>.py``, whose ``Driver`` class
+takes the built-in drivers' arguments and methods and which also gives
+the control's ``CONTROL_CALLS`` and ``control_readings(drv)``
+(:mod:`hzbench.control`).  A name found in both places, or in neither, is
+an error.  So a later cell, mix, metric, scene or traffic kind is a new
+file and a new entry.
 
 A run: set-up (imports, the kernel build into the program's own cache,
 the scene from the seed, the program's set-up, one warm-up call of the
@@ -59,6 +68,7 @@ class Manifest:
     def __init__(self, root=ROOT):
         self.root = pathlib.Path(root)
         self.bench = load_json(self.root / "BENCHMARK.json")
+        self._files = {}    # (folder, name): a scene's or driver's module
 
     def cell(self, name):
         for w in self.bench["workloads"]:
@@ -92,11 +102,50 @@ class Manifest:
         path = metrics / f"{name}.py"
         if not path.is_file():
             path = metrics / f"{name.split('.')[0]}.py"
-        spec = importlib.util.spec_from_file_location(
-            "hzbench_metric_" + name.replace(".", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _load(path, "hzbench_metric_" + name.replace(".", "_")).read
+
+    def scene(self, name):
+        """The scene generator ``name``: ``scenes.SCENES[name]``, or
+        ``make`` of ``scene/<name>.py``."""
+        mod = self._file("scene", name, scenes.SCENES, "hzbench/scenes.py")
+        return scenes.SCENES[name] if mod is None else mod.make
+
+    def driver(self, kind):
+        """The driver class of traffic kind ``kind``:
+        ``drivers.DRIVERS[kind]``, or ``Driver`` of ``driver/<kind>.py``."""
+        mod = self.driver_file(kind)
+        return drivers.DRIVERS[kind] if mod is None else mod.Driver
+
+    def driver_file(self, kind):
+        """The module of ``driver/<kind>.py``; None for a built-in kind."""
+        return self._file("driver", kind, drivers.DRIVERS,
+                          "hzbench/drivers.py")
+
+    def _file(self, folder, name, built_in, where):
+        """The module of ``hzbench/<folder>/<name>.py``, loaded once per
+        manifest; None where ``name`` is a key of ``built_in`` (the dict of
+        the file ``where``).  A name of both, or of neither, raises."""
+        path = self.root / "hzbench" / folder / f"{name}.py"
+        if name in built_in:
+            if path.is_file():
+                raise ValueError(f"{folder} {name!r} is both built in "
+                                 f"({where}) and the file {path}")
+            return None
+        if not path.is_file():
+            raise KeyError(f"no {folder} {name!r}: not built in ({where}) "
+                           f"and no file {path}")
+        if (folder, name) not in self._files:
+            self._files[folder, name] = _load(
+                path, f"hzbench_{folder}_{name}".replace(".", "_"))
+        return self._files[folder, name]
+
+
+def _load(path, mod_name):
+    """The module of the Python file ``path``, run under ``mod_name``."""
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def forbidden_modules():
@@ -139,9 +188,8 @@ def set_up(workload, seed, *, root=ROOT, device="cuda",
 
     if dev.type == "cuda":
         hray.ops.fused_sweep.kernel_lib()     # the build, cached
-    scene = scenes.SCENES[cfg["scene"]](cfg, seed, dev)
-    drv = drivers.DRIVERS[traffic["kind"]](hray, scene, traffic, cfg, seed,
-                                           dev)
+    scene = man.scene(cfg["scene"])(cfg, seed, dev)
+    drv = man.driver(traffic["kind"])(hray, scene, traffic, cfg, seed, dev)
     return man, cell, cfg, traffic, scene, drv
 
 

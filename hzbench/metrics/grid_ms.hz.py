@@ -1,6 +1,9 @@
 """grid_ms.hz [ms]: per call, the program's span ``hzt.pipeline.grid``
-(``PlanarPipeline.run``: the unit vectors, the meshgrid and
-``auxiliary.rearrange_pad_buffer``, the vertex buffer), on the host."""
+(``PlanarPipeline.run``): on the route of uniform 1-D axes the axes'
+test (``terrain.axes_grid``), the ``GridSpec`` and the 1-D axes to the
+device, broadcast into the topo planes; on the vertex-buffer route the
+unit vectors, the meshgrid and ``auxiliary.rearrange_pad_buffer``.  On the
+host."""
 
 from hzbench import program_spans
 

@@ -18,6 +18,12 @@ A scene is a dict: ``z`` the (H, W) float32 heights on the device, ``x``
 and ``y`` the float32 axes, ``dx``, ``dy`` (signed, as the program's grid
 test reads them), ``offset`` and ``inner_shape`` of the inner block, and
 the configuration's sweep settings.
+
+A configuration's ``scene`` names a generator of :data:`SCENES` or else
+the file ``hzbench/scene/<name>.py``, whose ``make(cfg, seed, device,
+dem=0)`` returns the scene its driver and metric readers read, made from
+the seed (:meth:`hzbench.harness.Manifest.scene`); a name in both places
+is an error.
 """
 
 import math
