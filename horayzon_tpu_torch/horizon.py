@@ -39,6 +39,7 @@ from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import locations as _locations
 from horayzon_tpu_torch.ops import multires as _multires
 from horayzon_tpu_torch.ops import sweep as _sweep
+from horayzon_tpu_torch.utils import profiling as _profiling
 from horayzon_tpu_torch.utils.profiling import span
 
 _VALID_ALGOS = ("discrete_sampling", "binary_search", "guess_constant",
@@ -370,41 +371,48 @@ def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,
     ``fi``, ``fj`` (the inner cells' lattice positions)."""
     in0, in1 = vec_norm.shape[:2]
     if pg is None:
-        pg = _regrid.planarize(x, y, z)
-    hr, wr = pg.grid.shape
-    x_in = x[offset_0:offset_0 + in0, offset_1:offset_1 + in1]
-    y_in = y[offset_0:offset_0 + in0, offset_1:offset_1 + in1]
-    fi_in, fj_in = pg.to_regular_indices(x_in, y_in)
-    if mask is not None and (mask == 1).any():
-        sel = mask == 1
-        fi_b, fj_b = fi_in[sel], fj_in[sel]
-    else:
-        fi_b, fj_b = fi_in, fj_in
-    i_lo = max(int(np.floor(fi_b.min())) - 1, 0)
-    i_hi = min(int(np.ceil(fi_b.max())) + 2, hr)
-    j_lo = max(int(np.floor(fj_b.min())) - 1, 0)
-    j_hi = min(int(np.ceil(fj_b.max())) + 2, wr)
-    rin0, rin1 = i_hi - i_lo, j_hi - j_lo
-    fi_src = np.clip(pg.fi[i_lo:i_hi, j_lo:j_hi] - offset_0, 0.0, in0 - 1.0)
-    fj_src = np.clip(pg.fj[i_lo:i_hi, j_lo:j_hi] - offset_1, 0.0, in1 - 1.0)
-    norm_r = _regrid._bilinear(vec_norm.astype(np.float64), fi_src, fj_src)
-    norm_r /= np.linalg.norm(norm_r, axis=-1, keepdims=True)
-    ramp = ((norm_r[..., 0] / norm_r[..., 2]).astype(np.float32),
-            (norm_r[..., 1] / norm_r[..., 2]).astype(np.float32))
-    lat_mask = None
-    if mask is not None and (mask == 1).any():
-        # a lattice cell is swept iff an unmasked cell's bilinear read-back
-        # stencil touches it (horayzon_tpu/horizon.py:774-784)
-        lat_mask = np.zeros((rin0, rin1), dtype=np.uint8)
-        i0m = np.floor(np.clip(fi_b - i_lo, 0.0, rin0 - 1.0)).astype(np.int64)
-        j0m = np.floor(np.clip(fj_b - j_lo, 0.0, rin1 - 1.0)).astype(np.int64)
-        for di in (0, 1):
-            for dj in (0, 1):
-                lat_mask[np.clip(i0m + di, 0, rin0 - 1),
-                         np.clip(j0m + dj, 0, rin1 - 1)] = 1
-    elif mask is not None:
-        # no unmasked cell: nothing to sweep
-        lat_mask = np.zeros((rin0, rin1), dtype=np.uint8)
+        with span("hzt.curved.planarize"):
+            pg = _regrid.planarize(x, y, z)
+    with span("hzt.curved.lattice"):
+        hr, wr = pg.grid.shape
+        x_in = x[offset_0:offset_0 + in0, offset_1:offset_1 + in1]
+        y_in = y[offset_0:offset_0 + in0, offset_1:offset_1 + in1]
+        fi_in, fj_in = pg.to_regular_indices(x_in, y_in)
+        if mask is not None and (mask == 1).any():
+            sel = mask == 1
+            fi_b, fj_b = fi_in[sel], fj_in[sel]
+        else:
+            fi_b, fj_b = fi_in, fj_in
+        i_lo = max(int(np.floor(fi_b.min())) - 1, 0)
+        i_hi = min(int(np.ceil(fi_b.max())) + 2, hr)
+        j_lo = max(int(np.floor(fj_b.min())) - 1, 0)
+        j_hi = min(int(np.ceil(fj_b.max())) + 2, wr)
+        rin0, rin1 = i_hi - i_lo, j_hi - j_lo
+        fi_src = np.clip(pg.fi[i_lo:i_hi, j_lo:j_hi] - offset_0, 0.0,
+                         in0 - 1.0)
+        fj_src = np.clip(pg.fj[i_lo:i_hi, j_lo:j_hi] - offset_1, 0.0,
+                         in1 - 1.0)
+        norm_r = _regrid._bilinear(vec_norm.astype(np.float64), fi_src,
+                                   fj_src)
+        norm_r /= np.linalg.norm(norm_r, axis=-1, keepdims=True)
+        ramp = ((norm_r[..., 0] / norm_r[..., 2]).astype(np.float32),
+                (norm_r[..., 1] / norm_r[..., 2]).astype(np.float32))
+        lat_mask = None
+        if mask is not None and (mask == 1).any():
+            # a lattice cell is swept iff an unmasked cell's bilinear
+            # read-back stencil touches it (horayzon_tpu/horizon.py:774-784)
+            lat_mask = np.zeros((rin0, rin1), dtype=np.uint8)
+            i0m = np.floor(np.clip(fi_b - i_lo, 0.0, rin0 - 1.0)).astype(
+                np.int64)
+            j0m = np.floor(np.clip(fj_b - j_lo, 0.0, rin1 - 1.0)).astype(
+                np.int64)
+            for di in (0, 1):
+                for dj in (0, 1):
+                    lat_mask[np.clip(i0m + di, 0, rin0 - 1),
+                             np.clip(j0m + dj, 0, rin1 - 1)] = 1
+        elif mask is not None:
+            # no unmasked cell: nothing to sweep
+            lat_mask = np.zeros((rin0, rin1), dtype=np.uint8)
     return dict(pg=pg, box=(i_lo, i_hi, j_lo, j_hi), norm_r=norm_r,
                 ramp=ramp, lat_mask=lat_mask, fi=fi_in, fj=fj_in)
 
@@ -448,7 +456,13 @@ def _curved_gridded(x, y, z, vec_norm, vec_north, offset_0, offset_1, *,
     lat = curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask)
     pg, (i_lo, i_hi, j_lo, j_hi) = lat["pg"], lat["box"]
     rin0, rin1 = i_hi - i_lo, j_hi - j_lo
-    z_dev = torch.from_numpy(pg.z).to(device)
+    _profiling.count_lattice(rin0 * rin1, lat["fi"].size)
+    with span("hzt.curved.upload"):
+        z_dev = torch.from_numpy(pg.z).to(device)
+        if engine != "sweep":
+            ramp = tuple(torch.from_numpy(r).to(device) for r in lat["ramp"])
+            lat_mask = (None if lat["lat_mask"] is None
+                        else torch.from_numpy(lat["lat_mask"]).to(device))
     if engine == "sweep":
         geom, u_xy = _box_basis(lat, vec_norm, vec_north, offset_0, offset_1,
                                 azimuth_angles(azim_num))
@@ -459,18 +473,15 @@ def _curved_gridded(x, y, z, vec_norm, vec_north, offset_0, offset_1, *,
             elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev,
             geom=geom, u_xy=u_xy)
     else:
-        lat_mask = lat["lat_mask"]
         hori_r = _fused.horizon_sweep_fused(
             z_dev, dx=pg.grid.dx, dy=pg.grid.dy, offset=(i_lo, j_lo),
             inner_shape=(rin0, rin1), azim_num=azim_num,
             dist_search=dist_search, hori_acc=hori_acc,
             elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev,
-            tilt_ramp=tuple(torch.from_numpy(r).to(device)
-                            for r in lat["ramp"]),
-            mask=None if lat_mask is None else torch.from_numpy(
-                lat_mask).to(device))
-    return read_back(hori_r, np.clip(lat["fi"] - i_lo, 0.0, rin0 - 1.0),
-                     np.clip(lat["fj"] - j_lo, 0.0, rin1 - 1.0))
+            tilt_ramp=ramp, mask=lat_mask)
+    with span("hzt.curved.readback"):
+        return read_back(hori_r, np.clip(lat["fi"] - i_lo, 0.0, rin0 - 1.0),
+                         np.clip(lat["fj"] - j_lo, 0.0, rin1 - 1.0))
 
 
 def _box_basis(lat, vec_norm, vec_north, offset_0, offset_1, azim):

@@ -163,56 +163,69 @@ class CurvedPipeline:
     def build_geometry(self):
         """ENU mesh + per-cell unit vectors on the host (the L2 stage of the
         reference pipeline, SURVEY section 3.5)."""
-        lon_2d, lat_2d = np.meshgrid(self.lon, self.lat)
-        lon_or = float(np.mean([self.domain["lon_min"],
-                                self.domain["lon_max"]]))
-        lat_or = float(np.mean([self.domain["lat_min"],
-                                self.domain["lat_max"]]))
-        self.trans = transform.TransformerEcef2enu(lon_or, lat_or,
-                                                   self.ellps)
-        xe, ye, ze = transform.lonlat2ecef(lon_2d, lat_2d, self.elevation,
-                                           self.ellps)
-        self.x, self.y, self.z = transform.ecef2enu(xe, ye, ze, self.trans)
-        sl = self.slice_in
-        vn_ecef = direction.surf_norm(lon_2d[sl], lat_2d[sl])
-        vnorth_ecef = direction.north_dir(xe[sl], ye[sl], ze[sl], vn_ecef,
-                                          self.ellps)
-        self.vec_norm = transform.ecef2enu_vector(vn_ecef, self.trans)
-        self.vec_north = transform.ecef2enu_vector(vnorth_ecef, self.trans)
+        with span("hzt.curved.geometry"):
+            lon_2d, lat_2d = np.meshgrid(self.lon, self.lat)
+            lon_or = float(np.mean([self.domain["lon_min"],
+                                    self.domain["lon_max"]]))
+            lat_or = float(np.mean([self.domain["lat_min"],
+                                    self.domain["lat_max"]]))
+            self.trans = transform.TransformerEcef2enu(lon_or, lat_or,
+                                                       self.ellps)
+            xe, ye, ze = transform.lonlat2ecef(lon_2d, lat_2d,
+                                               self.elevation, self.ellps)
+            self.x, self.y, self.z = transform.ecef2enu(xe, ye, ze,
+                                                        self.trans)
+            sl = self.slice_in
+            vn_ecef = direction.surf_norm(lon_2d[sl], lat_2d[sl])
+            vnorth_ecef = direction.north_dir(xe[sl], ye[sl], ze[sl],
+                                              vn_ecef, self.ellps)
+            self.vec_norm = transform.ecef2enu_vector(vn_ecef, self.trans)
+            self.vec_north = transform.ecef2enu_vector(vnorth_ecef,
+                                                       self.trans)
         return self
 
     def run(self, mask=None):
         """Compute all terrain parameters; returns a dict of tensors on the
         pipeline's device."""
-        if not hasattr(self, "x"):
-            self.build_geometry()
-        dem_dim_0, dem_dim_1 = self.elevation.shape
-        vert_grid = auxiliary.rearrange_pad_buffer(self.x, self.y, self.z)
-        hori, azim = horizon.horizon_gridded(
-            vert_grid, dem_dim_0, dem_dim_1, self.vec_norm, self.vec_north,
-            self.offset_0, self.offset_1, dist_search=self.dist_search,
-            azim_num=self.azim_num, hori_acc=self.hori_acc,
-            elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
-            verbose=False, device=self.device)
+        with span("hzt.curved.run"):
+            profiling.count_route("curved_tilt")
+            if not hasattr(self, "x"):
+                self.build_geometry()
+            dem_dim_0, dem_dim_1 = self.elevation.shape
+            with span("hzt.curved.buffer"):
+                vert_grid = auxiliary.rearrange_pad_buffer(self.x, self.y,
+                                                           self.z)
+            hori, azim = horizon.horizon_gridded(
+                vert_grid, dem_dim_0, dem_dim_1, self.vec_norm,
+                self.vec_north, self.offset_0, self.offset_1,
+                dist_search=self.dist_search, azim_num=self.azim_num,
+                hori_acc=self.hori_acc,
+                elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
+                verbose=False, device=self.device)
 
-        def on_device(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            def on_device(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(
+                    self.device)
 
-        # Tilted normals in the local tangent frames (reference pattern:
-        # rotation_matrix_glob2loc + slope_plane_meth, gridded_curved_DEM.py)
-        sl = self.slice_in
-        sl1 = (slice(sl[0].start - 1, sl[0].stop + 1),
-               slice(sl[1].start - 1, sl[1].stop + 1))
-        rot = transform.rotation_matrix_glob2loc(self.vec_north,
-                                                 self.vec_norm)
-        vec_tilt = topo_param.slope_plane_meth(
-            on_device(self.x[sl1]), on_device(self.y[sl1]),
-            on_device(self.z[sl1]), rot_mat=on_device(rot),
-            output_rot=True)[1:-1, 1:-1]
-        svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
-        slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
-        return {"hori": hori, "azim": azim, "svf": svf, "slope": slope,
-                "aspect": aspect, "vec_tilt": vec_tilt,
-                "elevation": on_device(self.elevation[sl]),
-                "lon": on_device(self.lon[sl[1]]),
-                "lat": on_device(self.lat[sl[0]])}
+            # Tilted normals in the local tangent frames (reference pattern:
+            # rotation_matrix_glob2loc + slope_plane_meth,
+            # gridded_curved_DEM.py)
+            sl = self.slice_in
+            with span("hzt.curved.topo"):
+                sl1 = (slice(sl[0].start - 1, sl[0].stop + 1),
+                       slice(sl[1].start - 1, sl[1].stop + 1))
+                rot = transform.rotation_matrix_glob2loc(self.vec_north,
+                                                         self.vec_norm)
+                vec_tilt = topo_param.slope_plane_meth(
+                    on_device(self.x[sl1]), on_device(self.y[sl1]),
+                    on_device(self.z[sl1]), rot_mat=on_device(rot),
+                    output_rot=True)[1:-1, 1:-1]
+                svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
+                slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
+            with span("hzt.curved.outputs"):
+                return {"hori": hori, "azim": azim, "svf": svf,
+                        "slope": slope, "aspect": aspect,
+                        "vec_tilt": vec_tilt,
+                        "elevation": on_device(self.elevation[sl]),
+                        "lon": on_device(self.lon[sl[1]]),
+                        "lat": on_device(self.lat[sl[0]])}

@@ -137,13 +137,20 @@ COUNTED_KERNELS = ("k1", "k2")
 _NO_SPAN = contextlib.nullcontext()
 #: The routes :func:`routes` reports: ``PlanarPipeline.run`` on its 1-D
 #: axes and heights straight to the fused sweep, or through the vertex
-#: buffer and ``horizon_gridded``.
-ROUTES = ("planar_axes", "planar_buffer")
+#: buffer and ``horizon_gridded``; ``CurvedPipeline.run`` through the
+#: planarised lattice and K1's tilt ramp.
+ROUTES = ("planar_axes", "planar_buffer", "curved_tilt")
+#: What :func:`lattice` reports: the lattice cells of the boxes that the
+#: curved runs swept, and the inner (lon/lat) cells they read back.
+LATTICE_FIELDS = ("box_cells", "inner_cells")
 #: (kernel, device) -> the (4,) int64 counts of the launches made while
 #: tracing.
 _counts = {}
 #: route -> the runs that took it while tracing.
 _route_counts = dict.fromkeys(ROUTES, 0)
+#: field of :data:`LATTICE_FIELDS` -> cells, summed over the curved runs
+#: made while tracing.
+_lattice_counts = dict.fromkeys(LATTICE_FIELDS, 0)
 
 
 def tracing():
@@ -198,7 +205,23 @@ def routes():
     return dict(_route_counts)
 
 
+def count_lattice(box_cells, inner_cells):
+    """Count one curved run that swept ``box_cells`` lattice cells for
+    ``inner_cells`` inner cells while :func:`tracing` holds."""
+    if tracing():
+        _lattice_counts["box_cells"] += int(box_cells)
+        _lattice_counts["inner_cells"] += int(inner_cells)
+
+
+def lattice():
+    """``{field: cells}`` of the curved runs made while tracing since the
+    last :func:`reset_counters`, fields in :data:`LATTICE_FIELDS` order."""
+    return dict(_lattice_counts)
+
+
 def reset_counters():
-    """Zero the counters of :func:`counters` and :func:`routes`."""
+    """Zero the counters of :func:`counters`, :func:`routes` and
+    :func:`lattice`."""
     _counts.clear()
     _route_counts.update(dict.fromkeys(ROUTES, 0))
+    _lattice_counts.update(dict.fromkeys(LATTICE_FIELDS, 0))

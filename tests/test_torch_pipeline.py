@@ -252,7 +252,8 @@ def test_axes_route_bit_equal_to_buffer_route(mask, capsys):
     cell masked)."""
     pipe, m = planar_pipeline_scene(mask=mask)
     got, routes = _traced_routes(lambda: pipe.run(mask=m))
-    assert routes == {"planar_axes": 1, "planar_buffer": 0}
+    assert routes == {"planar_axes": 1, "planar_buffer": 0,
+                      "curved_tilt": 0}
     want = planar_buffer_route(pipe, m)
     assert set(got) == set(want)
     for key in want:
@@ -267,7 +268,8 @@ def test_uneven_axes_take_the_buffer_route(jitter, capsys):
     same outputs as that route."""
     pipe, m = planar_pipeline_scene(jitter=jitter, mask="patches")
     got, routes = _traced_routes(lambda: pipe.run(mask=m))
-    assert routes == {"planar_axes": 0, "planar_buffer": 1}
+    assert routes == {"planar_axes": 0, "planar_buffer": 1,
+                      "curved_tilt": 0}
     want = planar_buffer_route(pipe, m)
     for key in want:
         assert torch.equal(got[key], want[key]), key

@@ -6,9 +6,13 @@ result line leaves out: the cell's end-to-end metrics beside the
 per-layer ones, how much of each root span of the program its child
 spans cover, the milliseconds per call of every ``hzt.*`` span, the
 share of the card's idle time that falls under the benchmark's own
-wrapper spans (``hzbench/harness.py::SPANS``), and the routes the traced
-``PlanarPipeline.run`` calls took (``utils/profiling.routes``; null for
-a checkout that does not count them).
+wrapper spans (``hzbench/harness.py::SPANS``), the routes the traced
+``PlanarPipeline.run`` and ``CurvedPipeline.run`` calls took
+(``utils/profiling.routes``) and the lattice cells the curved runs swept
+per inner cell (``utils/profiling.lattice``; each null for a checkout
+that does not count it).  Idle gaps are labelled by the innermost span
+around them, ``hzt.curved.*`` (planarisation, lattice, upload, read-back)
+among them.
 
     python tools/trace_check.py --workload dhm25_hz --seed 5 \\
         [--seconds 51] [--out build/trace_check] [--no-wrappers] \\
@@ -33,7 +37,7 @@ sys.path.insert(0, os.getcwd())
 
 from hzbench import program_spans  # noqa: E402
 
-ROOTS = ("hzt.pipeline.run", "hzt.terrain.query")
+ROOTS = ("hzt.pipeline.run", "hzt.terrain.query", "hzt.curved.run")
 
 
 def union_us(intervals):
@@ -86,13 +90,25 @@ def dump(parsed, n):
 
 
 def routes():
-    """``PlanarPipeline.run``'s route counts over the traced calls, or
-    None where the checkout does not count them."""
+    """The pipelines' route counts over the traced calls, or None where
+    the checkout does not count them."""
     try:
         from horayzon_tpu_torch.utils import profiling
         return profiling.routes()
     except (ImportError, AttributeError):
         return None
+
+
+def lattice_per_inner():
+    """Lattice cells swept per inner cell over the traced curved runs, or
+    None where the checkout does not count them or no curved run was
+    traced."""
+    try:
+        from horayzon_tpu_torch.utils import profiling
+        n = profiling.lattice()
+    except (ImportError, AttributeError):
+        return None
+    return n["box_cells"] / n["inner_cells"] if n["inner_cells"] else None
 
 
 def main():
@@ -145,6 +161,7 @@ def main():
         "device": res["device"], "correct": res["correct"],
         "metrics": {n: m["value"] for n, m in res["metrics"].items()},
         "calls_traced": parsed["calls"], "routes": routes(),
+        "lattice_per_inner": lattice_per_inner(),
         "roots": cover(ann),
         "idle_s": idle,
         "idle_under_wrappers_pct": 100.0 * sum(
