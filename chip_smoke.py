@@ -10,8 +10,8 @@ Phases, each of which ends the run with a nonzero exit on failure:
 1. environment: torch, CUDA, the card, its name and power limit;
 2. build: kernels K1 and K2 with their argmax variants
    (csrc/horizon_sweep.cu, one template), K3 and K4
-   (csrc/horizon_replay_bwd.cu, one template) and K5 (csrc/read_floor.cu),
-   one nvcc each for sm_90a, in parallel;
+   (csrc/horizon_replay_bwd.cu, one template), K5 (csrc/read_floor.cu)
+   and P1 (csrc/planarize.cu), one nvcc each for sm_90a, in parallel;
 3. K1 against its plain torch version on the card, on three small cases;
 4. the main path, ``PlanarPipeline.run`` at the bench headline shape
    (25 m grid, 2048^2 outer, 1024^2 inner, 32 azimuths, 20 km search),
@@ -73,13 +73,18 @@ H. masked planar runs at the bench shape: ``horizon_gridded(mask=...,
    bit-equal to it; K1-mask alone and its plain version on the island;
 I. curved: ``bench.py:60-197``'s curved masked scene (1024^2 lon/lat at
    3 arcsec on the sphere, 512^2 inner, 10 km, the 8% island) dense and
-   masked through ``horizon_gridded`` (one run each: each planarises the
-   mesh on the host), unmasked cells bit-equal, the lattice sweeps timed
-   alone; then ``CurvedPipeline.run`` at the defaults of
-   ``examples/horizon/gridded_curved_dem.py`` (900^2 at 0.0009 degree,
-   WGS84, 20 km, 120 azimuths) with its wall split into host
-   planarisation, K1-tilt and read-back, SVF range and peak memory;
-   K1-tilt against its plain version there;
+   masked through ``horizon_gridded`` (one run each), unmasked cells
+   bit-equal, the lattice sweeps timed alone; then ``CurvedPipeline.run``
+   at the defaults of ``examples/horizon/gridded_curved_dem.py`` (900^2
+   at 0.0009 degree, WGS84, 20 km, 120 azimuths), K1-tilt and P1 (the
+   planarisation kernel) each launched once, with its wall split into
+   planarisation and ramps, K1-tilt and read-back, SVF range and peak
+   memory; K1-tilt against its plain version there; P1 against
+   ``regrid.planarize`` (NumPy float64 on the host) on that run's float32
+   mesh and on one of ``srtm_alps_hz``'s shape (972 x 1350 lon/lat cells
+   of 3 arcsec around the Alps, WGS84): ``fi``, ``fj`` and ``z``
+   bit-equal, ``valid`` equal, P1 alone timed (CUDA events, mean of 10)
+   beside the wrapper's wall and the plain version's;
 J. K5, the read floor (csrc/read_floor.cu): every mode and source against
    its plain version on a small window, bit-equal; then its own main path,
    ``read_floor.time_modes`` (what ``tools/read_floor_torch.py`` runs), at
@@ -105,7 +110,8 @@ L. curved shadows: ``shadow.Terrain`` at the defaults of
    degree around (-36.3, -54.35), WGS84, 20 bumps, the inner domain 0.2
    degree in from each side in lon and 0.15 in lat, ``slope_vector_meth``
    tilt on the card, refraction, 25 hourly suns of 2026-01-15): initialise
-   wall split into host planarisation and the rest, ``sw_dir_cor_batch``
+   (P1 launched once) wall split into planarisation and the rest,
+   ``sw_dir_cor_batch``
    and ``shadow_batch`` (K2 sign-exact over the lattice box, read back at
    the cells) median of 3, peak memory, the codes of all 25 suns equal to
    those from the plain exact metric, K2 alone with its skip counters
@@ -117,7 +123,8 @@ M. per-location horizons: ``horizon_locations`` at the defaults of
    ``examples/horizon/locations_curved_dem.py`` (700^2 at 0.0012 degree
    around (8, 46.5), WGS84, 25 bumps, its 3 named locations, 20 km, 360
    azimuths, ``hori_dist_out``), then at 10,000 locations drawn (seed 0)
-   from the inner 0.3 degree: wall split into planarisation and sweep,
+   from the inner 0.3 degree (P1 launched once a call): wall split into
+   planarisation and sweep,
    chunks, peak memory, 64 of them against the CPU path;
 N. the reference's XLA engines, plain torch on the card by design:
    ``horizon_gridded`` with non-default vectors (``vec_norm`` from the
@@ -174,7 +181,7 @@ Q. the recompute VJP, ``HZT_GRAD_RECOMPUTE=1``: the gradient row at full
    row at 8 azimuths, and the sharded
    recompute on phase O's (4, 2) mesh on its 256^2 crop against the
    single-device recompute (K1's shard variant once per slot, no K3);
-9. one JSON line of all fourteen kernels (launches on its main path,
+9. one JSON line of all fifteen kernels (launches on its main path,
    error against its plain version, its time and the plain version's,
    its bound and ``library_ms`` null; the four shard rows ``*-shard``:
    launches on phase O's path, error against the single launch, the
@@ -184,7 +191,8 @@ Q. the recompute VJP, ``HZT_GRAD_RECOMPUTE=1``: the gradient row at full
    line
    ``{"ok": true, "device": {...}}``.  K5 is on no user path of the
    library: its launches are those of its own entry, the timing run of
-   phase J.
+   phase J.  P1's launches are those of phase I's ``CurvedPipeline.run``,
+   its times and bound those at ``srtm_alps_hz``'s shape.
 
 Phases 4, 6, H, I and K also launch K1 (or K1-argmax) once with its
 counters set and print the share of samples its value-exact skips passed
@@ -215,7 +223,7 @@ from horayzon_tpu_torch import (auxiliary, direction, horizon, parallel,
 from horayzon_tpu_torch.models import (CurvedPipeline, PlanarPipeline,
                                        terrain_fit)
 from horayzon_tpu_torch.ops import _build, fused_sweep, locations, mip
-from horayzon_tpu_torch.ops import multires, read_floor, replay
+from horayzon_tpu_torch.ops import multires, planarize, read_floor, replay
 from horayzon_tpu_torch.ops import shadow_sweep, sweep
 from horayzon_tpu_torch.parallel import shard
 from horayzon_tpu_torch.utils import profiling, streaming
@@ -249,11 +257,24 @@ BWD_SHARD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2238"
 SHADOW_BWD_SHARD_REPLACES = "horayzon_tpu/ops/pallas_sweep.py:2399"
 READ_FLOOR_SOURCE = "horayzon_tpu_torch/csrc/read_floor.cu"
 READ_FLOOR_REPLACES = "tools/read_floor.py:53"
-KERNELS = ("horizon_sweep", "horizon_replay_bwd", "read_floor")
+PLANARIZE_SOURCE = "horayzon_tpu_torch/csrc/planarize.cu"
+#: P1 replaces no TPU kernel: the JAX package planarises in NumPy.
+PLANARIZE_REPLACES = "horayzon_tpu/regrid.py:150"
+KERNELS = ("horizon_sweep", "horizon_replay_bwd", "read_floor", "planarize")
 #: Peaks of one H100 SXM (NVIDIA's data sheet): float32 operations outside
 #: the tensor cores per second, HBM bytes per second.
 PEAK_F32_OPS = 67.0e12
 PEAK_HBM_BYTES = 3.35e12
+#: The same card's float64 operations per second outside the tensor cores.
+PEAK_F64_OPS = 34.0e12
+#: float64 operations of one P1 thread (a lattice cell), counted from
+#: csrc/planarize.cu (a subtraction, multiplication, division or hypot each
+#: one): a stencil 2, a bilinear read 13 (two 1 - w, eight products, three
+#: sums), a Newton step 5 stencils + 10 reads + 4 half-cell steps + 4
+#: differences + 2 clipped steps + 4 divisions + 3 (det) + 2 (residual) +
+#: 10 (the step) = 169; the axes and the seed 12; the end a stencil, 3
+#: reads and 3 (err).
+PLANARIZE_OPS_PER_CELL = 12 + planarize.NUM_ITER * 169 + 2 + 3 * 13 + 3
 
 
 def make_terrain(h, w, seed=0):
@@ -392,6 +413,40 @@ def srtm_like_scene(n_s=900, dlat=0.0009, pad=0.25):
               "lat_min": float(lat.min()) + pad,
               "lat_max": float(lat.max()) - pad}
     return lon, lat, z.astype(np.float32), domain
+
+
+def alps_mesh(dev, seed=0):
+    """The float32 ENU mesh that ``CurvedPipeline.run`` hands to the
+    planarisation at ``srtm_alps_hz``'s shape: the 972 x 1350 cell centres
+    of 1/1200 degree of the SRTM tile at (5 E, 50 N) over lon
+    7.43825-8.56175, lat 46.12007-46.92991, 42 bumps of 300-2500 m
+    (``srtm_like_scene``'s model, ``seed``), WGS84, inner domain lon
+    7.70-8.30, lat 46.30-46.75."""
+    d = 1.0 / 1200.0
+    lon = 5.0 + d * (np.arange(2925, 4275) + 0.5)
+    lat = 50.0 - d * (np.arange(3684, 4656) + 0.5)
+    lon2, lat2 = np.meshgrid(lon, lat)
+    rng = np.random.default_rng(seed)
+    z = np.zeros_like(lon2)
+    for _ in range(42):
+        clon, clat = rng.uniform(lon.min(), lon.max()), \
+            rng.uniform(lat.min(), lat.max())
+        sig = rng.uniform(0.01, 0.08)
+        z += rng.uniform(300, 2500) * np.exp(
+            -(((lon2 - clon) ** 2 + (lat2 - clat) ** 2) / (2 * sig ** 2)))
+    domain = {"lon_min": 7.70, "lon_max": 8.30, "lat_min": 46.30,
+              "lat_max": 46.75}
+    pipe = CurvedPipeline(lon, lat, z.astype(np.float32), domain,
+                          dist_search=20.0, azim_num=180, ellps="WGS84",
+                          device=dev).build_geometry()
+    return pipe_mesh(pipe)
+
+
+def pipe_mesh(pipe):
+    """A built ``CurvedPipeline``'s ENU mesh as its ``run`` hands it to the
+    planarisation (the vertex buffer's float32)."""
+    return tuple(np.ascontiguousarray(a, dtype=np.float32)
+                 for a in (pipe.x, pipe.y, pipe.z))
 
 
 def shadow_small_cases():
@@ -985,7 +1040,7 @@ def lattice_args(lat, dev, azim_num, dist_m):
     box (:func:`horizon.curved_lattice`'s result)."""
     i_lo, i_hi, j_lo, j_hi = lat["box"]
     return fused_sweep.sweep_args(
-        torch.from_numpy(lat["pg"].z).to(dev), dx=lat["pg"].grid.dx,
+        torch.as_tensor(lat["pg"].z, device=dev), dx=lat["pg"].grid.dx,
         dy=lat["pg"].grid.dy, offset=(i_lo, j_lo),
         inner_shape=(i_hi - i_lo, j_hi - j_lo), azim_num=azim_num,
         dist_search=dist_m, tilt_ramp=lat["ramp"], mask=lat["lat_mask"])
@@ -994,8 +1049,9 @@ def lattice_args(lat, dev, azim_num, dist_m):
 def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
     """Phase I: the curved masked scene ``bench_scene`` (inner ``c_in``^2
     at ``c_off``) dense and masked, then ``CurvedPipeline.run`` on
-    ``srtm_scene``.  Returns the K1-tilt row's numbers (launches, error,
-    ms, plain ms, bound)."""
+    ``srtm_scene``, and P1 there and at ``srtm_alps_hz``'s shape.  Returns
+    the K1-tilt row's and the P1 row's numbers (launches, error, ms, plain
+    ms, bound)."""
     print("== I. curved: bench.py's curved masked scene and CurvedPipeline")
     cx, cy, cz, c_norm, c_north, c_mask = bench_scene
     sl = (slice(c_off, c_off + c_in),) * 2
@@ -1011,8 +1067,7 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
-    # each horizon_gridded call planarises the mesh on the host (seconds at
-    # 1024^2), so each runs once; the lattice sweeps are timed alone below
+    # one run each; the lattice sweeps are timed alone below
     c_dense_s, c_dense = curved()
     c_mask_s, c_masked = curved(c_mask)
     keep = torch.from_numpy(c_mask == 1).to(dev)
@@ -1033,7 +1088,8 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
         fused_sweep._ratio_cuda(*cargs)
         sweeps.append(cuda_ms(lambda: fused_sweep._ratio_cuda(*cargs), 5))
     print(f"  lattice {lat_d['pg'].grid.shape}, dense box {lat_d['box']}, "
-          f"masked box {lat_m['box']} with {lat_m['lat_mask'].mean():.4f} "
+          f"masked box {lat_m['box']} with "
+          f"{lat_m['lat_mask'].float().mean().item():.4f} "
           f"of its cells swept; {c_mask.mean():.4f} of the inner cells "
           f"considered")
     print(f"  horizon_gridded (one run each): dense {c_dense_s:.3f} s, "
@@ -1052,14 +1108,17 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_sweep.TILT_KERNEL_LAUNCHES = 0
+    planarize.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     out = pipe.run()
     torch.cuda.synchronize()
     pipe_s = time.perf_counter() - t0
     launches = fused_sweep.TILT_KERNEL_LAUNCHES
+    p1_launches = planarize.KERNEL_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
-    check(launches == 1, f"CurvedPipeline.run launched K1-tilt "
-          f"({launches} launches in 1 run)")
+    check(launches == 1 and p1_launches == 1,
+          f"CurvedPipeline.run launched K1-tilt ({launches} launches in 1 "
+          f"run) and P1 ({p1_launches})")
     hori, svf = out["hori"], out["svf"]
     check(hori.is_cuda and hori.shape[2] == 120
           and bool(torch.isfinite(hori).all())
@@ -1090,13 +1149,67 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
           f"(900^2 at 0.0009 deg, WGS84, 20 km, 120 azimuths; inner "
           f"{tuple(hori.shape[:2])}, lattice box {lat_c['box']}): "
           f"{pipe_s:.3f} s wall (geometry beforehand {geo_s:.3f} s); parts: "
-          f"host planarisation and ramps {plan_c_s:.3f} s, K1-tilt "
+          f"planarisation and ramps {plan_c_s:.3f} s, K1-tilt "
           f"{tilt_ms:.3f} ms, read-back {rb_ms:.3f} ms; peak "
           f"{peak / 2**20:.1f} MiB allocated; svf "
           f"[{svf.min().item():.4f}, {svf.max().item():.4f}]  [{card}]")
     print(f"  K1-tilt: plain version {plain_ms:.1f} ms  [{card}]")
     bnd = skip_report("K1-tilt", targs, False, tilt_ms, card)
-    return launches, err, tilt_ms, plain_ms, bnd
+    p1_err = check_p1(dev, card, "CurvedPipeline.run's mesh",
+                      pipe_mesh(pipe))[0]
+    del pipe, out, hori, svf, lat_c, targs, raw, p_raw, hori_r, back
+    p1_err, p1_ms, p1_plain_ms, p1_bnd = check_p1(
+        dev, card, "srtm_alps_hz's mesh", alps_mesh(dev), p1_err)
+    return ((launches, err, tilt_ms, plain_ms, bnd),
+            (p1_launches, p1_err, p1_ms, p1_plain_ms, p1_bnd))
+
+
+def check_p1(dev, card, what, mesh, err=0.0):
+    """P1 on the float32 ENU ``mesh`` against ``regrid.planarize``: the
+    lattice equal, ``fi``, ``fj`` and ``z`` bit-equal, ``valid`` equal;
+    P1 alone (CUDA events, mean of 10) beside the wrapper's wall (median
+    of 5: host work, upload, launch, until the card is done) and the plain
+    version's.  Returns (max abs error with ``err``, ms, plain ms,
+    bound)."""
+    x, y, z = mesh
+    t0 = time.perf_counter()
+    want = regrid.planarize(x, y, z)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    prm, keep, got = planarize._prepare(x, y, z, None, dev)
+    planarize._launch(prm, dev)
+    torch.cuda.synchronize()
+    check(got.grid == want.grid, f"P1 on {what}: lattice {want.grid.shape} "
+          f"equal to regrid.planarize's")
+    for key in ("fi", "fj", "z"):
+        g, w = getattr(got, key).cpu().numpy(), getattr(want, key)
+        err = max(err, float(np.abs(g.astype(np.float64) - w).max()))
+        check(g.dtype == w.dtype and np.array_equal(
+            g.view(f"u{g.itemsize}"), w.view(f"u{w.itemsize}")),
+              f"P1 on {what}: {key} bit-equal to regrid.planarize's")
+    check(np.array_equal(got.valid.cpu().numpy(), want.valid),
+          f"P1 on {what}: valid equal to regrid.planarize's "
+          f"({want.valid.mean():.4f} of the lattice)")
+    ms = cuda_ms(lambda: planarize._launch(prm, dev), 10)
+    del keep, got
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        planarize.planarize(x, y, z, device=dev)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    hr, wr = want.grid.shape
+    ops = PLANARIZE_OPS_PER_CELL * hr * wr
+    moved = 3 * 8 * x.size + (8 + 8 + 4 + 1) * hr * wr
+    t_o, t_b = ops / PEAK_F64_OPS, moved / PEAK_HBM_BYTES
+    bnd = (1e3 * max(t_o, t_b), "operations" if t_o >= t_b else "bytes")
+    print(f"  P1 on {what} ({x.shape[0]} x {x.shape[1]} vertices, lattice "
+          f"{hr} x {wr}): bit-equal to regrid.planarize; P1 alone {ms:.4f} "
+          f"ms, wrapper wall median {float(np.median(walls)):.3f} ms (of 5: "
+          f"{', '.join(f'{v:.3f}' for v in walls)}), plain version "
+          f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}: "
+          f"{ops / 1e9:.3f} GFLOP float64, {moved / 1e6:.1f} MB), "
+          f"{100.0 * bnd[0] / ms:.2f}% of it  [{card}]")
+    return err, ms, plain_ms, bnd
 
 
 def seeded_window(n, dev, seed=0):
@@ -1594,6 +1707,7 @@ def phase_l(dev, card):
           f"{surf.max().item():.3f}]")
     inner = tuple(vec_tilt.shape[:2])
     terrain = shadow.Terrain()
+    planarize.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     terrain.initialise(auxiliary.rearrange_pad_buffer(x, y, z),
                        x.shape[0], x.shape[1], sl[0].start, sl[1].start,
@@ -1603,6 +1717,8 @@ def phase_l(dev, card):
                        device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    check(planarize.KERNEL_LAUNCHES == 1, f"Terrain.initialise launched P1 "
+          f"once ({planarize.KERNEL_LAUNCHES})")
     times = [np.datetime64("2026-01-15") + np.timedelta64(h, "h")
              for h in range(25)]
     suns = sun_position.sun_position_enu(times, trans)
@@ -1613,7 +1729,7 @@ def phase_l(dev, card):
           f"{back[2].shape[1]} cells per box cell; plan "
           f"{terrain.plan['n_dense']} dense steps, "
           f"{len(terrain.plan['phases_meta']) - 1} mip phases")
-    print(f"  initialise {init_s:.3f} s wall: host planarisation "
+    print(f"  initialise {init_s:.3f} s wall: planarisation (P1) "
           f"{terrain.planarize_s:.3f} s, the rest (box, normals, back-map, "
           f"pyramid, fields) {init_s - terrain.planarize_s:.3f} s  [{card}]")
     terrain.sw_dir_cor_batch(suns)
@@ -1811,7 +1927,8 @@ def phase_m(dev, card):
           "example's mesh")
     vg, (x, y, z), trans = locations_scene()
     t0 = time.perf_counter()
-    pg = regrid.planarize(x, y, z)
+    pg = planarize.planarize(x, y, z, device=dev)
+    torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     kw = dict(dist_search=20.0, azim_num=360, hori_dist_out=True)
     names = {"peak": (8.005, 46.505), "valley": (7.95, 46.45),
@@ -1821,7 +1938,7 @@ def phase_m(dev, card):
     schedule = sweep.build_schedule(min(abs(pg.grid.dx), abs(pg.grid.dy)),
                                     20000.0, sweep.default_rel_err(0.25))
     chunk = locations.chunk_size(schedule, 360)
-    z_dev = torch.from_numpy(pg.z).to(dev)
+    z_dev = pg.z
     azim = horizon.azimuth_angles(360)
 
     def sweep_only(c, vn, vno, device=dev):
@@ -1830,7 +1947,7 @@ def phase_m(dev, card):
             -89.98, np.float32([0.01]))
 
     print(f"  mesh {x.shape}, lattice {pg.grid.shape} at "
-          f"{abs(pg.grid.dx):.2f} m (host planarisation {plan_s:.3f} s); "
+          f"{abs(pg.grid.dx):.2f} m (planarisation {plan_s:.3f} s); "
           f"{schedule.num_samples} samples per (location, azimuth) at 20 km, "
           f"{chunk} locations per chunk ({locations.MAX_GATHER_ELEMS} "
           f"elements a gather)")
@@ -1843,18 +1960,21 @@ def phase_m(dev, card):
             c, vn, vno = location_vectors(lons, lats, trans)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        planarize.KERNEL_LAUNCHES = 0
         t0 = time.perf_counter()
         hori, dist, az = horizon.horizon_locations(
             vg, x.shape[0], x.shape[1], c, vn, vno, device=dev, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        check(planarize.KERNEL_LAUNCHES == 1, f"horizon_locations launched "
+              f"P1 once ({planarize.KERNEL_LAUNCHES})")
         peak = torch.cuda.max_memory_allocated()
         sweep_only(c, vn, vno)
         s_ms, (h2, d2) = event_ms(lambda: sweep_only(c, vn, vno))
         n_loc = len(c)
         print(f"  {what} locations: horizon_locations {wall:.3f} s wall, of "
               f"which the sweep alone {s_ms:.1f} ms ({-(-n_loc // chunk)} "
-              f"chunk(s)) and host planarisation about {plan_s:.3f} s; peak "
+              f"chunk(s)) and planarisation about {plan_s:.3f} s; peak "
               f"{peak / 2**20:.1f} MiB allocated  [{card}]")
         check(hori.is_cuda and tuple(hori.shape) == (n_loc, 360)
               and bool(torch.isfinite(hori).all())
@@ -3526,9 +3646,9 @@ def main():
     (mask_launches, mask_err, mask_ms, mask_plain_ms,
      mask_bound) = phase_h(dev, zt, x, y, halo, azim_num, dist_km, k1_ms,
                            card, runs)
-    (tilt_launches, tilt_err, tilt_ms, tilt_plain_ms,
-     tilt_bound) = phase_i(dev, azim_num, card, curved_bench_scene(), 256,
-                           512, srtm_like_scene())
+    ((tilt_launches, tilt_err, tilt_ms, tilt_plain_ms, tilt_bound),
+     p1_row) = phase_i(dev, azim_num, card, curved_bench_scene(), 256, 512,
+                       srtm_like_scene())
 
     t_j = time.perf_counter()
     k5_row, alu_rate = phase_j(dev, card)
@@ -3591,9 +3711,11 @@ def main():
          SHADOW_MASK_REPLACES) + k2m_row,
         # K5 is on no user path of the library; its launches are those of
         # its own entry, read_floor.time_modes, in phase J
-        ("read_floor (K5)", READ_FLOOR_SOURCE, READ_FLOOR_REPLACES) + k5_row]
-    # no single PyTorch call computes a sweep, a winner replay or the
-    # shifted bilinear running max, so library_ms is null for every kernel.
+        ("read_floor (K5)", READ_FLOOR_SOURCE, READ_FLOOR_REPLACES) + k5_row,
+        ("planarize (P1)", PLANARIZE_SOURCE, PLANARIZE_REPLACES) + p1_row]
+    # no single PyTorch call computes a sweep, a winner replay, the
+    # shifted bilinear running max or a Newton inversion of a mesh, so
+    # library_ms is null for every kernel.
     # A shard row: launches on phase O's path, its error against the single
     # launch, the summed shards' time (ms) and the single launch's
     # (single_ms), the single launch's bound and plain version (the same

@@ -38,6 +38,7 @@ from horayzon_tpu_torch import terrain as _terrain
 from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import locations as _locations
 from horayzon_tpu_torch.ops import multires as _multires
+from horayzon_tpu_torch.ops import planarize as _planarize
 from horayzon_tpu_torch.ops import sweep as _sweep
 from horayzon_tpu_torch.utils import profiling as _profiling
 from horayzon_tpu_torch.utils.profiling import span
@@ -351,29 +352,44 @@ def _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
         **kw)
 
 
+def _sqrt(t):
+    """The correctly rounded square root of ``t``, as NumPy's and the
+    card's: torch's own float64 one on the CPU is an ulp off for some
+    values."""
+    if t.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(t.numpy()))
+    return torch.sqrt(t)
+
+
 def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,
-                   pg=None):
-    """Host preparation of a curved run (``horayzon_tpu/horizon.py:
-    684-815``, NumPy float64): planarise the ENU mesh, box the inner cells'
-    lattice positions (with a mask, the unmasked ones') with a one-cell
-    margin, interpolate the normals onto the box and form the ramps
-    ``A = n_x/n_z``, ``B = n_y/n_z``, and with a mask the lattice mask of
-    the cells that an unmasked cell's read-back stencil touches.  ``pg``:
-    the mesh's :func:`~horayzon_tpu_torch.regrid.planarize` result, when
-    the caller has it already.
+                   pg=None, *, device="cuda"):
+    """Preparation of a curved run (``horayzon_tpu/horizon.py:684-815``):
+    planarise the ENU mesh on ``device``
+    (:func:`horayzon_tpu_torch.ops.planarize.planarize`: one kernel launch
+    on a CUDA device, ``regrid.planarize`` on the CPU), box the inner
+    cells' lattice positions (with a mask, the unmasked ones') with a
+    one-cell margin, interpolate the normals onto the box and form the
+    ramps ``A = n_x/n_z``, ``B = n_y/n_z`` on the lattice's device, in
+    ``regrid._bilinear``'s and NumPy's float64 operations and order, and
+    with a mask the lattice mask of the cells that an unmasked cell's
+    read-back stencil touches.  ``pg``: the mesh's planarisation, when the
+    caller has it already (its device is then the lattice's).
 
     Unlike the reference the box is not padded to tile multiples nor moved
     up/left at the lattice's edge (``horizon.py:729-747``): the kernel
     sweeps it as it is.  Returns a dict: ``pg`` (the
-    :class:`~horayzon_tpu_torch.regrid.PlanarizedGrid`), ``box``
-    ``(i_lo, i_hi, j_lo, j_hi)``, ``norm_r`` (the box's unit normals,
-    float64), ``ramp`` (A, B) float32, ``lat_mask`` (uint8 or None) and
-    ``fi``, ``fj`` (the inner cells' lattice positions)."""
+    :class:`~horayzon_tpu_torch.regrid.PlanarizedGrid` of tensors),
+    ``box`` ``(i_lo, i_hi, j_lo, j_hi)``, ``norm_r`` (the box's unit
+    normals, float64), ``ramp`` (A, B) float32 and ``lat_mask`` (uint8 or
+    None), tensors on the lattice's device, and ``fi``, ``fj`` (the inner
+    cells' lattice positions, NumPy arrays, from which the host forms the
+    box and the read-back's weights)."""
     in0, in1 = vec_norm.shape[:2]
     if pg is None:
         with span("hzt.curved.planarize"):
-            pg = _regrid.planarize(x, y, z)
+            pg = _planarize.planarize(x, y, z, device=device)
     with span("hzt.curved.lattice"):
+        dev = pg.z.device
         hr, wr = pg.grid.shape
         x_in = x[offset_0:offset_0 + in0, offset_1:offset_1 + in1]
         y_in = y[offset_0:offset_0 + in0, offset_1:offset_1 + in1]
@@ -388,15 +404,18 @@ def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,
         j_lo = max(int(np.floor(fj_b.min())) - 1, 0)
         j_hi = min(int(np.ceil(fj_b.max())) + 2, wr)
         rin0, rin1 = i_hi - i_lo, j_hi - j_lo
-        fi_src = np.clip(pg.fi[i_lo:i_hi, j_lo:j_hi] - offset_0, 0.0,
-                         in0 - 1.0)
-        fj_src = np.clip(pg.fj[i_lo:i_hi, j_lo:j_hi] - offset_1, 0.0,
-                         in1 - 1.0)
-        norm_r = _regrid._bilinear(vec_norm.astype(np.float64), fi_src,
-                                   fj_src)
-        norm_r /= np.linalg.norm(norm_r, axis=-1, keepdims=True)
-        ramp = ((norm_r[..., 0] / norm_r[..., 2]).astype(np.float32),
-                (norm_r[..., 1] / norm_r[..., 2]).astype(np.float32))
+        # pg.fi is never -0.0, so clamp agrees with np.clip to the bit
+        fi_src = (pg.fi[i_lo:i_hi, j_lo:j_hi] - offset_0).clamp(0.0,
+                                                               in0 - 1.0)
+        fj_src = (pg.fj[i_lo:i_hi, j_lo:j_hi] - offset_1).clamp(0.0,
+                                                               in1 - 1.0)
+        vn = torch.from_numpy(np.ascontiguousarray(vec_norm)).to(dev)
+        norm_r = _planarize.bilinear(vn.double(), fi_src, fj_src)
+        # np.linalg.norm over the last axis: ((n0^2 + n1^2) + n2^2) ** 0.5
+        n0, n1, n2 = norm_r.unbind(-1)
+        norm_r = norm_r / _sqrt((n0 * n0 + n1 * n1) + n2 * n2)[..., None]
+        ramp = ((norm_r[..., 0] / norm_r[..., 2]).float(),
+                (norm_r[..., 1] / norm_r[..., 2]).float())
         lat_mask = None
         if mask is not None and (mask == 1).any():
             # a lattice cell is swept iff an unmasked cell's bilinear
@@ -413,6 +432,8 @@ def curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask=None,
         elif mask is not None:
             # no unmasked cell: nothing to sweep
             lat_mask = np.zeros((rin0, rin1), dtype=np.uint8)
+        if lat_mask is not None:
+            lat_mask = torch.from_numpy(lat_mask).to(dev)
     return dict(pg=pg, box=(i_lo, i_hi, j_lo, j_hi), norm_r=norm_r,
                 ramp=ramp, lat_mask=lat_mask, fi=fi_in, fj=fj_in)
 
@@ -446,23 +467,26 @@ def _curved_gridded(x, y, z, vec_norm, vec_north, offset_0, offset_1, *,
                     azim_num, dist_search, hori_acc, elev_ang_low_lim,
                     ray_org_elev, mask=None, device="cuda", engine="auto"):
     """Curved-mesh gridded horizon (``horayzon_tpu/horizon.py:684-851``):
-    :func:`curved_lattice` on the host, the sweep over the box on
-    ``device``, then :func:`read_back` at the inner cells' positions.  The
-    fused route sweeps with the tilt ramp (and the lattice mask); with
-    ``engine="sweep"`` the XLA engine sweeps the box with the general
-    basis of the normals and norths interpolated onto it (``:834-842``).
-    Masked cells read values that the caller overwrites with its fill.
-    Returns (in0, in1, azim_num) float32 on ``device``."""
-    lat = curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask)
+    :func:`curved_lattice` on ``device``, the sweep over the box there,
+    then :func:`read_back` at the inner cells' positions.  The fused route
+    sweeps with the tilt ramp (and the lattice mask), which it takes as
+    tensors or NumPy arrays; with ``engine="sweep"`` the XLA engine sweeps
+    the box with the general basis of the normals and norths interpolated
+    onto it (``:834-842``).  Masked cells read values that the caller
+    overwrites with its fill.  Returns (in0, in1, azim_num) float32 on
+    ``device``."""
+    lat = curved_lattice(x, y, z, vec_norm, offset_0, offset_1, mask,
+                         device=device)
     pg, (i_lo, i_hi, j_lo, j_hi) = lat["pg"], lat["box"]
     rin0, rin1 = i_hi - i_lo, j_hi - j_lo
     _profiling.count_lattice(rin0 * rin1, lat["fi"].size)
     with span("hzt.curved.upload"):
-        z_dev = torch.from_numpy(pg.z).to(device)
+        z_dev = torch.as_tensor(pg.z, device=device)
         if engine != "sweep":
-            ramp = tuple(torch.from_numpy(r).to(device) for r in lat["ramp"])
+            ramp = tuple(torch.as_tensor(r, device=device)
+                         for r in lat["ramp"])
             lat_mask = (None if lat["lat_mask"] is None
-                        else torch.from_numpy(lat["lat_mask"]).to(device))
+                        else torch.as_tensor(lat["lat_mask"], device=device))
     if engine == "sweep":
         geom, u_xy = _box_basis(lat, vec_norm, vec_north, offset_0, offset_1,
                                 azimuth_angles(azim_num))
@@ -488,14 +512,17 @@ def _box_basis(lat, vec_norm, vec_north, offset_0, offset_1, azim):
     """The general basis on a curved run's lattice box
     (``horayzon_tpu/horizon.py:752-763``): the inner cells' normals and
     norths interpolated onto the box (float64), the norths made
-    orthogonal to the normals, both unit and cast to float32; returns
+    orthogonal to the normals, both unit and cast to float32, in NumPy on
+    the host (the lattice's fields brought there once); returns
     ``(basis_fields, mean_marching_directions)``."""
     i_lo, i_hi, j_lo, j_hi = lat["box"]
     in0, in1 = vec_norm.shape[:2]
     pg = lat["pg"]
-    fi_src = np.clip(pg.fi[i_lo:i_hi, j_lo:j_hi] - offset_0, 0.0, in0 - 1.0)
-    fj_src = np.clip(pg.fj[i_lo:i_hi, j_lo:j_hi] - offset_1, 0.0, in1 - 1.0)
-    norm_r = lat["norm_r"]
+    fi_src = np.clip(pg.fi[i_lo:i_hi, j_lo:j_hi].cpu().numpy() - offset_0,
+                     0.0, in0 - 1.0)
+    fj_src = np.clip(pg.fj[i_lo:i_hi, j_lo:j_hi].cpu().numpy() - offset_1,
+                     0.0, in1 - 1.0)
+    norm_r = lat["norm_r"].cpu().numpy()
     north_r = _regrid._bilinear(np.asarray(vec_north, np.float64), fi_src,
                                 fj_src)
     north_r -= np.sum(north_r * norm_r, axis=-1, keepdims=True) * norm_r
@@ -525,8 +552,8 @@ def horizon_locations(
     kilometres).  The observer elevation is the heightfield sampled at the
     location's (x, y), lifted by ``ray_org_elev`` (one value or one per
     location) along its normal.  A curved (irregular) mesh is planarised
-    on the host (:func:`horayzon_tpu_torch.regrid.planarize`); the
-    locations keep their exact ENU coordinates and frames.  ``device``:
+    on ``device`` (:func:`horayzon_tpu_torch.ops.planarize.planarize`);
+    the locations keep their exact ENU coordinates and frames.  ``device``:
     where the sweep runs (:mod:`horayzon_tpu_torch.ops.locations`, plain
     torch), the card unless the caller asks for the CPU.
 
@@ -565,12 +592,14 @@ def horizon_locations(
     if grid is None:
         # the per-location sweep measures angles in each location's own
         # tangent frame, so it runs unchanged on the resampled lattice
-        pg = _regrid.planarize(x, y, z)
-        grid, z = pg.grid, pg.z
+        pg = _planarize.planarize(x, y, z, device=device)
+        grid, z_dev = pg.grid, pg.z
+    else:
+        z_dev = torch.from_numpy(np.ascontiguousarray(z)).to(device)
 
     azim = azimuth_angles(azim_num)
     hori, hori_dist = _locations.horizon_locations_sweep(
-        torch.from_numpy(np.ascontiguousarray(z)).to(device), grid, coords,
+        z_dev, grid, coords,
         vec_norm, vec_north, azim, dist_search * 1000.0, hori_acc,
         elev_ang_low_lim, ray_org_elev)
     azim = torch.from_numpy(azim).to(device)

@@ -17,13 +17,13 @@ max-mip pyramid and the pooled companions of its skips built once at
 :meth:`Terrain.initialise`.  The queries only threshold the metric at 0,
 so K2 runs its sign-exact skips there, as the reference's ``Terrain``
 does; ``sw_dir_cor_soft`` takes the exact metric.  A curved mesh is
-planarised onto a regular lattice (:func:`horayzon_tpu_torch.regrid.
-planarize`); the sweep runs over the lattice box of the inner cells and
-its result is read back at each cell's nearest lattice cell, while the
-per-cell classification (:func:`_classify`, elementwise torch on the same
-device) stays at the original cells.  ``sw_dir_cor_soft`` runs the
-metric's gradient path (K2-argmax and the winner-replay backward K4 on the
-card).
+planarised onto a regular lattice (:func:`horayzon_tpu_torch.ops.
+planarize.planarize`, on the terrain's device); the sweep runs over the
+lattice box of the inner cells and its result is read back at each cell's
+nearest lattice cell, while the per-cell classification (:func:`_classify`,
+elementwise torch on the same device) stays at the original cells.
+``sw_dir_cor_soft`` runs the metric's gradient path (K2-argmax and the
+winner-replay backward K4 on the card).
 
 ``engine="sweep"`` and ``engine="scan"`` are the reference's XLA engines,
 plain torch on the terrain's device, by design as the reference runs them
@@ -42,10 +42,10 @@ import numpy as np
 import torch
 
 from horayzon_tpu_torch import horizon as _horizon
-from horayzon_tpu_torch import regrid as _regrid
 from horayzon_tpu_torch import terrain as _terrain
 from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import mip as _mip
+from horayzon_tpu_torch.ops import planarize as _planarize
 from horayzon_tpu_torch.ops import refraction as _refraction
 from horayzon_tpu_torch.ops import shadow_scan as _scan
 from horayzon_tpu_torch.ops import shadow_sweep as _ss
@@ -239,12 +239,13 @@ class Terrain:
         swept as it is (one kernel thread per (cell, sun)), so it needs no
         room to pad to tile multiples.
 
-        A curved (irregular) mesh is planarised on the host (NumPy
-        float64; its seconds are kept in ``planarize_s``) and the sweep
-        runs over the box of the inner cells' lattice positions
-        (``offset``, ``comp_shape``), whose ray origins lift the lattice
-        heights along the box's interpolated normals; the metric is read
-        back at each cell's nearest lattice cell before the
+        A curved (irregular) mesh is planarised on ``device`` (the
+        kernel on a CUDA device, NumPy float64 on the CPU; its seconds are
+        kept in ``planarize_s``), the lattice's fields come to the host
+        once, and the sweep runs over the box of the inner cells' lattice
+        positions (``offset``, ``comp_shape``), whose ray origins lift the
+        lattice heights along the box's interpolated normals; the metric is
+        read back at each cell's nearest lattice cell before the
         classification, which keeps each cell's own position, heights and
         vectors (``horayzon_tpu/shadow.py:309-353``)."""
         if engine not in ("auto", "sweep", "scan", "pallas"):
@@ -316,15 +317,17 @@ class Terrain:
             # planarise, box the inner cells' lattice positions with a
             # -1 / +2 margin and bring the normals onto the box
             t0 = time.perf_counter()
-            pg = _regrid.planarize(x, y, z)
+            pg = _planarize.planarize(x, y, z, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             self.planarize_s = time.perf_counter() - t0
             lat = _horizon.curved_lattice(x, y, z, vec_norm, offset_0,
                                           offset_1, pg=pg)
-            grid, z_comp = pg.grid, pg.z
+            grid, z_comp = pg.grid, pg.z.cpu().numpy()
             i_lo, i_hi, j_lo, j_hi = lat["box"]
             self.offset = (i_lo, j_lo)
             self.comp_shape = (i_hi - i_lo, j_hi - j_lo)
-            norm_r_z = lat["norm_r"][..., 2]
+            norm_r_z = lat["norm_r"][..., 2].cpu().numpy()
             z_inner_r = z_comp[i_lo:i_hi, j_lo:j_hi]
             z_org_r = (z_inner_r
                        + _RAY_ORG_ELEV * norm_r_z).astype(np.float32)

@@ -38,6 +38,10 @@ and within 1e-5 of max|g| of the CPU's.  ``horizon_locations`` on the card
 against the CPU path: ``hori`` within 1e-6 rad, ``hori_dist`` within 1e-6
 relative (the same float32 operations; arctan and cos rounded from
 float64 on each device).
+The planarisation kernel (csrc/planarize.cu) against ``regrid.planarize``
+on three meshes: ``fi``, ``fj`` and ``z`` bit-equal, ``valid`` equal;
+``curved_lattice`` on the card bit-equal to the CPU's; one launch per
+``CurvedPipeline.run``, none per planar run.
 K5: every mode and source bit-equal to its plain version.  Multires: the
 card's angles within 1e-5 rad of the CPU path's (the raw ratios are
 bit-equal, the arctan may differ by an ulp), masked cells aside bit-equal
@@ -64,10 +68,11 @@ import numpy as np
 import pytest
 import torch
 
-from horayzon_tpu_torch import (auxiliary, horizon, parallel, shadow,
-                                terrain, topo_param)
+from horayzon_tpu_torch import (auxiliary, horizon, parallel, regrid,
+                                shadow, terrain, topo_param)
 from horayzon_tpu_torch.models import CurvedPipeline
-from horayzon_tpu_torch.ops import _build, fused_sweep, multires, replay
+from horayzon_tpu_torch.ops import _build, fused_sweep, multires, planarize
+from horayzon_tpu_torch.ops import replay
 from horayzon_tpu_torch.ops import read_floor, refraction, sweep
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 from horayzon_tpu_torch.parallel import shard
@@ -78,7 +83,7 @@ from torch_scenes import (RUNNER_SCENES, SHADOW_SKIP_SCENES, SHARD_MESHES,
                           SKIP_SCENES, bumps, refraction_numpy,
                           curved_setup, curved_terrain_inputs,
                           planar_buffer_route, planar_pipeline_scene,
-                          recompute_scenes,
+                          PLANARIZE_MESHES, planarize_mesh, recompute_scenes,
                           shadow_skip_scene, sharded_scenes, skip_scene,
                           sun_track_terrain_inputs)
 
@@ -691,13 +696,87 @@ def test_curved_pipeline_on_card(cuda):
     lat_p = horizon.curved_lattice(pipe.x, pipe.y, pipe.z, pipe.vec_norm,
                                    pipe.offset_0, pipe.offset_1)
     i_lo, i_hi, j_lo, j_hi = lat_p["box"]
+    assert lat_p["pg"].z.is_cuda and lat_p["ramp"][0].is_cuda
     args = fused_sweep.sweep_args(
-        torch.from_numpy(lat_p["pg"].z).to(cuda), dx=lat_p["pg"].grid.dx,
+        lat_p["pg"].z, dx=lat_p["pg"].grid.dx,
         dy=lat_p["pg"].grid.dy, offset=(i_lo, j_lo),
         inner_shape=(i_hi - i_lo, j_hi - j_lo), azim_num=16,
         dist_search=5000.0, tilt_ramp=lat_p["ramp"])
     assert torch.equal(fused_sweep._ratio_cuda(*args),
                        fused_sweep._ratio_plain(*args))
+
+
+def _bits(t):
+    """The bits of a float tensor as a host array of unsigned integers."""
+    a = t.cpu().numpy()
+    return a.view(f"u{a.itemsize}")
+
+
+@pytest.mark.parametrize("name", sorted(PLANARIZE_MESHES))
+def test_planarize_kernel_bit_equal_to_regrid(cuda, name):
+    """The planarisation kernel against ``regrid.planarize`` (NumPy
+    float64 on the host): the lattice equal, ``fi``, ``fj`` and ``z``
+    bit-equal, ``valid`` equal; one launch.  ``regrid`` is the port's copy
+    of the JAX package's NumPy module, which does not run on the card;
+    tests/test_torch_planarize.py holds the two bit-equal on these same
+    three meshes."""
+    x, y, z, spacing = planarize_mesh(name)
+    n0 = planarize.KERNEL_LAUNCHES
+    got = planarize.planarize(x, y, z, spacing, device=cuda)
+    assert planarize.KERNEL_LAUNCHES == n0 + 1
+    want = regrid.planarize(x, y, z, spacing)
+    torch.cuda.synchronize()
+    assert got.grid == want.grid
+    for key in ("z", "fi", "fj"):
+        t = getattr(got, key)
+        assert t.is_cuda and t.dtype == torch.from_numpy(
+            getattr(want, key)).dtype
+        np.testing.assert_array_equal(
+            _bits(t), getattr(want, key).view(_bits(t).dtype), err_msg=key)
+    assert got.valid.dtype == torch.bool
+    np.testing.assert_array_equal(got.valid.cpu().numpy(), want.valid)
+    assert 0.9 < want.valid.mean() < 1.0
+
+
+def test_curved_lattice_on_card_bit_equal_to_cpu(cuda):
+    """``curved_lattice`` on the card (the kernel, then the box's normals
+    and ramps in torch there) against the CPU's (``regrid.planarize`` and
+    the same torch operations): box, normals, ramps and lattice mask
+    bit-equal, with and without a mask."""
+    s = curved_setup(bumps(4), n=112)
+    sl = (slice(24, 88),) * 2
+    yy, xx = np.mgrid[:64, :64]
+    island = ((yy - 30) ** 2 + (xx - 36) ** 2 < 18 ** 2).astype(np.uint8)
+    for mask in (None, island):
+        got, want = (horizon.curved_lattice(s["x"], s["y"], s["z"],
+                                            s["vec_norm"][sl], 24, 24, mask,
+                                            device=dev)
+                     for dev in (cuda, "cpu"))
+        assert got["box"] == want["box"]
+        assert got["norm_r"].is_cuda
+        pairs = [(got["norm_r"], want["norm_r"])]
+        pairs += list(zip(got["ramp"], want["ramp"]))
+        for key in ("z", "fi", "fj"):
+            pairs.append((getattr(got["pg"], key), getattr(want["pg"], key)))
+        for a, b in pairs:
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+        if mask is not None:
+            assert torch.equal(got["lat_mask"].cpu(), want["lat_mask"])
+
+
+def test_planarize_launches_once_per_curved_run(cuda):
+    """One planarisation launch per ``CurvedPipeline.run`` on the card,
+    none for a planar run."""
+    lon, lat, elevation, domain = _curved_pipeline_inputs()
+    pipe = CurvedPipeline(lon, lat, elevation, domain, dist_search=5.0,
+                          azim_num=16, ellps="sphere", device=cuda)
+    n0 = planarize.KERNEL_LAUNCHES
+    pipe.run()
+    assert planarize.KERNEL_LAUNCHES == n0 + 1
+    planar, _ = planar_pipeline_scene(device=cuda)
+    planar.run()
+    torch.cuda.synchronize()
+    assert planarize.KERNEL_LAUNCHES == n0 + 1
 
 
 def test_tilt_gradient_on_card(cuda):

@@ -264,11 +264,12 @@ def test_curved_wall_angle_and_lattice():
     assert abs(np.rad2deg(float(hori[2, 2, 0]) - best)) < 0.3
     sl = (slice(off, off + inner),) * 2
     lat = horizon.curved_lattice(s["x"], s["y"], s["z"], s["vec_norm"][sl],
-                                 off, off)
+                                 off, off, device="cpu")
     i_lo, i_hi, j_lo, j_hi = lat["box"]
     assert lat["lat_mask"] is None
     assert lat["ramp"][0].shape == (i_hi - i_lo, j_hi - j_lo)
-    assert lat["ramp"][0].dtype == np.float32
+    assert lat["ramp"][0].dtype == torch.float32
+    assert lat["norm_r"].dtype == torch.float64
     # the inner cells lie inside the box, one cell from its edge
     assert lat["fi"].min() >= i_lo + 1 and lat["fi"].max() <= i_hi - 2
     # a planarisation at hand is reused as it is
@@ -276,7 +277,7 @@ def test_curved_wall_angle_and_lattice():
                                    off, off, pg=lat["pg"])
     assert again["pg"] is lat["pg"] and again["box"] == lat["box"]
     for a, b in zip(again["ramp"], lat["ramp"]):
-        np.testing.assert_array_equal(a, b)
+        assert torch.equal(a, b)
     # an all-masked curved run sweeps nothing and fills every cell
     n0, n1 = s["z"].shape
     got, _ = horizon.horizon_gridded(

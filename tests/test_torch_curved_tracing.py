@@ -102,7 +102,7 @@ def test_curved_run_counts_its_route_and_lattice(traced_run):
     _, _, _, routes, lattice, pipe = traced_run
     assert routes == {r: int(r == "curved_tilt") for r in profiling.ROUTES}
     lat = horizon.curved_lattice(pipe.x, pipe.y, pipe.z, pipe.vec_norm,
-                                 pipe.offset_0, pipe.offset_1)
+                                 pipe.offset_0, pipe.offset_1, device="cpu")
     i_lo, i_hi, j_lo, j_hi = lat["box"]
     assert lattice == {"box_cells": (i_hi - i_lo) * (j_hi - j_lo),
                        "inner_cells": pipe.vec_norm[..., 0].size}

@@ -6,7 +6,8 @@ refraction's float32 arithmetic, the sharded scenes of
 tests/test_torch_sharding.py and the card's, the streaming runners'
 scenes of tests/test_torch_utils.py and the card's, and the planar
 pipeline's scenes and vertex-buffer route of tests/test_torch_pipeline.py
-and the card's.  Imports no JAX."""
+and the card's, and the planarisation's meshes of
+tests/test_torch_planarize.py and the card's.  Imports no JAX."""
 
 import math
 
@@ -419,3 +420,36 @@ def planar_buffer_route(pipe, mask=None):
             "aspect": aspect, "vec_tilt": vec_tilt,
             "elevation": on_device(pipe.elevation[pipe.slice_in]),
             "x": on_device(pipe.x[s1]), "y": on_device(pipe.y[s0])}
+
+
+#: name -> (ellipsoid, rows north to south, target spacing [m] or None)
+PLANARIZE_MESHES = {"wgs84_north_down": ("WGS84", True, None),
+                    "sphere_north_up": ("sphere", False, None),
+                    "wgs84_spacing": ("WGS84", True, 150.0)}
+
+
+def planarize_mesh(name, n0=150, n1=170, seed=0):
+    """``(x, y, z, target_spacing)`` of :data:`PLANARIZE_MESHES`' mesh
+    ``name``: an ``n0`` x ``n1`` lon/lat grid of 0.2 x 0.3 degree around
+    (7.5, 46.5) with six seeded bumps of 300-2500 m, as float32 ENU
+    coordinates (the vertex buffer's), whose lattice's corners lie outside
+    the warped mesh."""
+    from horayzon_tpu_torch import transform
+    ellps, north_down, spacing = PLANARIZE_MESHES[name]
+    rng = np.random.default_rng(seed)
+    lat = 46.5 + np.linspace(-0.1, 0.1, n0)
+    if north_down:
+        lat = lat[::-1]
+    lon = 7.5 + np.linspace(-0.15, 0.15, n1)
+    lon2, lat2 = np.meshgrid(lon, lat)
+    elevation = np.zeros_like(lon2)
+    for _ in range(6):
+        c_lon, c_lat = rng.uniform(7.35, 7.65), rng.uniform(46.4, 46.6)
+        sig, amp = rng.uniform(0.01, 0.05), rng.uniform(300.0, 2500.0)
+        elevation += amp * np.exp(-((lon2 - c_lon) ** 2 + (lat2 - c_lat) ** 2)
+                                  / (2 * sig ** 2))
+    trans = transform.TransformerEcef2enu(7.5, 46.5, ellps)
+    x, y, z = transform.ecef2enu(*transform.lonlat2ecef(
+        lon2, lat2, elevation.astype(np.float32), ellps), trans)
+    return (x.astype(np.float32), y.astype(np.float32),
+            z.astype(np.float32), spacing)

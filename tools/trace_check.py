@@ -8,9 +8,11 @@ spans cover, the milliseconds per call of every ``hzt.*`` span, the
 share of the card's idle time that falls under the benchmark's own
 wrapper spans (``hzbench/harness.py::SPANS``), the routes the traced
 ``PlanarPipeline.run`` and ``CurvedPipeline.run`` calls took
-(``utils/profiling.routes``) and the lattice cells the curved runs swept
-per inner cell (``utils/profiling.lattice``; each null for a checkout
-that does not count it).  Idle gaps are labelled by the innermost span
+(``utils/profiling.routes``), the planarisation kernel's launches while
+the trace ran (``ops/planarize.KERNEL_LAUNCHES``: one per curved call)
+and the lattice cells the curved runs swept per inner cell
+(``utils/profiling.lattice``; each null for a checkout that does not
+count it).  Idle gaps are labelled by the innermost span
 around them, ``hzt.curved.*`` (planarisation, lattice, upload, read-back)
 among them.
 
@@ -99,6 +101,16 @@ def routes():
         return None
 
 
+def planarize_launches():
+    """The planarisation kernel's launches made so far by this process, or
+    None where the checkout has no such kernel."""
+    try:
+        from horayzon_tpu_torch.ops import planarize
+        return planarize.KERNEL_LAUNCHES
+    except ImportError:
+        return None
+
+
 def lattice_per_inner():
     """Lattice cells swept per inner cell over the traced curved runs, or
     None where the checkout does not count them or no curved run was
@@ -135,7 +147,17 @@ def main():
         print("trace_check: needs a CUDA card", file=sys.stderr)
         return 2
     kept = {}
-    stop = trace.Tracer.stop
+    start, close, stop = trace.Tracer.start, trace.Tracer.close, \
+        trace.Tracer.stop
+
+    def count_start(self):
+        kept["launches_at_start"] = planarize_launches()
+        start(self)
+
+    def count_close(self):
+        if self.active:
+            kept["launches_at_close"] = planarize_launches()
+        close(self)
 
     def keep_stop(self):
         kept["trace"] = stop(self)
@@ -144,6 +166,7 @@ def main():
     per_layer = harness.Manifest.per_layer
     if args.no_wrappers:
         harness.SPANS = ()
+    trace.Tracer.start, trace.Tracer.close = count_start, count_close
     trace.Tracer.stop = keep_stop
     harness.Manifest.per_layer = (
         lambda self, cell: per_layer(self, cell) + self.end_to_end(cell))
@@ -161,6 +184,9 @@ def main():
         "device": res["device"], "correct": res["correct"],
         "metrics": {n: m["value"] for n, m in res["metrics"].items()},
         "calls_traced": parsed["calls"], "routes": routes(),
+        "planarize_launches": (
+            None if kept.get("launches_at_start") is None
+            else kept["launches_at_close"] - kept["launches_at_start"]),
         "lattice_per_inner": lattice_per_inner(),
         "roots": cover(ann),
         "idle_s": idle,
