@@ -3,7 +3,9 @@
 """Public horizon API: the counterpart of :mod:`horayzon_tpu.horizon`.
 
 ``horizon_gridded`` keeps the reference's signature (plus ``device``) and
-its validation and routing.  With default vectors the fused sweep
+its validation; it unpacks the vertex buffer and hands the planes to
+:func:`gridded_planes`, which both pipelines call directly and which makes
+the routing decision.  With default vectors the fused sweep
 (:func:`horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`) runs
 three branches: a regular planar grid, masked or not; the same with a
 simplified outer TIN (``vert_simp``), which :func:`_tin_gridded`
@@ -113,15 +115,42 @@ def horizon_gridded(
             raise ValueError("invalid input argument for ray_algorithm")
         if geom_type not in _VALID_GEOM:
             raise ValueError("invalid input argument for geom_type")
-        inner_shape = (vec_norm.shape[0], vec_norm.shape[1])
-        mask, masked = _check_planar(
-            (dem_dim_0, dem_dim_1), (offset_0, offset_1), inner_shape,
-            hori_acc=hori_acc, mask=mask, ray_org_elev=ray_org_elev)
-
         x, y, z = _terrain.decompose_vert_grid(vert_grid, dem_dim_0,
                                                dem_dim_1)
-        grid = _terrain.detect_regular_grid(x, y)
+    return gridded_planes(
+        x, y, z, vec_norm, vec_north, (offset_0, offset_1),
+        vec_norm.shape[:2], dist_search, azim_num=azim_num,
+        hori_acc=hori_acc, elev_ang_low_lim=elev_ang_low_lim, mask=mask,
+        hori_fill=hori_fill, ray_org_elev=ray_org_elev, verbose=verbose,
+        engine=engine, vert_simp=vert_simp, num_vert_simp=num_vert_simp,
+        tri_ind_simp=tri_ind_simp, num_tri_simp=num_tri_simp, device=device)
 
+
+def gridded_planes(x, y, z, vec_norm, vec_north, offset, inner_shape,
+                   dist_search, *, azim_num, hori_acc, elev_ang_low_lim,
+                   mask=None, hori_fill=0.0, ray_org_elev=0.01, verbose=True,
+                   engine="auto", vert_simp=None, num_vert_simp=1,
+                   tri_ind_simp=None, num_tri_simp=1, grid=None,
+                   device="cuda"):
+    """:func:`horizon_gridded` on the outer (H, W) float32 planes ``x``,
+    ``y``, ``z``, the inner block at ``offset`` of ``inner_shape``: its
+    checks, messages and routes, below it and both pipelines.
+    ``vec_norm`` and ``vec_north`` both None: the default planar vectors,
+    built only where the curved route needs arrays.  ``grid``: the planes'
+    :class:`~horayzon_tpu_torch.terrain.GridSpec` when the caller knows
+    them regular (``x`` and ``y`` may be None), else
+    ``terrain.detect_regular_grid`` tests them.  Counts the route taken
+    (:data:`~horayzon_tpu_torch.utils.profiling.ROUTES`)."""
+    with span("hzt.horizon.check"):
+        if x is not None and not x.shape == y.shape == z.shape:
+            # the refusal of auxiliary.rearrange_pad_buffer
+            raise ValueError("Dimensions of input arguments are "
+                             "erroneous/inconsistent")
+        mask, masked = _check_planar(
+            z.shape, offset, inner_shape, hori_acc=hori_acc, mask=mask,
+            ray_org_elev=ray_org_elev)
+        if grid is None:
+            grid = _terrain.detect_regular_grid(x, y)
         if (vert_simp is None) != (tri_ind_simp is None):
             raise ValueError("vert_simp and tri_ind_simp must be provided "
                              "together")
@@ -130,6 +159,7 @@ def horizon_gridded(
                              "supported on planar regular grids (reference "
                              "usage: gridded_planar_DEM_2m)")
         general = (grid is not None and vert_simp is None
+                   and vec_norm is not None
                    and not _terrain.is_default_planar_vectors(vec_norm,
                                                               vec_north))
         if general and engine == "pallas":
@@ -143,31 +173,37 @@ def horizon_gridded(
                   verbose=verbose, device=device)
     t0 = time.perf_counter()
     if vert_simp is not None:
+        _profiling.count_route("tin")
         hori = _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
-                            num_tri_simp, offset=(offset_0, offset_1),
+                            num_tri_simp, offset=offset,
                             inner_shape=inner_shape,
                             mask=mask if masked else None, device=device,
                             engine=engine, **sweep_kw)
     elif grid is None:
-        hori = _curved_gridded(x, y, z, vec_norm, vec_north, offset_0,
-                               offset_1, mask=mask if masked else None,
+        _profiling.count_route("curved_tilt")
+        if vec_norm is None:
+            vec_norm, vec_north = (np.broadcast_to(
+                np.float32(v), tuple(inner_shape) + (3,)).copy()
+                for v in ((0, 0, 1), (0, 1, 0)))
+        hori = _curved_gridded(x, y, z, vec_norm, vec_north, *offset,
+                               mask=mask if masked else None,
                                device=device, engine=engine, **sweep_kw)
     elif general or engine == "sweep":
+        _profiling.count_route("xla")
         hori = _xla_gridded(z, grid, vec_norm, vec_north, general,
-                            offset=(offset_0, offset_1),
-                            inner_shape=inner_shape, mask=mask,
+                            offset=offset, inner_shape=inner_shape, mask=mask,
                             hori_fill=hori_fill, device=device, **sweep_kw)
     else:
-        return _fused_planar(z, grid, offset=(offset_0, offset_1),
-                             inner_shape=inner_shape, **fin_kw,
-                             **sweep_kw)[:2]
+        _profiling.count_route("planar")
+        return _fused_planar(z, grid, offset=offset, inner_shape=inner_shape,
+                             **fin_kw, **sweep_kw)
     return _finish(hori, t0, azim_num=azim_num, **fin_kw)
 
 
 def _check_planar(dem_shape, offset, inner_shape, *, hori_acc, mask,
                   ray_org_elev):
-    """The checks of ``horizon_gridded`` that a planar run needs beside a
-    regular grid (horizon.pyx:109-156), with its messages and exception
+    """The checks of :func:`gridded_planes` that do not need the planes
+    (horizon.pyx:109-156), with the reference's messages and exception
     types: the inner block inside the DEM and not empty, ``hori_acc``,
     the mask, ``ray_org_elev``.  Returns ``(mask, masked)``: the uint8
     mask (all ones for None) and whether it masks any cell."""
@@ -203,8 +239,7 @@ def _fused_planar(z, grid, *, offset, inner_shape, mask, masked, hori_fill,
     heights to the device (as they are when C-contiguous and writable),
     K1 (or the plain sweep on the CPU), then :func:`_finish`.  ``sweep_kw``:
     :func:`~horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`'s
-    settings.  Returns ``(hori, azim, z_dev)``, ``z_dev`` the heights on
-    ``device``."""
+    settings.  Returns ``(hori, azim)``."""
     t0 = time.perf_counter()
     with span("hzt.horizon.upload"):
         z_dev = torch.from_numpy(np.require(z, np.float32, ("C", "W"))).to(
@@ -215,7 +250,7 @@ def _fused_planar(z, grid, *, offset, inner_shape, mask, masked, hori_fill,
         inner_shape=inner_shape, mask=mask_dev, **sweep_kw)
     return _finish(hori, t0, mask=mask, masked=masked, hori_fill=hori_fill,
                    verbose=verbose, device=device,
-                   azim_num=sweep_kw["azim_num"]) + (z_dev,)
+                   azim_num=sweep_kw["azim_num"])
 
 
 def _finish(hori, t0, *, mask, masked, hori_fill, verbose, device,

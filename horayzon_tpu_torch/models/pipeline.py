@@ -7,10 +7,14 @@
 import numpy as np
 import torch
 
-from horayzon_tpu_torch import (auxiliary, direction, horizon, terrain,
-                                topo_param, transform)
-from horayzon_tpu_torch.utils import profiling
+from horayzon_tpu_torch import (direction, horizon, terrain, topo_param,
+                                transform)
 from horayzon_tpu_torch.utils.profiling import span
+
+
+def _on_device(a, device):
+    """Host array ``a`` as a tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 class PlanarPipeline:
@@ -45,80 +49,42 @@ class PlanarPipeline:
         """Compute all terrain parameters; returns a dict of tensors on the
         pipeline's device.
 
-        Uniform 1-D axes (:func:`terrain.axes_grid`) go to the fused sweep
-        straight, with the heights as they are; other axes go through the
-        vertex buffer and ``horizon_gridded``, as the reference does.  The
-        outputs are the same."""
+        Uniform 1-D axes (:func:`terrain.axes_grid`) hand
+        :func:`horizon.gridded_planes` their grid, so no plane of x or y is
+        formed; other axes hand it their meshgrid's planes to test, as the
+        reference's vertex buffer does.  The outputs are the same."""
         with span("hzt.pipeline.run"):
             s0, s1 = self.slice_in
-            inner_shape = (s0.stop - s0.start, s1.stop - s1.start)
             with span("hzt.pipeline.grid"):
                 grid = terrain.axes_grid(self.x, self.y)
-                profiling.count_route("planar_buffer" if grid is None
-                                      else "planar_axes")
+                x = y = None
                 if grid is None:
-                    vec_norm = np.zeros(inner_shape + (3,), dtype=np.float32)
-                    vec_norm[:, :, 2] = 1.0
-                    vec_north = np.zeros(inner_shape + (3,),
-                                         dtype=np.float32)
-                    vec_north[:, :, 1] = 1.0
-                    x_2d, y_2d = np.meshgrid(self.x, self.y)
-                    vert_grid = auxiliary.rearrange_pad_buffer(
-                        x_2d.astype(np.float32), y_2d.astype(np.float32),
-                        self.elevation)
-                    planes = (x_2d, y_2d, self.elevation)
-                else:
-                    # the meshgrid's planes, broadcast on the device
-                    x_dev = self._on_device(self.x)
-                    y_dev = self._on_device(self.y)
-                    planes = (x_dev[None, :].expand(len(y_dev), -1),
-                              y_dev[:, None].expand(-1, len(x_dev)))
-            if grid is None:
-                hori, azim = horizon.horizon_gridded(
-                    vert_grid, *self.elevation.shape, vec_norm, vec_north,
-                    self.offset_0, self.offset_1,
-                    dist_search=self.dist_search, azim_num=self.azim_num,
-                    hori_acc=self.hori_acc,
-                    elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
-                    device=self.device)
-            else:
-                with span("hzt.horizon.check"):
-                    mask, masked = horizon._check_planar(
-                        self.elevation.shape, (self.offset_0, self.offset_1),
-                        inner_shape, hori_acc=self.hori_acc, mask=mask,
-                        ray_org_elev=0.01)
-                hori, azim, z_dev = horizon._fused_planar(
-                    self.elevation, grid,
-                    offset=(self.offset_0, self.offset_1),
-                    inner_shape=inner_shape, mask=mask, masked=masked,
-                    hori_fill=0.0, verbose=True, device=self.device,
-                    azim_num=self.azim_num,
-                    dist_search=self.dist_search * 1000.0,
-                    hori_acc=self.hori_acc,
-                    elev_ang_low_lim=self.elev_ang_low_lim,
-                    ray_org_elev=0.01)
-                planes += (z_dev,)
+                    x, y = np.meshgrid(self.x, self.y)
+            hori, azim = horizon.gridded_planes(
+                x, y, self.elevation, None, None,
+                (self.offset_0, self.offset_1),
+                (s0.stop - s0.start, s1.stop - s1.start),
+                self.dist_search, azim_num=self.azim_num,
+                hori_acc=self.hori_acc,
+                elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
+                grid=grid, device=self.device)
             with span("hzt.pipeline.topo"):
                 sl = (slice(s0.start - 1, s0.stop + 1),
                       slice(s1.start - 1, s1.stop + 1))
+                z = _on_device(self.elevation[sl], self.device)
+                x_in = _on_device(self.x[sl[1]], self.device)
+                y_in = _on_device(self.y[sl[0]], self.device)
+                # the meshgrid's planes, broadcast on the device
                 vec_tilt = topo_param.slope_plane_meth(
-                    *(self._on_device(a[sl]) for a in planes))[1:-1, 1:-1]
+                    x_in[None, :].expand_as(z), y_in[:, None].expand_as(z),
+                    z)[1:-1, 1:-1]
                 svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
                 slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
             with span("hzt.pipeline.outputs"):
                 return {"hori": hori, "azim": azim, "svf": svf,
                         "slope": slope, "aspect": aspect, "vec_tilt": vec_tilt,
-                        "elevation": self._on_device(
-                            planes[2][self.slice_in]).contiguous(),
-                        "x": self._on_device(self.x[s1]),
-                        "y": self._on_device(self.y[s0])}
-
-    def _on_device(self, a):
-        """A copy of host array ``a`` on the pipeline's device; a tensor
-        (there already) as it is."""
-        if isinstance(a, torch.Tensor):
-            return a
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                        "elevation": z[1:-1, 1:-1].contiguous(),
+                        "x": x_in[1:-1], "y": y_in[1:-1]}
 
 
 class CurvedPipeline:
@@ -188,37 +154,28 @@ class CurvedPipeline:
         """Compute all terrain parameters; returns a dict of tensors on the
         pipeline's device."""
         with span("hzt.curved.run"):
-            profiling.count_route("curved_tilt")
             if not hasattr(self, "x"):
                 self.build_geometry()
-            dem_dim_0, dem_dim_1 = self.elevation.shape
-            with span("hzt.curved.buffer"):
-                vert_grid = auxiliary.rearrange_pad_buffer(self.x, self.y,
-                                                           self.z)
-            hori, azim = horizon.horizon_gridded(
-                vert_grid, dem_dim_0, dem_dim_1, self.vec_norm,
-                self.vec_north, self.offset_0, self.offset_1,
-                dist_search=self.dist_search, azim_num=self.azim_num,
+            sl = self.slice_in
+            hori, azim = horizon.gridded_planes(
+                self.x, self.y, self.z, self.vec_norm, self.vec_north,
+                (self.offset_0, self.offset_1), self.vec_norm.shape[:2],
+                self.dist_search, azim_num=self.azim_num,
                 hori_acc=self.hori_acc,
                 elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
                 verbose=False, device=self.device)
-
-            def on_device(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(
-                    self.device)
-
             # Tilted normals in the local tangent frames (reference pattern:
             # rotation_matrix_glob2loc + slope_plane_meth,
             # gridded_curved_DEM.py)
-            sl = self.slice_in
             with span("hzt.curved.topo"):
                 sl1 = (slice(sl[0].start - 1, sl[0].stop + 1),
                        slice(sl[1].start - 1, sl[1].stop + 1))
                 rot = transform.rotation_matrix_glob2loc(self.vec_north,
                                                          self.vec_norm)
                 vec_tilt = topo_param.slope_plane_meth(
-                    on_device(self.x[sl1]), on_device(self.y[sl1]),
-                    on_device(self.z[sl1]), rot_mat=on_device(rot),
+                    *(_on_device(a[sl1], self.device)
+                      for a in (self.x, self.y, self.z)),
+                    rot_mat=_on_device(rot, self.device),
                     output_rot=True)[1:-1, 1:-1]
                 svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
                 slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
@@ -226,6 +183,7 @@ class CurvedPipeline:
                 return {"hori": hori, "azim": azim, "svf": svf,
                         "slope": slope, "aspect": aspect,
                         "vec_tilt": vec_tilt,
-                        "elevation": on_device(self.elevation[sl]),
-                        "lon": on_device(self.lon[sl[1]]),
-                        "lat": on_device(self.lat[sl[0]])}
+                        "elevation": _on_device(self.elevation[sl],
+                                                self.device),
+                        "lon": _on_device(self.lon[sl[1]], self.device),
+                        "lat": _on_device(self.lat[sl[0]], self.device)}

@@ -21,9 +21,9 @@ and shares that trace's clock with the card's operations.  Calls run one
 after another on one thread, so a span's parent is the span that contains
 it.  While tracing, every launch of the sweep kernels K1 and K2 that its
 caller gives no counters adds its sample counts to this module's counters
-(:func:`counters`, :func:`reset_counters`), and every
-``PlanarPipeline.run`` counts the route it took (:func:`count_route`,
-:func:`routes`).  With the profiler off a span is a shared no-op context
+(:func:`counters`, :func:`reset_counters`), and every gridded horizon
+(``horizon.gridded_planes``) counts the route it took
+(:func:`count_route`, :func:`routes`).  With the profiler off a span is a shared no-op context
 and a launch or a run counts nothing.  This module
 imports nothing of the port, so every module of it may import this one.
 """
@@ -135,11 +135,11 @@ COUNTER_FIELDS = ("d1_taken", "d1_skipped", "mip_taken", "mip_skipped")
 #: ``fused_sweep._ratio_cuda``) and K2 (``shadow_sweep._metric_cuda``).
 COUNTED_KERNELS = ("k1", "k2")
 _NO_SPAN = contextlib.nullcontext()
-#: The routes :func:`routes` reports: ``PlanarPipeline.run`` on its 1-D
-#: axes and heights straight to the fused sweep, or through the vertex
-#: buffer and ``horizon_gridded``; ``CurvedPipeline.run`` through the
-#: planarised lattice and K1's tilt ramp.
-ROUTES = ("planar_axes", "planar_buffer", "curved_tilt")
+#: The routes :func:`routes` reports, the branches of
+#: ``horizon.gridded_planes``: a regular grid with default vectors on the
+#: fused sweep; an irregular grid through the planarised lattice and K1's
+#: tilt ramp; a regular grid on the XLA engine; the simplified outer TIN.
+ROUTES = ("planar", "curved_tilt", "xla", "tin")
 #: What :func:`lattice` reports: the lattice cells of the boxes that the
 #: curved runs swept, and the inner (lon/lat) cells they read back.
 LATTICE_FIELDS = ("box_cells", "inner_cells")

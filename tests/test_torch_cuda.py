@@ -4,7 +4,8 @@ variant), K3 and K4 (csrc/horizon_replay_bwd.cu, horizon and shadow
 modes) and K5 (csrc/read_floor.cu) on the card, against their plain torch
 versions on the same card, and the gradient paths, the masked and curved
 ``horizon_gridded``, the ``CurvedPipeline``, the shadow ``Terrain`` and
-the multires sweep they make; ``PlanarPipeline``'s two routes.
+the multires sweep they make; both pipelines against the vertex-buffer
+route.
 
 Marked ``cuda`` and skipped without a CUDA device.  This file imports no
 JAX, so on a machine with the card it runs without the JAX package:
@@ -82,6 +83,7 @@ from reference_impl import gaussian_bumps_terrain
 from torch_scenes import (RUNNER_SCENES, SHADOW_SKIP_SCENES, SHARD_MESHES,
                           SKIP_SCENES, bumps, refraction_numpy,
                           curved_setup, curved_terrain_inputs,
+                          curved_buffer_route, curved_pipeline_scene,
                           planar_buffer_route, planar_pipeline_scene,
                           PLANARIZE_MESHES, planarize_mesh, recompute_scenes,
                           shadow_skip_scene, sharded_scenes, skip_scene,
@@ -650,20 +652,32 @@ def _curved_pipeline_inputs():
     return lon, lat, elevation, domain
 
 
-def test_planar_pipeline_routes_bit_equal_on_card(cuda, capsys):
-    """``PlanarPipeline.run`` on its axes route (the heights to the card
-    as they are, the topo planes broadcast there) against the
-    vertex-buffer route through ``horizon_gridded`` on the card, at a
-    masked 512^2 DEM (352^2 inner cells, glacier-style patches, 32
-    azimuths, 2 km): every output bit-equal, one K1-mask launch each."""
-    pipe, m = planar_pipeline_scene(n=512, pad=2000.0, seed=5,
-                                    mask="patches", device=cuda,
-                                    dist_search=2.0, azim_num=32)
+@pytest.mark.parametrize("kind", ["planar", "curved"])
+def test_pipeline_routes_bit_equal_on_card(cuda, kind, capsys):
+    """A pipeline's run on the card against the vertex-buffer route
+    through ``horizon_gridded`` there, glacier-style patches, 32 azimuths:
+    ``PlanarPipeline`` on uniform axes (the heights to the card as they
+    are, the topo planes broadcast there) at a 512^2 DEM (352^2 inner
+    cells, 2 km); ``CurvedPipeline`` (its ENU mesh to the entry as it is)
+    at a 400 x 500 lon/lat DEM (368 x 460 inner cells, 1.5 km).  Every
+    output bit-equal, one K1-mask launch each (with the tilt ramp on the
+    curved lattice)."""
+    if kind == "planar":
+        pipe, m = planar_pipeline_scene(n=512, pad=2000.0, seed=5,
+                                        mask="patches", device=cuda,
+                                        dist_search=2.0, azim_num=32)
+        route = planar_buffer_route
+    else:
+        pipe, m = curved_pipeline_scene(n0=400, n1=500, mask="patches",
+                                        device=cuda, azim_num=32)
+        route = curved_buffer_route
     assert 0 < m.mean() < 1
     n0 = fused_sweep.MASK_KERNEL_LAUNCHES
+    t0 = fused_sweep.TILT_KERNEL_LAUNCHES
     got = pipe.run(mask=m)
-    want = planar_buffer_route(pipe, m)
+    want = route(pipe, m)
     assert fused_sweep.MASK_KERNEL_LAUNCHES == n0 + 2
+    assert fused_sweep.TILT_KERNEL_LAUNCHES == t0 + 2 * (kind == "curved")
     assert set(got) == set(want)
     for key in want:
         assert got[key].is_cuda and torch.equal(got[key], want[key]), key

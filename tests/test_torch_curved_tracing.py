@@ -7,19 +7,18 @@ plain sweep stands in for K1."""
 
 import json
 
-import numpy as np
 import pytest
 import torch
 
 from horayzon_tpu_torch import horizon
-from horayzon_tpu_torch.models import CurvedPipeline
 from horayzon_tpu_torch.utils import profiling
+
+from torch_scenes import curved_pipeline_scene
 
 #: Each run's spans in the order they start, and each one's parent.
 CURVED_SPANS = (
     ("hzt.curved.run", None),
     ("hzt.curved.geometry", "hzt.curved.run"),
-    ("hzt.curved.buffer", "hzt.curved.run"),
     ("hzt.horizon.check", "hzt.curved.run"),
     ("hzt.curved.planarize", "hzt.curved.run"),
     ("hzt.curved.lattice", "hzt.curved.run"),
@@ -31,28 +30,6 @@ CURVED_SPANS = (
     ("hzt.curved.topo", "hzt.curved.run"),
     ("hzt.curved.outputs", "hzt.curved.run"),
 )
-
-
-def _pipeline(ellps="WGS84"):
-    """A small lon/lat DEM of bumps around (8.0, 46.5) at 1/1200 degree,
-    a 1.5 km search and 8 azimuths."""
-    d = 1.0 / 1200.0
-    lon = 7.96 + (np.arange(96) + 0.5) * d
-    lat = 46.54 - (np.arange(72) + 0.5) * d
-    lon2, lat2 = np.meshgrid(lon, lat)
-    rng = np.random.default_rng(5)
-    z = np.zeros_like(lon2)
-    for _ in range(6):
-        c0, c1 = rng.uniform(lon.min(), lon.max()), rng.uniform(lat.min(),
-                                                                 lat.max())
-        sig = rng.uniform(0.004, 0.02)
-        z += rng.uniform(100.0, 800.0) * np.exp(
-            -((lon2 - c0) ** 2 + (lat2 - c1) ** 2) / (2.0 * sig ** 2))
-    domain = {"lon_min": float(lon[20]), "lon_max": float(lon[75]),
-              "lat_min": float(lat[55]), "lat_max": float(lat[16])}
-    return CurvedPipeline(lon, lat, z.astype(np.float32), domain,
-                          dist_search=1.5, azim_num=8, ellps=ellps,
-                          device="cpu")
 
 
 def _annotations(prof, tmp_path):
@@ -75,8 +52,8 @@ def _parent(spans, s):
 def traced_run(tmp_path_factory):
     """(untraced outputs, traced outputs, spans, routes, lattice counts,
     the pipeline) of one small curved run each."""
-    plain = _pipeline().run()
-    pipe = _pipeline()
+    plain = curved_pipeline_scene()[0].run()
+    pipe, _ = curved_pipeline_scene()
     profiling.reset_counters()
     try:
         with torch.profiler.profile(
@@ -118,6 +95,6 @@ def test_traced_outputs_bit_equal_to_untraced(traced_run):
 
 def test_untraced_curved_run_counts_nothing():
     profiling.reset_counters()
-    _pipeline().run()
+    curved_pipeline_scene()[0].run()
     assert profiling.routes() == dict.fromkeys(profiling.ROUTES, 0)
     assert profiling.lattice() == dict.fromkeys(profiling.LATTICE_FIELDS, 0)

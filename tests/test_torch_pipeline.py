@@ -28,7 +28,8 @@ from horayzon_tpu_torch.utils import profiling
 
 from reference_impl import gaussian_bumps_terrain
 from test_torch_fused_sweep import interpret_reference
-from torch_scenes import (PIPELINE_MASKS, planar_buffer_route,
+from torch_scenes import (PIPELINE_MASKS, curved_buffer_route,
+                          curved_pipeline_scene, planar_buffer_route,
                           planar_pipeline_scene)
 
 TOL = 1.0e-5
@@ -233,7 +234,7 @@ def test_planar_pipeline_mask_with_zeros_not_ported():
 
 def _traced_routes(call):
     """``call()``'s result under the profiler, and the routes
-    ``PlanarPipeline.run`` counted in it."""
+    ``horizon.gridded_planes`` counted in it."""
     profiling.reset_counters()
     try:
         with torch.profiler.profile(
@@ -245,15 +246,21 @@ def _traced_routes(call):
 
 
 @pytest.mark.parametrize("mask", PIPELINE_MASKS)
-def test_axes_route_bit_equal_to_buffer_route(mask, capsys):
+def test_axes_route_bit_equal_to_buffer_route(mask, monkeypatch, capsys):
     """Uniform 1-D axes take the fused sweep straight from the axes and
-    the heights: every output ``torch.equal`` to the vertex-buffer route
-    through ``horizon_gridded`` (unmasked, glacier-style patches, every
-    cell masked)."""
+    the heights, with no full-array grid test: every output
+    ``torch.equal`` to the vertex-buffer route through
+    ``horizon_gridded`` (unmasked, glacier-style patches, every cell
+    masked)."""
     pipe, m = planar_pipeline_scene(mask=mask)
-    got, routes = _traced_routes(lambda: pipe.run(mask=m))
-    assert routes == {"planar_axes": 1, "planar_buffer": 0,
-                      "curved_tilt": 0}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a full-array grid test on uniform axes")
+
+    with monkeypatch.context() as patch:
+        patch.setattr(horizon._terrain, "detect_regular_grid", refuse)
+        got, routes = _traced_routes(lambda: pipe.run(mask=m))
+    assert routes == {r: int(r == "planar") for r in profiling.ROUTES}
     want = planar_buffer_route(pipe, m)
     assert set(got) == set(want)
     for key in want:
@@ -262,15 +269,28 @@ def test_axes_route_bit_equal_to_buffer_route(mask, capsys):
 
 
 @pytest.mark.parametrize("jitter", ["x", "y"])
-def test_uneven_axes_take_the_buffer_route(jitter, capsys):
-    """One spacing of an axis off by a tenth of a step: ``run`` falls back
-    to the vertex buffer (``horizon_gridded``'s curved branch), with the
-    same outputs as that route."""
+def test_uneven_axes_take_the_curved_route(jitter, capsys):
+    """One spacing of an axis off by a tenth of a step: ``run`` hands the
+    meshgrid's planes to the entry, whose grid test sends them down the
+    curved route, with the same outputs as the vertex-buffer route."""
     pipe, m = planar_pipeline_scene(jitter=jitter, mask="patches")
     got, routes = _traced_routes(lambda: pipe.run(mask=m))
-    assert routes == {"planar_axes": 0, "planar_buffer": 1,
-                      "curved_tilt": 0}
+    assert routes == {r: int(r == "curved_tilt") for r in profiling.ROUTES}
     want = planar_buffer_route(pipe, m)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("mask", ["none", "patches"])
+def test_curved_pipeline_bit_equal_to_buffer_route(mask, capsys):
+    """``CurvedPipeline.run`` hands its ENU mesh to the entry as it is:
+    every output ``torch.equal`` to the route that packs it into a vertex
+    buffer for ``horizon_gridded`` (unmasked, patches)."""
+    pipe, m = curved_pipeline_scene(mask=mask)
+    got, routes = _traced_routes(lambda: pipe.run(mask=m))
+    assert routes == {r: int(r == "curved_tilt") for r in profiling.ROUTES}
+    want = curved_buffer_route(pipe, m)
+    assert set(got) == set(want)
     for key in want:
         assert torch.equal(got[key], want[key]), key
 
@@ -305,24 +325,39 @@ BAD_INPUTS = {"mask_shape": _bad_mask_shape, "mask_dtype": _bad_mask_dtype,
               "hori_acc": _bad_hori_acc, "empty_domain": _empty_domain}
 
 
-@pytest.mark.parametrize("bad", sorted(BAD_INPUTS))
-def test_axes_route_refuses_as_horizon_gridded(bad, capsys):
-    """``run`` on the axes route raises what ``horizon_gridded`` raises
-    on the same input: the exception's type and message."""
-    pipe, m = BAD_INPUTS[bad]()
+def _refused_as_buffer_route(pipe, m):
+    """``pipe.run(mask=m)`` raises what the vertex-buffer route raises on
+    the same input, the exception's type and message, before the entry
+    takes a route."""
     profiling.reset_counters()
     try:
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]):
             with pytest.raises(Exception) as got:
                 pipe.run(mask=m)
-        assert profiling.routes()["planar_axes"] == 1
+        assert profiling.routes() == dict.fromkeys(profiling.ROUTES, 0)
     finally:
         profiling.reset_counters()
     with pytest.raises(Exception) as want:
         planar_buffer_route(pipe, m)
     assert type(got.value) is type(want.value)
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_INPUTS))
+def test_axes_route_refuses_as_horizon_gridded(bad, capsys):
+    """``run`` on uniform axes raises what ``horizon_gridded`` raises on
+    the same input: the exception's type and message."""
+    _refused_as_buffer_route(*BAD_INPUTS[bad]())
+
+
+def test_uneven_axes_refuse_a_wrong_elevation_shape(capsys):
+    """Uneven axes with heights of another shape than their meshgrid's:
+    ``run`` raises the vertex buffer's ``ValueError``, as the reference's
+    pipeline does."""
+    pipe, _ = planar_pipeline_scene(jitter="x")
+    pipe.elevation = pipe.elevation[:-3, :-2]
+    _refused_as_buffer_route(pipe, None)
 
 
 def test_import_loads_no_jax():

@@ -5,7 +5,7 @@ nested as listed below (``hzt.terrain.sun_table`` twice: the sun's checks,
 then its table); no span but the two roots encloses an entry the
 benchmark wraps in spans of its own (``hzbench/harness.py::SPANS``), so
 the benchmark's idle-time labels fall to the program's spans; a traced
-``PlanarPipeline.run`` counts its route once; with the profiler off no
+``PlanarPipeline.run`` counts the entry's route once; with the profiler off no
 ``record_function`` is entered and nothing is counted.
 On the CPU, where the plain sweeps stand in for the kernels."""
 
@@ -173,18 +173,18 @@ def test_profiler_off_enters_no_record_function(which, monkeypatch, capsys):
 
 
 #: The spans of each route that the benchmark's readers take.
-ROUTE_SPANS = {"planar_axes": {"hzt.pipeline.grid", "hzt.horizon.check",
-                               "hzt.horizon.upload"},
-               "planar_buffer": {"hzt.pipeline.grid", "hzt.horizon.check"}}
+ROUTE_SPANS = {"planar": {"hzt.pipeline.grid", "hzt.horizon.check",
+                          "hzt.horizon.upload"},
+               "curved_tilt": {"hzt.pipeline.grid", "hzt.horizon.check"}}
 
 
 @pytest.mark.parametrize("route", sorted(ROUTE_SPANS))
 def test_pipeline_counts_its_route(route, tmp_path, capsys):
-    """Uniform axes take the axes route, an axis with one uneven spacing
-    the buffer route: each traced run counts its route once and emits the
+    """Uniform axes take the planar route, an axis with one uneven spacing
+    the curved one: each traced run counts its route once and emits the
     spans the benchmark reads; an untraced run counts nothing."""
     pipe, mask = planar_pipeline_scene(
-        jitter=None if route == "planar_axes" else "x", mask="patches")
+        jitter=None if route == "planar" else "x", mask="patches")
     profiling.reset_counters()
     try:
         pipe.run(mask=mask)

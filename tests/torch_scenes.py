@@ -4,9 +4,10 @@ for K2) and the card's (tests/test_torch_cuda.py), the curved meshes of
 the curved shadow and locations tests, a NumPy transcription of the
 refraction's float32 arithmetic, the sharded scenes of
 tests/test_torch_sharding.py and the card's, the streaming runners'
-scenes of tests/test_torch_utils.py and the card's, and the planar
-pipeline's scenes and vertex-buffer route of tests/test_torch_pipeline.py
-and the card's, and the planarisation's meshes of
+scenes of tests/test_torch_utils.py and the card's, and the planar and
+curved pipelines' scenes and vertex-buffer routes of
+tests/test_torch_pipeline.py and the card's, and the planarisation's
+meshes of
 tests/test_torch_planarize.py and the card's.  Imports no JAX."""
 
 import math
@@ -14,8 +15,8 @@ import math
 import numpy as np
 import torch
 
-from horayzon_tpu_torch import auxiliary, horizon, topo_param
-from horayzon_tpu_torch.models import PlanarPipeline
+from horayzon_tpu_torch import auxiliary, horizon, topo_param, transform
+from horayzon_tpu_torch.models import CurvedPipeline, PlanarPipeline
 from reference_impl import gaussian_bumps_terrain
 
 
@@ -374,6 +375,13 @@ def planar_pipeline_scene(n=96, pad=400.0, seed=4, jitter=None,
     args = dict(dist_search=0.3, azim_num=8)
     args.update(kw)
     pipe = PlanarPipeline(x, y, z, domain, device=device, **args)
+    return pipe, _pipeline_mask(pipe, mask, seed)
+
+
+def _pipeline_mask(pipe, mask, seed):
+    """The mask ``mask`` (one of :data:`PIPELINE_MASKS`) of ``pipe``'s inner
+    block: None, five seeded round patches of considered cells, or
+    zeros."""
     in0, in1 = (s.stop - s.start for s in pipe.slice_in)
     m = None
     if mask == "patches":
@@ -385,7 +393,7 @@ def planar_pipeline_scene(n=96, pad=400.0, seed=4, jitter=None,
             m[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1
     elif mask == "all_masked":
         m = np.zeros((in0, in1), np.uint8)
-    return pipe, m
+    return m
 
 
 def planar_buffer_route(pipe, mask=None):
@@ -420,6 +428,66 @@ def planar_buffer_route(pipe, mask=None):
             "aspect": aspect, "vec_tilt": vec_tilt,
             "elevation": on_device(pipe.elevation[pipe.slice_in]),
             "x": on_device(pipe.x[s1]), "y": on_device(pipe.y[s0])}
+
+
+def curved_pipeline_scene(n0=72, n1=96, seed=5, mask="none", device="cpu",
+                          **kw):
+    """``(CurvedPipeline, mask)`` on an ``n0`` x ``n1`` lon/lat DEM of six
+    seeded bumps of 100-800 m around (8.0, 46.5) at 1/1200 degree, WGS84,
+    the inner domain 16 rows and 20 columns inside the outer one, 8
+    azimuths and 1.5 km unless ``kw`` says otherwise; ``mask`` one of
+    :data:`PIPELINE_MASKS`."""
+    d = 1.0 / 1200.0
+    lon = 7.96 + (np.arange(n1) + 0.5) * d
+    lat = 46.54 - (np.arange(n0) + 0.5) * d
+    lon2, lat2 = np.meshgrid(lon, lat)
+    rng = np.random.default_rng(seed)
+    z = np.zeros_like(lon2)
+    for _ in range(6):
+        c0, c1 = rng.uniform(lon.min(), lon.max()), rng.uniform(lat.min(),
+                                                                lat.max())
+        sig = rng.uniform(0.004, 0.02)
+        z += rng.uniform(100.0, 800.0) * np.exp(
+            -((lon2 - c0) ** 2 + (lat2 - c1) ** 2) / (2.0 * sig ** 2))
+    domain = {"lon_min": float(lon[20]), "lon_max": float(lon[n1 - 21]),
+              "lat_min": float(lat[n0 - 17]), "lat_max": float(lat[16])}
+    args = dict(dist_search=1.5, azim_num=8, ellps="WGS84")
+    args.update(kw)
+    pipe = CurvedPipeline(lon, lat, z.astype(np.float32), domain,
+                          device=device, **args)
+    return pipe, _pipeline_mask(pipe, mask, seed)
+
+
+def curved_buffer_route(pipe, mask=None):
+    """``CurvedPipeline.run``'s outputs through the vertex buffer: the ENU
+    mesh packed by ``auxiliary.rearrange_pad_buffer``, ``horizon_gridded``
+    with the mesh's normals and norths, and the topo parameters in the
+    local frames."""
+    if not hasattr(pipe, "x"):
+        pipe.build_geometry()
+    vert_grid = auxiliary.rearrange_pad_buffer(pipe.x, pipe.y, pipe.z)
+    hori, azim = horizon.horizon_gridded(
+        vert_grid, *pipe.elevation.shape, pipe.vec_norm, pipe.vec_north,
+        pipe.offset_0, pipe.offset_1, dist_search=pipe.dist_search,
+        azim_num=pipe.azim_num, hori_acc=pipe.hori_acc,
+        elev_ang_low_lim=pipe.elev_ang_low_lim, mask=mask, verbose=False,
+        device=pipe.device)
+
+    def on_device(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(pipe.device)
+
+    s0, s1 = pipe.slice_in
+    sl = (slice(s0.start - 1, s0.stop + 1), slice(s1.start - 1, s1.stop + 1))
+    rot = transform.rotation_matrix_glob2loc(pipe.vec_north, pipe.vec_norm)
+    vec_tilt = topo_param.slope_plane_meth(
+        *(on_device(a[sl]) for a in (pipe.x, pipe.y, pipe.z)),
+        rot_mat=on_device(rot), output_rot=True)[1:-1, 1:-1]
+    svf = topo_param.sky_view_factor(azim, hori, vec_tilt)
+    slope, aspect = topo_param.slope_angle_aspect(vec_tilt)
+    return {"hori": hori, "azim": azim, "svf": svf, "slope": slope,
+            "aspect": aspect, "vec_tilt": vec_tilt,
+            "elevation": on_device(pipe.elevation[pipe.slice_in]),
+            "lon": on_device(pipe.lon[s1]), "lat": on_device(pipe.lat[s0])}
 
 
 #: name -> (ellipsoid, rows north to south, target spacing [m] or None)

@@ -92,8 +92,9 @@ def dump(parsed, n):
 
 
 def routes():
-    """The pipelines' route counts over the traced calls, or None where
-    the checkout does not count them."""
+    """The gridded-horizon entry's route counts over the traced calls, by
+    the checkout's route names (``profiling.ROUTES``), or None where the
+    checkout does not count them."""
     try:
         from horayzon_tpu_torch.utils import profiling
         return profiling.routes()
