@@ -10,8 +10,9 @@ Phases, each of which ends the run with a nonzero exit on failure:
 1. environment: torch, CUDA, the card, its name and power limit;
 2. build: kernels K1 and K2 with their argmax variants
    (csrc/horizon_sweep.cu, one template), K3 and K4
-   (csrc/horizon_replay_bwd.cu, one template), K5 (csrc/read_floor.cu)
-   and P1 (csrc/planarize.cu), one nvcc each for sm_90a, in parallel;
+   (csrc/horizon_replay_bwd.cu, one template), K5 (csrc/read_floor.cu),
+   P1 (csrc/planarize.cu) and G1 (csrc/geometry.cu), one nvcc each for
+   sm_90a, in parallel;
 3. K1 against its plain torch version on the card, on three small cases;
 4. the main path, ``PlanarPipeline.run`` at the bench headline shape
    (25 m grid, 2048^2 outer, 1024^2 inner, 32 azimuths, 20 km search),
@@ -76,7 +77,8 @@ I. curved: ``bench.py:60-197``'s curved masked scene (1024^2 lon/lat at
    masked through ``horizon_gridded`` (one run each), unmasked cells
    bit-equal, the lattice sweeps timed alone; then ``CurvedPipeline.run``
    at the defaults of ``examples/horizon/gridded_curved_dem.py`` (900^2
-   at 0.0009 degree, WGS84, 20 km, 120 azimuths), K1-tilt and P1 (the
+   at 0.0009 degree, WGS84, 20 km, 120 azimuths), its geometry (G1, the
+   geometry kernel) built beforehand, K1-tilt and P1 (the
    planarisation kernel) each launched once, with its wall split into
    planarisation and ramps, K1-tilt and read-back, SVF range and peak
    memory; K1-tilt against its plain version there; P1 against
@@ -84,7 +86,12 @@ I. curved: ``bench.py:60-197``'s curved masked scene (1024^2 lon/lat at
    mesh and on one of ``srtm_alps_hz``'s shape (972 x 1350 lon/lat cells
    of 3 arcsec around the Alps, WGS84): ``fi``, ``fj`` and ``z``
    bit-equal, ``valid`` equal, P1 alone timed (CUDA events, mean of 10)
-   beside the wrapper's wall and the plain version's;
+   beside the wrapper's wall and the plain version's; G1 against
+   ``geometry.plain`` (NumPy float64 on the host) at that shape: the ENU
+   mesh bit-equal, the normals and norths within the host BLAS's rounding,
+   their differing components counted, G1 alone timed (CUDA events, mean
+   of 10) beside the wrapper's wall (factors, upload, launch, read-back)
+   and the plain version's;
 J. K5, the read floor (csrc/read_floor.cu): every mode and source against
    its plain version on a small window, bit-equal; then its own main path,
    ``read_floor.time_modes`` (what ``tools/read_floor_torch.py`` runs), at
@@ -192,7 +199,9 @@ Q. the recompute VJP, ``HZT_GRAD_RECOMPUTE=1``: the gradient row at full
    ``{"ok": true, "device": {...}}``.  K5 is on no user path of the
    library: its launches are those of its own entry, the timing run of
    phase J.  P1's launches are those of phase I's ``CurvedPipeline.run``,
-   its times and bound those at ``srtm_alps_hz``'s shape.
+   its times and bound those at ``srtm_alps_hz``'s shape; G1's launches
+   those of phase I's ``CurvedPipeline.build_geometry``, its times and
+   bound at ``srtm_alps_hz``'s shape.
 
 Phases 4, 6, H, I and K also launch K1 (or K1-argmax) once with its
 counters set and print the share of samples its value-exact skips passed
@@ -222,7 +231,8 @@ from horayzon_tpu_torch import (auxiliary, direction, horizon, parallel,
                                 transform)
 from horayzon_tpu_torch.models import (CurvedPipeline, PlanarPipeline,
                                        terrain_fit)
-from horayzon_tpu_torch.ops import _build, fused_sweep, locations, mip
+from horayzon_tpu_torch.ops import _build, fused_sweep, geometry, locations
+from horayzon_tpu_torch.ops import mip
 from horayzon_tpu_torch.ops import multires, planarize, read_floor, replay
 from horayzon_tpu_torch.ops import shadow_sweep, sweep
 from horayzon_tpu_torch.parallel import shard
@@ -260,7 +270,11 @@ READ_FLOOR_REPLACES = "tools/read_floor.py:53"
 PLANARIZE_SOURCE = "horayzon_tpu_torch/csrc/planarize.cu"
 #: P1 replaces no TPU kernel: the JAX package planarises in NumPy.
 PLANARIZE_REPLACES = "horayzon_tpu/regrid.py:150"
-KERNELS = ("horizon_sweep", "horizon_replay_bwd", "read_floor", "planarize")
+GEOMETRY_SOURCE = "horayzon_tpu_torch/csrc/geometry.cu"
+#: G1 replaces no TPU kernel: the JAX package builds the geometry in NumPy.
+GEOMETRY_REPLACES = "horayzon_tpu/models/pipeline.py:108"
+KERNELS = ("horizon_sweep", "horizon_replay_bwd", "read_floor", "planarize",
+           "geometry")
 #: Peaks of one H100 SXM (NVIDIA's data sheet): float32 operations outside
 #: the tensor cores per second, HBM bytes per second.
 PEAK_F32_OPS = 67.0e12
@@ -275,6 +289,15 @@ PEAK_F64_OPS = 34.0e12
 #: 10 (the step) = 169; the axes and the seed 12; the end a stencil, 3
 #: reads and 3 (err).
 PLANARIZE_OPS_PER_CELL = 12 + planarize.NUM_ITER * 169 + 2 + 3 * 13 + 3
+#: float64 operations of one G1 thread, counted from csrc/geometry.cu (an
+#: addition, subtraction, multiplication, division or sqrt one each, a
+#: fused multiply-add two, as the card's peak counts it): an outer cell 2
+#: (heights) + 4 (ECEF) + 3 (less the origin) + 13 (ENU) = 22; an inner
+#: cell 53 more: 2 (normal) + 1 (b - z) + 5 (dot) + 6 (projection) + 6
+#: (norm) + 3 (divisions) + 2 x 15 (rotations, a product and two fused
+#: multiply-adds a component).
+GEOMETRY_OPS_OUTER = 22
+GEOMETRY_OPS_INNER = 53
 
 
 def make_terrain(h, w, seed=0):
@@ -415,13 +438,12 @@ def srtm_like_scene(n_s=900, dlat=0.0009, pad=0.25):
     return lon, lat, z.astype(np.float32), domain
 
 
-def alps_mesh(dev, seed=0):
-    """The float32 ENU mesh that ``CurvedPipeline.run`` hands to the
-    planarisation at ``srtm_alps_hz``'s shape: the 972 x 1350 cell centres
-    of 1/1200 degree of the SRTM tile at (5 E, 50 N) over lon
-    7.43825-8.56175, lat 46.12007-46.92991, 42 bumps of 300-2500 m
-    (``srtm_like_scene``'s model, ``seed``), WGS84, inner domain lon
-    7.70-8.30, lat 46.30-46.75."""
+def alps_pipeline(dev, seed=0):
+    """A ``CurvedPipeline`` (not yet built) at ``srtm_alps_hz``'s shape:
+    the 972 x 1350 cell centres of 1/1200 degree of the SRTM tile at (5 E,
+    50 N) over lon 7.43825-8.56175, lat 46.12007-46.92991, 42 bumps of
+    300-2500 m (``srtm_like_scene``'s model, ``seed``), WGS84, inner domain
+    lon 7.70-8.30, lat 46.30-46.75, 20 km, 180 azimuths."""
     d = 1.0 / 1200.0
     lon = 5.0 + d * (np.arange(2925, 4275) + 0.5)
     lat = 50.0 - d * (np.arange(3684, 4656) + 0.5)
@@ -436,10 +458,15 @@ def alps_mesh(dev, seed=0):
             -(((lon2 - clon) ** 2 + (lat2 - clat) ** 2) / (2 * sig ** 2)))
     domain = {"lon_min": 7.70, "lon_max": 8.30, "lat_min": 46.30,
               "lat_max": 46.75}
-    pipe = CurvedPipeline(lon, lat, z.astype(np.float32), domain,
+    return CurvedPipeline(lon, lat, z.astype(np.float32), domain,
                           dist_search=20.0, azim_num=180, ellps="WGS84",
-                          device=dev).build_geometry()
-    return pipe_mesh(pipe)
+                          device=dev)
+
+
+def alps_mesh(dev, seed=0):
+    """The float32 ENU mesh that ``CurvedPipeline.run`` hands to the
+    planarisation at ``srtm_alps_hz``'s shape (:func:`alps_pipeline`)."""
+    return pipe_mesh(alps_pipeline(dev, seed).build_geometry())
 
 
 def pipe_mesh(pipe):
@@ -1049,9 +1076,9 @@ def lattice_args(lat, dev, azim_num, dist_m):
 def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
     """Phase I: the curved masked scene ``bench_scene`` (inner ``c_in``^2
     at ``c_off``) dense and masked, then ``CurvedPipeline.run`` on
-    ``srtm_scene``, and P1 there and at ``srtm_alps_hz``'s shape.  Returns
-    the K1-tilt row's and the P1 row's numbers (launches, error, ms, plain
-    ms, bound)."""
+    ``srtm_scene``, P1 there and at ``srtm_alps_hz``'s shape, and G1 at
+    that shape.  Returns the K1-tilt row's, the P1 row's and the G1 row's
+    numbers (launches, error, ms, plain ms, bound)."""
     print("== I. curved: bench.py's curved masked scene and CurvedPipeline")
     cx, cy, cz, c_norm, c_north, c_mask = bench_scene
     sl = (slice(c_off, c_off + c_in),) * 2
@@ -1102,9 +1129,13 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
     lon_p, lat_p, elev_p, dom_p = srtm_scene
     pipe = CurvedPipeline(lon_p, lat_p, elev_p, dom_p, dist_search=20.0,
                           azim_num=120, ellps="WGS84", device=dev)
+    geometry.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     pipe.build_geometry()
     geo_s = time.perf_counter() - t0
+    g1_launches = geometry.KERNEL_LAUNCHES
+    check(g1_launches == 1, f"CurvedPipeline.build_geometry launched G1 "
+          f"once ({g1_launches})")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_sweep.TILT_KERNEL_LAUNCHES = 0
@@ -1160,8 +1191,68 @@ def phase_i(dev, azim_num, card, bench_scene, c_off, c_in, srtm_scene):
     del pipe, out, hori, svf, lat_c, targs, raw, p_raw, hori_r, back
     p1_err, p1_ms, p1_plain_ms, p1_bnd = check_p1(
         dev, card, "srtm_alps_hz's mesh", alps_mesh(dev), p1_err)
+    g1_err, g1_ms, g1_plain_ms, g1_bnd = check_g1(dev, card,
+                                                  alps_pipeline(dev))
     return ((launches, err, tilt_ms, plain_ms, bnd),
-            (p1_launches, p1_err, p1_ms, p1_plain_ms, p1_bnd))
+            (p1_launches, p1_err, p1_ms, p1_plain_ms, p1_bnd),
+            (g1_launches, g1_err, g1_ms, g1_plain_ms, g1_bnd))
+
+
+def check_g1(dev, card, pipe):
+    """G1 on ``pipe``'s DEM against ``geometry.plain`` (NumPy float64 on
+    the host): the ENU mesh bit-equal, the normals and norths within one
+    float32 ulp plus the float64 rounding of a sum whose terms cancel (the
+    host BLAS's order), their differing components counted; G1 alone
+    (CUDA events, mean of 10) beside the wrapper's wall (median of 5:
+    factors, upload, launch, read-back) and the plain version's.  Returns
+    (max abs error, ms, plain ms, bound)."""
+    pipe.build_geometry()
+    args = (pipe.lon, pipe.lat, pipe.elevation, pipe.slice_in, pipe.trans)
+    t0 = time.perf_counter()
+    want = geometry.plain(*args)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    prm, keep, out = geometry._prepare(*args, dev)
+    geometry._launch(prm, dev)
+    torch.cuda.synchronize()
+    got = geometry.unpack(out.cpu().numpy(), (prm.hgt, prm.wid),
+                          (prm.n0, prm.n1))
+    err, differ = 0.0, []
+    for key, g, w in zip(("x", "y", "z", "vec_norm", "vec_north"), got,
+                         want):
+        gap = np.abs(g.astype(np.float64) - w.astype(np.float64))
+        err = max(err, float(gap.max()))
+        differ.append(int((g.view(np.uint32) != w.view(np.uint32)).sum()))
+        if key in ("x", "y", "z"):
+            check(differ[-1] == 0, f"G1 at {g.shape}: {key} bit-equal to "
+                  f"the NumPy build")
+        else:
+            check(bool((gap <= np.spacing(np.abs(w)).astype(np.float64)
+                        + 2.0 ** -49).all()),
+                  f"G1: {key} within the rotation's rounding of the NumPy "
+                  f"build ({differ[-1]} of {w.size} components differ, "
+                  f"widest {float(gap.max()):.3e})")
+    ms = cuda_ms(lambda: geometry._launch(prm, dev), 10)
+    del keep, out
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        geometry.build(*args, device=dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    hgt, wid, n0, n1 = prm.hgt, prm.wid, prm.n0, prm.n1
+    ops = GEOMETRY_OPS_OUTER * hgt * wid + GEOMETRY_OPS_INNER * n0 * n1
+    moved = (4 + 12) * hgt * wid + 24 * n0 * n1 + 8 * (4 * hgt + 2 * wid)
+    t_o, t_b = ops / PEAK_F64_OPS, moved / PEAK_HBM_BYTES
+    bnd = (1e3 * max(t_o, t_b), "operations" if t_o >= t_b else "bytes")
+    print(f"  G1 on srtm_alps_hz's DEM ({hgt} x {wid} cells, inner {n0} x "
+          f"{n1}): mesh bit-equal to the NumPy build, components of the "
+          f"normals and norths differing {differ[3]} and {differ[4]}; G1 "
+          f"alone {ms:.4f} ms, wrapper wall median "
+          f"{float(np.median(walls)):.3f} ms (of 5: "
+          f"{', '.join(f'{v:.3f}' for v in walls)}), plain version "
+          f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}: "
+          f"{ops / 1e6:.1f} MFLOP float64, {moved / 1e6:.1f} MB), "
+          f"{100.0 * bnd[0] / ms:.2f}% of it  [{card}]")
+    return err, ms, plain_ms, bnd
 
 
 def check_p1(dev, card, what, mesh, err=0.0):
@@ -3647,8 +3738,8 @@ def main():
      mask_bound) = phase_h(dev, zt, x, y, halo, azim_num, dist_km, k1_ms,
                            card, runs)
     ((tilt_launches, tilt_err, tilt_ms, tilt_plain_ms, tilt_bound),
-     p1_row) = phase_i(dev, azim_num, card, curved_bench_scene(), 256, 512,
-                       srtm_like_scene())
+     p1_row, g1_row) = phase_i(dev, azim_num, card, curved_bench_scene(),
+                               256, 512, srtm_like_scene())
 
     t_j = time.perf_counter()
     k5_row, alu_rate = phase_j(dev, card)
@@ -3712,10 +3803,11 @@ def main():
         # K5 is on no user path of the library; its launches are those of
         # its own entry, read_floor.time_modes, in phase J
         ("read_floor (K5)", READ_FLOOR_SOURCE, READ_FLOOR_REPLACES) + k5_row,
-        ("planarize (P1)", PLANARIZE_SOURCE, PLANARIZE_REPLACES) + p1_row]
+        ("planarize (P1)", PLANARIZE_SOURCE, PLANARIZE_REPLACES) + p1_row,
+        ("geometry (G1)", GEOMETRY_SOURCE, GEOMETRY_REPLACES) + g1_row]
     # no single PyTorch call computes a sweep, a winner replay, the
-    # shifted bilinear running max or a Newton inversion of a mesh, so
-    # library_ms is null for every kernel.
+    # shifted bilinear running max, a Newton inversion of a mesh or the
+    # lon/lat geometry, so library_ms is null for every kernel.
     # A shard row: launches on phase O's path, its error against the single
     # launch, the summed shards' time (ms) and the single launch's
     # (single_ms), the single launch's bound and plain version (the same

@@ -7,8 +7,8 @@
 import numpy as np
 import torch
 
-from horayzon_tpu_torch import (direction, horizon, terrain, topo_param,
-                                transform)
+from horayzon_tpu_torch import horizon, terrain, topo_param, transform
+from horayzon_tpu_torch.ops import geometry
 from horayzon_tpu_torch.utils.profiling import span
 
 
@@ -127,27 +127,22 @@ class CurvedPipeline:
         self.offset_1 = self.slice_in[1].start
 
     def build_geometry(self):
-        """ENU mesh + per-cell unit vectors on the host (the L2 stage of the
-        reference pipeline, SURVEY section 3.5)."""
+        """ENU mesh + per-cell unit vectors (the L2 stage of the reference
+        pipeline, SURVEY section 3.5), float32 arrays in host memory: on a
+        CUDA device one launch of the geometry kernel and one read-back
+        (:func:`horayzon_tpu_torch.ops.geometry.build`), on the CPU NumPy
+        float64 on the meshgrid."""
         with span("hzt.curved.geometry"):
-            lon_2d, lat_2d = np.meshgrid(self.lon, self.lat)
             lon_or = float(np.mean([self.domain["lon_min"],
                                     self.domain["lon_max"]]))
             lat_or = float(np.mean([self.domain["lat_min"],
                                     self.domain["lat_max"]]))
             self.trans = transform.TransformerEcef2enu(lon_or, lat_or,
                                                        self.ellps)
-            xe, ye, ze = transform.lonlat2ecef(lon_2d, lat_2d,
-                                               self.elevation, self.ellps)
-            self.x, self.y, self.z = transform.ecef2enu(xe, ye, ze,
-                                                        self.trans)
-            sl = self.slice_in
-            vn_ecef = direction.surf_norm(lon_2d[sl], lat_2d[sl])
-            vnorth_ecef = direction.north_dir(xe[sl], ye[sl], ze[sl],
-                                              vn_ecef, self.ellps)
-            self.vec_norm = transform.ecef2enu_vector(vn_ecef, self.trans)
-            self.vec_north = transform.ecef2enu_vector(vnorth_ecef,
-                                                       self.trans)
+            (self.x, self.y, self.z, self.vec_norm,
+             self.vec_north) = geometry.build(
+                self.lon, self.lat, self.elevation, self.slice_in,
+                self.trans, device=self.device)
         return self
 
     def run(self, mask=None):

@@ -43,6 +43,14 @@ The planarisation kernel (csrc/planarize.cu) against ``regrid.planarize``
 on three meshes: ``fi``, ``fj`` and ``z`` bit-equal, ``valid`` equal;
 ``curved_lattice`` on the card bit-equal to the CPU's; one launch per
 ``CurvedPipeline.run``, none per planar run.
+The geometry kernel (csrc/geometry.cu) against its plain version
+(``transform`` and ``direction`` on the meshgrid, NumPy on the host) on
+tests/test_torch_geometry.py's DEMs: the ENU mesh bit-equal, the normals
+and norths within one float32 ulp (plus the float64 rounding of a sum
+whose terms cancel; ``ecef2enu_vector``'s product runs through the host's
+BLAS in its order), one launch per build and per ``CurvedPipeline.run``;
+a run on the card from the kernel's geometry and one from the plain
+version's bit-equal wherever the geometry is.
 K5: every mode and source bit-equal to its plain version.  Multires: the
 card's angles within 1e-5 rad of the CPU path's (the raw ratios are
 bit-equal, the arctan may differ by an ulp), masked cells aside bit-equal
@@ -72,7 +80,8 @@ import torch
 from horayzon_tpu_torch import (auxiliary, horizon, parallel, regrid,
                                 shadow, terrain, topo_param)
 from horayzon_tpu_torch.models import CurvedPipeline
-from horayzon_tpu_torch.ops import _build, fused_sweep, multires, planarize
+from horayzon_tpu_torch.ops import _build, fused_sweep, geometry, multires
+from horayzon_tpu_torch.ops import planarize
 from horayzon_tpu_torch.ops import replay
 from horayzon_tpu_torch.ops import read_floor, refraction, sweep
 from horayzon_tpu_torch.ops import shadow_sweep as ss
@@ -84,6 +93,8 @@ from torch_scenes import (RUNNER_SCENES, SHADOW_SKIP_SCENES, SHARD_MESHES,
                           SKIP_SCENES, bumps, refraction_numpy,
                           curved_setup, curved_terrain_inputs,
                           curved_buffer_route, curved_pipeline_scene,
+                          GEOMETRY_MESHES, geometry_mesh,
+                          within_rotation_rounding,
                           planar_buffer_route, planar_pipeline_scene,
                           PLANARIZE_MESHES, planarize_mesh, recompute_scenes,
                           shadow_skip_scene, sharded_scenes, skip_scene,
@@ -791,6 +802,85 @@ def test_planarize_launches_once_per_curved_run(cuda):
     planar.run()
     torch.cuda.synchronize()
     assert planarize.KERNEL_LAUNCHES == n0 + 1
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRY_MESHES))
+def test_geometry_kernel_matches_the_numpy_build(cuda, name):
+    """The geometry kernel against the plain version (NumPy float64 on the
+    host): the ENU mesh bit-equal, the normals and norths within the
+    rotation's rounding (bit-equal where the host's BLAS sums as OpenBLAS's
+    x86-64 kernels do); one launch."""
+    lon, lat, elevation, slice_in, trans = geometry_mesh(name)
+    n0 = geometry.KERNEL_LAUNCHES
+    got = geometry.build(lon, lat, elevation, slice_in, trans, device=cuda)
+    assert geometry.KERNEL_LAUNCHES == n0 + 1
+    want = geometry.plain(lon, lat, elevation, slice_in, trans)
+    for key, g, w in zip(("x", "y", "z"), got, want):
+        assert g.dtype == w.dtype == np.float32, key
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32),
+                                      err_msg=key)
+    for key, g, w in zip(("vec_norm", "vec_north"), got[3:], want[3:]):
+        assert g.shape == w.shape and g.dtype == np.float32, key
+        assert within_rotation_rounding(g, w), key
+
+
+def test_geometry_launches_once_per_curved_run(cuda):
+    """One geometry launch per ``CurvedPipeline.run`` on the card, none for
+    a planar run or a curved one on the CPU."""
+    lon, lat, elevation, domain = _curved_pipeline_inputs()
+    n0 = geometry.KERNEL_LAUNCHES
+    CurvedPipeline(lon, lat, elevation, domain, dist_search=5.0,
+                   azim_num=16, ellps="sphere", device=cuda).run()
+    assert geometry.KERNEL_LAUNCHES == n0 + 1
+    planar, _ = planar_pipeline_scene(device=cuda)
+    planar.run()
+    CurvedPipeline(lon, lat, elevation, domain, dist_search=5.0,
+                   azim_num=16, ellps="sphere", device="cpu").run()
+    torch.cuda.synchronize()
+    assert geometry.KERNEL_LAUNCHES == n0 + 1
+
+
+def _spread(cells, by):
+    """``cells`` (a 2-D bool array) and every cell within ``by`` rows and
+    columns of one."""
+    out = cells.copy()
+    for di in range(-by, by + 1):
+        for dj in range(-by, by + 1):
+            out |= np.roll(cells, (di, dj), axis=(0, 1))
+    return out
+
+
+@pytest.mark.parametrize("ellps", ["WGS84", "sphere"])
+def test_curved_run_from_the_kernel_geometry_as_from_numpy(cuda, ellps):
+    """``CurvedPipeline.run`` on the card, its geometry from the kernel,
+    against a run from the plain version's geometry (the NumPy build):
+    the ENU mesh bit-equal, and ``hori``, ``svf``, ``slope`` and
+    ``aspect`` bit-equal on every cell more than two cells from any whose
+    normal or north differs (none where the host's BLAS sums as the
+    kernel does)."""
+    kw = dict(n0=200, n1=240, device=cuda, azim_num=16, ellps=ellps)
+    pipe, _ = curved_pipeline_scene(**kw)
+    got = pipe.run()
+    ref, _ = curved_pipeline_scene(**kw)
+    ref.trans = pipe.trans
+    (ref.x, ref.y, ref.z, ref.vec_norm, ref.vec_north) = geometry.plain(
+        ref.lon, ref.lat, ref.elevation, ref.slice_in, ref.trans)
+    n0 = geometry.KERNEL_LAUNCHES
+    want = ref.run()
+    assert geometry.KERNEL_LAUNCHES == n0
+    for key in ("x", "y", "z"):
+        np.testing.assert_array_equal(getattr(pipe, key).view(np.uint32),
+                                      getattr(ref, key).view(np.uint32))
+    differ = np.zeros(pipe.vec_norm.shape[:2], dtype=bool)
+    for key in ("vec_norm", "vec_north"):
+        differ |= (getattr(pipe, key).view(np.uint32)
+                   != getattr(ref, key).view(np.uint32)).any(-1)
+    keep = torch.from_numpy(~_spread(differ, 2)).to(cuda)
+    assert keep.float().mean().item() > 0.9
+    for key in ("hori", "svf", "slope", "aspect"):
+        g, w = got[key], want[key]
+        assert g.is_cuda and g.shape == w.shape, key
+        assert torch.equal(g[keep], w[keep]), key
 
 
 def test_tilt_gradient_on_card(cuda):

@@ -6,9 +6,10 @@ refraction's float32 arithmetic, the sharded scenes of
 tests/test_torch_sharding.py and the card's, the streaming runners'
 scenes of tests/test_torch_utils.py and the card's, and the planar and
 curved pipelines' scenes and vertex-buffer routes of
-tests/test_torch_pipeline.py and the card's, and the planarisation's
-meshes of
-tests/test_torch_planarize.py and the card's.  Imports no JAX."""
+tests/test_torch_pipeline.py and the card's, the planarisation's
+meshes of tests/test_torch_planarize.py and the card's, and the curved
+geometry's lon/lat DEMs, with a NumPy model of its kernel, of
+tests/test_torch_geometry.py and the card's.  Imports no JAX."""
 
 import math
 
@@ -521,3 +522,126 @@ def planarize_mesh(name, n0=150, n1=170, seed=0):
         lon2, lat2, elevation.astype(np.float32), ellps), trans)
     return (x.astype(np.float32), y.astype(np.float32),
             z.astype(np.float32), spacing)
+
+
+#: name -> (ellipsoid, rows north to south, (rows, columns) of the DEM);
+#: ``srtm_alps`` has ``srtm_alps_hz``'s 972 x 1350 cells and inner block.
+GEOMETRY_MESHES = {
+    **{f"{e.lower()}_north_{'down' if d else 'up'}": (e, d, (48, 64))
+       for e in ("WGS84", "GRS80", "sphere") for d in (True, False)},
+    "srtm_alps": ("WGS84", True, (972, 1350))}
+
+
+def geometry_mesh(name, seed=0):
+    """``(lon, lat, elevation, slice_in, trans)`` of
+    :data:`GEOMETRY_MESHES`' DEM ``name``: cell centres of 1/1200 degree of
+    the SRTM tile at (5 E, 50 N) (the full-size one at ``srtm_alps_hz``'s
+    crop, the small ones around (7.75, 46.5)), seeded uniform float32
+    heights of -100 to 4000 m, ``CurvedPipeline``'s inner block (a fifth of
+    each side in; the full-size one lon 7.70-8.30, lat 46.30-46.75) and its
+    ENU frame at the inner domain's mean, which on the small DEMs lies on a
+    cell centre, where the east and north components of the normals and
+    norths cancel."""
+    from horayzon_tpu_torch import transform
+    ellps, north_down, (n0, n1) = GEOMETRY_MESHES[name]
+    d = 1.0 / 1200.0
+    if name == "srtm_alps":
+        lon = 5.0 + d * (np.arange(2925, 4275) + 0.5)
+        lat = 50.0 - d * (np.arange(3684, 4656) + 0.5)
+        dom = {"lon_min": 7.70, "lon_max": 8.30, "lat_min": 46.30,
+               "lat_max": 46.75}
+    else:
+        lon = 7.75 + d * (np.arange(n1) - n1 // 2 + 0.5)
+        lat = 46.5 - d * (np.arange(n0) - n0 // 2 + 0.5)
+        dom = {"lon_min": float(lon[n1 // 5]),
+               "lon_max": float(lon[n1 - 1 - n1 // 5]),
+               "lat_min": float(lat[n0 - 1 - n0 // 5]),
+               "lat_max": float(lat[n0 // 5])}
+    if not north_down:
+        lat = lat[::-1].copy()
+    rng = np.random.default_rng(seed)
+    elevation = rng.uniform(-100.0, 4000.0, (n0, n1)).astype(np.float32)
+    rows = (np.where(lat >= dom["lat_max"])[0],
+            np.where(lat <= dom["lat_min"])[0])
+    if north_down:
+        r0, r1 = rows[0][-1], rows[1][0] + 1
+    else:
+        r0, r1 = rows[1][-1], rows[0][0] + 1
+    slice_in = (slice(int(r0), int(r1)),
+                slice(int(np.where(lon <= dom["lon_min"])[0][-1]),
+                      int(np.where(lon >= dom["lon_max"])[0][0]) + 1))
+    trans = transform.TransformerEcef2enu(
+        float(np.mean([dom["lon_min"], dom["lon_max"]])),
+        float(np.mean([dom["lat_min"], dom["lat_max"]])), ellps)
+    return lon, lat, elevation, slice_in, trans
+
+
+def exact_fma(a, b, c):
+    """``a * b + c`` rounded once, elementwise on float64 arrays (exact
+    rational arithmetic, for a few thousand values)."""
+    from fractions import Fraction
+    a, b, c = np.broadcast_arrays(*(np.asarray(v, dtype=np.float64)
+                                    for v in (a, b, c)))
+    return np.array([float(Fraction(x) * Fraction(y) + Fraction(z))
+                     for x, y, z in zip(a.ravel().tolist(),
+                                        b.ravel().tolist(),
+                                        c.ravel().tolist())]).reshape(a.shape)
+
+
+def geometry_model(lon, lat, elevation, slice_in, trans, cells=None):
+    """The geometry kernel's arithmetic (csrc/geometry.cu) in NumPy from
+    ``ops.geometry.axis_factors``: ``(x, y, z, v_norm, v_north, vec_norm,
+    vec_north)``, the ENU mesh, the float32 ECEF normals and norths of the
+    inner block (before the rotation) and both rotated into ENU as the
+    kernel sums them (a fused multiply-add chain).  ``cells``, a pair of
+    index arrays into the inner block, limits the rotated vectors to those
+    cells ((k, 3) each)."""
+    from horayzon_tpu_torch.ops import geometry
+    f = geometry.axis_factors(lon, lat, trans)
+    h = np.asarray(elevation, dtype=np.float32)
+    if f.sphere:
+        nh = zh = (h + np.float32(f.n[0])).astype(np.float64)
+    else:
+        nh = f.n[:, None] + h.astype(np.float64)
+        zh = f.zf[:, None] + h.astype(np.float64)
+    ce = nh * f.cos_lat[:, None]
+    xe, ye, ze = ce * f.cos_lon, ce * f.sin_lon, zh * f.sin_lat[:, None]
+    dx, dy, dz = xe - f.origin[0], ye - f.origin[1], ze - f.origin[2]
+    r = f.rot
+    x = (r[0, 0] * dx + r[0, 1] * dy).astype(np.float32)
+    y = ((r[1, 0] * dx + r[1, 1] * dy) + r[1, 2] * dz).astype(np.float32)
+    z = ((r[2, 0] * dx + r[2, 1] * dy) + r[2, 2] * dz).astype(np.float32)
+    rs, cs = slice_in
+    cl = f.cos_lat[rs, None]
+    v_norm = np.stack(np.broadcast_arrays(
+        cl * f.cos_lon[cs], cl * f.sin_lon[cs], f.sin_lat[rs, None]),
+        axis=-1).astype(np.float32)
+    v = v_norm.astype(np.float64)
+    q = np.stack([-xe[slice_in], -ye[slice_in], f.b - ze[slice_in]], -1)
+    dot = (q[..., 0] * v[..., 0] + q[..., 1] * v[..., 1]) \
+        + q[..., 2] * v[..., 2]
+    t = q - dot[..., None] * v
+    norm = np.sqrt((t[..., 0] * t[..., 0] + t[..., 1] * t[..., 1])
+                   + t[..., 2] * t[..., 2])
+    v_north = (t / norm[..., None]).astype(np.float32)
+
+    def rotate(vec):
+        vec = vec.astype(np.float64)
+        if cells is not None:
+            vec = vec[cells]
+        return np.stack(
+            [exact_fma(vec[..., 2], r[k, 2],
+                       exact_fma(vec[..., 1], r[k, 1], vec[..., 0] * r[k, 0]))
+             for k in range(3)], axis=-1).astype(np.float32)
+
+    return x, y, z, v_norm, v_north, rotate(v_norm), rotate(v_north)
+
+
+def within_rotation_rounding(got, want):
+    """Whether float32 ENU vectors ``got`` and ``want`` differ by at most
+    what summing ``ecef2enu_vector``'s three products in another order can
+    give: one float32 ulp of the value, plus the float64 rounding of the
+    sum (below 2^-49 for unit vectors) where the terms cancel."""
+    gap = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    return bool((gap <= np.spacing(np.abs(want)).astype(np.float64)
+                 + 2.0 ** -49).all())

@@ -8,9 +8,10 @@ spans cover, the milliseconds per call of every ``hzt.*`` span, the
 share of the card's idle time that falls under the benchmark's own
 wrapper spans (``hzbench/harness.py::SPANS``), the routes the traced
 ``PlanarPipeline.run`` and ``CurvedPipeline.run`` calls took
-(``utils/profiling.routes``), the planarisation kernel's launches while
-the trace ran (``ops/planarize.KERNEL_LAUNCHES``: one per curved call)
-and the lattice cells the curved runs swept per inner cell
+(``utils/profiling.routes``), the planarisation and geometry kernels'
+launches while the trace ran (``ops/planarize.KERNEL_LAUNCHES`` and
+``ops/geometry.KERNEL_LAUNCHES``: one each per curved call) and the
+lattice cells the curved runs swept per inner cell
 (``utils/profiling.lattice``; each null for a checkout that does not
 count it).  Idle gaps are labelled by the innermost span
 around them, ``hzt.curved.*`` (planarisation, lattice, upload, read-back)
@@ -28,6 +29,7 @@ JSON line and writes it, with the per-span table, to
 """
 
 import argparse
+import importlib
 import json
 import os
 import sys
@@ -102,14 +104,18 @@ def routes():
         return None
 
 
-def planarize_launches():
-    """The planarisation kernel's launches made so far by this process, or
-    None where the checkout has no such kernel."""
-    try:
-        from horayzon_tpu_torch.ops import planarize
-        return planarize.KERNEL_LAUNCHES
-    except ImportError:
-        return None
+def launches():
+    """The launches made so far by this process of the planarisation and
+    the geometry kernel, by name, each None where the checkout has no such
+    kernel."""
+    counts = {}
+    for name in ("planarize", "geometry"):
+        try:
+            counts[name] = importlib.import_module(
+                f"horayzon_tpu_torch.ops.{name}").KERNEL_LAUNCHES
+        except ImportError:
+            counts[name] = None
+    return counts
 
 
 def lattice_per_inner():
@@ -152,12 +158,12 @@ def main():
         trace.Tracer.stop
 
     def count_start(self):
-        kept["launches_at_start"] = planarize_launches()
+        kept["launches_at_start"] = launches()
         start(self)
 
     def count_close(self):
         if self.active:
-            kept["launches_at_close"] = planarize_launches()
+            kept["launches_at_close"] = launches()
         close(self)
 
     def keep_stop(self):
@@ -185,9 +191,10 @@ def main():
         "device": res["device"], "correct": res["correct"],
         "metrics": {n: m["value"] for n, m in res["metrics"].items()},
         "calls_traced": parsed["calls"], "routes": routes(),
-        "planarize_launches": (
-            None if kept.get("launches_at_start") is None
-            else kept["launches_at_close"] - kept["launches_at_start"]),
+        **{f"{name}_launches": (
+            None if at_start is None
+            else kept["launches_at_close"][name] - at_start)
+           for name, at_start in kept.get("launches_at_start", {}).items()},
         "lattice_per_inner": lattice_per_inner(),
         "roots": cover(ann),
         "idle_s": idle,
