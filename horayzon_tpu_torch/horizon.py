@@ -356,28 +356,34 @@ def _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
     (``horayzon_tpu/horizon.py:585-681``): the TIN is rasterised on the
     host onto a coarse lattice aligned with the fine grid
     (:func:`~horayzon_tpu_torch.ops.multires.coarse_grid_from_tin`) at the
-    ratio of :func:`tin_ratio_log2`, and the sweep runs on ``device`` over
-    the combined fine + coarse pyramid: the fused sweep, or with
-    ``engine="sweep"`` the XLA multires engine
-    (:func:`~horayzon_tpu_torch.ops.multires.horizon_sweep_multires`), which
-    takes no mask.  Masked cells read values that the caller overwrites
-    with its fill.  Returns (in0, in1, azim_num) float32 on ``device``."""
-    tris = np.asarray(tri_ind_simp, dtype=np.int32).reshape(-1)
-    tris = tris[:3 * int(min(num_tri_simp, len(tris) // 3))]
-    verts = np.asarray(vert_simp, dtype=np.float32)
-    ratio_log2 = tin_ratio_log2(
-        grid, z.shape, verts, num_vert_simp, tris, num_tri_simp,
-        offset=offset, inner_shape=inner_shape, dist_search=dist_search,
-        hori_acc=hori_acc)
-    z_coarse, coarse_offset = _multires.coarse_grid_from_tin(
-        verts, tris, grid=grid, fine_shape=z.shape, z_fine=z,
-        ratio_log2=ratio_log2, dist_search=dist_search)
+    ratio of :func:`tin_ratio_log2` (span ``hzt.tin.raster``), both grids
+    go to ``device`` (``hzt.tin.upload``), and the sweep runs there over
+    the combined fine + coarse pyramid: the fused sweep (the pyramid under
+    ``hzt.tin.pyramid``), or with ``engine="sweep"`` the XLA multires
+    engine (:func:`~horayzon_tpu_torch.ops.multires.
+    horizon_sweep_multires`), which takes no mask.  Counts the triangles
+    (:func:`~horayzon_tpu_torch.utils.profiling.count_tin`).  Masked cells
+    read values that the caller overwrites with its fill.  Returns (in0,
+    in1, azim_num) float32 on ``device``."""
+    with span("hzt.tin.raster"):
+        tris = np.asarray(tri_ind_simp, dtype=np.int32).reshape(-1)
+        tris = tris[:3 * int(min(num_tri_simp, len(tris) // 3))]
+        verts = np.asarray(vert_simp, dtype=np.float32)
+        ratio_log2 = tin_ratio_log2(
+            grid, z.shape, verts, num_vert_simp, tris, num_tri_simp,
+            offset=offset, inner_shape=inner_shape, dist_search=dist_search,
+            hori_acc=hori_acc)
+        z_coarse, coarse_offset = _multires.coarse_grid_from_tin(
+            verts, tris, grid=grid, fine_shape=z.shape, z_fine=z,
+            ratio_log2=ratio_log2, dist_search=dist_search)
+        _profiling.count_tin(len(tris) // 3)
     kw = dict(ratio_log2=ratio_log2, coarse_offset=coarse_offset,
               dx=grid.dx, dy=grid.dy, offset=offset, inner_shape=inner_shape,
               dist_search=dist_search, hori_acc=hori_acc,
               elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev)
-    z_f = torch.from_numpy(np.ascontiguousarray(z)).to(device)
-    z_c = torch.from_numpy(z_coarse).to(device)
+    with span("hzt.tin.upload"):
+        z_f = torch.from_numpy(np.ascontiguousarray(z)).to(device)
+        z_c = torch.from_numpy(z_coarse).to(device)
     if engine == "sweep":
         return _multires.horizon_sweep_multires(
             z_f, z_c, azim=azimuth_angles(azim_num), **kw)

@@ -23,14 +23,30 @@ class PlanarPipeline:
     Equivalent to examples/horizon/gridded_planar_DEM.py: given the outer
     x/y/elevation grid and the inner-domain bounds, computes horizon, slope,
     SVF, and slope angle/aspect on ``device`` (the card unless the caller
-    asks for the CPU).
+    asks for the CPU).  ``vert_simp`` and ``tri_ind_simp`` (flat float32
+    x, y, z of the vertices and flat int32 indices, three a triangle) give
+    a simplified outer TIN as the far field, as
+    examples/horizon/gridded_planar_DEM_2m.py attaches one: the elevation
+    grid is then the fine grid around the inner domain, and the horizon
+    takes the entry's ``tin`` route.
     """
 
     def __init__(self, x, y, elevation, domain, dist_search, azim_num=180,
-                 hori_acc=0.25, elev_ang_low_lim=-15.0, *, device="cuda"):
+                 hori_acc=0.25, elev_ang_low_lim=-15.0, *, vert_simp=None,
+                 tri_ind_simp=None, device="cuda"):
         self.x = np.asarray(x, dtype=np.float32)
         self.y = np.asarray(y, dtype=np.float32)
         self.elevation = np.asarray(elevation, dtype=np.float32)
+        self.vert_simp = (None if vert_simp is None else
+                          np.asarray(vert_simp, dtype=np.float32).reshape(-1))
+        self.tri_ind_simp = (None if tri_ind_simp is None else
+                             np.asarray(tri_ind_simp,
+                                        dtype=np.int32).reshape(-1))
+        # the entry's counts, its defaults without a TIN
+        self.num_vert_simp = (1 if self.vert_simp is None
+                              else len(self.vert_simp) // 3)
+        self.num_tri_simp = (1 if self.tri_ind_simp is None
+                             else len(self.tri_ind_simp) // 3)
         self.dist_search = dist_search
         self.azim_num = azim_num
         self.hori_acc = hori_acc
@@ -52,7 +68,9 @@ class PlanarPipeline:
         Uniform 1-D axes (:func:`terrain.axes_grid`) hand
         :func:`horizon.gridded_planes` their grid, so no plane of x or y is
         formed; other axes hand it their meshgrid's planes to test, as the
-        reference's vertex buffer does.  The outputs are the same."""
+        reference's vertex buffer does.  The outputs are the same.  A TIN
+        goes to the entry with the grid; other axes with a TIN are refused
+        there (``ValueError``)."""
         with span("hzt.pipeline.run"):
             s0, s1 = self.slice_in
             with span("hzt.pipeline.grid"):
@@ -67,7 +85,10 @@ class PlanarPipeline:
                 self.dist_search, azim_num=self.azim_num,
                 hori_acc=self.hori_acc,
                 elev_ang_low_lim=self.elev_ang_low_lim, mask=mask,
-                grid=grid, device=self.device)
+                vert_simp=self.vert_simp, num_vert_simp=self.num_vert_simp,
+                tri_ind_simp=self.tri_ind_simp,
+                num_tri_simp=self.num_tri_simp, grid=grid,
+                device=self.device)
             with span("hzt.pipeline.topo"):
                 sl = (slice(s0.start - 1, s0.stop + 1),
                       slice(s1.start - 1, s1.stop + 1))

@@ -65,6 +65,7 @@ import torch.nn.functional as F
 from horayzon_tpu_torch.ops import fused_sweep as _fused
 from horayzon_tpu_torch.ops import mip as _mip
 from horayzon_tpu_torch.ops import sweep as _sweep
+from horayzon_tpu_torch.utils.profiling import span
 
 
 def combined_pyramid(z_fine, z_coarse, ratio_log2, coarse_offset, schedule):
@@ -312,8 +313,9 @@ def horizon_sweep_multires_fused(z_fine, z_coarse, *, ratio_log2,
     geo = dict(dx=dx, dy=dy, offset=offset, inner_shape=inner_shape,
                dist_search=dist_search, hori_acc=hori_acc, rel_err=rel_err,
                max_level=max_level)
-    levels = multires_levels(z_fine, z_coarse, ratio_log2=ratio_log2,
-                             coarse_offset=coarse_offset, **geo)
+    with span("hzt.tin.pyramid"):
+        levels = multires_levels(z_fine, z_coarse, ratio_log2=ratio_log2,
+                                 coarse_offset=coarse_offset, **geo)
     return _fused.horizon_sweep_fused(
         z_fine, azim_num=azim_num, elev_ang_low_lim=elev_ang_low_lim,
         elev_ang_up_lim=elev_ang_up_lim, ray_org_elev=ray_org_elev,

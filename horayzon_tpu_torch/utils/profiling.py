@@ -23,9 +23,11 @@ it.  While tracing, every launch of the sweep kernels K1 and K2 that its
 caller gives no counters adds its sample counts to this module's counters
 (:func:`counters`, :func:`reset_counters`), and every gridded horizon
 (``horizon.gridded_planes``) counts the route it took
-(:func:`count_route`, :func:`routes`).  With the profiler off a span is a shared no-op context
-and a launch or a run counts nothing.  This module
-imports nothing of the port, so every module of it may import this one.
+(:func:`count_route`, :func:`routes`); a curved run counts the cells it
+swept (:func:`lattice`), a TIN run the triangles it rasterised (:func:`tin`).
+With the profiler off a span is a shared no-op context and a launch or a
+run counts nothing.  This module imports nothing of the port, so every
+module of it may import this one.
 """
 
 import contextlib
@@ -151,6 +153,8 @@ _route_counts = dict.fromkeys(ROUTES, 0)
 #: field of :data:`LATTICE_FIELDS` -> cells, summed over the curved runs
 #: made while tracing.
 _lattice_counts = dict.fromkeys(LATTICE_FIELDS, 0)
+#: The triangles that the TIN runs made while tracing rasterised.
+_tin_counts = {"triangles": 0}
 
 
 def tracing():
@@ -219,9 +223,23 @@ def lattice():
     return dict(_lattice_counts)
 
 
+def count_tin(triangles):
+    """Count the ``triangles`` one TIN run rasterised, while
+    :func:`tracing` holds."""
+    if tracing():
+        _tin_counts["triangles"] += int(triangles)
+
+
+def tin():
+    """``{"triangles": sum}`` of the TIN runs made while tracing since the
+    last :func:`reset_counters`."""
+    return dict(_tin_counts)
+
+
 def reset_counters():
-    """Zero the counters of :func:`counters`, :func:`routes` and
-    :func:`lattice`."""
+    """Zero the counters of :func:`counters`, :func:`routes`,
+    :func:`lattice` and :func:`tin`."""
     _counts.clear()
     _route_counts.update(dict.fromkeys(ROUTES, 0))
     _lattice_counts.update(dict.fromkeys(LATTICE_FIELDS, 0))
+    _tin_counts["triangles"] = 0

@@ -10,12 +10,14 @@ wrapper spans (``hzbench/harness.py::SPANS``), the routes the traced
 ``PlanarPipeline.run`` and ``CurvedPipeline.run`` calls took
 (``utils/profiling.routes``), the planarisation and geometry kernels'
 launches while the trace ran (``ops/planarize.KERNEL_LAUNCHES`` and
-``ops/geometry.KERNEL_LAUNCHES``: one each per curved call) and the
+``ops/geometry.KERNEL_LAUNCHES``: one each per curved call), the
 lattice cells the curved runs swept per inner cell
-(``utils/profiling.lattice``; each null for a checkout that does not
-count it).  Idle gaps are labelled by the innermost span
-around them, ``hzt.curved.*`` (planarisation, lattice, upload, read-back)
-among them.
+(``utils/profiling.lattice``), the triangles the TIN runs (route
+``tin``) rasterised (``utils/profiling.tin``; each null for a checkout
+that does not count it) and K1's launches in the device trace.  Idle
+gaps are labelled by the innermost span around them, ``hzt.curved.*``
+(planarisation, lattice, upload, read-back) and ``hzt.tin.*`` among
+them.
 
     python tools/trace_check.py --workload dhm25_hz --seed 5 \\
         [--seconds 51] [--out build/trace_check] [--no-wrappers] \\
@@ -118,6 +120,17 @@ def launches():
     return counts
 
 
+def tin_counts():
+    """The triangles the TIN runs rasterised over the traced calls
+    (``profiling.tin()``), or None where the checkout does not count
+    them."""
+    try:
+        from horayzon_tpu_torch.utils import profiling
+        return profiling.tin()
+    except (ImportError, AttributeError):
+        return None
+
+
 def lattice_per_inner():
     """Lattice cells swept per inner cell over the traced curved runs, or
     None where the checkout does not count them or no curved run was
@@ -191,11 +204,14 @@ def main():
         "device": res["device"], "correct": res["correct"],
         "metrics": {n: m["value"] for n, m in res["metrics"].items()},
         "calls_traced": parsed["calls"], "routes": routes(),
+        "k1_launches": sum(1 for n, cat, _, _ in parsed["dev"]
+                           if cat == "kernel" and trace.K1 in n),
         **{f"{name}_launches": (
             None if at_start is None
             else kept["launches_at_close"][name] - at_start)
            for name, at_start in kept.get("launches_at_start", {}).items()},
         "lattice_per_inner": lattice_per_inner(),
+        "tin": tin_counts(),
         "roots": cover(ann),
         "idle_s": idle,
         "idle_under_wrappers_pct": 100.0 * sum(
