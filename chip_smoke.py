@@ -11,8 +11,8 @@ Phases, each of which ends the run with a nonzero exit on failure:
 2. build: kernels K1 and K2 with their argmax variants
    (csrc/horizon_sweep.cu, one template), K3 and K4
    (csrc/horizon_replay_bwd.cu, one template), K5 (csrc/read_floor.cu),
-   P1 (csrc/planarize.cu) and G1 (csrc/geometry.cu), one nvcc each for
-   sm_90a, in parallel;
+   P1 (csrc/planarize.cu), G1 (csrc/geometry.cu) and R1
+   (csrc/tin_raster.cu), one nvcc each for sm_90a, in parallel;
 3. K1 against its plain torch version on the card, on three small cases;
 4. the main path, ``PlanarPipeline.run`` at the bench headline shape
    (25 m grid, 2048^2 outer, 1024^2 inner, 32 azimuths, 20 km search),
@@ -111,7 +111,13 @@ K. multires: on two small scenes K1, K1-argmax and K3 over the combined
    over the eight combined levels and across two runs; the
    gradient step ``mean(h^2).backward()`` timed, both gradients finite,
    nonzero and equal across two runs; ``horizon_gridded(vert_simp=...)``
-   once on a mid-size scene against the full-resolution run;
+   once on a mid-size scene against the full-resolution run (R1 launched
+   once); then R1 (csrc/tin_raster.cu, the TIN far field) at
+   ``swissalti_2m_hz``'s shapes (a 5120^2 fine grid at 2 m, ratio 16, a
+   1574^2 coarse grid, 77,618 triangles) bit-equal to
+   ``multires.coarse_grid_from_tin`` (NumPy float64 on the host), R1 and
+   its overlay alone timed with CUDA events beside the wrapper's wall and
+   the copy's, with their operation and byte bound;
 L. curved shadows: ``shadow.Terrain`` at the defaults of
    ``examples/shadow/gridded_curved_dem_srtm.py`` (700^2 lon/lat at 0.0012
    degree around (-36.3, -54.35), WGS84, 20 bumps, the inner domain 0.2
@@ -201,7 +207,8 @@ Q. the recompute VJP, ``HZT_GRAD_RECOMPUTE=1``: the gradient row at full
    phase J.  P1's launches are those of phase I's ``CurvedPipeline.run``,
    its times and bound those at ``srtm_alps_hz``'s shape; G1's launches
    those of phase I's ``CurvedPipeline.build_geometry``, its times and
-   bound at ``srtm_alps_hz``'s shape.
+   bound at ``srtm_alps_hz``'s shape.  R1's launches are those of phase
+   K's TIN run, its times and bound at ``swissalti_2m_hz``'s shapes.
 
 Phases 4, 6, H, I and K also launch K1 (or K1-argmax) once with its
 counters set and print the share of samples its value-exact skips passed
@@ -234,9 +241,14 @@ from horayzon_tpu_torch.models import (CurvedPipeline, PlanarPipeline,
 from horayzon_tpu_torch.ops import _build, fused_sweep, geometry, locations
 from horayzon_tpu_torch.ops import mip
 from horayzon_tpu_torch.ops import multires, planarize, read_floor, replay
-from horayzon_tpu_torch.ops import shadow_sweep, sweep
+from horayzon_tpu_torch.ops import shadow_sweep, sweep, tin_raster
 from horayzon_tpu_torch.parallel import shard
 from horayzon_tpu_torch.utils import profiling, streaming
+
+# the card tests' scene of the 2 m multires cell's far field
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from torch_scenes import tin_cell_scene  # noqa: E402
 
 #: Phase Q: the recompute gradient's norm against the replay's, within this
 #: of 1 (the two differentiate two estimators; 0.997116 at the gradient
@@ -273,8 +285,11 @@ PLANARIZE_REPLACES = "horayzon_tpu/regrid.py:150"
 GEOMETRY_SOURCE = "horayzon_tpu_torch/csrc/geometry.cu"
 #: G1 replaces no TPU kernel: the JAX package builds the geometry in NumPy.
 GEOMETRY_REPLACES = "horayzon_tpu/models/pipeline.py:108"
+TIN_RASTER_SOURCE = "horayzon_tpu_torch/csrc/tin_raster.cu"
+#: R1 replaces no TPU kernel: the JAX package rasterises in NumPy.
+TIN_RASTER_REPLACES = "horayzon_tpu/ops/multires.py"
 KERNELS = ("horizon_sweep", "horizon_replay_bwd", "read_floor", "planarize",
-           "geometry")
+           "geometry", "tin_raster")
 #: Peaks of one H100 SXM (NVIDIA's data sheet): float32 operations outside
 #: the tensor cores per second, HBM bytes per second.
 PEAK_F32_OPS = 67.0e12
@@ -298,6 +313,14 @@ PLANARIZE_OPS_PER_CELL = 12 + planarize.NUM_ITER * 169 + 2 + 3 * 13 + 3
 #: multiply-adds a component).
 GEOMETRY_OPS_OUTER = 22
 GEOMETRY_OPS_INNER = 53
+#: float64 operations of R1, counted from csrc/tin_raster.cu (an addition,
+#: subtraction, multiplication or division one each): a raster point of a
+#: triangle's box 17 (2 offsets, 4 and 4 for wb and wc, 2 for wa, 5 for
+#: the height); a triangle 35 (per vertex 2 offsets and 2 divisions for
+#: its raster coordinates and as many for its coarse cell, 4 for the box,
+#: 4 differences and 3 for d).  The comparisons are not counted.
+TIN_RASTER_OPS_POINT = 17
+TIN_RASTER_OPS_TRIANGLE = 35
 
 
 def make_terrain(h, w, seed=0):
@@ -1519,6 +1542,7 @@ def phase_k(dev, card):
     of K3's cotangents against their plain versions on the crop of the 2 m
     cell's pyramid."""
     print("== K. multires: the combined fine + coarse pyramid")
+    tin_raster.KERNEL_LAUNCHES = 0
     for name, zf_np, zc_np, kw in multires_small_scenes():
         zf = torch.from_numpy(zf_np).to(dev)
         zc = torch.from_numpy(zc_np).to(dev)
@@ -1725,6 +1749,9 @@ def phase_k(dev, card):
     torch.cuda.synchronize()
     tin_s = time.perf_counter() - t0
     check(fused_sweep.KERNEL_LAUNCHES == 1, "the TIN route launched K1 once")
+    r1_launches = tin_raster.KERNEL_LAUNCHES
+    check(r1_launches == 1, f"the TIN route launched R1 once "
+          f"({r1_launches})")
     h_full, _ = horizon.horizon_gridded(*sc["full"], **gk)
     d = torch.rad2deg((h_tin - h_full).abs())
     print(f"  TIN route {tuple(h_tin.shape)}: {tin_s:.2f} s wall (host "
@@ -1735,7 +1762,88 @@ def phase_k(dev, card):
           and d.mean().item() < 0.25,
           "TIN route finite, within 2 deg of the full-resolution run "
           "everywhere and 0.25 deg (hori_acc) on average")
-    return mr_am_err, mr_bwd_err
+    return mr_am_err, mr_bwd_err, (r1_launches,) + check_r1(dev, card)
+
+
+def r1_box_points(verts, tris, lat):
+    """The raster points of every triangle's clamped bounding box that R1
+    evaluates (none for an empty box or ``|d| < 1e-12``)."""
+    v = verts.reshape(-1, 3).astype(np.float64)
+    t = tris.reshape(-1, 3)
+    vi = ((v[:, 1] - lat.corner[1]) / lat.spacing[1])[t]
+    vj = ((v[:, 0] - lat.corner[0]) / lat.spacing[0])[t]
+    h, w = lat.n_i * lat.sub, lat.n_j * lat.sub
+    i_lo = np.maximum(np.ceil(vi.min(1) - 1e-9), 0)
+    i_hi = np.minimum(np.floor(vi.max(1) + 1e-9), h - 1)
+    j_lo = np.maximum(np.ceil(vj.min(1) - 1e-9), 0)
+    j_hi = np.minimum(np.floor(vj.max(1) + 1e-9), w - 1)
+    d = ((vi[:, 1] - vi[:, 0]) * (vj[:, 2] - vj[:, 0])
+         - (vj[:, 1] - vj[:, 0]) * (vi[:, 2] - vi[:, 0]))
+    live = (i_hi >= i_lo) & (j_hi >= j_lo) & (np.abs(d) >= 1e-12)
+    return int(((i_hi - i_lo + 1) * (j_hi - j_lo + 1))[live].sum())
+
+
+def check_r1(dev, card):
+    """R1 at ``swissalti_2m_hz``'s shapes against
+    ``multires.coarse_grid_from_tin`` (NumPy float64 on the host): the
+    coarse grid bit-equal, also after ten more launches on it (a maximum
+    taken again changes nothing); R1 and the overlay alone (CUDA events,
+    mean of 10) beside the wrapper's wall (median of 5: scalars, checks,
+    uploads, fill, launch, until the card is done) and the copy's.
+    Returns (max abs error, ms, plain ms, bound)."""
+    verts, tris, grid, z_fine, offset, inner, dist = tin_cell_scene()
+    ratio_log2 = horizon.tin_ratio_log2(
+        grid, z_fine.shape, verts, len(verts) // 3, tris, len(tris) // 3,
+        offset=offset, inner_shape=inner, dist_search=dist, hori_acc=0.25)
+    t0 = time.perf_counter()
+    want, want_off = multires.coarse_grid_from_tin(
+        verts, tris, grid=grid, fine_shape=z_fine.shape, z_fine=z_fine,
+        ratio_log2=ratio_log2, dist_search=dist)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    zf = torch.from_numpy(z_fine).to(dev)
+    args = (verts, tris, grid, z_fine.shape, zf, ratio_log2, dist)
+    prm, keep, got, lat = tin_raster._prepare(*args)
+    tin_raster._launch(prm, dev)
+    torch.cuda.synchronize()
+
+    def same():
+        g = got.cpu().numpy()
+        return (lat.offset == want_off and g.shape == want.shape
+                and np.array_equal(g.view(np.uint32), want.view(np.uint32)))
+
+    check(same(), f"R1 at swissalti_2m_hz's shapes (ratio "
+          f"{2 ** ratio_log2}, coarse {want.shape}, sub {lat.sub}): "
+          f"bit-equal to multires.coarse_grid_from_tin")
+    err = float(np.abs(got.cpu().numpy().astype(np.float64) - want).max())
+    ms = cuda_ms(lambda: tin_raster._launch(prm, dev), 10)
+    check(same(), "R1: the coarse grid unchanged by ten more launches")
+    del keep, got
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tin_raster.coarse_grid(verts, tris, grid=grid,
+                               fine_shape=z_fine.shape, z_fine=zf,
+                               ratio_log2=ratio_log2, dist_search=dist)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    n_tri = len(tris) // 3
+    points = r1_box_points(verts, tris, lat)
+    ops = TIN_RASTER_OPS_POINT * points + TIN_RASTER_OPS_TRIANGLE * n_tri
+    moved = (4 * z_fine.size + 4 * len(verts) + 4 * len(tris)
+             + 2 * 4 * lat.n_i * lat.n_j)
+    t_o, t_b = ops / PEAK_F64_OPS, moved / PEAK_HBM_BYTES
+    bnd = (1e3 * max(t_o, t_b), "operations" if t_o >= t_b else "bytes")
+    print(f"  R1 at swissalti_2m_hz's shapes ({n_tri} triangles, "
+          f"{points} box points, coarse {lat.n_i} x {lat.n_j} at sub "
+          f"{lat.sub}, fine {z_fine.shape[0]} x {z_fine.shape[1]}): "
+          f"bit-equal to multires.coarse_grid_from_tin; R1 and the overlay "
+          f"alone {ms:.4f} ms, wrapper wall median "
+          f"{float(np.median(walls)):.3f} ms (of 5: "
+          f"{', '.join(f'{v:.3f}' for v in walls)}), plain version "
+          f"{plain_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}: "
+          f"{ops / 1e9:.3f} GFLOP float64, {moved / 1e6:.1f} MB), "
+          f"{100.0 * bnd[0] / ms:.2f}% of it  [{card}]")
+    return err, ms, plain_ms, bnd
 
 
 def srtm_shadow_scene(n=700, dlat=0.0012, lon0=-36.3, lat0=-54.35):
@@ -3750,7 +3858,7 @@ def main():
                   f"{bnd[0] * PEAK_F32_OPS / alu_rate:.3f} ms at the "
                   f"measured alu rate")
     t_k = time.perf_counter()
-    mr_am_err, mr_bwd_err = phase_k(dev, card)
+    mr_am_err, mr_bwd_err, r1_row = phase_k(dev, card)
     am_err, bwd_err = max(am_err, mr_am_err), max(bwd_err, mr_bwd_err)
     t_l = time.perf_counter()
     c_sa_err, c_sb_err = phase_l(dev, card)
@@ -3804,10 +3912,13 @@ def main():
         # its own entry, read_floor.time_modes, in phase J
         ("read_floor (K5)", READ_FLOOR_SOURCE, READ_FLOOR_REPLACES) + k5_row,
         ("planarize (P1)", PLANARIZE_SOURCE, PLANARIZE_REPLACES) + p1_row,
-        ("geometry (G1)", GEOMETRY_SOURCE, GEOMETRY_REPLACES) + g1_row]
+        ("geometry (G1)", GEOMETRY_SOURCE, GEOMETRY_REPLACES) + g1_row,
+        ("tin_raster (R1)", TIN_RASTER_SOURCE, TIN_RASTER_REPLACES)
+        + r1_row]
     # no single PyTorch call computes a sweep, a winner replay, the
-    # shifted bilinear running max, a Newton inversion of a mesh or the
-    # lon/lat geometry, so library_ms is null for every kernel.
+    # shifted bilinear running max, a Newton inversion of a mesh, the
+    # lon/lat geometry or a TIN's rasterisation, so library_ms is null for
+    # every kernel.
     # A shard row: launches on phase O's path, its error against the single
     # launch, the summed shards' time (ms) and the single launch's
     # (single_ms), the single launch's bound and plain version (the same

@@ -9,13 +9,14 @@ the routing decision.  With default vectors the fused sweep
 (:func:`horayzon_tpu_torch.ops.fused_sweep.horizon_sweep_fused`) runs
 three branches: a regular planar grid, masked or not; the same with a
 simplified outer TIN (``vert_simp``), which :func:`_tin_gridded`
-rasterises to a coarse far field and sweeps over a combined fine + coarse
-pyramid (:mod:`horayzon_tpu_torch.ops.multires`); and a curved (irregular)
-grid, which :func:`_curved_gridded` planarises, sweeps with the tilt ramp
-and reads back.  One thread owns one (cell, azimuth) in the kernel, so the
-inner domain (or the curved run's lattice box) is swept as it is, with no
-padding to tile multiples, and a mask needs no tile chooser: the kernel
-skips the 32 x 8 blocks that hold no unmasked cell.
+rasterises to a coarse far field (on a CUDA device with the kernel R1,
+:mod:`horayzon_tpu_torch.ops.tin_raster`) and sweeps over a combined
+fine + coarse pyramid (:mod:`horayzon_tpu_torch.ops.multires`); and a
+curved (irregular) grid, which :func:`_curved_gridded` planarises, sweeps
+with the tilt ramp and reads back.  One thread owns one (cell, azimuth) in
+the kernel, so the inner domain (or the curved run's lattice box) is swept
+as it is, with no padding to tile multiples, and a mask needs no tile
+chooser: the kernel skips the 32 x 8 blocks that hold no unmasked cell.
 
 ``engine="sweep"`` and non-default ``vec_norm`` / ``vec_north`` take the
 reference's XLA engine (:func:`horayzon_tpu_torch.ops.sweep.
@@ -42,6 +43,7 @@ from horayzon_tpu_torch.ops import locations as _locations
 from horayzon_tpu_torch.ops import multires as _multires
 from horayzon_tpu_torch.ops import planarize as _planarize
 from horayzon_tpu_torch.ops import sweep as _sweep
+from horayzon_tpu_torch.ops import tin_raster as _tin_raster
 from horayzon_tpu_torch.utils import profiling as _profiling
 from horayzon_tpu_torch.utils.profiling import span
 
@@ -353,18 +355,27 @@ def _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
                  hori_acc, elev_ang_low_lim, ray_org_elev, mask=None,
                  device="cuda", engine="auto"):
     """Gridded horizon with a simplified outer TIN as the far field
-    (``horayzon_tpu/horizon.py:585-681``): the TIN is rasterised on the
-    host onto a coarse lattice aligned with the fine grid
-    (:func:`~horayzon_tpu_torch.ops.multires.coarse_grid_from_tin`) at the
-    ratio of :func:`tin_ratio_log2` (span ``hzt.tin.raster``), both grids
-    go to ``device`` (``hzt.tin.upload``), and the sweep runs there over
-    the combined fine + coarse pyramid: the fused sweep (the pyramid under
+    (``horayzon_tpu/horizon.py:585-681``): the TIN is rasterised onto a
+    coarse lattice aligned with the fine grid at the ratio of
+    :func:`tin_ratio_log2`, and the sweep runs on ``device`` over the
+    combined fine + coarse pyramid: the fused sweep (the pyramid under
     ``hzt.tin.pyramid``), or with ``engine="sweep"`` the XLA multires
     engine (:func:`~horayzon_tpu_torch.ops.multires.
-    horizon_sweep_multires`), which takes no mask.  Counts the triangles
+    horizon_sweep_multires`), which takes no mask.  The far field is
+    built where the sweep runs: on a CUDA device the fine grid goes up
+    (``hzt.tin.upload``) and the kernel R1 builds the coarse grid there
+    (:func:`~horayzon_tpu_torch.ops.tin_raster.coarse_grid`, span
+    ``hzt.tin.raster``); on the CPU the host copy
+    (:func:`~horayzon_tpu_torch.ops.multires.coarse_grid_from_tin`, span
+    ``hzt.tin.raster``), then both grids go to ``device``
+    (``hzt.tin.upload``).  The two are bit-equal.  Counts the triangles
     (:func:`~horayzon_tpu_torch.utils.profiling.count_tin`).  Masked cells
     read values that the caller overwrites with its fill.  Returns (in0,
     in1, azim_num) float32 on ``device``."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        with span("hzt.tin.upload"):
+            z_f = torch.from_numpy(np.ascontiguousarray(z)).to(device)
     with span("hzt.tin.raster"):
         tris = np.asarray(tri_ind_simp, dtype=np.int32).reshape(-1)
         tris = tris[:3 * int(min(num_tri_simp, len(tris) // 3))]
@@ -373,17 +384,23 @@ def _tin_gridded(z, grid, vert_simp, num_vert_simp, tri_ind_simp,
             grid, z.shape, verts, num_vert_simp, tris, num_tri_simp,
             offset=offset, inner_shape=inner_shape, dist_search=dist_search,
             hori_acc=hori_acc)
-        z_coarse, coarse_offset = _multires.coarse_grid_from_tin(
-            verts, tris, grid=grid, fine_shape=z.shape, z_fine=z,
-            ratio_log2=ratio_log2, dist_search=dist_search)
+        if on_card:
+            z_c, coarse_offset = _tin_raster.coarse_grid(
+                verts, tris, grid=grid, fine_shape=z.shape, z_fine=z_f,
+                ratio_log2=ratio_log2, dist_search=dist_search)
+        else:
+            z_coarse, coarse_offset = _multires.coarse_grid_from_tin(
+                verts, tris, grid=grid, fine_shape=z.shape, z_fine=z,
+                ratio_log2=ratio_log2, dist_search=dist_search)
         _profiling.count_tin(len(tris) // 3)
+    if not on_card:
+        with span("hzt.tin.upload"):
+            z_f = torch.from_numpy(np.ascontiguousarray(z)).to(device)
+            z_c = torch.from_numpy(z_coarse).to(device)
     kw = dict(ratio_log2=ratio_log2, coarse_offset=coarse_offset,
               dx=grid.dx, dy=grid.dy, offset=offset, inner_shape=inner_shape,
               dist_search=dist_search, hori_acc=hori_acc,
               elev_ang_low_lim=elev_ang_low_lim, ray_org_elev=ray_org_elev)
-    with span("hzt.tin.upload"):
-        z_f = torch.from_numpy(np.ascontiguousarray(z)).to(device)
-        z_c = torch.from_numpy(z_coarse).to(device)
     if engine == "sweep":
         return _multires.horizon_sweep_multires(
             z_f, z_c, azim=azimuth_angles(azim_num), **kw)

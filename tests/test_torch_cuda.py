@@ -51,6 +51,13 @@ whose terms cancel; ``ecef2enu_vector``'s product runs through the host's
 BLAS in its order), one launch per build and per ``CurvedPipeline.run``;
 a run on the card from the kernel's geometry and one from the plain
 version's bit-equal wherever the geometry is.
+The TIN far field's kernel R1 (csrc/tin_raster.cu, ``-k tin_raster``)
+against ``multires.coarse_grid_from_tin`` (NumPy float64 on the host):
+bit-equal at the 2 m multires cell's shapes (a 5120^2 fine grid, ratio 16,
+77,618 triangles) and on tests/test_torch_tin_raster.py's regular and
+irregular TINs at ratios 1-4; ``PlanarPipeline`` with a TIN on the card
+bit-equal to the same pipeline with the copy's far field; one launch a
+call, also with ``engine="sweep"``.
 K5: every mode and source bit-equal to its plain version.  Multires: the
 card's angles within 1e-5 rad of the CPU path's (the raw ratios are
 bit-equal, the arctan may differ by an ulp), masked cells aside bit-equal
@@ -79,11 +86,11 @@ import torch
 
 from horayzon_tpu_torch import (auxiliary, horizon, parallel, regrid,
                                 shadow, terrain, topo_param)
-from horayzon_tpu_torch.models import CurvedPipeline
+from horayzon_tpu_torch.models import CurvedPipeline, PlanarPipeline
 from horayzon_tpu_torch.ops import _build, fused_sweep, geometry, multires
 from horayzon_tpu_torch.ops import planarize
 from horayzon_tpu_torch.ops import replay
-from horayzon_tpu_torch.ops import read_floor, refraction, sweep
+from horayzon_tpu_torch.ops import read_floor, refraction, sweep, tin_raster
 from horayzon_tpu_torch.ops import shadow_sweep as ss
 from horayzon_tpu_torch.parallel import shard
 from horayzon_tpu_torch.utils import profiling, streaming
@@ -98,7 +105,9 @@ from torch_scenes import (RUNNER_SCENES, SHADOW_SKIP_SCENES, SHARD_MESHES,
                           planar_buffer_route, planar_pipeline_scene,
                           PLANARIZE_MESHES, planarize_mesh, recompute_scenes,
                           shadow_skip_scene, sharded_scenes, skip_scene,
-                          sun_track_terrain_inputs)
+                          sun_track_terrain_inputs, TIN_KINDS,
+                          tin_cell_scene, tin_far_field_scene,
+                          tin_pipeline_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -1065,6 +1074,100 @@ def test_tin_route_on_card(cuda):
         for dev in (cuda, "cpu")]
     assert out[0].is_cuda
     assert (out[0].cpu() - out[1]).abs().max().item() <= TOL
+
+
+def _copy_far_field(verts, tris, *, grid, fine_shape, z_fine, ratio_log2,
+                    dist_search):
+    """``tin_raster.coarse_grid``'s contract from the host copy: the far
+    field of ``multires.coarse_grid_from_tin`` on the fine grid read back,
+    uploaded to ``z_fine``'s device."""
+    z_c, offset = multires.coarse_grid_from_tin(
+        verts, tris, grid=grid, fine_shape=fine_shape,
+        z_fine=z_fine.cpu().numpy(), ratio_log2=ratio_log2,
+        dist_search=dist_search)
+    return torch.from_numpy(z_c).to(z_fine.device), offset
+
+
+def _tin_raster_against_the_copy(cuda, verts, tris, grid, z_fine,
+                                 ratio_log2, dist_search):
+    n0 = tin_raster.KERNEL_LAUNCHES
+    got, offset = tin_raster.coarse_grid(
+        verts, tris, grid=grid, fine_shape=z_fine.shape,
+        z_fine=torch.from_numpy(z_fine).to(cuda), ratio_log2=ratio_log2,
+        dist_search=dist_search)
+    assert tin_raster.KERNEL_LAUNCHES == n0 + 1
+    want, want_offset = multires.coarse_grid_from_tin(
+        verts, tris, grid=grid, fine_shape=z_fine.shape, z_fine=z_fine,
+        ratio_log2=ratio_log2, dist_search=dist_search)
+    assert got.is_cuda and got.dtype == torch.float32
+    assert offset == want_offset and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(_bits(got), want.view(np.uint32))
+    return want
+
+
+def test_tin_raster_bit_equal_at_the_multires_cells_shape(cuda):
+    """R1 at the 2 m multires cell's shapes against the host copy (about
+    10 s of host float64): the ratio rule gives 16 there, a 1574^2 coarse
+    grid rasterised at 8 m."""
+    verts, tris, grid, z_fine, offset, inner, dist = tin_cell_scene()
+    ratio_log2 = horizon.tin_ratio_log2(
+        grid, z_fine.shape, verts, len(verts) // 3, tris, len(tris) // 3,
+        offset=offset, inner_shape=inner, dist_search=dist, hori_acc=0.25)
+    assert ratio_log2 == 4 and len(tris) // 3 == 77618
+    want = _tin_raster_against_the_copy(cuda, verts, tris, grid, z_fine,
+                                        ratio_log2, dist)
+    assert want.shape == (1574, 1574)
+
+
+@pytest.mark.parametrize("ratio_log2", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", TIN_KINDS)
+def test_tin_raster_bit_equal_on_regular_and_irregular_tins(cuda, kind,
+                                                            ratio_log2):
+    """R1 against the host copy on tests/test_torch_tin_raster.py's TINs:
+    slivers, ``|d| < 1e-12`` triangles, triangles larger than the lattice
+    or outside it, an unused vertex that is not finite."""
+    verts, tris, grid, z_fine = tin_far_field_scene(kind, ratio_log2)
+    _tin_raster_against_the_copy(cuda, verts, tris, grid, z_fine,
+                                 ratio_log2, 300.0)
+
+
+def test_tin_raster_pipeline_bit_equal_to_the_copys_far_field(
+        cuda, monkeypatch):
+    """``PlanarPipeline`` with a TIN on the card, its far field from R1,
+    against the same pipeline with the host copy's far field: ``hori``,
+    ``svf``, ``slope`` and ``aspect`` bit-equal; R1 once a call, also on
+    the XLA engine's TIN route."""
+    sc = tin_pipeline_scene()
+
+    def run():
+        pipe = PlanarPipeline(
+            sc["x"], sc["y"], sc["z"], sc["domain"], 2.0, azim_num=8,
+            hori_acc=1.0, vert_simp=sc["vert_simp"],
+            tri_ind_simp=sc["tri_ind_simp"], device=cuda)
+        with torch.no_grad():
+            return pipe.run()
+
+    n0 = tin_raster.KERNEL_LAUNCHES
+    got = [run(), run()]
+    assert tin_raster.KERNEL_LAUNCHES == n0 + 2
+    monkeypatch.setattr(tin_raster, "coarse_grid", _copy_far_field)
+    want = run()
+    assert tin_raster.KERNEL_LAUNCHES == n0 + 2
+    for key in ("hori", "svf", "slope", "aspect"):
+        assert want[key].is_cuda
+        for g in got:
+            np.testing.assert_array_equal(_bits(g[key]), _bits(want[key]),
+                                          err_msg=key)
+    monkeypatch.undo()
+    grid = terrain.axes_grid(sc["x"], sc["y"])
+    n1 = tin_raster.KERNEL_LAUNCHES
+    horizon._tin_gridded(
+        sc["z"], grid, sc["vert_simp"], len(sc["vert_simp"]) // 3,
+        sc["tri_ind_simp"], len(sc["tri_ind_simp"]) // 3, offset=(256, 256),
+        inner_shape=(64, 64), azim_num=8, dist_search=2000.0, hori_acc=1.0,
+        elev_ang_low_lim=-15.0, ray_org_elev=0.01, device=cuda,
+        engine="sweep")
+    assert tin_raster.KERNEL_LAUNCHES == n1 + 1
 
 
 def _model_counts(args, emit_argmax):

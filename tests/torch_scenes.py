@@ -9,7 +9,9 @@ curved pipelines' scenes and vertex-buffer routes of
 tests/test_torch_pipeline.py and the card's, the planarisation's
 meshes of tests/test_torch_planarize.py and the card's, and the curved
 geometry's lon/lat DEMs, with a NumPy model of its kernel, of
-tests/test_torch_geometry.py and the card's.  Imports no JAX."""
+tests/test_torch_geometry.py and the card's, and the TIN far field's
+scenes of tests/test_torch_tin_raster.py, the card's and chip_smoke.py's
+phase K.  Imports no JAX."""
 
 import math
 
@@ -645,3 +647,175 @@ def within_rotation_rounding(got, want):
     gap = np.abs(got.astype(np.float64) - want.astype(np.float64))
     return bool((gap <= np.spacing(np.abs(want)).astype(np.float64)
                  + 2.0 ** -49).all())
+
+
+#: The TINs of the far-field scenes (:func:`tin_far_field_scene`).
+TIN_KINDS = ("regular", "irregular")
+
+
+def tin_far_field_scene(kind, ratio_log2, fine_shape=(37, 45), dx=10.0,
+                        dist_search=300.0, seed=0):
+    """A fine grid, its ``GridSpec`` and a far-field TIN over the coarse
+    lattice of ``multires.coarse_grid_from_tin`` at ``ratio_log2``, for
+    tests/test_torch_tin_raster.py and the card's.  ``kind`` "regular":
+    two triangles a quad at 1.7 coarse cells, over the lattice plus half
+    its extent on each side, so triangles lie in it, across its edges and
+    wholly outside, but for a hole over its north-west corner, which only
+    the pad value fills.  "irregular": the same vertices each moved by up to
+    0.45 of the spacing, plus slivers, triangles with a repeated vertex
+    and with three collinear ones (``|d| < 1e-12``), three triangles
+    larger than the lattice, a vertex below the pad value, and unused
+    vertices (one not finite) that nothing may scatter.  Returns
+    ``(vert_simp, tri_ind_simp, grid, z_fine)``: flat float32 (x, y, z),
+    flat int32, the fine grid's ``GridSpec`` (LV95-like coordinates, dy
+    negative) and its (H, W) float32 heights."""
+    from horayzon_tpu_torch.terrain import GridSpec
+    rng = np.random.default_rng(seed + 31 * ratio_log2)
+    hf, wf = fine_shape
+    grid = GridSpec(x0=2600001.0, y0=1200000.0 - 1.0, dx=dx, dy=-dx,
+                    shape=fine_shape)
+    z_fine = rng.uniform(0.0, 2500.0, fine_shape).astype(np.float32)
+    r = 2 ** ratio_log2
+    pad_c = int(math.ceil(dist_search / (dx * r))) + 2
+    ext_x = ((wf + r - 1) // r + 2 * pad_c) * r * dx
+    ext_y = ((hf + r - 1) // r + 2 * pad_c) * r * dx
+    x_lo = grid.x0 - pad_c * r * dx - 0.5 * ext_x
+    y_hi = grid.y0 + pad_c * r * dx + 0.5 * ext_y
+    step = 1.7 * r * dx
+    nx = int(math.ceil(2.0 * ext_x / step)) + 1
+    ny = int(math.ceil(2.0 * ext_y / step)) + 1
+    xv, yv = np.meshgrid(x_lo + step * np.arange(nx),
+                         y_hi - step * np.arange(ny))
+    if kind == "irregular":
+        xv = xv + rng.uniform(-0.45, 0.45, xv.shape) * step
+        yv = yv + rng.uniform(-0.45, 0.45, yv.shape) * step
+    zv = rng.uniform(-200.0, 3000.0, xv.shape)
+    verts = [np.stack([xv, yv, zv], -1).reshape(-1, 3)]
+    jj, ii = np.meshgrid(np.arange(nx - 1), np.arange(ny - 1))
+    # no quads over the lattice's north-west corner
+    hole = (jj < 0.4 * (nx - 1)) & (ii < 0.4 * (ny - 1))
+    a = (ii * nx + jj)[~hole]
+    tris = [np.stack([a, a + 1, a + nx], -1),
+            np.stack([a + 1, a + nx + 1, a + nx], -1)]
+    if kind == "irregular":
+        n = nx * ny
+        cx, cy = grid.x0 + 0.5 * wf * dx, grid.y0 - 0.5 * hf * dx
+        span = max(ext_x, ext_y)
+        extra = np.array([
+            # slivers across the fine grid
+            [cx - 0.4 * span, cy, 2900.0], [cx + 0.4 * span, cy + 1e-3,
+                                            2950.0],
+            [cx, cy + 3.0 * dx, 3100.0],
+            [cx - 0.3 * span, cy - 0.2 * span, 2800.0],
+            [cx + 0.3 * span, cy + 0.2 * span, 3300.0],
+            # three collinear vertices
+            [cx - 5 * dx, cy - 5 * dx, 5000.0], [cx, cy, 5000.0],
+            [cx + 5 * dx, cy + 5 * dx, 5000.0],
+            # larger than the lattice, sloping from low to high
+            [cx - 2 * span, cy - 2 * span, -500.0],
+            [cx + 2 * span, cy - 2 * span, 100.0],
+            [cx, cy + 2 * span, 4500.0],
+            [cx - 3 * span, cy + 3 * span, -900.0],
+            # below the pad value
+            [cx + 0.25 * span, cy - 0.25 * span, -4.0e4],
+            # unused
+            [cx, cy, 9.0e3], [np.nan, cy, 9.0e3]])
+        tris += [np.array([[n, n + 1, n + 2], [n + 3, n + 4, n + 2],
+                           [n + 5, n + 6, n + 7], [n + 6, n + 6, n + 1],
+                           [n + 8, n + 9, n + 10], [n + 11, n + 10, n + 9],
+                           [n + 8, n + 10, n + 11],
+                           [n + 12, n + 4, n + 3]])]
+        verts.append(extra)
+        order = rng.permutation(sum(len(t) for t in tris))
+        tris = [np.concatenate(tris)[order]]
+    return (np.concatenate(verts).astype(np.float32).ravel(),
+            np.concatenate(tris).astype(np.int32).ravel(), grid, z_fine)
+
+
+def _lv95_bumps(rng, lo, hi, count, sig, amp):
+    """``count`` gaussian bumps over the square [lo, hi]^2 [m]: (centre x,
+    centre y, sigma, amplitude) each."""
+    return (rng.uniform(lo[0], hi[0], count), rng.uniform(lo[1], hi[1], count),
+            rng.uniform(*sig, count), rng.uniform(*amp, count))
+
+
+def _bump_heights(bumps, x, y):
+    z = np.zeros(np.broadcast(x, y).shape)
+    for cx, cy, s, a in zip(*bumps):
+        z += a * np.exp(-((x - cx) ** 2 + (y - cy) ** 2) / (2.0 * s * s))
+    return z
+
+
+def regular_tin(x_lo, y_hi, step, n, heights):
+    """A regular TIN of ``n`` x ``n`` vertices every ``step`` [m] east and
+    south of (``x_lo``, ``y_hi``), two triangles a quad, its heights from
+    ``heights(x, y)``: flat float32 (x, y, z) and flat int32 indices."""
+    s = step * np.arange(n)
+    xv, yv = np.meshgrid(x_lo + s, y_hi - s)
+    verts = np.stack([xv, yv, heights(xv, yv)], -1).astype(np.float32)
+    jj, ii = np.meshgrid(np.arange(n - 1), np.arange(n - 1))
+    a = (ii * n + jj).ravel()
+    tris = np.concatenate([np.stack([a, a + 1, a + n], -1),
+                           np.stack([a + 1, a + n + 1, a + n], -1)])
+    return verts.ravel(), tris.astype(np.int32).ravel()
+
+
+def tin_cell_scene(seed=0):
+    """The far field's shapes of the benchmark's 2 m multires cell
+    (``hzbench/scene/swissalti_2m_like.py`` at its configuration), made
+    here: a 5120^2 fine grid at 2 m whose south-west corner lies at LV95
+    (2669000, 1241000), cell centres at odd metres, y descending; a
+    regular TIN every 256 m over it plus 20 km (198^2 vertices, 77,618
+    triangles) through 30 bumps; the fine grid the same bumps on 32 m
+    blocks plus 3 m of noise.  Returns ``(vert_simp, tri_ind_simp, grid,
+    z_fine, offset, inner_shape, dist_search)``, the inner block 1024^2
+    at (2048, 2048), ``dist_search`` in metres."""
+    from horayzon_tpu_torch.terrain import GridSpec
+    rng = np.random.default_rng(seed)
+    n, dx, margin = 5120, 2.0, 20000.0
+    x0, y0 = 2669000.0, 1241000.0
+    y_top = y0 + n * dx
+    bumps = _lv95_bumps(rng, (x0 - margin, y0 - margin),
+                        (x0 + n * dx + margin, y_top + margin), 30,
+                        (320.0, 8000.0), (200.0, 2000.0))
+    c = x0 + 16.0 + 32.0 * np.arange(n // 16)
+    window = _bump_heights(bumps, c[None, :],
+                           (y_top - 16.0 - 32.0 * np.arange(n // 16))[:, None])
+    z_fine = np.repeat(np.repeat(window.astype(np.float32), 16, 0), 16, 1)
+    z_fine += 3.0 * rng.standard_normal(z_fine.shape, dtype=np.float32)
+    nv = int(math.ceil((n * dx + 2.0 * margin) / 256.0)) + 1
+    verts, tris = regular_tin(x0 - margin, y_top + margin, 256.0, nv,
+                              lambda x, y: _bump_heights(bumps, x, y))
+    grid = GridSpec(x0=x0 + 1.0, y0=y_top - 1.0, dx=dx, dy=-dx,
+                    shape=(n, n))
+    return verts, tris, grid, z_fine, (2048, 2048), (1024, 1024), 20000.0
+
+
+def tin_pipeline_scene(seed=11):
+    """A small ``PlanarPipeline`` scene with a far-field TIN, at the sizes
+    of tests/test_torch_tin_pipeline.py: 64^2 inner cells at 2 m in a
+    576^2 fine grid (a 256-cell halo), the TIN every 384 m over the fine
+    grid plus 2 km (15^2 vertices, 392 triangles), both through 4 bumps,
+    the fine grid with 3 m of noise.  Returns a dict of ``x``, ``y``
+    (float32 axes), ``z``, ``domain``, ``vert_simp``, ``tri_ind_simp``."""
+    rng = np.random.default_rng(seed)
+    n, dx, margin = 576, 2.0, 2000.0
+    x0, y0 = 2669000.0, 1241000.0
+    y_top = y0 + n * dx
+    bumps = _lv95_bumps(rng, (x0 - margin, y0 - margin),
+                        (x0 + n * dx + margin, y_top + margin), 4,
+                        (150.0, 900.0), (100.0, 600.0))
+    k = np.arange(n, dtype=np.float64)
+    x = (x0 + (k + 0.5) * dx).astype(np.float32)
+    y = (y_top - (k + 0.5) * dx).astype(np.float32)
+    z = (_bump_heights(bumps, x.astype(np.float64)[None, :],
+                       y.astype(np.float64)[:, None])
+         + 3.0 * rng.standard_normal((n, n))).astype(np.float32)
+    nv = int(math.ceil((n * dx + 2.0 * margin) / 384.0)) + 1
+    verts, tris = regular_tin(x0 - margin, y_top + margin, 384.0, nv,
+                              lambda xx, yy: _bump_heights(bumps, xx, yy))
+    halo = 256
+    domain = {"x_min": float(x[halo]), "x_max": float(x[n - halo - 1]),
+              "y_min": float(y[n - halo - 1]), "y_max": float(y[halo])}
+    return dict(x=x, y=y, z=z, domain=domain, vert_simp=verts,
+                tri_ind_simp=tris)

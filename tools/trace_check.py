@@ -8,10 +8,11 @@ spans cover, the milliseconds per call of every ``hzt.*`` span, the
 share of the card's idle time that falls under the benchmark's own
 wrapper spans (``hzbench/harness.py::SPANS``), the routes the traced
 ``PlanarPipeline.run`` and ``CurvedPipeline.run`` calls took
-(``utils/profiling.routes``), the planarisation and geometry kernels'
-launches while the trace ran (``ops/planarize.KERNEL_LAUNCHES`` and
-``ops/geometry.KERNEL_LAUNCHES``: one each per curved call), the
-lattice cells the curved runs swept per inner cell
+(``utils/profiling.routes``), the planarisation, geometry and TIN far
+field kernels' launches while the trace ran
+(``ops/planarize.KERNEL_LAUNCHES`` and ``ops/geometry.KERNEL_LAUNCHES``:
+one each per curved call; ``ops/tin_raster.KERNEL_LAUNCHES``: one per TIN
+call on the card), the lattice cells the curved runs swept per inner cell
 (``utils/profiling.lattice``), the triangles the TIN runs (route
 ``tin``) rasterised (``utils/profiling.tin``; each null for a checkout
 that does not count it) and K1's launches in the device trace.  Idle
@@ -107,11 +108,11 @@ def routes():
 
 
 def launches():
-    """The launches made so far by this process of the planarisation and
-    the geometry kernel, by name, each None where the checkout has no such
-    kernel."""
+    """The launches made so far by this process of the planarisation, the
+    geometry and the TIN far field kernel, by name, each None where the
+    checkout has no such kernel."""
     counts = {}
-    for name in ("planarize", "geometry"):
+    for name in ("planarize", "geometry", "tin_raster"):
         try:
             counts[name] = importlib.import_module(
                 f"horayzon_tpu_torch.ops.{name}").KERNEL_LAUNCHES
